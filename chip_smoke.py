@@ -2,22 +2,33 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--gib 1.0] [--reps 5]
+                          [--text-mib 8] [--td-chunks 2048]
 
 Phases, each of which must pass (any failure exits non-zero, with no result
 line):
 
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. kernel build (nvcc, sm_90a) and its time;
-  3. kernel vs its plain PyTorch version on the card, bit-exact: rle_v1 and
-     rle_v2 at widths 1/2/4, on a 64-chunk table of 128 KiB chunks plus edge
-     rows (empty chunk, one-element tail, 16386-long run, delta
-     wraparound, literals at odd offsets);
+  2. kernel build: one nvcc (sm_90a) per ``csrc`` source, all started
+     together, with ptxas registers / spills;
+  3. each kernel vs its plain PyTorch version on the card, bit-exact, and
+     every row against its input:
+       - ``two_phase_rle`` for rle_v1, rle_v2 and dbp at widths 1/2/4, on a
+         64-chunk table of 128 KiB chunks plus edge rows (empty chunk,
+         one-element tail, 16386-long run, delta wraparound, literals at odd
+         offsets; for dbp also 256-element groups of 32-bit fields);
+       - ``bitpack_unpack`` at bits 1/7/9/17/32 and widths 1/2/4;
+       - ``tdeflate_decode`` on an empty chunk, a one-byte tail, literals
+         only, long overlapping matches, a match reaching before the row's
+         start, and a stream cut by an invalid code;
   4. the main path at scale: ``api.compress_many`` -> ``api.decompress_many
-     (device_out=True)`` decoding >= ``--gib`` GiB of a table-scan-shaped
-     column set in one call, checked against the inputs, with the kernel's
-     launch count, decode time, output GB/s and the bytes bound;
+     (device_out=True)`` decoding >= ``--gib`` GiB of a table scan through
+     all five codecs in one call (a tdeflate group of >= ``--td-chunks``
+     chunks), checked against the inputs, with every kernel's launch count,
+     the decode time, output GB/s, and each plan group's kernel time, bound
+     and plain-version time;
   5. a fused dequant epilogue against its plain torch version;
-  6. a JSON line per kernel, then ``{"ok": true, "device": {...}}`` last.
+  6. a JSON line of the kernels, then ``{"ok": true, "device": {...}}``
+     last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  It
 exits non-zero without a card, or without the port's sources beside it.
@@ -37,6 +48,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate (data sheet)
 CHUNK_BYTES = 128 * 1024           # the paper's chunk size
+TD_EDGE_CHUNK = 32 * 1024          # tdeflate edge rows (plain body: a step
+                                   # per token, so keep the rows short)
 
 
 def log(msg: str) -> None:
@@ -65,17 +78,33 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def bound_ms(table_bytes_read: int, n: int, chunk_elems: int,
+LUT_BYTES = 2 * 2 * 4096 + 2 * 4096   # tdeflate: i16 + i8 LUT pairs, a chunk
+
+
+def bound_ms(codec: str, comp_bytes: int, n: int, chunk_elems: int,
              width: int) -> float:
-    """Least time for one decode: compressed bytes and out_lens read once,
-    the (n, chunk_elems) output written once, at the card's memory rate."""
-    return (table_bytes_read + 4 * n + n * chunk_elems * width) \
-        / HBM_BYTES_PER_S * 1e3
+    """Least time for one decode of n rows, at the card's memory rate: each
+    input read once (the compressed bytes; out_lens, except for bitpack,
+    which does not read them; tdeflate's four LUTs), the (n, chunk_elems)
+    output written once."""
+    read = comp_bytes + (0 if codec == "bitpack" else 4 * n)
+    if codec == "tdeflate":
+        read += LUT_BYTES * n
+    return (read + n * chunk_elems * width) / HBM_BYTES_PER_S * 1e3
 
 
 # --------------------------------------------------------------------------
 # data, made from the seed
 # --------------------------------------------------------------------------
+
+DT = {1: np.uint8, 2: np.uint16, 4: np.uint32}
+KERNELS = ("two_phase_rle<rle_v1>", "two_phase_rle<rle_v2>",
+           "two_phase_rle<dbp>", "bitpack_unpack", "tdeflate_decode")
+
+
+def kernel_of(codec: str) -> str:
+    named = {"bitpack": "bitpack_unpack", "tdeflate": "tdeflate_decode"}
+    return named.get(codec, f"two_phase_rle<{codec}>")
 
 
 def runs(rng, values: np.ndarray, max_run: int, n: int) -> np.ndarray:
@@ -83,6 +112,29 @@ def runs(rng, values: np.ndarray, max_run: int, n: int) -> np.ndarray:
     if len(out) < n:
         out = np.resize(out, n)
     return out[:n]
+
+
+def log_text(rng, n_bytes: int) -> np.ndarray:
+    """Synthetic log lines: an ISO timestamp, a level, and 5-15 words drawn
+    by Zipf(1.1) from a 5,000-word vocabulary of random letters."""
+    vocab = ["".join(chr(97 + c) for c in rng.integers(0, 26,
+                                                      rng.integers(3, 11)))
+             for _ in range(5000)]
+    p = np.arange(1, 5001, dtype=np.float64) ** -1.1
+    p /= p.sum()
+    levels = ("INFO", "INFO", "INFO", "DEBUG", "WARN", "ERROR")
+    lines, size, ms = [], 0, 0
+    while size < n_bytes:
+        ms += int(rng.integers(0, 2000))
+        sec = ms // 1000
+        words = " ".join(vocab[i] for i in
+                         rng.choice(5000, int(rng.integers(5, 16)), p=p))
+        line = (f"2026-03-{1 + sec // 86400 % 28:02d}T{sec // 3600 % 24:02d}:"
+                f"{sec // 60 % 60:02d}:{sec % 60:02d}.{ms % 1000:03d}Z "
+                f"{levels[int(rng.integers(0, len(levels)))]} {words}\n")
+        lines.append(line)
+        size += len(line)
+    return np.frombuffer("".join(lines).encode()[:n_bytes], np.uint8).copy()
 
 
 def scan_columns(rng, col_bytes: int):
@@ -103,14 +155,23 @@ def scan_columns(rng, col_bytes: int):
     ts_steps = np.repeat(rng.choice(np.array([0, 1000, 5000]), n8 // 200 + 1),
                          200)[:n8]
     ts = np.int64(1_700_000_000_000_000_000) + np.cumsum(ts_steps)
+    order_ids = np.cumsum(rng.integers(0, 16, n4)).astype(np.uint32)
+    event_ts = np.int64(1_773_000_000_000_000_000) + np.cumsum(
+        1_000_000 + rng.integers(-200_000, 200_000, n8))
+    dict_u32 = rng.integers(0, 1 << 9, n4).astype(np.uint32)
+    dict_u16 = rng.integers(0, 1 << 11, col_bytes // 2).astype(np.uint16)
     return [("ids_u32", ids, "rle_v1"), ("ramp_i32", ramp, "rle_v2"),
             ("vals_f32", vals, "rle_v1"), ("flags_u8", flags, "rle_v2"),
-            ("codes_u16", codes, "rle_v1"), ("ts_i64", ts, "rle_v2")]
+            ("codes_u16", codes, "rle_v1"), ("ts_i64", ts, "rle_v2"),
+            ("order_ids_u32", order_ids, "dbp"),
+            ("event_ts_i64", event_ts, "dbp"),
+            ("dict_codes_u32", dict_u32, "bitpack"),
+            ("dict_codes_u16", dict_u16, "bitpack")]
 
 
 def edge_arrays(rng, width: int, chunk_elems: int):
     """Edge rows for one width, each its own blob."""
-    dt = {1: np.uint8, 2: np.uint16, 4: np.uint32}[width]
+    dt = DT[width]
     top = 1 << (8 * width)
     base = runs(rng, rng.integers(0, 50, 64).astype(dt), 40, chunk_elems)
     odd = np.concatenate([  # literal runs at odd byte offsets
@@ -124,6 +185,86 @@ def edge_arrays(rng, width: int, chunk_elems: int):
         "delta_wrap": wrap,
         "odd_literals": odd,
     }
+
+
+def dbp_wide_groups(rng, fmt, width: int):
+    """A chunk of 256-element dbp groups with 32-bit fields (the encoder
+    writes 128-element groups, so it is built here) and what it decodes to:
+    ref + field mod 2^32, in the width type."""
+    ngroups = min(8, CHUNK_BYTES // width // 256)
+    refs = rng.integers(0, 1 << (8 * width), ngroups, dtype=np.uint64)
+    fields = rng.integers(0, 1 << 32, (ngroups, 256), dtype=np.uint64)
+    row = bytearray()
+    for r, f in zip(refs, fields):
+        row += bytes([32, 255]) + int(r).to_bytes(8, "little")[:width]
+        row += f.astype(np.uint32).tobytes()
+    want = ((refs[:, None] + fields) % (1 << 32)).astype(np.uint32) \
+        .astype(DT[width]).reshape(-1)
+    total = want.size
+    blob = fmt.CompressedBlob(
+        codec="dbp", width=width, chunk_elems=CHUNK_BYTES // width,
+        total_elems=total, orig_dtype=str(np.dtype(DT[width])),
+        orig_shape=(total,), comp=np.frombuffer(bytes(row), np.uint8)[None],
+        comp_lens=np.array([len(row)], np.int32),
+        out_lens=np.array([total], np.int32))
+    return blob, want
+
+
+def inflate_tokens(tokens, chunk: int) -> np.ndarray:
+    """What a token list decodes to in a ``chunk``-byte row, one byte at a
+    time.  A match's window starts at ``cnt - dist``; a negative start is
+    placed as ``lax.dynamic_slice`` places it (plus the buffer's length,
+    ``chunk + 272``, clamped to ``[0, chunk]``), and byte i reads
+    ``out[start + min(i % dist, 271)]``: an earlier byte, or zero at or
+    past the current position."""
+    out = []
+    for t in tokens:
+        if t[0] == "l":
+            out.append(t[1])
+            continue
+        _, length, dist = t
+        cnt = len(out)
+        start = cnt - dist
+        if start < 0:
+            start = min(max(start + chunk + 272, 0), chunk)
+        for i in range(length):
+            j = start + min(i % dist, 271)
+            out.append(out[j] if j < cnt else 0)
+    return np.array(out, np.uint8)
+
+
+def tdeflate_edge_blobs(rng, enc, fmt, chunk: int):
+    """tdeflate edge rows: (name, blob, expected bytes)."""
+    text = log_text(rng, chunk + 1)
+    arrays = {
+        "empty": np.zeros(0, np.uint8),
+        "one_byte_tail": text,
+        "literals_only": rng.integers(0, 256, chunk).astype(np.uint8),
+        "overlap_ab": np.frombuffer(b"ab" * 40000, np.uint8).copy(),
+        "overlap_abcd": np.frombuffer(b"abcd" * 9000 + b"a" * 300, np.uint8)
+        .copy(),
+    }
+    out = [(k, enc.compress(a, "tdeflate", chunk), a)
+           for k, a in arrays.items()]
+    # a first match that reaches 3 bytes before the row's start
+    tokens = [("l", 65), ("m", 5, 3), ("l", 66), ("m", 40, 30), ("m", 9, 2)]
+    want = inflate_tokens(tokens, chunk)
+    blob = enc.tdeflate_blob(want, [enc.encode_tdeflate_tokens(tokens)],
+                             chunk, want.size)
+    out.append(("before_start", blob, want))
+    # a stream cut by an invalid code: '~' occurs once (log text has none),
+    # and its LUT entries are cleared, so the parse stops there (nb == 0);
+    # the rest of the row is zero
+    cut = np.concatenate([text[:chunk // 2], np.frombuffer(b"~", np.uint8),
+                          text[chunk // 2:chunk - 1]])
+    blob = enc.compress(cut, "tdeflate", chunk)
+    hit = blob.extras["lut_lsym"] == ord("~")
+    blob.extras["lut_lbits"][hit] = 0
+    blob.extras["lut_lsym"][hit] = 0
+    want = cut.copy()
+    want[chunk // 2:] = 0
+    out.append(("cut_invalid_code", blob, want))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -142,93 +283,168 @@ def phase_env() -> None:
     log(smi.stdout.strip().splitlines()[0])
 
 
-def phase_build(cuda_rle) -> None:
+def phase_build(cuda_build, libs) -> None:
     t0 = time.perf_counter()
-    path = cuda_rle.build()
+    paths = cuda_build.build_all(libs)
     dt = time.perf_counter() - t0
-    log(f"== 2 kernel build: {path.name} in {dt:.2f} s")
-    for line in cuda_rle.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"   ptxas: {line.strip()}")
+    log(f"== 2 kernel build: {', '.join(p.name for p in paths)} in "
+        f"{dt:.2f} s (one nvcc each, in parallel)")
+    for lib in libs:
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"   {lib.source.name} ptxas: {line.strip()}")
 
 
-def phase_kernel_vs_plain(rng, fmt, enc, cuda_rle, errs, device) -> None:
-    log("== 3 kernel vs plain version on the card (bit-exact)")
-    for codec in ("rle_v1", "rle_v2"):
+def check_rows(name, out, blobs_and_wants, fmt) -> None:
+    """Each blob's rows of a decoded table against what it must decode to."""
+    host = out.cpu().numpy()
+    row = 0
+    for key, b, want in blobs_and_wants:
+        got = fmt.reassemble(b, host[row:row + b.num_chunks].copy())
+        if not np.array_equal(got.reshape(-1).view(np.uint8),
+                              np.ascontiguousarray(want).reshape(-1)
+                              .view(np.uint8)):
+            raise AssertionError(f"{name} {key}: kernel output differs from "
+                                 "the input")
+        row += b.num_chunks
+
+
+def decode_pair(codec, dev, *, width, chunk_elems, bits, registry, harness):
+    """(kernel output, plain output) of one staged table, on the card."""
+    spec = registry.get(codec).decode
+    inputs = spec.chunk_inputs(dev)
+    lens = dev["out_lens"]
+    consts = harness.consts_on(spec, lens.device)
+    kw = dict(chunk_elems=chunk_elems, width=width, bits=bits)
+    kern = spec.cuda(inputs, consts, lens, **kw)
+    plain = spec.body(inputs, consts, lens, **kw)
+    torch.cuda.synchronize()
+    return kern, plain
+
+
+def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
+                          device) -> None:
+    log("== 3 kernels vs plain versions on the card (bit-exact)")
+    pair = dict(registry=registry, harness=harness)
+    for codec in ("rle_v1", "rle_v2", "dbp"):
         for width in (1, 2, 4):
             chunk_elems = CHUNK_BYTES // width
-            dt = {1: np.uint8, 2: np.uint16, 4: np.uint32}[width]
+            dt = DT[width]
             moderate = runs(rng, rng.integers(0, 200, 64 * chunk_elems // 20)
                             .astype(dt), 40, 64 * chunk_elems)
             arrays = {"moderate_64": moderate,
                       **edge_arrays(rng, width, chunk_elems)}
-            blobs = [enc.compress(a, codec, CHUNK_BYTES)
-                     for a in arrays.values()]
-            table = fmt.concat_blobs(blobs)
-            dev = fmt.to_device(table, device)
-            kern = cuda_rle.decode(codec, dev["comp"], dev["out_lens"],
-                                   chunk_elems=chunk_elems, width=width)
-            plain = cuda_rle.plain(codec, dev["comp"], dev["out_lens"],
-                                   chunk_elems=chunk_elems, width=width)
-            torch.cuda.synchronize()
+            rows = [(k, enc.compress(a, codec, CHUNK_BYTES), a)
+                    for k, a in arrays.items()]
+            if codec == "dbp":
+                rows.append(("groups_256_bits_32",
+                             *dbp_wide_groups(rng, fmt, width)))
+            table = fmt.concat_blobs([b for _, b, _ in rows])
+            kern, plain = decode_pair(codec, fmt.to_device(table, device),
+                                      width=width, chunk_elems=chunk_elems,
+                                      bits=0, **pair)
             err = max_abs_err(kern, plain)
-            errs[codec] = max(errs[codec], err)
-            host = kern.cpu().numpy()
-            row = 0
-            for (name, a), b in zip(arrays.items(), blobs):
-                got = fmt.reassemble(b, host[row:row + b.num_chunks].copy())
-                if not np.array_equal(got, a):
-                    raise AssertionError(f"{codec} w{width} {name}: kernel "
-                                         "output differs from the input")
-                row += b.num_chunks
-            cap_err = group_cap_err(rng, fmt, cuda_rle, codec, width, device)
-            errs[codec] = max(errs[codec], cap_err)
-            log(f"   {codec} w{width}: {table.num_chunks} rows x "
-                f"{chunk_elems} elems, kernel == plain "
-                f"(max_abs_err {err}), edge rows == inputs; group-cap rows "
-                f"max_abs_err {cap_err}")
-            if err or cap_err:
+            errs[kernel_of(codec)] = max(errs[kernel_of(codec)], err)
+            if err:
                 raise AssertionError(f"{codec} w{width}: kernel differs "
-                                     f"from plain by {max(err, cap_err)}")
+                                     f"from plain by {err}")
+            check_rows(f"{codec} w{width}", kern, rows, fmt)
+            cap = ""
+            if codec != "dbp":      # dbp's cap, out_len + 4, never binds
+                cap_err = group_cap_err(rng, fmt, codec, width, device, pair)
+                if cap_err:
+                    raise AssertionError(f"{codec} w{width}: group-cap rows "
+                                         f"differ by {cap_err}")
+                cap = "; group-cap rows max_abs_err 0"
+            log(f"   {codec} w{width}: {table.num_chunks} rows x "
+                f"{chunk_elems} elems, kernel == plain (max_abs_err {err}), "
+                f"rows == inputs ({', '.join(k for k, _, _ in rows)}){cap}")
+    for bits in (1, 7, 9, 17, 32):
+        for width in (w for w in (1, 2, 4) if bits <= 8 * w):
+            chunk_elems = CHUNK_BYTES // width
+            top = 1 << bits
+            arrays = {
+                "random_8": rng.integers(0, top, 8 * chunk_elems,
+                                         dtype=np.uint64).astype(DT[width]),
+                "one_elem_tail": rng.integers(0, top, chunk_elems + 1,
+                                              dtype=np.uint64)
+                .astype(DT[width]),
+                "all_max": np.full(1000, top - 1, np.uint64).astype(DT[width]),
+            }
+            rows = [(k, enc.compress(a, "bitpack", CHUNK_BYTES, bits=bits), a)
+                    for k, a in arrays.items()]
+            table = fmt.concat_blobs([b for _, b, _ in rows])
+            kern, plain = decode_pair("bitpack", fmt.to_device(table, device),
+                                      width=width, chunk_elems=chunk_elems,
+                                      bits=bits, **pair)
+            err = max_abs_err(kern, plain)
+            errs["bitpack_unpack"] = max(errs["bitpack_unpack"], err)
+            if err:
+                raise AssertionError(f"bitpack b{bits} w{width}: kernel "
+                                     f"differs from plain by {err}")
+            check_rows(f"bitpack b{bits} w{width}", kern, rows, fmt)
+        log(f"   bitpack b{bits}: widths "
+            f"{[w for w in (1, 2, 4) if bits <= 8 * w]}, kernel == plain "
+            "(max_abs_err 0), rows == inputs")
+    chunk = TD_EDGE_CHUNK
+    rows = tdeflate_edge_blobs(rng, enc, fmt, chunk)
+    table = fmt.concat_blobs([b for _, b, _ in rows])
+    t0 = time.perf_counter()
+    kern, plain = decode_pair("tdeflate", fmt.to_device(table, device),
+                              width=1, chunk_elems=chunk, bits=0, **pair)
+    plain_s = time.perf_counter() - t0
+    err = max_abs_err(kern, plain)
+    errs["tdeflate_decode"] = max(errs["tdeflate_decode"], err)
+    if err:
+        raise AssertionError(f"tdeflate: kernel differs from plain by {err}")
+    check_rows("tdeflate", kern, rows, fmt)
+    log(f"   tdeflate: {table.num_chunks} rows x {chunk} bytes, kernel == "
+        f"plain (max_abs_err {err}; plain {plain_s:.1f} s), rows == "
+        f"expected ({', '.join(k for k, _, _ in rows)})")
 
 
-def group_cap_err(rng, fmt, cuda_rle, codec, width, device) -> int:
+def group_cap_err(rng, fmt, codec, width, device, pair) -> int:
     """Rows of one-literal groups, more than ``max_groups`` admits: the last
     admitted group must cover every lane up to out_len, as in the
     reference's lane->group map.  No encoder writes such rows, so they are
-    built here, on a 64-element chunk."""
+    built here, on a 64-element chunk; returns the kernel's max_abs_err
+    against the plain version."""
     hdr = 255 if codec == "rle_v1" else 2 << 6      # one literal
     groups = rng.integers(0, 256, (3, 200, 1 + width)).astype(np.uint8)
     groups[:, :, 0] = hdr
     comp = groups.reshape(3, -1)
     table = fmt.CompressedBlob(
         codec=codec, width=width, chunk_elems=64, total_elems=3 * 64,
-        orig_dtype=str(np.dtype(f"u{width}")), orig_shape=(3 * 64,),
+        orig_dtype=str(np.dtype(DT[width])), orig_shape=(3 * 64,),
         comp=comp, comp_lens=np.full(3, comp.shape[1], np.int32),
         out_lens=np.array([64, 50, 7], np.int32))
-    dev = fmt.to_device(table, device)
-    kern = cuda_rle.decode(codec, dev["comp"], dev["out_lens"],
-                           chunk_elems=64, width=width)
-    plain = cuda_rle.plain(codec, dev["comp"], dev["out_lens"],
-                           chunk_elems=64, width=width)
+    kern, plain = decode_pair(codec, fmt.to_device(table, device), width=width,
+                              chunk_elems=64, bits=0, **pair)
     return max_abs_err(kern, plain)
 
 
-def phase_main(args, rng, api, plan_mod, transfers, cuda_rle, engine, errs):
+def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
+               tdeflate, counters, engine, errs):
     log("== 4 main path: compress_many -> decompress_many(device_out=True) "
         "on cuda")
-    col_bytes = 64 << 20
     target = int(args.gib * (1 << 30))
     t0 = time.perf_counter()
-    cols = scan_columns(rng, min(col_bytes, max(1 << 20, target // 6)))
+    text = log_text(rng, int(args.text_mib * (1 << 20)))
+    [text_ca] = api.compress_many([text], "tdeflate", CHUNK_BYTES)
+    text_s = time.perf_counter() - t0
+    text_copies = -(-args.td_chunks // text_ca.blobs[0].num_chunks)
+    rest = max(1 << 20, target - text_copies * text.nbytes)
+    col_bytes = min(32 << 20, max(1 << 20, rest // 30))
+    t0 = time.perf_counter()
+    cols = scan_columns(rng, col_bytes)
     distinct = api.compress_many([a for _, a, _ in cols],
                                  [c for _, _, c in cols], CHUNK_BYTES)
     encode_s = time.perf_counter() - t0
     per_copy = sum(a.nbytes for _, a, _ in cols)
-    copies = -(-target // per_copy)
-    arrays = [a for _, a, _ in cols] * copies
-    cas = distinct * copies
-    out_bytes = per_copy * copies
+    copies = -(-rest // per_copy)
+    arrays = [a for _, a, _ in cols] * copies + [text] * text_copies
+    cas = distinct * copies + [text_ca] * text_copies
+    out_bytes = sum(a.nbytes for a in arrays)
     comp_bytes = sum(ca.compressed_bytes for ca in cas)
     flat = [b for ca in cas for b in ca.blobs]
     t0 = time.perf_counter()
@@ -236,23 +452,29 @@ def phase_main(args, rng, api, plan_mod, transfers, cuda_rle, engine, errs):
     build_ms = (time.perf_counter() - t0) * 1e3
     n_groups = plan.num_dispatches
     log(f"   {len(cols)} distinct columns ({per_copy / 2**20:.0f} MiB, "
-        f"encoded in {encode_s:.1f} s) listed {copies}x: {len(cas)} arrays, "
-        f"{len(flat)} blobs, {plan.num_chunks} chunks, {n_groups} groups")
+        f"encoded in {encode_s:.1f} s) listed {copies}x, and "
+        f"{text.nbytes / 2**20:.1f} MiB of log text (tdeflate ratio "
+        f"{text_ca.ratio:.4f}, encoded in {text_s:.1f} s) listed "
+        f"{text_copies}x: {len(cas)} arrays, {len(flat)} blobs, "
+        f"{plan.num_chunks} chunks, {n_groups} groups")
 
     # one call through the user's entry point, counted
-    cuda_rle.LAUNCHES = 0
-    for k in cuda_rle.CODEC_LAUNCHES:
-        cuda_rle.CODEC_LAUNCHES[k] = 0
+    for c in counters.values():
+        c.reset()
     t0 = time.perf_counter()
     outs = api.decompress_many(cas, engine, device_out=True)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = dict(cuda_rle.CODEC_LAUNCHES)
-    if cuda_rle.LAUNCHES != n_groups:
-        raise AssertionError(f"LAUNCHES grew by {cuda_rle.LAUNCHES}, "
-                             f"expected {n_groups} (one per plan group)")
-    log(f"   LAUNCHES grew by {cuda_rle.LAUNCHES} == {n_groups} plan groups "
-        f"{launches}; first call {first_s * 1e3:.1f} ms (plan build, "
+    launches = {k: c.read() for k, c in counters.items()}
+    if sum(launches.values()) != n_groups:
+        raise AssertionError(f"kernel launches grew by "
+                             f"{sum(launches.values())}, expected {n_groups}"
+                             " (one per plan group)")
+    missing = [k for k, v in launches.items() if v < 1]
+    if missing:
+        raise AssertionError(f"not launched on the main path: {missing}")
+    log(f"   launches grew by {sum(launches.values())} == {n_groups} plan "
+        f"groups {launches}; first call {first_s * 1e3:.1f} ms (plan build, "
         "staging, decode)")
     # checked on the host only now, after the counted call
     for i, (a, o) in enumerate(zip(arrays, outs)):
@@ -274,7 +496,8 @@ def phase_main(args, rng, api, plan_mod, transfers, cuda_rle, engine, errs):
         del o
     # decode time of a staged plan, under the no-host-transfer guard
     t0 = time.perf_counter()
-    plan.stage(engine.device)
+    with transfers.count_host_transfers() as h2d:
+        plan.stage(engine.device)
     torch.cuda.synchronize()
     stage_ms = (time.perf_counter() - t0) * 1e3
     plan.execute_device(engine)
@@ -285,51 +508,67 @@ def phase_main(args, rng, api, plan_mod, transfers, cuda_rle, engine, errs):
             plan.execute_device(engine)
 
     dec_ms = ms_of(run_staged, args.reps)
-    bound = sum(bound_ms(int(g.merged.comp_lens.sum()), g.num_chunks,
-                         g.key[2], g.key[1]) for g in plan.groups)
+    bound = sum(bound_ms(g.key[0], int(g.merged.comp_lens.sum()),
+                         g.num_chunks, g.key[2], g.key[1])
+                for g in plan.groups)
     log(f"   output {out_bytes / 2**30:.3f} GiB, compressed "
         f"{comp_bytes / 2**20:.1f} MiB (ratio {comp_bytes / out_bytes:.4f})")
     log(f"   decompress_many end to end: median "
         f"{np.median(e2e) * 1e3:.2f} ms over {args.reps}; of one call, "
         f"DecodePlan.build {build_ms:.2f} ms and stage {stage_ms:.2f} ms "
-        "(host clock, once each)")
+        f"({h2d['h2d']} uploads, {h2d['h2d_bytes'] / 2**20:.1f} MiB; host "
+        "clock, once each)")
     log(f"   staged decode (execute_device, no host transfers): median "
         f"{dec_ms:.3f} ms over {args.reps} = "
         f"{out_bytes / dec_ms / 1e6:.1f} GB/s of output; bytes bound "
         f"{bound:.3f} ms ({bound / dec_ms * 100:.1f}% of it)")
-    log("   library_ms: no single PyTorch call computes an RLE decode")
+    log("   library_ms: null for every kernel: no single PyTorch call "
+        "decodes RLE, dbp, bitpack or Deflate-semantics streams")
 
-    # per kernel: launch time, plain version time, bound, on the main
-    # path's own group tables
-    per = {c: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-           for c in cuda_rle.CODEC_IDS}
+    # per plan group: kernel time, plain version time, bound, on the main
+    # path's own staged tables
+    per = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "plain_rows": 0}
+           for k in KERNELS}
     for gi, g in enumerate(plan.groups):
-        codec, width, chunk_elems, _ = g.key
+        codec, width, chunk_elems, bits = g.key
         dev = plan._staged[engine.device][gi]
-        comp, lens = dev["comp"], dev["out_lens"]
-
-        def kern():
-            return cuda_rle.decode(codec, comp, lens,
-                                   chunk_elems=chunk_elems, width=width)
-
-        k_ms = ms_of(kern, args.reps)
-        out_k = kern()
-        plain_ms = ms_of(lambda: cuda_rle.plain(
-            codec, comp, lens, chunk_elems=chunk_elems, width=width), 1)
-        out_p = cuda_rle.plain(codec, comp, lens, chunk_elems=chunk_elems,
-                               width=width)
-        err = max_abs_err(out_k, out_p)
-        del out_k, out_p
+        spec = registry.get(codec).decode
+        inputs = spec.chunk_inputs(dev)
+        lens = dev["out_lens"]
+        consts = harness.consts_on(spec, lens.device)
+        kw = dict(chunk_elems=chunk_elems, width=width, bits=bits)
+        k_ms = ms_of(lambda: spec.cuda(inputs, consts, lens, **kw), args.reps)
+        rows = min(g.num_chunks, args.td_plain_rows) \
+            if codec == "tdeflate" else g.num_chunks
+        cut = tuple(t[:rows] for t in inputs)
+        out_k = spec.cuda(inputs, consts, lens, **kw)[:rows]
+        res = {}
+        plain_ms = ms_of(lambda: res.update(
+            p=spec.body(cut, consts, lens[:rows], **kw)), 1)
+        err = max_abs_err(out_k, res.pop("p"))
+        del out_k
         torch.cuda.empty_cache()
-        errs[codec] = max(errs[codec], err)
-        b = bound_ms(int(g.merged.comp_lens.sum()), g.num_chunks, chunk_elems,
-                     width)
-        per[codec]["ms"] += k_ms
-        per[codec]["plain_ms"] += plain_ms
-        per[codec]["bound_ms"] += b
-        log(f"   group {g.key[:3]}: {g.num_chunks} chunks, kernel "
-            f"{k_ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b:.3f} ms, "
-            f"max_abs_err {err}")
+        name = kernel_of(codec)
+        errs[name] = max(errs[name], err)
+        b = bound_ms(codec, int(g.merged.comp_lens.sum()), g.num_chunks,
+                     chunk_elems, width)
+        per[name]["ms"] += k_ms
+        per[name]["plain_ms"] += plain_ms
+        per[name]["bound_ms"] += b
+        per[name]["plain_rows"] += rows
+        extra = ""
+        if codec == "tdeflate":
+            tok = torch.zeros(g.num_chunks, dtype=torch.int32,
+                              device=lens.device)
+            tdeflate.decode(inputs[0], inputs[1:], consts, lens,
+                            chunk_elems=chunk_elems, tokens=tok)
+            mean = float(tok.to(torch.float64).mean())
+            rate = mean * g.num_chunks / k_ms / 1e6
+            extra = (f", tokens per chunk mean {mean:.1f} max "
+                     f"{int(tok.max())} ({rate:.3f} G tokens/s)")
+        log(f"   group {g.key}: {g.num_chunks} chunks, kernel {k_ms:.3f} ms, "
+            f"bound {b:.3f} ms ({b / k_ms * 100:.1f}%), plain {plain_ms:.1f} "
+            f"ms on {rows} rows, max_abs_err {err}{extra}")
         if err:
             raise AssertionError(f"group {g.key}: kernel differs from plain")
     return launches, per, distinct, cols
@@ -355,53 +594,92 @@ def phase_epilogue(api, harness, engine, distinct, cols) -> None:
     log(f"   {flags.size} elements, exact against the plain torch version")
 
 
+class Counter:
+    """A kernel's launch count on the main path: reset, then read."""
+
+    def __init__(self, module, codec=None):
+        self.module, self.codec = module, codec
+
+    def reset(self) -> None:
+        if self.codec is None:
+            self.module.LAUNCHES = 0
+        else:
+            self.module.CODEC_LAUNCHES[self.codec] = 0
+
+    def read(self) -> int:
+        if self.codec is None:
+            return self.module.LAUNCHES
+        return self.module.CODEC_LAUNCHES[self.codec]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--gib", type=float, default=1.0,
                     help="uncompressed GiB decoded by the main-path call")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--text-mib", type=float, default=8.0,
+                    help="MiB of distinct log text encoded with tdeflate")
+    ap.add_argument("--td-chunks", type=int, default=2048,
+                    help="least chunks in the main path's tdeflate group")
+    ap.add_argument("--td-plain-rows", type=int, default=256,
+                    help="rows of the tdeflate group the plain version "
+                    "decodes (its lockstep body syncs once per token step)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device is available", file=sys.stderr)
         return 1
     src = ROOT / "src"
-    if not (src / "repro_torch" / "csrc" / "two_phase_rle.cu").exists():
+    if not (src / "repro_torch" / "csrc" / "tdeflate_decode.cu").exists():
         print(f"FAIL: the port's sources are not under {src}",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
     from repro_torch.core import api, encoders as enc, format as fmt
-    from repro_torch.core import plan as plan_mod, transfers
+    from repro_torch.core import plan as plan_mod, registry, transfers
     from repro_torch.core.engine import CodagEngine
-    from repro_torch.kernels import cuda_rle, harness
+    from repro_torch.kernels import (bitpack, cuda_build, cuda_rle, harness,
+                                     tdeflate)
 
     rng = np.random.default_rng(args.seed)
     phase_env()
-    phase_build(cuda_rle)
+    phase_build(cuda_build, [cuda_rle.LIB, bitpack.LIB, tdeflate.LIB])
     engine = CodagEngine()
-    errs = {c: 0 for c in cuda_rle.CODEC_IDS}
-    phase_kernel_vs_plain(rng, fmt, enc, cuda_rle, errs, engine.device)
+    errs = {k: 0 for k in KERNELS}
+    counters = {kernel_of(c): Counter(cuda_rle, c) for c in cuda_rle.CODEC_IDS}
+    counters["bitpack_unpack"] = Counter(bitpack)
+    counters["tdeflate_decode"] = Counter(tdeflate)
+    phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
+                          engine.device)
     launches, per, distinct, cols = phase_main(
-        args, rng, api, plan_mod, transfers, cuda_rle, engine, errs)
+        args, rng, api, plan_mod, transfers, registry, harness, tdeflate,
+        counters, engine, errs)
     phase_epilogue(api, harness, engine, distinct, cols)
-    kernels = [{
-        "name": f"two_phase_rle<{codec}>",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/two_phase_rle.cu",
-        "replaces": "src/repro/kernels/harness.py:359",
-        "launches": launches[codec],
-        "max_abs_err": errs[codec],
-        "ms": per[codec]["ms"],
-        "plain_ms": per[codec]["plain_ms"],
-        "bound_ms": per[codec]["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-    } for codec in cuda_rle.CODEC_IDS]
-    for k in kernels:
-        if k["launches"] < 1:
-            raise AssertionError(f"{k['name']} was not launched on the main "
-                                 "path")
+    sources = {"bitpack_unpack": ("bitpack_unpack.cu",
+                                  "src/repro/kernels/bitpack.py:55"),
+               "tdeflate_decode": ("tdeflate_decode.cu",
+                                   "src/repro/kernels/tdeflate.py:50")}
+    kernels = []
+    for name in KERNELS:
+        source, replaces = sources.get(
+            name, ("two_phase_rle.cu", "src/repro/kernels/harness.py:359"))
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": per[name]["ms"],
+            "plain_ms": per[name]["plain_ms"],
+            "plain_rows": per[name]["plain_rows"],
+            "bound_ms": per[name]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        })
+        if kernels[-1]["launches"] < 1 or kernels[-1]["max_abs_err"]:
+            raise AssertionError(f"{name}: not launched on the main path, or "
+                                 "differs from its plain version")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,10 +14,20 @@ RLE v2  (adds delta + long-run modes; ORC RLE v2 in spirit)
   mode 1 -> delta,   len = f+3  (3..66),  base value + delta value follow
   mode 2 -> literal, len = f+1  (1..64),  values follow
   mode 3 -> long run, len = (f<<8 | next_byte)+3 (3..16386), value follows
+
+tdeflate (Deflate semantics, chunk-local window, LSB-first bitstream,
+  canonical length-limited (<=12 bit) Huffman over the deflate litlen(286)
+  and distance(30) alphabets; codes stored bit-reversed so the decoder can
+  index a flat LUT with a 12-bit peek)
+
+bitpack  (b bits/elem, LSB-first into uint32 words)
+
+The dbp encoder lives in its plugin, ``kernels/dbp.py``, as in the
+reference.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -192,6 +202,264 @@ def encode_rle_v2_chunk(x: np.ndarray, width: int) -> bytes:
 
 
 # --------------------------------------------------------------------------
+# tdeflate: LZ77 + canonical length-limited Huffman
+# --------------------------------------------------------------------------
+
+MAX_CODE_BITS = 12
+LUT_SIZE = 1 << MAX_CODE_BITS
+EOB = 256
+NUM_LITLEN = 286
+NUM_DIST = 30
+MIN_MATCH = 3
+MAX_MATCH = 258
+
+# deflate length code table: code 257+i -> (extra_bits, base_length)
+LEN_EXTRA = np.array([0,0,0,0,0,0,0,0,1,1,1,1,2,2,2,2,3,3,3,3,4,4,4,4,5,5,5,5,0], np.int32)
+LEN_BASE = np.array([3,4,5,6,7,8,9,10,11,13,15,17,19,23,27,31,35,43,51,59,67,83,99,115,131,163,195,227,258], np.int32)
+DIST_EXTRA = np.array([0,0,0,0,1,1,2,2,3,3,4,4,5,5,6,6,7,7,8,8,9,9,10,10,11,11,12,12,13,13], np.int32)
+DIST_BASE = np.array([1,2,3,4,5,7,9,13,17,25,33,49,65,97,129,193,257,385,513,769,1025,1537,2049,3073,4097,6145,8193,12289,16385,24577], np.int32)
+
+
+def _length_code(l: int) -> int:
+    return int(np.searchsorted(LEN_BASE, l, side="right")) - 1
+
+
+def _dist_code(dist: int) -> int:
+    return int(np.searchsorted(DIST_BASE, dist, side="right")) - 1
+
+
+def limited_huffman_lengths(freqs: np.ndarray, max_bits: int = MAX_CODE_BITS) -> np.ndarray:
+    """Optimal-ish Huffman code lengths limited to ``max_bits`` (zlib-style)."""
+    n = freqs.shape[0]
+    active = np.flatnonzero(freqs > 0)
+    lengths = np.zeros(n, np.int32)
+    if active.size == 0:
+        return lengths
+    if active.size == 1:
+        lengths[active[0]] = 1
+        return lengths
+    # Build Huffman tree with a simple two-queue merge.
+    import heapq
+
+    heap = [(int(freqs[i]), int(i), 0) for i in active]  # (freq, id, depth-tag)
+    heapq.heapify(heap)
+    parent: Dict[int, int] = {}
+    next_id = n
+    while len(heap) > 1:
+        f1, i1, _ = heapq.heappop(heap)
+        f2, i2, _ = heapq.heappop(heap)
+        parent[i1] = next_id
+        parent[i2] = next_id
+        heapq.heappush(heap, (f1 + f2, next_id, 0))
+        next_id += 1
+    for i in active:
+        d, j = 0, int(i)
+        while j in parent:
+            j = parent[j]
+            d += 1
+        lengths[i] = d
+    # Length-limit with Kraft fix-up.
+    if lengths.max() > max_bits:
+        lengths = np.minimum(lengths, max_bits)
+        # Kraft sum in units of 2^-max_bits
+        kraft = int(np.sum((1 << (max_bits - lengths[lengths > 0])).astype(np.int64)))
+        limit = 1 << max_bits
+        # overflow: demote shortest overfull codes (increase length)
+        order = np.argsort(lengths + (lengths == 0) * 1000, kind="stable")
+        while kraft > limit:
+            # find a symbol with length < max_bits and increment it
+            for i in order[::-1]:
+                li = lengths[i]
+                if 0 < li < max_bits:
+                    lengths[i] = li + 1
+                    kraft -= 1 << (max_bits - li - 1)
+                    break
+            else:  # pragma: no cover
+                raise RuntimeError("kraft fixup failed")
+        # underflow: promote (shorten) to use slack — optional, skip (valid code)
+    return lengths
+
+
+def canonical_codes(lengths: np.ndarray) -> np.ndarray:
+    """Canonical codes (deflate convention: sorted by (length, symbol))."""
+    max_len = int(lengths.max()) if lengths.size else 0
+    bl_count = np.bincount(lengths, minlength=max_len + 1)
+    bl_count[0] = 0
+    code = 0
+    next_code = np.zeros(max_len + 1, np.int64)
+    for bits in range(1, max_len + 1):
+        code = (code + int(bl_count[bits - 1])) << 1
+        next_code[bits] = code
+    codes = np.zeros_like(lengths, dtype=np.int64)
+    for sym in range(lengths.shape[0]):
+        l = int(lengths[sym])
+        if l:
+            codes[sym] = next_code[l]
+            next_code[l] += 1
+    return codes
+
+
+def _bit_reverse(v: int, bits: int) -> int:
+    r = 0
+    for _ in range(bits):
+        r = (r << 1) | (v & 1)
+        v >>= 1
+    return r
+
+
+def build_decode_lut(lengths: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Flat (sym, nbits) LUT indexed by a MAX_CODE_BITS LSB-first peek."""
+    codes = canonical_codes(lengths)
+    lut_sym = np.zeros(LUT_SIZE, np.int16)
+    lut_bits = np.zeros(LUT_SIZE, np.int8)
+    for sym in range(lengths.shape[0]):
+        l = int(lengths[sym])
+        if not l:
+            continue
+        rc = _bit_reverse(int(codes[sym]), l)
+        step = 1 << l
+        for v in range(rc, LUT_SIZE, step):
+            lut_sym[v] = sym
+            lut_bits[v] = l
+    return lut_sym, lut_bits
+
+
+class _BitWriter:
+    __slots__ = ("buf", "acc", "nbits")
+
+    def __init__(self) -> None:
+        self.buf = bytearray()
+        self.acc = 0
+        self.nbits = 0
+
+    def write(self, value: int, bits: int) -> None:
+        self.acc |= (value & ((1 << bits) - 1)) << self.nbits
+        self.nbits += bits
+        while self.nbits >= 8:
+            self.buf.append(self.acc & 0xFF)
+            self.acc >>= 8
+            self.nbits -= 8
+
+    def finish(self) -> bytes:
+        if self.nbits:
+            self.buf.append(self.acc & 0xFF)
+            self.acc, self.nbits = 0, 0
+        return bytes(self.buf)
+
+
+def _lz77_tokens(data: bytes) -> List[Tuple]:
+    """Greedy LZ77 with a hash-of-4 chain (single probe + extension)."""
+    n = len(data)
+    tokens: List[Tuple] = []
+    head: Dict[int, int] = {}
+    i = 0
+    mv = memoryview(data)
+    while i < n:
+        if i + MIN_MATCH + 1 <= n:
+            key = data[i] | (data[i + 1] << 8) | (data[i + 2] << 16) | (data[i + 3] << 24) if i + 4 <= n else data[i] | (data[i + 1] << 8) | (data[i + 2] << 16)
+            cand = head.get(key, -1)
+            head[key] = i
+            if cand >= 0 and i - cand <= DIST_BASE[-1] + (1 << DIST_EXTRA[-1]) - 1:
+                # extend match
+                m = 0
+                lim = min(MAX_MATCH, n - i)
+                while m < lim and data[cand + m] == data[i + m]:
+                    m += 1
+                if m >= MIN_MATCH:
+                    tokens.append(("m", m, i - cand))
+                    # insert a few hash entries inside the match for better chains
+                    end = min(i + m, n - 4)
+                    for j in range(i + 1, min(i + 4, end)):
+                        k2 = data[j] | (data[j + 1] << 8) | (data[j + 2] << 16) | (data[j + 3] << 24)
+                        head[k2] = j
+                    i += m
+                    continue
+        tokens.append(("l", data[i]))
+        i += 1
+    del mv
+    return tokens
+
+
+def encode_tdeflate_chunk(x: np.ndarray) -> Tuple[bytes, np.ndarray, np.ndarray]:
+    """Encode a uint8 chunk. Returns (payload, litlen_lengths, dist_lengths)."""
+    return encode_tdeflate_tokens(_lz77_tokens(x.astype(np.uint8).tobytes()))
+
+
+def encode_tdeflate_tokens(tokens: List[Tuple]) -> Tuple[bytes, np.ndarray,
+                                                         np.ndarray]:
+    """Huffman-code a token list (``("l", byte)`` / ``("m", length,
+    dist)``), then EOB.  Returns (payload, litlen_lengths, dist_lengths)."""
+    # symbol frequencies
+    lfreq = np.zeros(NUM_LITLEN, np.int64)
+    dfreq = np.zeros(NUM_DIST, np.int64)
+    for t in tokens:
+        if t[0] == "l":
+            lfreq[t[1]] += 1
+        else:
+            lfreq[257 + _length_code(t[1])] += 1
+            dfreq[_dist_code(t[2])] += 1
+    lfreq[EOB] += 1
+    llen = limited_huffman_lengths(lfreq)
+    dlen = limited_huffman_lengths(dfreq)
+    lcodes = canonical_codes(llen)
+    dcodes = canonical_codes(dlen)
+    # pre-reverse codes for LSB-first emission
+    lrev = [(_bit_reverse(int(lcodes[s]), int(llen[s])), int(llen[s])) for s in range(NUM_LITLEN)]
+    drev = [(_bit_reverse(int(dcodes[s]), int(dlen[s])), int(dlen[s])) for s in range(NUM_DIST)]
+    w = _BitWriter()
+    for t in tokens:
+        if t[0] == "l":
+            c, nb = lrev[t[1]]
+            w.write(c, nb)
+        else:
+            _, length, dist = t
+            lc = _length_code(length)
+            c, nb = lrev[257 + lc]
+            w.write(c, nb)
+            eb = int(LEN_EXTRA[lc])
+            if eb:
+                w.write(length - int(LEN_BASE[lc]), eb)
+            dc = _dist_code(dist)
+            c, nb = drev[dc]
+            w.write(c, nb)
+            eb = int(DIST_EXTRA[dc])
+            if eb:
+                w.write(dist - int(DIST_BASE[dc]), eb)
+    c, nb = lrev[EOB]
+    w.write(c, nb)
+    return w.finish(), llen.astype(np.uint8), dlen.astype(np.uint8)
+
+
+# --------------------------------------------------------------------------
+# bitpack
+# --------------------------------------------------------------------------
+
+
+def pack_bits(x: np.ndarray, bits: int) -> np.ndarray:
+    """Pack non-negative ints (< 2^bits) LSB-first into uint32 words."""
+    assert 1 <= bits <= 32
+    n = x.shape[0]
+    x = x.astype(np.uint64) & ((1 << bits) - 1)
+    total_bits = n * bits
+    nwords = (total_bits + 31) // 32
+    out = np.zeros(nwords + 1, np.uint64)  # +1 slack for spill
+    idx = np.arange(n, dtype=np.uint64) * bits
+    word = (idx >> 5).astype(np.int64)
+    off = (idx & 31).astype(np.uint64)
+    lo = (x << off) & np.uint64(0xFFFFFFFF)
+    shift = (np.uint64(32) - off) % np.uint64(64)
+    hi = np.where(off > 0, x >> shift, np.uint64(0))
+    # Bit-fields of distinct elements are disjoint, so scatter-add == OR.
+    np.add.at(out, word, lo)
+    np.add.at(out, word + 1, hi)
+    return (out[:nwords] & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
+def encode_bitpack_chunk(x: np.ndarray, bits: int) -> bytes:
+    return pack_bits(x.astype(np.uint64), bits).tobytes()
+
+
+# --------------------------------------------------------------------------
 # per-codec blob builders (each registered as its plugin's ``encode`` hook)
 # --------------------------------------------------------------------------
 
@@ -210,6 +478,49 @@ def compress_rle_v2(arr: np.ndarray,
     chunks, chunk_elems, width, _ = fmt.chunk_array(arr, chunk_bytes)
     encoded = [encode_rle_v2_chunk(c, width) for c in chunks]
     return fmt.build_blob(fmt.RLE_V2, arr, encoded, chunk_elems, width)
+
+
+def tdeflate_blob(arr: np.ndarray, encoded: List[Tuple], chunk_bytes: int,
+                  total_bytes: int) -> fmt.CompressedBlob:
+    """A tdeflate blob from per-chunk ``(payload, llen, dlen)``: the
+    payloads plus each chunk's decode LUTs and code-length headers."""
+    luts_ls, luts_lb, luts_ds, luts_db = [], [], [], []
+    for _, llen, dlen in encoded:
+        ls, lb = build_decode_lut(llen.astype(np.int32))
+        ds, db = build_decode_lut(dlen.astype(np.int32))
+        luts_ls.append(ls); luts_lb.append(lb)
+        luts_ds.append(ds); luts_db.append(db)
+    extras = {
+        "lut_lsym": np.stack(luts_ls), "lut_lbits": np.stack(luts_lb),
+        "lut_dsym": np.stack(luts_ds), "lut_dbits": np.stack(luts_db),
+        "hdr_llen": np.stack([e[1] for e in encoded]),
+        "hdr_dlen": np.stack([e[2] for e in encoded]),
+    }
+    return fmt.build_blob(fmt.TDEFLATE, arr, [e[0] for e in encoded],
+                          chunk_bytes, 1, extras, total_elems=total_bytes)
+
+
+def compress_tdeflate(arr: np.ndarray,
+                      chunk_bytes: int = fmt.DEFAULT_CHUNK_BYTES,
+                      bits: int | None = None) -> fmt.CompressedBlob:
+    chunks, chunk_elems, width, _ = fmt.chunk_array(arr, chunk_bytes)
+    # tdeflate is a byte codec: re-chunk at byte granularity
+    chunks = [np.ascontiguousarray(c).view(np.uint8) for c in chunks]
+    encoded = [encode_tdeflate_chunk(c) for c in chunks]
+    return tdeflate_blob(arr, encoded, chunk_elems * width,
+                         sum(int(c.shape[0]) for c in chunks))
+
+
+def compress_bitpack(arr: np.ndarray,
+                     chunk_bytes: int = fmt.DEFAULT_CHUNK_BYTES,
+                     bits: int | None = None) -> fmt.CompressedBlob:
+    chunks, chunk_elems, width, _ = fmt.chunk_array(arr, chunk_bytes)
+    if bits is None:
+        maxv = max((int(c.max()) for c in chunks if c.size), default=0)
+        bits = max(1, maxv.bit_length())
+    encoded = [encode_bitpack_chunk(c, bits) for c in chunks]
+    extras = {"bitpack_bits": np.full((1,), bits, np.int32)}
+    return fmt.build_blob(fmt.BITPACK, arr, encoded, chunk_elems, width, extras)
 
 
 def compress(arr: np.ndarray, codec: str,

@@ -25,6 +25,9 @@ DEFAULT_CHUNK_BYTES = 128 * 1024  # 128 KiB, same as the paper's evaluation
 
 RLE_V1 = "rle_v1"
 RLE_V2 = "rle_v2"
+TDEFLATE = "tdeflate"
+BITPACK = "bitpack"
+DBP = "dbp"
 
 # Widths supported on device. 8-byte dtypes are viewed as two 4-byte lanes
 # (runs of u64 are runs of the u32 pair view, so RLE still applies).
@@ -131,6 +134,8 @@ def to_device(blob: CompressedBlob, device,
     Rows are zero-padded by at least 8 bytes and rounded up to a multiple of
     128, so header peeks and literal reads past a row's last valid byte land
     in zeros.  Every upload goes through the ``transfers.to_device`` funnel.
+    A bit codec's ``comp_words`` is a uint32 view of the staged ``comp``, so
+    its bytes cross once.
     """
     comp = blob.comp
     want = max(comp.shape[1] + 8, pad_comp_to or 0)
@@ -143,10 +148,11 @@ def to_device(blob: CompressedBlob, device,
         "comp_lens": blob.comp_lens.astype(np.int32),
         "out_lens": blob.out_lens.astype(np.int32),
     }
-    if registry.get(blob.codec).needs_words:
-        host["comp_words"] = np.ascontiguousarray(comp).view(np.uint32)
     host.update(blob.extras)
-    return {k: transfers.to_device(v, device) for k, v in host.items()}
+    dev = {k: transfers.to_device(v, device) for k, v in host.items()}
+    if registry.get(blob.codec).needs_words:
+        dev["comp_words"] = dev["comp"].view(torch.uint32)
+    return dev
 
 
 def group_key(blob: CompressedBlob) -> tuple:

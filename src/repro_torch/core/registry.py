@@ -7,7 +7,7 @@ Nothing else in the package names a codec.
 
 Only the codecs whose decode kernels have been ported are listed in
 ``_PLUGINS``; the others of the reference package raise with the ROADMAP
-item that ports them.
+item that ports them.  A plugin module registers its ``Codec`` on import.
 """
 from __future__ import annotations
 
@@ -32,6 +32,8 @@ class Codec:
     needs_words: bool = False       # device layout carries a u32 word view
     # extras keys shared across a batch group (others stack row-wise)
     shared_extras: Tuple[str, ...] = ()
+    # consumes raw bytes: a caller may view any dtype as uint8 to encode it
+    byte_stream: bool = False
     plane_decompose_64: bool = False  # split 8-byte dtypes into u32 planes
     static_bits: Callable[[Any], int] = _no_bits   # part of the group key
 
@@ -42,10 +44,13 @@ _REGISTRY: Dict[str, Codec] = {}
 _PLUGINS: Dict[str, str] = {
     "rle_v1": "repro_torch.kernels.rle_v1",
     "rle_v2": "repro_torch.kernels.rle_v2",
+    "tdeflate": "repro_torch.kernels.tdeflate",
+    "bitpack": "repro_torch.kernels.bitpack",
+    "dbp": "repro_torch.kernels.dbp",
 }
 
 # Codecs of the reference package whose kernels are not ported yet.
-_NOT_PORTED = ("tdeflate", "bitpack", "dbp", "huffman", "lzss")
+_NOT_PORTED = ("huffman", "lzss")
 
 
 def register(codec: Codec) -> Codec:
@@ -61,7 +66,7 @@ def get(name: str) -> Codec:
         importlib.import_module(_PLUGINS[name])
         codec = _REGISTRY.get(name)
     if codec is None:
-        where = (" (not ported yet: ROADMAP.md Queue 1 item 6 and Queue 2)"
+        where = (" (not ported yet: ROADMAP.md Queue 2 items 4-5)"
                  if name in _NOT_PORTED else "")
         raise ValueError(
             f"unknown codec {name!r}{where}; registered: "

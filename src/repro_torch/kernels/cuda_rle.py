@@ -1,12 +1,9 @@
-"""The Hopper kernel for RLE v1 / v2: build, binding, launch count, plain twin.
+"""The Hopper kernel for RLE v1 / v2 and dbp: binding, launches, plain twin.
 
 ``csrc/two_phase_rle.cu`` replaces the TPU kernel ``harness._generic_pallas``
-with the ``two_phase_chunk`` body and the rle SPECs (see the note at the top
-of the source).  It is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C entry point, at first use, into ``build/repro_torch/``
-of the checkout (named by a hash of the source and flags, so an edited
-source rebuilds), and bound with ``ctypes``.  Nothing here runs ``nvcc`` or
-touches CUDA at import time, so the package imports on CPU-only torch.
+with the ``two_phase_chunk`` body and the rle_v1, rle_v2 and dbp SPECs (see
+the note at the top of the source).  ``cuda_build`` compiles it at first use
+and binds it with ``ctypes``.
 
 :func:`decode` is the wrapper: on a CUDA tensor it launches the kernel on
 the current stream (or raises); on a CPU tensor it runs :func:`plain`, the
@@ -15,78 +12,20 @@ against on the card.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-
 import torch
 
 from repro_torch.core import registry
-from repro_torch.kernels import harness
+from repro_torch.kernels import cuda_build, harness
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "two_phase_rle.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-CODEC_IDS = {"rle_v1": 0, "rle_v2": 1}
+# (codec id, width, comp, C, out_lens, n, chunk_elems, max_groups, out,
+#  stream)
+LIB = cuda_build.KernelLibrary(
+    "two_phase_rle.cu", "codag_two_phase_rle", "iiplplllpp")
+CODEC_IDS = {"rle_v1": 0, "rle_v2": 1, "dbp": 2}
 
 # Kernel launches (one per call that reached the card), in total and by codec.
 LAUNCHES = 0
 CODEC_LAUNCHES = {name: 0 for name in CODEC_IDS}
-# the compiler's report of the last build (ptxas registers / spills)
-BUILD_LOG = ""
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in (home and os.path.join(home, "bin", "nvcc"),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernel is built on a "
-                       "machine with the CUDA toolkit (set CUDA_HOME)")
-
-
-def build() -> Path:
-    """Compile the kernel library if this source and flags have no build
-    yet; returns its path."""
-    global BUILD_LOG
-    tag = hashlib.blake2b(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode(),
-                          digest_size=8).hexdigest()
-    lib = BUILD_DIR / f"two_phase_rle_{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-    BUILD_LOG = proc.stdout + proc.stderr
-    os.replace(tmp, lib)
-    return lib
-
-
-def _entry():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.codag_two_phase_rle
-            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                           ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib.codag_two_phase_rle
 
 
 def _check(codec: str, comp: torch.Tensor, out_lens: torch.Tensor,
@@ -133,15 +72,12 @@ def decode(codec: str, comp: torch.Tensor, out_lens: torch.Tensor, *,
                       device=comp.device)
     if n == 0:
         return out
-    fn = _entry()
     spec = registry.get(codec).decode.two_phase
     with torch.cuda.device(comp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(CODEC_IDS[codec], width, comp.data_ptr(), comp.shape[1],
-                 out_lens.data_ptr(), n, chunk_elems,
-                 spec.max_groups(chunk_elems), out.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"two_phase_rle launch failed: CUDA error {err}")
+        cuda_build.launch(LIB, CODEC_IDS[codec], width, comp.data_ptr(),
+                          comp.shape[1], out_lens.data_ptr(), n, chunk_elems,
+                          spec.max_groups(chunk_elems), out.data_ptr(),
+                          torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     CODEC_LAUNCHES[codec] += 1
     return out

@@ -1,8 +1,8 @@
 """Two-phase decode harness — the shared machinery of every codec kernel.
 
 The counterpart of ``repro/kernels/harness.py``.  A group-structured codec
-(rle_v1, rle_v2) supplies a :class:`TwoPhaseSpec` — a header parse and a
-value expression — and gets every backend:
+(rle_v1, rle_v2, dbp) supplies a :class:`TwoPhaseSpec` — a header parse and
+a value expression — and gets every backend:
 
   * ``torch``  — :func:`two_phase_chunk`, the plain all-thread two-phase
     body (counterpart of ``xla``).  It is also the plain version that the
@@ -13,9 +13,13 @@ value expression — and gets every backend:
     vector-parallel within each (the paper-faithful reference).
   * ``scalar`` — :func:`scalar_chunk`, one element per step (§V-E ablation).
 
+Codecs whose decode is not lane-independent (tdeflate's LZ copies) or that
+need no Phase 1 (bitpack) register their own bodies in the same
+:class:`DecodeSpec`, with their own chunk inputs and broadcast tables.
+
 The reference bodies decode one chunk and are ``vmap``-ed across chunks;
-here the chunk axis is written out: every body takes the ``(n, C)`` uint8
-table and the ``(n,)`` ``out_lens`` and returns ``(n, chunk_elems)`` in
+here the chunk axis is written out: every body takes the per-chunk tables
+and the ``(n,)`` ``out_lens`` and returns ``(n, chunk_elems)`` in
 ``DEV_DTYPE[width]``.  Rows advance in lockstep; a row that has finished
 keeps its state, as a vmapped ``while_loop`` does.  Values are computed in
 int64 and truncated to the width type at the end.
@@ -27,12 +31,13 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import transfers
 from repro_torch.core.format import torch_dtype
 
 DEV_DTYPE = {1: torch.uint8, 2: torch.uint16, 4: torch.uint32}
 
 
-def _truncate(vals: torch.Tensor, width: int) -> torch.Tensor:
+def truncate(vals: torch.Tensor, width: int) -> torch.Tensor:
     """int64 values in [0, 2^32) -> the width type, as ``.astype(dt)``."""
     return (vals & ((1 << (8 * width)) - 1)).to(DEV_DTYPE[width])
 
@@ -113,7 +118,7 @@ def two_phase_chunk(spec: TwoPhaseSpec, comp: torch.Tensor,
               for name, t in tabs.items()}
     out = spec.express(comp, fields, k, width)
     out = torch.where(idx < out_len[:, None], out, 0)
-    return _truncate(out, width)
+    return truncate(out, width)
 
 
 def scalar_chunk(spec: TwoPhaseSpec, comp: torch.Tensor,
@@ -145,7 +150,7 @@ def scalar_chunk(spec: TwoPhaseSpec, comp: torch.Tensor,
                                         torch.gather(buf, 1, at)))
         step = active.to(torch.int64)
         cnt, k, rem = cnt + step, k + step, rem - step
-    return _truncate(buf, width)
+    return truncate(buf, width)
 
 
 def group_serial_chunk(spec: TwoPhaseSpec, comp: torch.Tensor,
@@ -172,7 +177,7 @@ def group_serial_chunk(spec: TwoPhaseSpec, comp: torch.Tensor,
         buf.scatter_(1, at, torch.where(keep, vals, torch.gather(buf, 1, at)))
         pos = torch.where(active, pos + p["advance"], pos)
         cnt = torch.where(active, cnt + p["length"], cnt)
-    return _truncate(buf[:, :out_len_max], width)
+    return truncate(buf[:, :out_len_max], width)
 
 
 # --------------------------------------------------------------------------
@@ -222,38 +227,80 @@ class Epilogue:
 # DecodeSpec: the backend-complete decode contract a codec registers
 # --------------------------------------------------------------------------
 
-# (comp, out_lens, *, chunk_elems, width, bits) -> (n, chunk_elems)
+# (inputs, consts, out_lens, *, chunk_elems, width, bits) -> (n, chunk_elems)
 BodyFn = Callable[..., torch.Tensor]
+
+
+def comp_inputs(dev: Dict[str, Any]) -> Tuple[torch.Tensor, ...]:
+    """Default chunk inputs: the byte table."""
+    return (dev["comp"],)
+
+
+def words_inputs(dev: Dict[str, Any]) -> Tuple[torch.Tensor, ...]:
+    """Chunk inputs of a bit codec: the uint32 word view of each row, which
+    ``format.to_device`` stages as ``comp_words``."""
+    return (dev["comp_words"],)
 
 
 @dataclasses.dataclass(frozen=True)
 class DecodeSpec:
-    """Per-backend bodies over the whole chunk table."""
+    """Per-backend bodies over the whole chunk table, plus its operands.
 
-    body: BodyFn                # torch: the plain two-phase body
+    Every body, and the ``cuda`` kernel wrapper, maps ``(inputs, consts,
+    out_lens, *, chunk_elems, width, bits)`` to ``(n, chunk_elems)`` in
+    ``DEV_DTYPE[width]``.  ``chunk_inputs(dev)`` pulls the per-chunk operands
+    (row on the leading axis) out of the staged table; ``consts()`` gives
+    the broadcast tables (host arrays, staged once per device).
+    """
+
+    body: BodyFn                # torch: the plain body, the kernel's twin
     body_scalar: BodyFn         # §V-E single-thread driver
-    body_oracle: BodyFn         # group-serial reference
-    # the hand-written kernel's wrapper: (comp, out_lens, *, chunk_elems,
-    # width) -> (n, chunk_elems)
-    cuda: Callable[..., torch.Tensor]
-    two_phase: TwoPhaseSpec
+    body_oracle: BodyFn         # sequential reference
+    cuda: BodyFn                # the hand-written kernel's wrapper
+    chunk_inputs: Callable[[Dict[str, Any]], Tuple[torch.Tensor, ...]] = \
+        comp_inputs
+    consts: Callable[[], Tuple[Any, ...]] = tuple
+    two_phase: Optional[TwoPhaseSpec] = None
 
     @classmethod
     def from_two_phase(cls, spec: TwoPhaseSpec,
                        cuda: Callable[..., torch.Tensor]) -> "DecodeSpec":
-        """Every backend from a parse + express pair and the kernel."""
-        def body(comp, out_lens, *, chunk_elems, width, bits):
-            return two_phase_chunk(spec, comp, out_lens, chunk_elems, width)
+        """Every backend from a parse + express pair and the kernel wrapper
+        ``cuda(comp, out_lens, *, chunk_elems, width)``."""
+        def body(inputs, consts, out_lens, *, chunk_elems, width, bits):
+            return two_phase_chunk(spec, inputs[0], out_lens, chunk_elems,
+                                   width)
 
-        def body_scalar(comp, out_lens, *, chunk_elems, width, bits):
-            return scalar_chunk(spec, comp, out_lens, chunk_elems, width)
+        def body_scalar(inputs, consts, out_lens, *, chunk_elems, width,
+                        bits):
+            return scalar_chunk(spec, inputs[0], out_lens, chunk_elems, width)
 
-        def body_oracle(comp, out_lens, *, chunk_elems, width, bits):
-            return group_serial_chunk(spec, comp, out_lens, chunk_elems,
+        def body_oracle(inputs, consts, out_lens, *, chunk_elems, width,
+                        bits):
+            return group_serial_chunk(spec, inputs[0], out_lens, chunk_elems,
                                       width)
 
+        def kernel(inputs, consts, out_lens, *, chunk_elems, width, bits):
+            return cuda(inputs[0], out_lens, chunk_elems=chunk_elems,
+                        width=width)
+
         return cls(body=body, body_scalar=body_scalar,
-                   body_oracle=body_oracle, cuda=cuda, two_phase=spec)
+                   body_oracle=body_oracle, cuda=kernel, two_phase=spec)
+
+
+# broadcast tables staged per (consts hook, device), once (a staged decode
+# then runs transfer-free)
+_STAGED_CONSTS: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+
+
+def consts_on(spec: DecodeSpec, device) -> Tuple[torch.Tensor, ...]:
+    """The spec's broadcast tables on ``device``."""
+    key = (spec.consts, device)
+    staged = _STAGED_CONSTS.get(key)
+    if staged is None:
+        staged = tuple(transfers.to_device(c, device) for c in spec.consts())
+        _STAGED_CONSTS[key] = staged
+    return staged
 
 
 def run(spec: DecodeSpec, dev: Dict[str, Any], *, width: int,
@@ -261,17 +308,15 @@ def run(spec: DecodeSpec, dev: Dict[str, Any], *, width: int,
         epilogue: Optional[Epilogue] = None) -> torch.Tensor:
     """Decode every chunk of a device table through one backend, then apply
     the ``epilogue``, if any."""
-    comp, out_lens = dev["comp"], dev["out_lens"]
-    if backend == "cuda":
-        out = spec.cuda(comp, out_lens, chunk_elems=chunk_elems, width=width)
-    else:
-        if backend == "scalar" and comp.device.type != "cpu":
-            raise NotImplementedError(
-                "the single-thread (all_thread=False) decode has no CUDA "
-                "kernel yet (ROADMAP.md Queue 1 item 6a); run it on "
-                "CPU tensors")
-        body = {"torch": spec.body, "scalar": spec.body_scalar,
-                "oracle": spec.body_oracle}[backend]
-        out = body(comp, out_lens, chunk_elems=chunk_elems, width=width,
-                   bits=bits)
+    inputs = spec.chunk_inputs(dev)
+    out_lens = dev["out_lens"]
+    if backend == "scalar" and inputs[0].device.type != "cpu":
+        raise NotImplementedError(
+            "the single-thread (all_thread=False) decode has no CUDA "
+            "kernel yet (ROADMAP.md Queue 1 item 6a); run it on "
+            "CPU tensors")
+    fn = {"cuda": spec.cuda, "torch": spec.body, "scalar": spec.body_scalar,
+          "oracle": spec.body_oracle}[backend]
+    out = fn(inputs, consts_on(spec, out_lens.device), out_lens,
+             chunk_elems=chunk_elems, width=width, bits=bits)
     return epilogue.apply(out, dev) if epilogue is not None else out

@@ -1,9 +1,10 @@
 """Dispatch layer over the decode kernels.
 
 Backends:
-  "torch"  — the plain two-phase bodies (counterpart of ``xla``).
+  "torch"  — the plain PyTorch bodies, the kernels' twins (counterpart of
+             ``xla``).
   "cuda"   — the hand-written Hopper kernels (counterpart of ``pallas``).
-  "oracle" — the group-serial reference decoders.
+  "oracle" — the sequential reference decoders.
   "scalar" — the single-thread-decoding §V-E ablation (CPU tensors only).
 
 Dispatch is pure registry lookup: ``registry.get(codec).decode`` is a

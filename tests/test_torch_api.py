@@ -210,8 +210,11 @@ def test_unported_paths_raise(kw):
 
 
 def test_unported_codec_names_its_roadmap_item():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        registry.get("tdeflate")
+    for name in ("huffman", "lzss"):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            registry.get(name)
+    for name in ("tdeflate", "bitpack", "dbp"):
+        assert registry.get(name).name == name
     with pytest.raises(ValueError, match="unknown codec"):
         registry.get("nope")
 

@@ -32,7 +32,7 @@ CPU = CodagEngine(EngineConfig(device="cpu"))
 
 def _vectors():
     cases = []
-    for codec in ("rle_v1", "rle_v2"):
+    for codec in ("rle_v1", "rle_v2", "tdeflate", "bitpack", "dbp"):
         payload = json.loads((VEC_DIR / f"{codec}.json").read_text())
         cases += [pytest.param(codec, v, id=f"{codec}-{v['name']}")
                   for v in payload["vectors"]]
@@ -200,6 +200,8 @@ def _port_files():
 
 def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
+    names = {p.name for p in files}
+    assert {"tdeflate.py", "bitpack.py", "dbp.py", "cuda_build.py"} <= names
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
@@ -211,9 +213,12 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch.core.api, repro_torch.kernels.rle_v1, "
-        "repro_torch.kernels.rle_v2\n"
+        "repro_torch.kernels.rle_v2, repro_torch.kernels.tdeflate, "
+        "repro_torch.kernels.bitpack, repro_torch.kernels.dbp, "
+        "repro_torch.kernels.cuda_build\n"
         "from repro_torch.core import registry\n"
-        "registry.get('rle_v1'); registry.get('rle_v2')\n"
+        "for c in ('rle_v1', 'rle_v2', 'tdeflate', 'bitpack', 'dbp'):\n"
+        "    registry.get(c)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")

@@ -19,7 +19,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels.harness import Epilogue as RefEpilogue
 from repro_torch.core import format as fmt
 from repro_torch.core import streams as st
-from repro_torch.kernels import cuda_rle, harness, ops
+from repro_torch.kernels import cuda_build, cuda_rle, harness, ops
 
 CODECS = ("rle_v1", "rle_v2")
 WIDTHS = (1, 2, 4)
@@ -238,9 +238,9 @@ def test_wrapper_checks_its_inputs(bad):
 
 def test_kernel_build_is_lazy():
     """Importing the wrapper built nothing: no nvcc here, and none needed."""
-    assert cuda_rle._lib is None
-    assert cuda_rle.SOURCE.exists()
-    assert "arch=compute_90a,code=sm_90a" in cuda_rle.NVCC_FLAGS
+    assert not cuda_rle.LIB.loaded
+    assert cuda_rle.LIB.source.exists()
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
 
 
 def test_scalar_backend_refuses_card_tensors():
