@@ -22,6 +22,13 @@ tdeflate (Deflate semantics, chunk-local window, LSB-first bitstream,
 
 bitpack  (b bits/elem, LSB-first into uint32 words)
 
+huffman  (canonical length-limited (<=12 bit) Huffman over bytes, with a gap
+  array: every SUB-symbol segment starts at a bit offset stored in a 5-byte
+  entry at the front of the chunk, so segments decode independently)
+
+lzss     (element-granular LZSS: byte-aligned control tokens, literal runs of
+  1..128 elements and matches of 2..129 elements at a u16 element distance)
+
 The dbp encoder lives in its plugin, ``kernels/dbp.py``, as in the
 reference.
 """
@@ -521,6 +528,167 @@ def compress_bitpack(arr: np.ndarray,
     encoded = [encode_bitpack_chunk(c, bits) for c in chunks]
     extras = {"bitpack_bits": np.full((1,), bits, np.int32)}
     return fmt.build_blob(fmt.BITPACK, arr, encoded, chunk_elems, width, extras)
+
+
+# --------------------------------------------------------------------------
+# huffman: gap-array canonical Huffman over bytes
+# --------------------------------------------------------------------------
+
+HUFFMAN_SUB = 32            # symbols per self-synchronizing segment
+GAP_ENTRY_BYTES = 5         # u32 LE bit offset + (count - 1) byte
+
+
+def _pack_lsb(vals: np.ndarray, nbits: np.ndarray) -> Tuple[bytes, np.ndarray]:
+    """Pack variable-width fields LSB-first. Returns (payload, start bits).
+
+    Same disjoint-bit-field scatter as :func:`pack_bits`, generalized to
+    per-field widths: field bit ranges never overlap, so scatter-add is
+    scatter-or and each uint64 accumulator word stays below 2^43.
+    """
+    nbits = nbits.astype(np.int64)
+    ends = np.cumsum(nbits)
+    starts = ends - nbits
+    total = int(ends[-1]) if ends.size else 0
+    nwords = (total + 31) // 32
+    acc = np.zeros(nwords + 2, np.uint64)
+    v = vals.astype(np.uint64)
+    word = (starts >> 5).astype(np.int64)
+    off = (starts & 31).astype(np.uint64)
+    np.add.at(acc, word, (v << off) & np.uint64(0xFFFFFFFF))
+    np.add.at(acc, word + 1, np.where(off > 0, v >> (np.uint64(32) - off),
+                                      np.uint64(0)))
+    payload = acc[:nwords].astype(np.uint32).tobytes()[: (total + 7) // 8]
+    return payload, starts
+
+
+def encode_huffman_chunk(data: np.ndarray) -> Tuple[bytes, np.ndarray]:
+    """Encode one uint8 chunk. Returns (gap table + payload, code lengths)."""
+    data = np.ascontiguousarray(data).view(np.uint8)
+    lens = limited_huffman_lengths(
+        np.bincount(data, minlength=256).astype(np.int64), MAX_CODE_BITS)
+    n = data.shape[0]
+    if n == 0:
+        return b"", lens.astype(np.uint8)
+    codes = canonical_codes(lens)
+    # pre-reversed for LSB-first emission, indexed by byte value
+    rev = np.array([_bit_reverse(int(codes[s]), int(lens[s]))
+                    for s in range(256)], np.uint64)
+    payload, starts = _pack_lsb(rev[data], lens[data])
+    nseg = (n + HUFFMAN_SUB - 1) // HUFFMAN_SUB
+    gap_bits = nseg * GAP_ENTRY_BYTES * 8
+    head = np.empty((nseg, GAP_ENTRY_BYTES), np.uint8)
+    head[:, :4] = (gap_bits + starts[::HUFFMAN_SUB]).astype("<u4") \
+        .view(np.uint8).reshape(nseg, 4)
+    head[:, 4] = (np.minimum(HUFFMAN_SUB, n - np.arange(nseg) * HUFFMAN_SUB)
+                  - 1).astype(np.uint8)
+    return head.tobytes() + payload, lens.astype(np.uint8)
+
+
+def compress_huffman(arr: np.ndarray,
+                     chunk_bytes: int = fmt.DEFAULT_CHUNK_BYTES,
+                     bits: int | None = None) -> fmt.CompressedBlob:
+    chunks, chunk_elems, width, _ = fmt.chunk_array(arr, chunk_bytes)
+    # byte codec: re-chunk at byte granularity (like tdeflate)
+    chunks = [np.ascontiguousarray(c).view(np.uint8) for c in chunks]
+    payloads, hlens, lut_s, lut_b = [], [], [], []
+    for c in chunks:
+        p, hl = encode_huffman_chunk(c)
+        payloads.append(p)
+        hlens.append(hl)
+        s, b = build_decode_lut(hl.astype(np.int32))
+        lut_s.append(s)
+        lut_b.append(b)
+    extras = {
+        "hdr_hlens": np.stack(hlens),
+        "lut_hsym": np.stack(lut_s),
+        "lut_hbits": np.stack(lut_b),
+    }
+    total_bytes = sum(int(c.shape[0]) for c in chunks)
+    return fmt.build_blob(fmt.HUFFMAN, arr, payloads, chunk_elems * width, 1,
+                          extras, total_elems=total_bytes)
+
+
+# --------------------------------------------------------------------------
+# lzss: greedy hash-of-2 chain over elements (single probe)
+# --------------------------------------------------------------------------
+
+LZSS_MIN_MATCH = 2
+LZSS_MAX_MATCH = LZSS_MIN_MATCH + 127   # 129 elements
+LZSS_MAX_LIT = 128
+LZSS_MAX_DIST = 65535
+
+
+def encode_lzss_chunk(x: np.ndarray, width: int) -> bytes:
+    xs = np.ascontiguousarray(x).astype(np.uint32)
+    vals = xs.tolist()
+    n = len(vals)
+    out = bytearray()
+    head: dict = {}
+
+    def flush(lo: int, hi: int) -> None:
+        i = lo
+        while i < hi:
+            k = min(LZSS_MAX_LIT, hi - i)
+            out.append(k - 1)
+            out.extend(_values_bytes(xs[i:i + k], width))
+            i += k
+
+    i, lit = 0, 0
+    while i < n:
+        m, dist = 0, 0
+        if i + LZSS_MIN_MATCH <= n:
+            key = (vals[i], vals[i + 1])
+            cand = head.get(key, -1)
+            head[key] = i
+            if cand >= 0 and i - cand <= LZSS_MAX_DIST:
+                lim = min(LZSS_MAX_MATCH, n - i)
+                while m < lim and vals[cand + m] == vals[i + m]:
+                    m += 1
+                dist = i - cand
+        # profitable only if the 3 token bytes undercut the literal bytes
+        if m >= LZSS_MIN_MATCH and m * width > 3:
+            flush(lit, i)
+            out.append(128 + (m - LZSS_MIN_MATCH))
+            out.extend(dist.to_bytes(2, "little"))
+            for j in range(i + 1, min(i + 4, i + m, n - LZSS_MIN_MATCH + 1)):
+                head[(vals[j], vals[j + 1])] = j
+            i += m
+            lit = i
+        else:
+            i += 1
+    flush(lit, n)
+    return bytes(out)
+
+
+def encode_lzss_tokens(tokens: List[Tuple], width: int) -> bytes:
+    """One lzss row from a token list: ``("l", values)`` is a literal run of
+    1..128 elements, ``("m", length, dist)`` a match of 2..129 elements at a
+    u16 distance.  For rows no greedy encoder writes (a match at the
+    distance limit, or one reaching before the row's start)."""
+    out = bytearray()
+    for t in tokens:
+        if t[0] == "l":
+            vals = np.asarray(t[1])
+            if not 1 <= vals.size <= LZSS_MAX_LIT:
+                raise ValueError(f"literal run of {vals.size} elements")
+            out.append(vals.size - 1)
+            out.extend(_values_bytes(vals, width))
+        else:
+            _, length, dist = t
+            if not (LZSS_MIN_MATCH <= length <= LZSS_MAX_MATCH
+                    and 0 <= dist <= LZSS_MAX_DIST):
+                raise ValueError(f"match ({length}, {dist}) out of range")
+            out.append(128 + length - LZSS_MIN_MATCH)
+            out.extend(int(dist).to_bytes(2, "little"))
+    return bytes(out)
+
+
+def compress_lzss(arr: np.ndarray,
+                  chunk_bytes: int = fmt.DEFAULT_CHUNK_BYTES,
+                  bits: int | None = None) -> fmt.CompressedBlob:
+    chunks, chunk_elems, width, _ = fmt.chunk_array(arr, chunk_bytes)
+    encoded = [encode_lzss_chunk(c, width) for c in chunks]
+    return fmt.build_blob(fmt.LZSS, arr, encoded, chunk_elems, width)
 
 
 def compress(arr: np.ndarray, codec: str,

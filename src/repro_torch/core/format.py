@@ -28,6 +28,8 @@ RLE_V2 = "rle_v2"
 TDEFLATE = "tdeflate"
 BITPACK = "bitpack"
 DBP = "dbp"
+HUFFMAN = "huffman"
+LZSS = "lzss"
 
 # Widths supported on device. 8-byte dtypes are viewed as two 4-byte lanes
 # (runs of u64 are runs of the u32 pair view, so RLE still applies).

@@ -253,3 +253,20 @@ class DecodePlan:
                     orig_shape=tuple(blob.orig_shape), indices=idx,
                     transformed=epilogue is not None)
         return outs
+
+
+def decompress_blobs(blobs: Sequence[fmt.CompressedBlob], engine=None,
+                     device_out: bool = False, epilogue=None) -> List:
+    """Batched decompress over many blobs through one :class:`DecodePlan`:
+    one dispatch per (codec, width, chunk_elems, bits) group, outputs in
+    input order.  ``device_out=True`` keeps every output on the engine's
+    device."""
+    if not blobs:
+        return []
+    plan = DecodePlan.build(blobs)
+    if device_out:
+        return plan.execute_device(engine, epilogue=epilogue)
+    if epilogue is not None:
+        raise ValueError("epilogue requires device_out=True: a fused "
+                         "epilogue's output has no host reassembly path")
+    return plan.execute(engine)

@@ -5,9 +5,8 @@ A codec declares everything the rest of the system needs in one
 decode backends), and the layout facts the format and the plan consult.
 Nothing else in the package names a codec.
 
-Only the codecs whose decode kernels have been ported are listed in
-``_PLUGINS``; the others of the reference package raise with the ROADMAP
-item that ports them.  A plugin module registers its ``Codec`` on import.
+``_PLUGINS`` lists the reference package's seven codecs; a plugin module
+registers its ``Codec`` on import.
 """
 from __future__ import annotations
 
@@ -47,10 +46,9 @@ _PLUGINS: Dict[str, str] = {
     "tdeflate": "repro_torch.kernels.tdeflate",
     "bitpack": "repro_torch.kernels.bitpack",
     "dbp": "repro_torch.kernels.dbp",
+    "huffman": "repro_torch.kernels.huffman",
+    "lzss": "repro_torch.kernels.lzss",
 }
-
-# Codecs of the reference package whose kernels are not ported yet.
-_NOT_PORTED = ("huffman", "lzss")
 
 
 def register(codec: Codec) -> Codec:
@@ -66,9 +64,7 @@ def get(name: str) -> Codec:
         importlib.import_module(_PLUGINS[name])
         codec = _REGISTRY.get(name)
     if codec is None:
-        where = (" (not ported yet: ROADMAP.md Queue 2 items 4-5)"
-                 if name in _NOT_PORTED else "")
         raise ValueError(
-            f"unknown codec {name!r}{where}; registered: "
+            f"unknown codec {name!r}; registered: "
             f"{sorted(set(_REGISTRY) | set(_PLUGINS))}")
     return codec

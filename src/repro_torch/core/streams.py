@@ -97,8 +97,10 @@ def _window(buf: torch.Tensor, start: torch.Tensor, size: int):
     return start, start[:, None] + torch.arange(size, device=buf.device)
 
 
-def _blend(buf, pos, new, length, active, max_len):
-    """Write ``new[:, :length]`` at ``pos`` for the active rows."""
+def write_values(buf, pos, new, length, active, max_len):
+    """Write ``new[:, :length]`` at ``pos`` for the active rows, through a
+    ``max_len`` window placed as :func:`_window` places it (the blend write
+    of ``lax.dynamic_update_slice``); returns ``(buf, pos + length)``."""
     start, cols = _window(buf, pos, max_len)
     cur = torch.gather(buf, 1, cols)
     keep = active[:, None] & (torch.arange(max_len, device=buf.device)
@@ -114,7 +116,7 @@ def write_from(buf: torch.Tensor, pos: torch.Tensor, src: torch.Tensor,
     ``pos`` (literal runs).  Updates ``buf`` in place for the active rows;
     returns ``(buf, pos)``."""
     _, cols = _window(src, src_start, max_len)
-    return _blend(buf, pos, torch.gather(src, 1, cols), length, active,
+    return write_values(buf, pos, torch.gather(src, 1, cols), length, active,
                   max_len)
 
 
@@ -133,5 +135,5 @@ def memcpy(buf: torch.Tensor, pos: torch.Tensor, offset: torch.Tensor,
     idxm = torch.where(offset[:, None] > 0,
                        idx % offset.clamp(min=1)[:, None], idx)
     src = start[:, None] + idxm.clamp(max=max_len - 1)
-    return _blend(buf, pos, torch.gather(buf, 1, src), length, active,
+    return write_values(buf, pos, torch.gather(buf, 1, src), length, active,
                   max_len)

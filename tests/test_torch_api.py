@@ -210,13 +210,15 @@ def test_unported_paths_raise(kw):
 
 
 def test_unported_codec_names_its_roadmap_item():
-    for name in ("huffman", "lzss"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            registry.get(name)
-    for name in ("tdeflate", "bitpack", "dbp"):
+    """Every codec of the reference is ported now: all seven resolve, and an
+    unknown name still raises, listing the registered ones."""
+    names = ("rle_v1", "rle_v2", "tdeflate", "bitpack", "dbp", "huffman",
+             "lzss")
+    for name in names:
         assert registry.get(name).name == name
-    with pytest.raises(ValueError, match="unknown codec"):
+    with pytest.raises(ValueError, match="unknown codec") as err:
         registry.get("nope")
+    assert all(name in str(err.value) for name in names)
 
 
 # --------------------------------------------------------------------------

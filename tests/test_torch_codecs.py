@@ -8,8 +8,10 @@ right: empty chunks, one-element tails, dbp groups of 256 32-bit fields,
 bitpack at bits 1/7/9/17/32, tdeflate literal-only rows, overlapping
 matches, a match reaching before the row's start and a stream cut by an
 invalid code.  One tiny case per codec also runs the reference's Pallas
-kernel in interpret mode.  All tolerances are zero.  Plus the public path
-over all five codecs, the stream helpers and the kernel wrappers.
+kernel in interpret mode (huffman and lzss too; their edge rows are in
+``tests/test_torch_entropy.py``).  All tolerances are zero.  Plus the
+public path over all seven codecs, the stream helpers and the kernel
+wrappers.
 """
 import dataclasses
 
@@ -28,7 +30,8 @@ from repro.kernels import ops as ref_ops
 from repro_torch.core import api, encoders as enc, format as fmt, registry
 from repro_torch.core import streams as st
 from repro_torch.core.engine import CodagEngine, EngineConfig
-from repro_torch.kernels import bitpack, cuda_rle, dbp, harness, ops, tdeflate
+from repro_torch.kernels import (bitpack, cuda_rle, dbp, harness, huffman,
+                                 lzss, ops, tdeflate)
 
 DT = {1: np.uint8, 2: np.uint16, 4: np.uint32}
 CPU = CodagEngine(EngineConfig(device="cpu"))
@@ -308,7 +311,7 @@ def test_tdeflate_max_cmds_cannot_bind():
 
 def _tiny(codec):
     rng = np.random.default_rng(11)
-    if codec == "tdeflate":
+    if codec in ("tdeflate", "huffman"):
         arrays = [_text(rng, 300), np.zeros(0, np.uint8)]
         return fmt.concat_blobs([_port(ref_enc.compress(a, codec, 256))
                                  for a in arrays])
@@ -318,7 +321,8 @@ def _tiny(codec):
                              for a in arrays])
 
 
-@pytest.mark.parametrize("codec", ["dbp", "bitpack", "tdeflate"])
+@pytest.mark.parametrize("codec", ["dbp", "bitpack", "tdeflate", "huffman",
+                                   "lzss"])
 def test_plain_kernel_version_equals_reference_pallas(codec):
     table = _tiny(codec)
     want = _reference(table, "pallas", interpret=True)
@@ -339,15 +343,17 @@ def _staged(codec):
                                   width=table.width, bits=bits))
 
 
-@pytest.mark.parametrize("codec", ["dbp", "bitpack", "tdeflate"])
+@pytest.mark.parametrize("codec", ["dbp", "bitpack", "tdeflate", "huffman",
+                                   "lzss"])
 def test_wrapper_runs_plain_version_on_cpu_without_counting(codec):
     spec, inputs, consts, lens, kw = _staged(codec)
-    before = (cuda_rle.LAUNCHES, dict(cuda_rle.CODEC_LAUNCHES),
-              bitpack.LAUNCHES, tdeflate.LAUNCHES)
+    counts = lambda: (cuda_rle.LAUNCHES,  # noqa: E731
+                      dict(cuda_rle.CODEC_LAUNCHES), bitpack.LAUNCHES,
+                      tdeflate.LAUNCHES, huffman.LAUNCHES, lzss.LAUNCHES)
+    before = counts()
     got = spec.cuda(inputs, consts, lens, **kw)
     assert torch.equal(got, spec.body(inputs, consts, lens, **kw))
-    assert (cuda_rle.LAUNCHES, cuda_rle.CODEC_LAUNCHES, bitpack.LAUNCHES,
-            tdeflate.LAUNCHES) == before
+    assert counts() == before
 
 
 def test_wrappers_refuse_other_devices():
@@ -410,7 +416,7 @@ def test_new_kernel_builds_are_lazy():
 
 
 # --------------------------------------------------------------------------
-# the public path over all five codecs
+# the public path over all seven codecs
 # --------------------------------------------------------------------------
 
 
@@ -426,6 +432,11 @@ def _columns(seed=0):
         (rng.integers(0, 1 << 9, 800).astype(np.uint32), "bitpack"),
         (rng.integers(0, 1 << 11, 900).astype(np.uint16), "bitpack"),
         (np.cumsum(rng.integers(0, 16, 1000)).astype(np.uint32), "dbp"),
+        (_text(rng, 1300), "huffman"),
+        (rng.integers(0, 9, 250).astype(np.uint16), "huffman"),
+        (np.tile(rng.integers(0, 99, 40).astype(np.uint32), 30), "lzss"),
+        (np.tile(np.arange(5, dtype=np.uint8), 130), "lzss"),
+        (ts + np.tile(np.arange(3, dtype=np.int64), 200), "lzss"),
         (ts, "dbp"),
     ]
 
@@ -453,10 +464,11 @@ def test_decompress_many_five_codecs_equals_reference(device_out):
     assert len(calls) == len(plan_keys)
 
 
-@pytest.mark.parametrize("codec", ["dbp", "bitpack", "tdeflate"])
+@pytest.mark.parametrize("codec", ["dbp", "bitpack", "tdeflate", "huffman",
+                                   "lzss"])
 def test_reference_blob_carried_across_decodes(codec):
     rng = np.random.default_rng(9)
-    arr = (_text(rng, 900) if codec == "tdeflate"
+    arr = (_text(rng, 900) if codec in ("tdeflate", "huffman")
            else np.cumsum(rng.integers(0, 7, 700)).astype(np.uint16))
     rca = ref_api.compress(arr, codec, 256)
     ca = api.CompressedArray(blobs=[_port(b) for b in rca.blobs],

@@ -32,7 +32,8 @@ CPU = CodagEngine(EngineConfig(device="cpu"))
 
 def _vectors():
     cases = []
-    for codec in ("rle_v1", "rle_v2", "tdeflate", "bitpack", "dbp"):
+    for codec in ("rle_v1", "rle_v2", "tdeflate", "bitpack", "dbp", "huffman",
+                  "lzss"):
         payload = json.loads((VEC_DIR / f"{codec}.json").read_text())
         cases += [pytest.param(codec, v, id=f"{codec}-{v['name']}")
                   for v in payload["vectors"]]
@@ -201,7 +202,8 @@ def _port_files():
 def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
     names = {p.name for p in files}
-    assert {"tdeflate.py", "bitpack.py", "dbp.py", "cuda_build.py"} <= names
+    assert {"tdeflate.py", "bitpack.py", "dbp.py", "cuda_build.py",
+            "huffman.py", "lzss.py", "dequant_matmul.py", "batch.py"} <= names
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
@@ -215,9 +217,12 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.core.api, repro_torch.kernels.rle_v1, "
         "repro_torch.kernels.rle_v2, repro_torch.kernels.tdeflate, "
         "repro_torch.kernels.bitpack, repro_torch.kernels.dbp, "
-        "repro_torch.kernels.cuda_build\n"
+        "repro_torch.kernels.cuda_build, repro_torch.kernels.huffman, "
+        "repro_torch.kernels.lzss, repro_torch.kernels.dequant_matmul, "
+        "repro_torch.core.batch\n"
         "from repro_torch.core import registry\n"
-        "for c in ('rle_v1', 'rle_v2', 'tdeflate', 'bitpack', 'dbp'):\n"
+        "for c in ('rle_v1', 'rle_v2', 'tdeflate', 'bitpack', 'dbp', "
+        "'huffman', 'lzss'):\n"
         "    registry.get(c)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
