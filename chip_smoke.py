@@ -21,7 +21,10 @@ line):
        - ``bitpack_unpack`` at bits 1/7/9/17/32 and widths 1/2/4;
        - ``tdeflate_decode`` on an empty chunk, a one-byte tail, literals
          only, long overlapping matches, a match reaching before the row's
-         start, and a stream cut by an invalid code;
+         start, a stream cut by an invalid code, and hand-built rows for
+         its 32-token batches: chained short-distance matches in one batch,
+         a match whose source straddles the batch's start, and more than
+         32 literals before a 258-long match of distance 1;
        - ``huffman_decode`` on a one-symbol alphabet, 12-bit codes forced by
          the Kraft fix-up, lengths 31/32/33/1023/1024, an empty chunk and a
          full chunk of log text;
@@ -30,8 +33,11 @@ line):
          65,535 distance limit, and hand-built rows: a match reaching before
          the row's start, a match as the row's first token, a zero
          distance, and a stream cut short;
-       - ``dequant_matmul`` at the reference test's f32 shapes and one bf16
-         shape, within the stated tolerances;
+       - ``dequant_matmul`` within the stated tolerances: on the tensor
+         cores (``wgmma``) at bf16 qwen3-1.7B shapes, split-K at a decode
+         batch, M = 1 and M = 64; on the SIMT path at the reference test's
+         f32 shapes and a bf16 shape TMA cannot describe; each case logs
+         the path it took;
   4. the decode path at scale: ``api.compress_many`` ->
      ``api.decompress_many(device_out=True)`` decoding >= ``--gib`` GiB of a
      table scan through all seven codecs in one call (a tdeflate group of
@@ -44,9 +50,11 @@ line):
   6. the quantized-weight path: ``decompress_dequant_matmul`` over the seven
      projections of ``--q-layers`` layers of qwen3-1.7B (W4A16: 4-bit
      bitpacked int8 weights, bf16 activations) at M = 128 and M = 2048,
-     checked against the plain version, then timed in its steady state
-     (cached plan, no host transfers): decode, kernel, plain version and
-     ``torch.matmul`` on the dequantized weights, apart;
+     checked against the plain version (every call on the ``wgmma``
+     path), then timed in its steady state (cached plan, no host
+     transfers): decode, kernel, plain version and ``torch.matmul`` on the
+     dequantized weights, apart, per projection, and one sweep over all
+     projections a rep, whose weights exceed the L2 cache;
   7. a JSON line of the kernels, then ``{"ok": true, "device": {...}}``
      last.
 
@@ -308,6 +316,20 @@ def inflate_tokens(tokens, chunk: int) -> np.ndarray:
     return np.array(out, np.uint8)
 
 
+# rows for the tdeflate kernel's 32-token batches (a token list each)
+TD_BATCH_ROWS = {
+    # short-distance matches in one batch, each reading the one before it
+    "chained_matches": [("l", 97), ("l", 98), ("l", 99)]
+    + [("m", 4 + i, 3 + i) for i in range(10)] + [("l", 10)],
+    # a match of the second batch whose source straddles the batch's start
+    "straddles_batch_start": [("l", 65 + i % 26) for i in range(40)]
+    + [("m", 10, 12)] + [("l", 48 + i) for i in range(5)],
+    # more than 32 literals, then a match of distance 1 and length 258
+    "literals_then_run_258": [("l", 97 + i % 26) for i in range(40)]
+    + [("m", 258, 1), ("l", 33)],
+}
+
+
 def tdeflate_edge_blobs(rng, enc, fmt, chunk: int):
     """tdeflate edge rows: (name, blob, expected bytes)."""
     text = log_text(rng, chunk + 1)
@@ -339,6 +361,11 @@ def tdeflate_edge_blobs(rng, enc, fmt, chunk: int):
     want = cut.copy()
     want[chunk // 2:] = 0
     out.append(("cut_invalid_code", blob, want))
+    for name, tokens in TD_BATCH_ROWS.items():
+        want = inflate_tokens(tokens, chunk)
+        out.append((name, enc.tdeflate_blob(
+            want, [enc.encode_tdeflate_tokens(tokens)], chunk, want.size),
+            want))
     return out
 
 
@@ -615,28 +642,46 @@ def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
 
 def phase_dequant_vs_plain(rng, dq, errs, device) -> None:
     """The dequant matmul kernel against its plain version (float32, no
-    TF32) at the reference test's shapes and one bf16 shape."""
+    TF32): bf16 on the tensor-core path at qwen3-1.7B shapes (a split-K
+    decode batch among them), M = 1 and M = 64; the SIMT path at the
+    reference test's f32 shapes and a bf16 shape TMA cannot describe
+    (N % 16 != 0)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = [((128, 128, 128), torch.float32), ((256, 384, 256), torch.float32),
-             ((128, 512, 384), torch.float32),
-             ((256, 2048, 1024), torch.bfloat16)]
-    for (m, k, n), dtype in cases:
+    bf = torch.bfloat16
+    cases = [((128, 2048, 6144), bf, "wgmma"),
+             ((2048, 6144, 2048), bf, "wgmma"),
+             ((128, 2048, 1024), bf, "wgmma"), ((1, 2048, 2048), bf, "wgmma"),
+             ((64, 2048, 2048), bf, "wgmma"),
+             ((256, 2048, 1024), bf, "wgmma"),
+             ((128, 128, 128), torch.float32, "simt"),
+             ((256, 384, 256), torch.float32, "simt"),
+             ((128, 512, 384), torch.float32, "simt"),
+             ((64, 96, 100), bf, "simt")]
+    for (m, k, n), dtype, path in cases:
         x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)) \
             .to(device).to(dtype)
         q = torch.from_numpy(rng.integers(-127, 127, (k, n)).astype(np.int8))\
             .to(device)
         s = torch.from_numpy((np.abs(rng.normal(size=(1, n))) * 0.01)
                              .astype(np.float32)).to(device)
+        before = dict(dq.LAUNCHES_BY_PATH)
         got = dq.dequant_matmul(x, q, s)
         want = dq.ref_dequant_matmul(x, q, s)
         torch.cuda.synchronize()
+        took = [p for p, v in dq.LAUNCHES_BY_PATH.items() if v != before[p]]
+        if took != [path]:
+            raise AssertionError(f"dequant_matmul ({m},{k},{n}) {dtype} took "
+                                 f"{took}, expected {path}")
         rtol, atol = TOL[dtype]
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                    atol=atol)
         err = float((got.float() - want.float()).abs().max())
         errs["dequant_matmul"] = max(errs["dequant_matmul"], err)
-        log(f"   dequant_matmul (M,K,N)=({m},{k},{n}) {dtype}: within rtol "
-            f"{rtol} atol {atol} of plain (max_abs_err {err:.3g})")
+        _, bm, splits = dq._launch_plan(m, n, k, dtype)
+        log(f"   dequant_matmul (M,K,N)=({m},{k},{n}) {dtype}: {path} path"
+            + (f" (bm {bm}, {splits} K splits)" if path == "wgmma" else "")
+            + f", within rtol {rtol} atol {atol} of plain (max_abs_err "
+            f"{err:.3g})")
 
 
 def group_cap_err(rng, fmt, codec, width, device, pair) -> int:
@@ -886,6 +931,7 @@ def phase_quantized(args, rng, dq, transfers, counters, engine, errs,
     # one run of the path through the user's entry point, counted
     for c in counters.values():
         c.reset()
+    by_path = dict(dq.LAUNCHES_BY_PATH)
     ys = {}
     for m in ms_list:
         for name, k, n, ca, q, s in weights:
@@ -898,8 +944,12 @@ def phase_quantized(args, rng, dq, transfers, counters, engine, errs,
     if launches != want:
         raise AssertionError(f"quantized path launches {launches}, expected "
                              f"{want}")
+    paths = {p: v - by_path[p] for p, v in dq.LAUNCHES_BY_PATH.items()}
+    if paths != {"wgmma": len(ys), "simt": 0}:
+        raise AssertionError(f"quantized path took {paths}, expected every "
+                             "call on the wgmma path")
     log(f"   {len(ys)} calls (M = {ms_list}): launches dequant_matmul "
-        f"{launches['dequant_matmul']}, bitpack_unpack "
+        f"{launches['dequant_matmul']} (paths {paths}), bitpack_unpack "
         f"{launches['bitpack_unpack']}")
 
     rtol, atol = TOL[torch.bfloat16]
@@ -974,8 +1024,37 @@ def phase_quantized(args, rng, dq, transfers, counters, engine, errs,
         tot["plain_ms"] += acc["plain"]
         tot["bound_ms"] += acc["bound"]
         tot["library_ms"] += acc["library"]
-    per["dequant_matmul"].update(tot, plain_rows=None, bound_by=max(
-        by, key=by.get))
+        log(f"   M={m}: kernel / torch.matmul = "
+            f"{acc['kernel'] / acc['library']:.2f} (sums of medians)")
+
+    # one sweep over every projection a rep: the int8 weights (and the
+    # bf16 ones of torch.matmul) exceed the L2 cache, so each sweep reads
+    # them from device memory, as a serving step does
+    decoded = [(dq.decode_weights(ca, zero_point=8, engine=engine), s, k)
+               for _, k, _, ca, _, s in weights]
+    deq = [(qd.float() * s).to(torch.bfloat16) for qd, s, _ in decoded]
+    sweep = {}
+    for m in ms_list:
+        def kern_sweep():
+            for qd, s, k in decoded:
+                dq.dequant_matmul(xs[m, k], qd, s)
+
+        def lib_sweep():
+            for (_, _, k), w in zip(decoded, deq):
+                torch.matmul(xs[m, k], w)
+
+        kern_sweep()
+        lib_sweep()
+        sweep[m] = (ms_of(kern_sweep, args.reps), ms_of(lib_sweep, args.reps))
+        log(f"   M={m}, one sweep over all {len(weights)} projections "
+            f"(median of {args.reps}, weights from device memory): kernel "
+            f"{sweep[m][0]:.3f} ms, torch.matmul {sweep[m][1]:.3f} ms "
+            f"({sweep[m][0] / sweep[m][1]:.2f}x)")
+    del decoded, deq
+    per["dequant_matmul"].update(
+        tot, plain_rows=None, bound_by=max(by, key=by.get),
+        sweep_ms=sum(k for k, _ in sweep.values()),
+        library_sweep_ms=sum(lib for _, lib in sweep.values()))
     return launches
 
 
@@ -1076,6 +1155,8 @@ def main() -> int:
             "bound_ms": per[name]["bound_ms"],
             "bound_by": per[name].get("bound_by", "bytes"),
             "library_ms": per[name].get("library_ms"),
+            **{k: per[name][k] for k in ("sweep_ms", "library_sweep_ms")
+               if k in per[name]},
         })
         exact = name != "dequant_matmul"    # held to TOL in phases 3 and 6
         if kernels[-1]["launches"] < 1 or (exact and errs[name]):

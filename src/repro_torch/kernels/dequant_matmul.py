@@ -7,7 +7,10 @@ the matmul means the memory system reads one byte per weight.
 
   * :func:`ref_dequant_matmul` — the plain version, in float32;
   * :func:`dequant_matmul` — launches ``csrc/dequant_matmul.cu`` on CUDA
-    tensors (or raises) and runs :func:`ref_dequant_matmul` on CPU ones;
+    tensors (or raises) and runs :func:`ref_dequant_matmul` on CPU ones.
+    bf16 activations whose strides TMA can describe take the tensor-core
+    entry (``wgmma``), everything else the SIMT one; :func:`_launch_plan`
+    chooses by dtype and shape alone;
   * :func:`compress_weights` / :func:`weight_epilogue` /
     :func:`decompress_dequant_matmul` — weights arrive compressed, are
     decoded and zero-point-corrected to int8 on the device (a fused decode
@@ -17,17 +20,28 @@ the matmul means the memory system reads one byte per weight.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from repro_torch.kernels import cuda_build
 
-# (dtype, x, q, s, y, M, N, K, stream)
+# SIMT entry: (dtype, x, q, s, y, M, N, K, stream); the tensor-core path
+# builds its tensor maps with libcuda's cuTensorMapEncodeTiled, hence -lcuda
 LIB = cuda_build.KernelLibrary(
-    "dequant_matmul.cu", "codag_dequant_matmul", "ipppplllp")
+    "dequant_matmul.cu", "codag_dequant_matmul", "ipppplllp",
+    flags=("-lcuda",))
+# tensor-core entry: (x, q, s, y, ws, M, N, K, bm, splits, stream)
+WGMMA = LIB.entry_point("codag_dequant_matmul_wgmma", "pppppllliip")
 
-# Kernel launches (one per call that reached the card).
+# Kernel launches (one per call that reached the card), in all and by path.
 LAUNCHES = 0
+LAUNCHES_BY_PATH = {"wgmma": 0, "simt": 0}
+
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+WG_BN, WG_BK = 128, 64    # weight columns and K of a tensor-core CTA's tile
+WG_BMS = (8, 16, 32, 64)  # token tiles below 64 tokens; 128 above
 
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,14 +70,47 @@ def _check(x, q, s) -> None:
         raise ValueError("dequant_matmul operands must share one device")
 
 
+def _launch_plan(M: int, N: int, K: int, dtype) -> tuple:
+    """``(path, bm, splits)`` of one call, from dtype and shape alone.
+
+    ``"wgmma"`` for bf16 activations with ``K % 8 == 0`` and ``N % 16 ==
+    0`` (TMA needs 16-byte row strides), else ``"simt"`` (``bm`` 0,
+    ``splits`` 1).  ``bm`` is the tokens a CTA covers, the MMA's N: the
+    least of 8/16/32/64 that holds M, else 128.  When the output tiles
+    leave half the SMs or more idle (a decode batch), K is split until
+    there are at least :data:`SMS` CTAs, or one K tile a split."""
+    if dtype != torch.bfloat16 or K % 8 or N % 16:
+        return "simt", 0, 1
+    bm = next((b for b in WG_BMS if M <= b), 128)
+    tiles = -(-N // WG_BN) * -(-M // bm)
+    splits = 1
+    if 2 * tiles <= SMS:
+        splits = min(-(-K // WG_BK), -(-SMS // tiles))
+    return "wgmma", bm, splits
+
+
+_WORKSPACES: dict = {}
+
+
+def _workspace(dev: int, stream: int, numel: int) -> torch.Tensor:
+    """The split-K partial sums' float32 buffer of one (device, stream),
+    kept and grown as needed: calls on one stream run in order, so each may
+    reuse it."""
+    ws = _WORKSPACES.get((dev, stream))
+    if ws is None or ws.numel() < numel:
+        ws = torch.empty(numel, dtype=torch.float32, device=f"cuda:{dev}")
+        _WORKSPACES[dev, stream] = ws
+    return ws
+
+
 def dequant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
                    bm: int = 128, bn: int = 128,
                    bk: int = 128) -> torch.Tensor:
     """x: (M,K) bf16/f32, q: (K,N) int8, s: (1,N) f32 -> (M,N) x.dtype.
 
     ``bm``/``bn``/``bk`` keep the reference's tiling contract: each
-    dimension must divide by its tile (or be smaller than it).  The kernel
-    itself tiles 128 x 128 x 32 and masks any edge."""
+    dimension must divide by its tile (or be smaller than it).  The kernels
+    tile as :func:`_launch_plan` says and mask any edge."""
     global LAUNCHES
     M, K = x.shape
     N = q.shape[1]
@@ -75,12 +122,27 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
         return ref_dequant_matmul(x, q, s)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    path, bm_, splits = _launch_plan(M, N, K, x.dtype)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        cuda_build.launch(LIB, _DTYPE_ID[x.dtype], x.data_ptr(),
-                          q.data_ptr(), s.data_ptr(), y.data_ptr(), M, N, K,
-                          torch.cuda.current_stream().cuda_stream)
+    # a serving step calls this per projection: the device switch and the
+    # stream are looked up the cheap way (a Stream object costs microseconds)
+    dev = x.device.index
+    with (contextlib.nullcontext() if dev == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        if path == "wgmma":
+            ws = _workspace(dev, stream, splits * M * N) if splits > 1 \
+                else None
+            cuda_build.launch(WGMMA, x.data_ptr(), q.data_ptr(),
+                              s.data_ptr(), y.data_ptr(),
+                              None if ws is None else ws.data_ptr(), M, N, K,
+                              bm_, splits, stream)
+        else:
+            cuda_build.launch(LIB, _DTYPE_ID[x.dtype], x.data_ptr(),
+                              q.data_ptr(), s.data_ptr(), y.data_ptr(), M, N,
+                              K, stream)
     LAUNCHES += 1
+    LAUNCHES_BY_PATH[path] += 1
     return y
 
 

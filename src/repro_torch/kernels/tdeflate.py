@@ -238,6 +238,26 @@ def decode_scalar(words, luts, out_lens, chunk_elems: int,
 # --------------------------------------------------------------------------
 
 
+def pack_luts(lsym, lbits, dsym, dbits):
+    """The kernel's shared-memory LUTs, in plain torch: one entry a u16
+    (held in int32 here), ``sym | nbits << 9``.  ``sym`` is made canonical
+    for what the parse does with it: a litlen symbol below 256 becomes its
+    literal byte, one above 285 becomes 285 (the length code clamps there),
+    a distance symbol is clamped to [0, 29]; ``nbits`` keeps its low 7
+    bits.  The encoder's LUTs are already canonical (symbols <= 285 and
+    < 30, code lengths <= 12), so :func:`unpack_luts` gives them back."""
+    s, d = lsym.to(torch.int32), dsym.to(torch.int32)
+    s = torch.where(s < 256, s & 0xFF, s.clamp(max=285))
+    lit = s | (lbits.to(torch.int32) & 0x7F) << 9
+    dist = d.clamp(0, 29) | (dbits.to(torch.int32) & 0x7F) << 9
+    return lit, dist
+
+
+def unpack_luts(packed):
+    """(symbols, code lengths) of one packed LUT."""
+    return packed & 0x1FF, packed >> 9
+
+
 def _check(words, luts, tables, out_lens, chunk_elems: int, width: int):
     if width != 1:
         raise ValueError(f"tdeflate decodes bytes: width must be 1, got "

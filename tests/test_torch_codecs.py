@@ -13,7 +13,10 @@ kernel in interpret mode (huffman and lzss too; their edge rows are in
 public path over all seven codecs, the stream helpers and the kernel
 wrappers.
 """
+import base64
 import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -302,6 +305,135 @@ def test_tdeflate_max_cmds_cannot_bind():
                              [enc.encode_tdeflate_tokens(tokens)], n, n)
     assert len(tokens) // 2 + 2 < tdeflate.max_cmds(n)
     _assert_backends(blob, ("torch", "oracle"))
+
+
+def _golden_arrays(codec):
+    payload = json.loads((Path(__file__).parent / "vectors" /
+                          f"{codec}.json").read_text())
+    return [(v, np.frombuffer(base64.b64decode(v["data_b64"]),
+                              np.dtype(v["dtype"])).reshape(v["shape"]))
+            for v in payload["vectors"]]
+
+
+def test_tdeflate_packed_luts_round_trip():
+    """The kernel packs each LUT entry into a u16, ``sym | nbits << 9``:
+    the reference encoder's LUTs (golden vectors and a log-text chunk) have
+    litlen symbols < 512, distance symbols < 30 and code lengths <= 12, so
+    all 4,096 entries of each come back unchanged."""
+    blobs = [ref_enc.compress(arr, "tdeflate", v["chunk_bytes"])
+             for v, arr in _golden_arrays("tdeflate")]
+    blobs.append(ref_enc.compress(_text(np.random.default_rng(3), 3000),
+                                  "tdeflate", 4096))
+    for blob in blobs:
+        for row in range(blob.num_chunks):
+            lsym, lbits, dsym, dbits = (torch.from_numpy(np.ascontiguousarray(
+                blob.extras[k][row])) for k in tdeflate.LUT_KEYS)
+            assert lsym.shape == (enc.LUT_SIZE,) == dsym.shape
+            assert 0 <= int(lsym.min()) and int(lsym.max()) < 512
+            assert 0 <= int(dsym.min()) and int(dsym.max()) < 30
+            for b in (lbits, dbits):
+                assert 0 <= int(b.min()) and int(b.max()) <= 12
+            lit, dist = tdeflate.pack_luts(lsym, lbits, dsym, dbits)
+            for packed, sym, bits in ((lit, lsym, lbits), (dist, dsym, dbits)):
+                assert 0 <= int(packed.min()) and int(packed.max()) < 1 << 16
+                got_sym, got_bits = tdeflate.unpack_luts(packed)
+                assert torch.equal(got_sym, sym.to(torch.int32))
+                assert torch.equal(got_bits, bits.to(torch.int32))
+
+
+def test_tdeflate_packed_luts_canonical_symbols():
+    """Entries the encoder never writes pack to what the parse does with
+    them: a negative litlen symbol is its literal byte, one above 285 is
+    285 (length code 28), a distance symbol is clamped to [0, 29]."""
+    lsym = torch.tensor([-3, 65, 256, 300, 285], dtype=torch.int16)
+    dsym = torch.tensor([-1, 0, 29, 31, 7], dtype=torch.int16)
+    bits = torch.tensor([1, 12, 5, 0, 3], dtype=torch.int8)
+    lit, dist = tdeflate.pack_luts(lsym, bits, dsym, bits)
+    assert tdeflate.unpack_luts(lit)[0].tolist() == [253, 65, 256, 285, 285]
+    assert tdeflate.unpack_luts(dist)[0].tolist() == [0, 0, 29, 29, 7]
+    assert tdeflate.unpack_luts(lit)[1].tolist() == bits.tolist()
+
+
+# Hand-built rows for the kernel's 32-token batches
+BATCH_ROWS = {
+    # short-distance matches in one batch, each reading the one before it
+    "chained_matches": [("l", 97), ("l", 98), ("l", 99)]
+    + [("m", 4 + i, 3 + i) for i in range(10)] + [("l", 10)],
+    # a match of the second batch whose source straddles the batch's start
+    "straddles_batch_start": [("l", 65 + i % 26) for i in range(40)]
+    + [("m", 10, 12)] + [("l", 48 + i) for i in range(5)],
+    # more than 32 literals, then a match of distance 1 and length 258
+    "literals_then_run_258": [("l", 97 + i % 26) for i in range(40)]
+    + [("m", 258, 1), ("l", 33)],
+}
+
+
+def _batch_model(tokens, chunk: int, out_len: int):
+    """The kernel's write rule, token by token in batches of 32: a match
+    whose reads all lie before the batch's first byte (``hi < bs``) copies
+    from the output as it was before the batch (the byte-parallel pass);
+    the others copy in token order after it.  Returns (the row, matches of
+    the parallel pass, matches in order)."""
+    out = np.zeros(chunk, np.uint8)
+    limit = min(out_len, chunk)
+    cnt, n_par, n_dep = 0, 0, 0
+
+    def copy(c, length, src, dist, source):
+        for i in range(length):
+            if c + i >= limit:
+                break
+            j = src + min(i % dist, tdeflate.CMD_WIN - 1)
+            out[c + i] = source[j] if j < c and j < limit else 0
+
+    for b0 in range(0, len(tokens), 32):
+        if cnt >= out_len:
+            break
+        bs, before, ordered = cnt, out.copy(), []
+        for t in tokens[b0:b0 + 32]:
+            if cnt >= out_len:
+                break
+            if t[0] == "l":
+                if cnt < limit:
+                    out[cnt] = t[1]
+                cnt += 1
+                continue
+            _, length, dist = t
+            src = cnt - dist
+            if src < 0:
+                src = min(max(src + chunk + tdeflate.CMD_WIN, 0), chunk)
+            hi = min(src + min(length, dist, tdeflate.CMD_WIN) - 1, cnt - 1)
+            if hi < bs:
+                copy(cnt, length, src, dist, before)
+                n_par += 1
+            else:
+                ordered.append((cnt, length, src, dist))
+            cnt += length
+        for c, length, src, dist in ordered:
+            copy(c, length, src, dist, out)
+        n_dep += len(ordered)
+    return out, n_par, n_dep
+
+
+@pytest.mark.parametrize("name", ["log_text", *BATCH_ROWS])
+def test_tdeflate_batch_rule_model_equals_reference(name):
+    """The batch rule, executed on the encoder's own tokens of a text chunk
+    and on the hand-built rows, gives the reference's ``decode_chunk``
+    output: no match of the parallel pass reads a byte of its own batch."""
+    chunk = 4096
+    if name == "log_text":
+        data = _text(np.random.default_rng(3), chunk)
+        tokens = enc._lz77_tokens(data.tobytes())
+    else:
+        tokens = BATCH_ROWS[name]
+    want = _inflate(tokens, chunk)
+    blob = enc.tdeflate_blob(want, [enc.encode_tdeflate_tokens(tokens)],
+                             chunk, want.size)
+    ref = _reference(blob, "xla")[0]
+    got, n_par, n_dep = _batch_model(tokens, chunk, want.size)
+    assert np.array_equal(got, ref) and np.array_equal(ref[:want.size], want)
+    assert n_dep > 0
+    if name == "log_text":
+        assert np.array_equal(got, data) and n_par > 0
 
 
 # --------------------------------------------------------------------------

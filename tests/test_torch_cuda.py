@@ -103,3 +103,59 @@ def test_dequant_matmul_equals_plain_version_on_the_card(card, dtype, rtol,
     assert got.device.type == "cuda" and got.dtype == dtype
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (2048, 128, 1024),   # no split: 128 output tiles
+    (64, 256, 128),      # bm 64, K split
+    (1, 512, 256),       # bm 8, K split
+    (37, 104, 48)])      # ragged M, K and N, all TMA-describable
+def test_dequant_matmul_tensor_core_path_on_the_card(card, m, k, n):
+    """bf16 shapes TMA can describe take the wgmma entry: within two bf16
+    ulps of the plain version, one launch on that path."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    q = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8))
+    s = torch.from_numpy((np.abs(rng.normal(size=(1, n))) * 0.01)
+                         .astype(np.float32))
+    want = dq.ref_dequant_matmul(x, q, s)
+    before = dict(dq.LAUNCHES_BY_PATH)
+    got = dq.dequant_matmul(x.to(card), q.to(card), s.to(card))
+    torch.cuda.synchronize()
+    assert dq.LAUNCHES_BY_PATH == {"wgmma": before["wgmma"] + 1,
+                                   "simt": before["simt"]}
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=1.6e-2,
+                               atol=1e-2)
+    again = dq.dequant_matmul(x.to(card), q.to(card), s.to(card))
+    assert torch.equal(got, again)      # no atomics: bit-identical reruns
+
+
+# tdeflate rows for the kernel's 32-token batches: chained short-distance
+# matches, a match straddling the batch's start, > 32 literals then a
+# 258-long match of distance 1
+TD_BATCH_ROWS = [
+    [("l", 97), ("l", 98), ("l", 99)]
+    + [("m", 4 + i, 3 + i) for i in range(10)] + [("l", 10)],
+    [("l", 65 + i % 26) for i in range(40)] + [("m", 10, 12)]
+    + [("l", 48 + i) for i in range(5)],
+    [("l", 97 + i % 26) for i in range(40)] + [("m", 258, 1), ("l", 33)],
+]
+
+
+@pytest.mark.cuda
+def test_tdeflate_batch_rows_on_the_card(card):
+    blobs = []
+    for tokens in TD_BATCH_ROWS:
+        n = sum(1 if t[0] == "l" else t[1] for t in tokens)
+        blobs.append(enc.tdeflate_blob(np.zeros(n, np.uint8),
+                                       [enc.encode_tdeflate_tokens(tokens)],
+                                       1024, n))
+    table = fmt.concat_blobs(blobs)
+    want = _decode(table, "cpu")
+    before = tdeflate.LAUNCHES
+    got = _decode(table, card)
+    torch.cuda.synchronize()
+    assert tdeflate.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want)

@@ -10,7 +10,9 @@ across, equal to the reference's result; its second call builds no plan
 and moves nothing across the host boundary; and the shape assertion raises
 on the same shapes as the reference's.
 """
+import ctypes
 import dataclasses
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,7 @@ from repro.kernels import dequant_matmul as ref_dq
 from repro_torch.core import api, batch, format as fmt, plan as plan_mod
 from repro_torch.core import transfers
 from repro_torch.core.engine import CodagEngine, EngineConfig
+from repro_torch.kernels import cuda_build
 from repro_torch.kernels import dequant_matmul as dq
 
 CPU = CodagEngine(EngineConfig(device="cpu"))
@@ -68,6 +71,72 @@ def test_dequant_matmul_bf16_keeps_the_dtype():
         jnp.asarray(xb.float().numpy()), jnp.asarray(q), jnp.asarray(s)))
     np.testing.assert_allclose(got.float().numpy(), want, rtol=1.6e-2,
                                atol=1e-2)
+
+
+@pytest.mark.parametrize("m,k,n,dtype,want", [
+    (128, 2048, 2048, torch.bfloat16, ("wgmma", 128)),
+    (2048, 6144, 2048, torch.bfloat16, ("wgmma", 128)),
+    (1, 2048, 2048, torch.bfloat16, ("wgmma", 8)),
+    (9, 256, 128, torch.bfloat16, ("wgmma", 16)),
+    (33, 256, 128, torch.bfloat16, ("wgmma", 64)),
+    (64, 256, 128, torch.bfloat16, ("wgmma", 64)),
+    (65, 256, 128, torch.bfloat16, ("wgmma", 128)),
+    (128, 2048, 2048, torch.float32, ("simt", 0)),
+    (64, 96, 100, torch.bfloat16, ("simt", 0)),     # N % 16: no TMA stride
+    (64, 100, 96, torch.bfloat16, ("simt", 0))])    # K % 8: no TMA stride
+def test_launch_plan_path_by_dtype_and_shape(m, k, n, dtype, want):
+    path, bm, splits = dq._launch_plan(m, n, k, dtype)
+    assert (path, bm) == want
+    assert 1 <= splits <= -(-k // dq.WG_BK)
+    if path == "simt":
+        assert splits == 1
+
+
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 1024), (2048, 6144),
+                                 (6144, 2048)])
+def test_launch_plan_splits_k_to_fill_the_card_at_a_decode_batch(k, n):
+    """qwen3-1.7B's projections at M = 128 have 8-48 output tiles: K is
+    split until there are at least 132 CTAs; at M = 2048 it is not."""
+    path, bm, splits = dq._launch_plan(128, n, k, torch.bfloat16)
+    tiles = -(-n // dq.WG_BN) * -(-128 // bm)
+    assert path == "wgmma" and splits > 1
+    assert tiles * splits >= dq.SMS > tiles * (splits - 1)
+    assert dq._launch_plan(2048, n, k, torch.bfloat16) == ("wgmma", 128, 1)
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 256, 384), (1, 128, 64),
+                                   (64, 96, 100)])
+def test_cpu_dequant_matmul_equals_reference_plain_on_either_plan(m, k, n):
+    """On a CPU tensor the wrapper runs its plain version whatever path the
+    card would take, counts no launch, and equals the reference's
+    ``ref_dequant_matmul`` (bf16 activations, two bf16 ulps)."""
+    x, q, s = _operands(m, k, n)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    before = (dq.LAUNCHES, dict(dq.LAUNCHES_BY_PATH))
+    got = dq.dequant_matmul(xb, *_t(q, s))
+    assert (dq.LAUNCHES, dq.LAUNCHES_BY_PATH) == before
+    want = np.asarray(ref_dq.ref_dequant_matmul(
+        jnp.asarray(xb.float().numpy()), jnp.asarray(q), jnp.asarray(s)))
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=1.6e-2,
+                               atol=1e-2)
+
+
+def test_tensor_core_entry_signature_and_lazy_build():
+    """The wgmma entry point's ctypes kinds equal its C parameters; it
+    shares the SIMT entry's library (one build, with -lcuda) and binds
+    nothing at import."""
+    src = dq.WGMMA.source.read_text()
+    m = re.search(r'extern "C" int codag_dequant_matmul_wgmma\s*\(([^)]*)\)',
+                  src)
+    params = [p.strip() for p in m.group(1).split(",")]
+    want = "".join("p" if "*" in p else "l" if "int64_t" in p else "i"
+                   for p in params)
+    kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_int64: "l"}
+    assert "".join(kinds[t] for t in dq.WGMMA.argtypes) == want
+    assert dq.WGMMA.lib is dq.LIB and "-lcuda" in dq.LIB.flags
+    assert not dq.WGMMA.loaded and not dq.LIB.loaded
+    assert "-lcuda" not in cuda_build.NVCC_FLAGS
 
 
 @pytest.mark.parametrize("m,k,n,kw", [
