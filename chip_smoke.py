@@ -11,13 +11,18 @@ line):
 
   1. environment: torch / CUDA versions, the card's name and power limit;
   2. kernel build: one nvcc (sm_90a) per ``csrc`` source, all started
-     together, with ptxas registers / spills;
+     together, with ptxas registers, spills and shared memory;
   3. each kernel vs its plain PyTorch version on the card, bit-exact, and
      every row against its input:
        - ``two_phase_rle`` for rle_v1, rle_v2 and dbp at widths 1/2/4, on a
          64-chunk table of 128 KiB chunks plus edge rows (empty chunk,
          one-element tail, 16386-long run, delta wraparound, literals at odd
-         offsets; for dbp also 256-element groups of 32-bit fields);
+         offsets, 50 runs of 3 elements) and hand-built rows for its 32-group
+         batches and shared-memory ring: a header, a run value or a literal
+         group across the 512-, 1,024- and 4,096-byte offsets; for dbp also
+         256-element groups of 32-bit fields and malformed groups (fields of
+         40 and 255 bits, a payload past the row's end); rows where the
+         ``max_groups`` cap lands at groups 32 and 33 (rle_v1, rle_v2);
        - ``bitpack_unpack`` at bits 1/7/9/17/32 and widths 1/2/4;
        - ``tdeflate_decode`` on an empty chunk, a one-byte tail, literals
          only, long overlapping matches, a match reaching before the row's
@@ -32,7 +37,12 @@ line):
          128-element literal runs, 129-element matches, a match at the
          65,535 distance limit, and hand-built rows: a match reaching before
          the row's start, a match as the row's first token, a zero
-         distance, and a stream cut short;
+         distance, a stream cut short, and rows for its 32-token batches:
+         chained short-distance matches across the batch boundary, a match
+         whose source straddles a batch's start, a match whose chain runs
+         back through three tokens of its batch, zero-distance matches at
+         tokens 31 and 32, 128-element literal runs across the shared ring,
+         and rows cut inside a literal run and inside a match's distance;
        - ``dequant_matmul`` within the stated tolerances: on the tensor
          cores (``wgmma``) at bf16 qwen3-1.7B shapes, split-K at a decode
          batch, M = 1 and M = 64; on the SIMT path at the reference test's
@@ -45,7 +55,8 @@ line):
      and an lzss group of its u32 token ids, each >= ``--ent-chunks``
      chunks), checked against the inputs, with every kernel's launch count,
      the decode time, output GB/s, and each plan group's kernel time, bound
-     and plain-version time;
+     and plain-version time (tokens or groups a chunk for tdeflate, lzss
+     and the RLE family);
   5. a fused dequant epilogue against its plain torch version;
   6. the quantized-weight path: ``decompress_dequant_matmul`` over the seven
      projections of ``--q-layers`` layers of qwen3-1.7B (W4A16: 4-bit
@@ -261,13 +272,90 @@ def edge_arrays(rng, width: int, chunk_elems: int):
         np.concatenate([rng.integers(0, top, 5, dtype=np.uint64).astype(dt),
                         np.full(3, 7, dt)]) for _ in range(200)])
     wrap = ((top - 50 + 7 * np.arange(3000, dtype=np.int64)) % top).astype(dt)
+    threes = np.repeat(np.arange(50) % 2 + 2 * rng.integers(0, 100, 50), 3)
     return {
         "empty": np.zeros(0, dt),
         "one_elem_tail": np.resize(base, chunk_elems + 1),
         "run_16386": np.full(16386 + 5, 9, dt),
         "delta_wrap": wrap,
         "odd_literals": odd,
+        "runs_of_3": threes.astype(dt),
     }
+
+
+# where the RLE kernel's 1 KiB ring blocks and 4 KiB ring meet, and a
+# 512-byte mark
+RING_OFFSETS = (512, 1024, 4096)
+
+
+def rle_ring_rows(rng, codec: str, width: int):
+    """Hand-built rows for the RLE kernel's ring and 32-group batches: a
+    group header, a run value or a literal group across each of
+    ``RING_OFFSETS``, then 40 short groups.  (name, group list) each."""
+    top = 1 << (8 * width)
+    v = lambda n: rng.integers(0, top, n, dtype=np.uint64)  # noqa: E731
+    if codec == "rle_v1":
+        kinds = {"run_value": (1, [("run", 5, v(1)[0])]),
+                 "literal_128": (3, [("lit", v(128))])}
+        tail = [("run", 3, x) for x in v(20)] + [("lit", v(1))] * 20
+    elif codec == "rle_v2":
+        kinds = {"long_header": (1, [("long", 1000, v(1)[0])]),
+                 "delta_base": (width, [("delta", 20, v(1)[0], 3)]),
+                 "literal_64": (5, [("lit", v(64))])}
+        tail = [("run", 3, x) for x in v(20)] + [("lit", v(1))] * 20
+    else:
+        kinds = {"header": (1, [("dbp", 13, v(1)[0], v(100) % 8192)]),
+                 "payload": (3 + width, [("dbp", 32, v(1)[0], v(256))])}
+        tail = [("dbp", 2, x, [1, 2, 3]) for x in v(40)]
+    return [(f"{k}_at_{o}", [("fill", o - back)] + groups + tail)
+            for o in RING_OFFSETS for k, (back, groups) in kinds.items()]
+
+
+def dbp_model(row: bytes, width: int, n: int) -> np.ndarray:
+    """What a dbp row decodes to, as the reference's body reads it, also
+    where it is malformed: element k of a group is the 40-bit window at bit
+    ``payload * 8 + k * bits``, shifted and masked to ``bits`` (all ones
+    from 32 up), plus the reference, mod 2^32.  Reads past the row's bytes
+    are zero (its padding)."""
+    def byte(p):
+        return row[p] if p < len(row) else 0
+
+    def value(p, w):
+        return sum(byte(p + b) << (8 * b) for b in range(w))
+
+    out, pos = [], 0
+    while len(out) < n:
+        bits, count = byte(pos), byte(pos + 1) + 1
+        ref, off = value(pos + 2, width), pos + 2 + width
+        mask = 0xFFFFFFFF if bits >= 32 else (1 << bits) - 1
+        for k in range(count):
+            bp = off * 8 + k * bits
+            out.append((ref + ((value(bp >> 3, 5) >> (bp & 7)) & mask))
+                       & 0xFFFFFFFF)
+        pos = off + (count * bits + 7) // 8
+    return np.array(out[:n], np.uint64).astype(DT[width])
+
+
+def row_blob(fmt, codec: str, row: bytes, width: int, n: int):
+    """One hand-built chunk row of n elements as a blob."""
+    return fmt.CompressedBlob(
+        codec=codec, width=width, chunk_elems=CHUNK_BYTES // width,
+        total_elems=n, orig_dtype=str(np.dtype(DT[width])), orig_shape=(n,),
+        comp=np.frombuffer(row, np.uint8)[None].copy(),
+        comp_lens=np.array([len(row)], np.int32),
+        out_lens=np.array([n], np.int32))
+
+
+def dbp_malformed(rng, fmt, width: int):
+    """dbp groups no encoder writes: 256 fields of 40 bits, and of 255
+    bits with the payload past the row's end.  (name, blob, expected)."""
+    out = []
+    for name, bits, nbytes in (("bits_40", 40, 1400), ("bits_255", 255, 900)):
+        row = bytes([bits, 255]) + bytes(rng.integers(0, 256, width + nbytes,
+                                                      dtype=np.uint8))
+        out.append((name, row_blob(fmt, "dbp", row, width, 300),
+                    dbp_model(row, width, 300)))
+    return out
 
 
 def dbp_wide_groups(rng, fmt, width: int):
@@ -447,28 +535,39 @@ def lzss_edge_blobs(rng, enc, fmt, width: int):
                          ("m", 40, 30), ("m", 9, 2)],
         "match_first": [("m", 20, 3), ("l", rand(6)), ("m", 12, 4)],
         "zero_dist": [("l", rand(5)), ("m", 10, 0), ("l", rand(2))],
+        # the kernel's 32-token batches
+        "chained_matches": [("l", rand(4))]
+        + [("m", 2 + i % 4, 1 + i % 4) for i in range(60)],
+        "straddles_batch_start": [("l", rand(1)) for _ in range(40)]
+        + [("m", 10, 12), ("l", rand(3))],
+        "chain_through_3": [("l", rand(1)) for _ in range(32)]
+        + [("m", 4, 4)] * 4 + [("l", rand(2))],
+        "zero_dist_token_31": [("l", rand(1)) for _ in range(31)]
+        + [("m", 5, 0), ("l", rand(2))],
+        "zero_dist_token_32": [("l", rand(1)) for _ in range(32)]
+        + [("m", 5, 0), ("l", rand(2))],
+        # 128-element literal runs (513 bytes at width 4) across the ring
+        "literal_128_runs": lits(128 * 40) + [("m", 129, 300)],
     }
     for k, tokens in hand.items():
         row = enc.encode_lzss_tokens(tokens, width)
         n = sum(len(t[1]) if t[0] == "l" else t[1] for t in tokens)
-        out.append((k, lzss_blob(fmt, row, width, n), lzss_model(
+        out.append((k, row_blob(fmt, "lzss", row, width, n), lzss_model(
             row, width, n)))
     # a stream cut short: the row ends inside a token, the rest reads zeros
     n = min(2000, chunk_elems)
     full = enc.encode_lzss_chunk(np.tile(rand(50), 40)[:n], width)
     row = full[:len(full) // 2 + 1]
-    out.append(("cut_short", lzss_blob(fmt, row, width, n),
+    out.append(("cut_short", row_blob(fmt, "lzss", row, width, n),
                 lzss_model(row, width, n)))
+    # rows that end inside a literal run and inside a match's distance
+    full = enc.encode_lzss_tokens(
+        [("l", rand(100)), ("m", 20, 3), ("l", rand(50))], width)
+    for k, cut in (("cut_in_literal", 60), ("cut_in_distance",
+                                             1 + 100 * width + 2)):
+        out.append((k, row_blob(fmt, "lzss", full[:cut], width, 400),
+                    lzss_model(full[:cut], width, 400)))
     return [(k, b, np.asarray(w, np.uint64).astype(dt)) for k, b, w in out]
-
-
-def lzss_blob(fmt, row: bytes, width: int, n: int):
-    return fmt.CompressedBlob(
-        codec="lzss", width=width, chunk_elems=CHUNK_BYTES // width,
-        total_elems=n, orig_dtype=str(np.dtype(DT[width])), orig_shape=(n,),
-        comp=np.frombuffer(row, np.uint8)[None].copy(),
-        comp_lens=np.array([len(row)], np.int32),
-        out_lens=np.array([n], np.int32))
 
 
 # --------------------------------------------------------------------------
@@ -495,7 +594,7 @@ def phase_build(cuda_build, libs) -> None:
         f"{dt:.2f} s (one nvcc each, in parallel)")
     for lib in libs:
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 log(f"   {lib.source.name} ptxas: {line.strip()}")
 
 
@@ -540,9 +639,14 @@ def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
                       **edge_arrays(rng, width, chunk_elems)}
             rows = [(k, enc.compress(a, codec, CHUNK_BYTES), a)
                     for k, a in arrays.items()]
+            for k, groups in rle_ring_rows(rng, codec, width):
+                row, want = enc.encode_rle_groups(codec, groups, width)
+                rows.append((k, row_blob(fmt, codec, row, width, want.size),
+                             want.astype(dt)))
             if codec == "dbp":
                 rows.append(("groups_256_bits_32",
                              *dbp_wide_groups(rng, fmt, width)))
+                rows += dbp_malformed(rng, fmt, width)
             table = fmt.concat_blobs([b for _, b, _ in rows])
             kern, plain = decode_pair(codec, fmt.to_device(table, device),
                                       width=width, chunk_elems=chunk_elems,
@@ -555,11 +659,14 @@ def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
             check_rows(f"{codec} w{width}", kern, rows, fmt)
             cap = ""
             if codec != "dbp":      # dbp's cap, out_len + 4, never binds
-                cap_err = group_cap_err(rng, fmt, codec, width, device, pair)
-                if cap_err:
-                    raise AssertionError(f"{codec} w{width}: group-cap rows "
-                                         f"differ by {cap_err}")
-                cap = "; group-cap rows max_abs_err 0"
+                for chunk in (64, 56, 58):  # caps of 36, 32 and 33 groups
+                    cap_err = group_cap_err(rng, fmt, codec, width, device,
+                                            pair, chunk)
+                    if cap_err:
+                        raise AssertionError(
+                            f"{codec} w{width}: group-cap rows (chunk "
+                            f"{chunk}) differ by {cap_err}")
+                cap = "; group-cap rows (caps 36, 32, 33) max_abs_err 0"
             log(f"   {codec} w{width}: {table.num_chunks} rows x "
                 f"{chunk_elems} elems, kernel == plain (max_abs_err {err}), "
                 f"rows == inputs ({', '.join(k for k, _, _ in rows)}){cap}")
@@ -684,23 +791,25 @@ def phase_dequant_vs_plain(rng, dq, errs, device) -> None:
             f"{err:.3g})")
 
 
-def group_cap_err(rng, fmt, codec, width, device, pair) -> int:
-    """Rows of one-literal groups, more than ``max_groups`` admits: the last
-    admitted group must cover every lane up to out_len, as in the
-    reference's lane->group map.  No encoder writes such rows, so they are
-    built here, on a 64-element chunk; returns the kernel's max_abs_err
+def group_cap_err(rng, fmt, codec, width, device, pair, chunk: int) -> int:
+    """Rows of one-literal groups, more than ``max_groups`` (chunk // 2 + 4)
+    admits: the last admitted group must cover every lane up to out_len, as
+    in the reference's lane->group map.  No encoder writes such rows, so
+    they are built here, on a ``chunk``-element chunk (the cap lands at
+    group 32 of a 56-element chunk, the last of the kernel's first batch,
+    and at group 33 of a 58-element one); returns the kernel's max_abs_err
     against the plain version."""
     hdr = 255 if codec == "rle_v1" else 2 << 6      # one literal
     groups = rng.integers(0, 256, (3, 200, 1 + width)).astype(np.uint8)
     groups[:, :, 0] = hdr
     comp = groups.reshape(3, -1)
     table = fmt.CompressedBlob(
-        codec=codec, width=width, chunk_elems=64, total_elems=3 * 64,
-        orig_dtype=str(np.dtype(DT[width])), orig_shape=(3 * 64,),
+        codec=codec, width=width, chunk_elems=chunk, total_elems=3 * chunk,
+        orig_dtype=str(np.dtype(DT[width])), orig_shape=(3 * chunk,),
         comp=comp, comp_lens=np.full(3, comp.shape[1], np.int32),
-        out_lens=np.array([64, 50, 7], np.int32))
+        out_lens=np.array([chunk, chunk - 14, 7], np.int32))
     kern, plain = decode_pair(codec, fmt.to_device(table, device), width=width,
-                              chunk_elems=64, bits=0, **pair)
+                              chunk_elems=chunk, bits=0, **pair)
     return max_abs_err(kern, plain)
 
 
@@ -854,6 +963,16 @@ def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
         per[name]["bound_ms"] += b
         per[name]["plain_rows"] += rows
         extra = ""
+        if codec in kmods["cuda_rle"].CODEC_IDS:
+            grp = torch.zeros(g.num_chunks, dtype=torch.int32,
+                              device=lens.device)
+            kmods["cuda_rle"].decode(codec, inputs[0], lens,
+                                     chunk_elems=chunk_elems, width=width,
+                                     groups=grp)
+            mean = float(grp.to(torch.float64).mean())
+            ns = k_ms * 1e6 / max(1.0, mean * g.num_chunks)
+            extra = (f", groups per chunk mean {mean:.1f} max "
+                     f"{int(grp.max())} ({ns:.3f} ns a group)")
         if codec in ("tdeflate", "lzss"):
             tok = torch.zeros(g.num_chunks, dtype=torch.int32,
                               device=lens.device)
@@ -1132,7 +1251,8 @@ def main() -> int:
     phase_dequant_vs_plain(rng, dq, errs, engine.device)
     launches, per, distinct, cols = phase_main(
         args, rng, api, plan_mod, transfers, registry, harness,
-        {"tdeflate": tdeflate, "lzss": lzss}, counters, engine, errs)
+        {"tdeflate": tdeflate, "lzss": lzss, "cuda_rle": cuda_rle}, counters,
+        engine, errs)
     phase_epilogue(api, harness, engine, distinct, cols)
     launches["dequant_matmul"] = phase_quantized(
         args, rng, dq, transfers, counters, engine, errs,

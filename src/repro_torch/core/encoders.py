@@ -111,6 +111,105 @@ def encode_rle_v1_chunk(x: np.ndarray, width: int) -> bytes:
     return bytes(out)
 
 
+def encode_rle_groups(codec: str, groups: List[Tuple],
+                      width: int) -> Tuple[bytes, np.ndarray]:
+    """One rle_v1 / rle_v2 / dbp row from a group list, and the elements it
+    decodes to (uint32, truncated to the width).  For rows no encoder
+    writes in that order (a group placed at a chosen byte offset, short
+    runs back to back, 256-field dbp groups).  Groups:
+
+      ``("run", n, v)``             rle_v1 3..130, rle_v2 3..66 elements
+      ``("lit", values)``           rle_v1 1..128, rle_v2 1..64 elements
+      ``("delta", n, base, d)``     rle_v2, 3..66 elements of base + d*k
+      ``("long", n, v)``            rle_v2, a run of 3..16386
+      ``("dbp", bits, ref, fields)`` dbp, 1..256 fields of 1..32 bits
+      ``("fill", nbytes)``          literal groups (dbp: 8-bit groups) of
+                                    exactly ``nbytes`` bytes, to place the
+                                    next group at a chosen offset
+    """
+    mask = (1 << (8 * width)) - 1
+    out, vals = bytearray(), []
+    groups = [x for g in groups for x in (
+        _fill_groups(codec, g[1], width) if g[0] == "fill" else [g])]
+
+    def value(v) -> bytes:
+        return (int(v) & mask).to_bytes(width, "little")
+
+    for g in groups:
+        kind = g[0]
+        if kind == "lit":
+            v = [int(x) & mask for x in np.asarray(g[1]).tolist()]
+            top = RLE1_MAX_LIT if codec == fmt.RLE_V1 else RLE2_MAX_LIT
+            if codec == fmt.DBP or not 1 <= len(v) <= top:
+                raise ValueError(f"{codec}: literal group of {len(v)}")
+            out.append(256 - len(v) if codec == fmt.RLE_V1
+                       else (2 << 6) | (len(v) - 1))
+            out.extend(b"".join(value(x) for x in v))
+            vals += v
+        elif kind == "run" and codec == fmt.RLE_V1:
+            _, n, v = g
+            if not RLE1_MIN_RUN <= n <= RLE1_MAX_RUN:
+                raise ValueError(f"rle_v1: run of {n}")
+            out.append(n - RLE1_MIN_RUN)
+            out.extend(value(v))
+            vals += [int(v) & mask] * n
+        elif kind in ("run", "delta", "long") and codec == fmt.RLE_V2:
+            n, base = g[1], g[2]
+            d = g[3] if kind == "delta" else 0
+            top = RLE2_MAX_LONG if kind == "long" else RLE2_MAX_SHORT
+            if not RLE2_MIN_RUN <= n <= top:
+                raise ValueError(f"rle_v2: {kind} of {n}")
+            if kind == "long":
+                out += bytes([(3 << 6) | ((n - 3) >> 8), (n - 3) & 0xFF])
+            else:
+                out.append((int(kind == "delta") << 6) | (n - 3))
+            out.extend(value(base))
+            if kind == "delta":
+                out.extend(value(d))
+            vals += [(int(base) + int(d) * k) & 0xFFFFFFFF & mask
+                     for k in range(n)]
+        elif kind == "dbp" and codec == fmt.DBP:
+            _, bits, ref, fields = g
+            f = np.asarray(fields, np.uint64)
+            if not (1 <= f.size <= 256 and 1 <= bits <= 32):
+                raise ValueError(f"dbp: {f.size} fields of {bits} bits")
+            f = f & np.uint64((1 << bits) - 1)
+            out += bytes([bits, f.size - 1]) + value(ref)
+            out.extend(pack_bits(f, bits).tobytes()[:(f.size * bits + 7) // 8])
+            vals += [(int(ref) & mask) + int(x) & 0xFFFFFFFF & mask
+                     for x in f.tolist()]
+        else:
+            raise ValueError(f"{codec}: no group {kind!r}")
+    return bytes(out), np.array(vals, np.uint32)
+
+
+def _fill_groups(codec: str, nbytes: int, width: int) -> List[Tuple]:
+    """Groups whose encoding takes exactly ``nbytes`` bytes (see
+    :func:`encode_rle_groups`); values k mod 251."""
+    if codec == fmt.DBP:       # 8-bit fields: a group of n is 2 + width + n
+        lo, hi, per = 3 + width, 258 + width, 1
+    else:                      # a literal group of n is 1 + n * width
+        top = RLE1_MAX_LIT if codec == fmt.RLE_V1 else RLE2_MAX_LIT
+        lo, hi, per = 1 + width, 1 + top * width, width
+    k = -(-nbytes // hi)       # the fewest groups, then the residue mod per
+    while k * lo <= nbytes and (nbytes - k * (lo - per)) % per:
+        k += 1
+    if nbytes and (k * lo > nbytes or (nbytes - k * (lo - per)) % per):
+        raise ValueError(f"{codec}: no fill of {nbytes} bytes")
+    sizes, rest = [], nbytes
+    for i in range(k, 0, -1):  # largest first, leaving each later group lo
+        size = min(hi, rest - (i - 1) * lo)
+        size -= (size - lo) % per
+        sizes.append(size)
+        rest -= size
+    out = []
+    for size in sizes:
+        n = (size - lo) // per + 1
+        v = [j % 251 for j in range(n)]
+        out.append(("dbp", 8, 0, v) if codec == fmt.DBP else ("lit", v))
+    return out
+
+
 # --------------------------------------------------------------------------
 # RLE v2 (run / delta / literal / long-run)
 # --------------------------------------------------------------------------

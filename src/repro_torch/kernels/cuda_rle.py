@@ -2,8 +2,14 @@
 
 ``csrc/two_phase_rle.cu`` replaces the TPU kernel ``harness._generic_pallas``
 with the ``two_phase_chunk`` body and the rle_v1, rle_v2 and dbp SPECs (see
-the note at the top of the source).  ``cuda_build`` compiles it at first use
-and binds it with ``ctypes``.
+the note at the top of the source).  It runs the reference's two phases at
+warp scale: one warp a chunk stages its compressed row through a 4 KiB
+shared-memory ring, parses 32 group headers a batch (lane t keeps group t),
+then expands the batch with all 32 lanes, each element finding its group
+among the batch's 32 starts.  The last group the ``max_groups`` cap admits
+covers every lane up to ``out_len``, as the reference's lane->group map
+does; every byte read clips to the row's last byte.  ``cuda_build``
+compiles it at first use and binds it with ``ctypes``.
 
 :func:`decode` is the wrapper: on a CUDA tensor it launches the kernel on
 the current stream (or raises); on a CPU tensor it runs :func:`plain`, the
@@ -12,15 +18,17 @@ against on the card.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core import registry
 from repro_torch.kernels import cuda_build, harness
 
 # (codec id, width, comp, C, out_lens, n, chunk_elems, max_groups, out,
-#  stream)
+#  groups, stream)
 LIB = cuda_build.KernelLibrary(
-    "two_phase_rle.cu", "codag_two_phase_rle", "iiplplllpp")
+    "two_phase_rle.cu", "codag_two_phase_rle", "iiplplllppp")
 CODEC_IDS = {"rle_v1": 0, "rle_v2": 1, "dbp": 2}
 
 # Kernel launches (one per call that reached the card), in total and by codec.
@@ -57,9 +65,11 @@ def plain(codec: str, comp: torch.Tensor, out_lens: torch.Tensor, *,
 
 
 def decode(codec: str, comp: torch.Tensor, out_lens: torch.Tensor, *,
-           chunk_elems: int, width: int) -> torch.Tensor:
+           chunk_elems: int, width: int,
+           groups: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode every row of a chunk table; ``(n, chunk_elems)`` in the width
-    type, on the tables' device."""
+    type, on the tables' device.  On a CUDA tensor, ``groups`` (an ``(n,)``
+    int32 tensor), if given, receives each row's group count."""
     global LAUNCHES
     _check(codec, comp, out_lens, chunk_elems, width)
     if comp.device.type == "cpu":
@@ -68,6 +78,10 @@ def decode(codec: str, comp: torch.Tensor, out_lens: torch.Tensor, *,
     if comp.device.type != "cuda":
         raise ValueError(f"no kernel for device {comp.device}")
     n = comp.shape[0]
+    if groups is not None and (groups.dtype != torch.int32
+                               or tuple(groups.shape) != (n,)
+                               or groups.device != comp.device):
+        raise ValueError(f"groups must be ({n},) int32 on {comp.device}")
     out = torch.empty((n, chunk_elems), dtype=harness.DEV_DTYPE[width],
                       device=comp.device)
     if n == 0:
@@ -77,6 +91,7 @@ def decode(codec: str, comp: torch.Tensor, out_lens: torch.Tensor, *,
         cuda_build.launch(LIB, CODEC_IDS[codec], width, comp.data_ptr(),
                           comp.shape[1], out_lens.data_ptr(), n, chunk_elems,
                           spec.max_groups(chunk_elems), out.data_ptr(),
+                          None if groups is None else groups.data_ptr(),
                           torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     CODEC_LAUNCHES[codec] += 1

@@ -22,6 +22,15 @@ Backends (every body maps the byte table and ``out_lens`` to
     back-reference cursor (``_body_scalar``, CPU tensors only);
   * ``cuda``   — :func:`decode`, which launches ``csrc/lzss_decode.cu`` on a
     CUDA tensor (or raises) and runs :func:`decode_two_phase` on a CPU one.
+    The kernel gives one warp a chunk: it stages the compressed row through
+    a 4 KiB shared-memory ring, parses 32 tokens a batch, and writes the
+    batch with all lanes through a shared stage, each match element reading
+    its source directly (the fixed point of the reference's pointer
+    doubling: element ``max(idx - dist, 0)`` stepped back inside the match,
+    element 0 where the chain reaches before the row's start, its own
+    literal bytes for a zero distance or a first-token match); the matches
+    that read their own batch run in token order.  Every byte read clips to
+    the row's last byte.
 
 The three reference bodies agree on well-formed streams and differ on
 malformed ones (a zero distance, a match reaching before the row's start);

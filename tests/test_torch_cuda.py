@@ -159,3 +159,114 @@ def test_tdeflate_batch_rows_on_the_card(card):
     torch.cuda.synchronize()
     assert tdeflate.LAUNCHES == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+def _lzss_batch_table(width: int) -> fmt.CompressedBlob:
+    """Rows for the lzss kernel's 32-token batches and shared ring."""
+    rng = np.random.default_rng(width)
+    lit = lambda n: rng.integers(0, 1 << (8 * width), n,  # noqa: E731
+                                 dtype=np.uint64).astype(DT[width])
+    ones = lambda n: [("l", lit(1)) for _ in range(n)]  # noqa: E731
+    rows = [
+        [("l", lit(4))] + [("m", 2 + i % 4, 1 + i % 4) for i in range(60)],
+        ones(40) + [("m", 10, 12), ("l", lit(3))],
+        ones(32) + [("m", 4, 4)] * 4 + [("l", lit(2))],
+        ones(31) + [("m", 5, 0), ("l", lit(2))],
+        ones(32) + [("m", 5, 0), ("l", lit(2))],
+        [("l", lit(128)) for _ in range(40)] + [("m", 129, 300)],
+    ]
+    blobs = []
+    for tokens in rows:
+        row = enc.encode_lzss_tokens(tokens, width)
+        n = sum(len(t[1]) if t[0] == "l" else t[1] for t in tokens)
+        blobs.append(_blob("lzss", width, row, n, 8192))
+    full = enc.encode_lzss_tokens(
+        [("l", lit(100)), ("m", 20, 3), ("l", lit(50))], width)
+    blobs += [_blob("lzss", width, full[:cut], 400, 8192)
+              for cut in (60, 1 + 100 * width + 2)]
+    return fmt.concat_blobs(blobs)
+
+
+def _blob(codec, width, row, n, chunk_elems):
+    return fmt.CompressedBlob(
+        codec=codec, width=width, chunk_elems=chunk_elems, total_elems=n,
+        orig_dtype=str(np.dtype(DT[width])), orig_shape=(n,),
+        comp=np.frombuffer(row, np.uint8)[None].copy(),
+        comp_lens=np.array([len(row)], np.int32),
+        out_lens=np.array([n], np.int32))
+
+
+def _rle_ring_table(codec: str, width: int) -> fmt.CompressedBlob:
+    """Rows for the RLE kernel's 32-group batches and shared ring: groups
+    across the 512-, 1,024- and 4,096-byte offsets, 50 runs of 3."""
+    rng = np.random.default_rng(width)
+    v = lambda n: rng.integers(0, 1 << (8 * width), n,  # noqa: E731
+                               dtype=np.uint64)
+    if codec == "rle_v1":
+        kinds = [(1, [("run", 5, 77)]), (3, [("lit", v(128))])]
+        tail = [("run", 3, x) for x in v(50)]
+    elif codec == "rle_v2":
+        kinds = [(1, [("long", 1000, 5)]), (width, [("delta", 20, 9, 3)]),
+                 (5, [("lit", v(64))])]
+        tail = [("run", 3, x) for x in v(50)]
+    else:
+        kinds = [(1, [("dbp", 13, 7, v(100) % 8192)]),
+                 (3 + width, [("dbp", 32, 7, v(256))])]
+        tail = [("dbp", 2, x, [1, 2, 3]) for x in v(50)]
+    blobs = []
+    for groups in [[("fill", o - back)] + g + tail
+                   for o in (512, 1024, 4096) for back, g in kinds]:
+        row, vals = enc.encode_rle_groups(codec, groups, width)
+        blobs.append(_blob(codec, width, row, vals.size, 8192))
+    if codec == "dbp":      # 40- and 255-bit fields, a payload past the end
+        for bits, nbytes in ((40, 1400), (255, 900)):
+            row = bytes([bits, 255]) + bytes(
+                rng.integers(0, 256, width + nbytes, dtype=np.uint8))
+            blobs.append(_blob(codec, width, row, 300, 8192))
+    return fmt.concat_blobs(blobs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_lzss_batch_rows_on_the_card(card, width):
+    table = _lzss_batch_table(width)
+    want = _decode(table, "cpu")
+    before = lzss.LAUNCHES
+    got = _decode(table, card)
+    torch.cuda.synchronize()
+    assert lzss.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 4])
+@pytest.mark.parametrize("codec", ["rle_v1", "rle_v2", "dbp"])
+def test_rle_ring_rows_on_the_card(card, codec, width):
+    table = _rle_ring_table(codec, width)
+    want = _decode(table, "cpu")
+    before = cuda_rle.CODEC_LAUNCHES[codec]
+    got = _decode(table, card)
+    torch.cuda.synchronize()
+    assert cuda_rle.CODEC_LAUNCHES[codec] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [56, 58])
+@pytest.mark.parametrize("codec", ["rle_v1", "rle_v2"])
+def test_rle_group_cap_and_counts_on_the_card(card, codec, chunk):
+    """The cap at group 32 / 33 of one-literal groups; the ``groups``
+    output counts the groups each row parsed."""
+    rng = np.random.default_rng(chunk)
+    comp = rng.integers(0, 256, (3, 200, 2)).astype(np.uint8)
+    comp[:, :, 0] = 255 if codec == "rle_v1" else 2 << 6   # one literal
+    cap = chunk // 2 + 4
+    comp_t = torch.from_numpy(comp.reshape(3, -1).copy())
+    lens = torch.tensor([chunk, cap + 1, cap - 1], dtype=torch.int32)
+    want = cuda_rle.plain(codec, comp_t, lens, chunk_elems=chunk, width=1)
+    groups = torch.zeros(3, dtype=torch.int32, device=card)
+    got = cuda_rle.decode(codec, comp_t.to(card), lens.to(card),
+                          chunk_elems=chunk, width=1, groups=groups)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert groups.cpu().tolist() == [cap, cap, cap - 1]

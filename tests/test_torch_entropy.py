@@ -223,6 +223,76 @@ def test_lzss_before_start_reads_element_zero():
     assert third[0] == row[1] and (third[1:20] == row[1]).all()
 
 
+def _lzss_batch_rows(width):
+    """Rows for the kernel's 32-token batches and its shared ring: (token
+    list, chunk_elems) by name."""
+    rng = np.random.default_rng(100 + width)
+    lit = lambda n: rng.integers(0, 1 << (8 * width), n,  # noqa: E731
+                                 dtype=np.uint64).astype(DT[width])
+    ones = lambda n: [("l", lit(1)) for _ in range(n)]  # noqa: E731
+    return {
+        # short-distance matches, each reading the ones before it, across
+        # the boundary at token 32
+        "chained_across_batch": (
+            [("l", lit(4))] + [("m", 2 + i % 4, 1 + i % 4) for i in range(60)],
+            256),
+        # token 40 reads elements 28..37: the batch starts at element 32
+        "straddles_batch_start": (ones(40) + [("m", 10, 12), ("l", lit(3))],
+                                  256),
+        # element 47 -> 43 -> 39 -> 35 -> 31: three tokens of its batch
+        "chain_through_3": (ones(32) + [("m", 4, 4)] * 4 + [("l", lit(2))],
+                            256),
+        "zero_dist_token_31": (ones(31) + [("m", 5, 0), ("l", lit(2))], 256),
+        "zero_dist_token_32": (ones(32) + [("m", 5, 0), ("l", lit(2))], 256),
+        # 128-element literal runs: 513-byte tokens at width 4
+        "literal_128_runs": ([("l", lit(128)) for _ in range(9)]
+                             + [("m", 129, 300), ("l", lit(7))], 2048),
+    }
+
+
+def _lzss_cut_rows(width):
+    """Rows whose bytes end inside a literal run and inside a match's
+    distance; reads past them are the row's zero padding."""
+    rng = np.random.default_rng(200 + width)
+    lit = lambda n: rng.integers(0, 1 << (8 * width), n,  # noqa: E731
+                                 dtype=np.uint64).astype(DT[width])
+    full = enc.encode_lzss_tokens(
+        [("l", lit(100)), ("m", 20, 3), ("l", lit(50))], width)
+    return {"cut_in_literal": full[:60],
+            "cut_in_distance": full[:1 + 100 * width + 2]}
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+@pytest.mark.parametrize("name", [
+    "chained_across_batch", "straddles_batch_start", "chain_through_3",
+    "zero_dist_token_31", "zero_dist_token_32", "literal_128_runs",
+    "cut_in_literal", "cut_in_distance"])
+def test_lzss_batch_rows_follow_reference(name, width):
+    """The edges of the kernel's batches and ring, through every port body
+    and the reference's body of the same name."""
+    if name.startswith("cut"):
+        row = _lzss_cut_rows(width)[name]
+        table = fmt.CompressedBlob(
+            codec="lzss", width=width, chunk_elems=256, total_elems=200,
+            orig_dtype=str(np.dtype(DT[width])), orig_shape=(200,),
+            comp=np.frombuffer(row, np.uint8)[None].copy(),
+            comp_lens=np.array([len(row)], np.int32),
+            out_lens=np.array([200], np.int32))
+    else:
+        tokens, chunk = _lzss_batch_rows(width)[name]
+        n = sum(len(t[1]) if t[0] == "l" else t[1] for t in tokens)
+        table = _lzss_row(tokens, width, n, chunk)
+    want = _assert_backends(table)
+    if name == "chain_through_3":
+        assert (want[0, 32:48] == np.tile(want[0, 28:32], 4)).all()
+    if name.startswith("zero_dist"):
+        k = 31 if name.endswith("31") else 32
+        row = table.comp[0]
+        first = k * (1 + width) + 1              # after its control byte
+        assert int(want[0, k]) == int.from_bytes(
+            bytes(row[first:first + width]), "little")
+
+
 def test_lzss_max_tokens_cannot_bind():
     """Every token emits at least one element, so the token cap never binds
     before the count reaches out_len: the densest stream, one-element

@@ -17,6 +17,7 @@ from repro.core import format as ref_fmt
 from repro.core import streams as ref_st
 from repro.kernels import ops as ref_ops
 from repro.kernels.harness import Epilogue as RefEpilogue
+from repro_torch.core import encoders as enc
 from repro_torch.core import format as fmt
 from repro_torch.core import streams as st
 from repro_torch.kernels import cuda_build, cuda_rle, harness, ops
@@ -158,6 +159,107 @@ def test_group_cap_extends_last_group_as_reference():
         comp_lens=np.array([400], np.int32), out_lens=np.array([16], np.int32))
     want = _reference(table, "rle_v1", "xla")
     assert np.array_equal(_ours(table, "rle_v1", "cuda"), want)
+
+
+# --------------------------------------------------------------------------
+# the kernel's 32-group batches and shared ring (hand-built rows)
+# --------------------------------------------------------------------------
+
+RING_OFFSETS = (512, 1024, 4096)
+
+
+def _hand_table(codec, width, rows, chunk_elems):
+    """One blob a row (bytes), each out_len its element count."""
+    return fmt.concat_blobs([fmt.CompressedBlob(
+        codec=codec, width=width, chunk_elems=chunk_elems, total_elems=n,
+        orig_dtype=str(np.dtype(DT[width])), orig_shape=(n,),
+        comp=np.frombuffer(row, np.uint8)[None].copy(),
+        comp_lens=np.array([len(row)], np.int32),
+        out_lens=np.array([n], np.int32)) for row, n in rows])
+
+
+def _ring_rows(codec, width):
+    """A header, a run value or a literal group across each ring offset,
+    then 40 short groups; and 50 runs of 3 elements back to back."""
+    rng = np.random.default_rng(width)
+    v = lambda n: rng.integers(0, 1 << (8 * width), n,  # noqa: E731
+                               dtype=np.uint64)
+    if codec == "rle_v1":
+        kinds = [(1, [("run", 5, 77)]), (3, [("lit", v(128))])]
+        tail = [("run", 3, x) for x in v(20)] + [("lit", v(1))] * 20
+        threes = [("run", 3, x) for x in v(50)]
+    elif codec == "rle_v2":
+        kinds = [(1, [("long", 1000, 5)]), (width, [("delta", 20, 9, 3)]),
+                 (5, [("lit", v(64))])]
+        tail = [("run", 3, x) for x in v(20)] + [("lit", v(1))] * 20
+        threes = [("run", 3, x) for x in v(50)]
+    else:
+        kinds = [(1, [("dbp", 13, 7, v(100) % 8192)]),
+                 (3 + width, [("dbp", 32, 7, v(256))])]
+        tail = threes = [("dbp", 2, x, [1, 2, 3]) for x in v(50)]
+    groups = [[("fill", o - back)] + g + tail
+              for o in RING_OFFSETS for back, g in kinds] + [threes]
+    return [enc.encode_rle_groups(codec, g, width) for g in groups]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("codec", ["rle_v1", "rle_v2", "dbp"])
+def test_ring_and_batch_rows_equal_reference(codec, width):
+    """Groups across the 512-, 1,024- and 4,096-byte offsets, and 50 runs
+    of 3 elements, through every port body and the reference."""
+    rows = _ring_rows(codec, width)
+    table = _hand_table(codec, width, [(r, len(w)) for r, w in rows], 8192)
+    want = _reference(table, codec, "xla")
+    assert np.array_equal(_reference(table, codec, "oracle"), want)
+    for backend in ("torch", "cuda", "oracle", "scalar"):
+        assert np.array_equal(_ours(table, codec, backend), want), backend
+    for i, (_, vals) in enumerate(rows):
+        assert np.array_equal(want[i, :len(vals)], vals.astype(DT[width]))
+
+
+@pytest.mark.parametrize("chunk,cap", [(56, 32), (58, 33)])
+@pytest.mark.parametrize("codec", ["rle_v1", "rle_v2"])
+def test_group_cap_lands_at_the_batch_edge(codec, chunk, cap):
+    """The ``max_groups`` cap at group 32 (the last of the kernel's first
+    batch) and 33 (the first of its second): the last admitted group covers
+    every lane up to out_len, as the reference's lane->group map does."""
+    from repro_torch.kernels import rle_v1, rle_v2
+    spec = {"rle_v1": rle_v1, "rle_v2": rle_v2}[codec]
+    assert spec.max_groups(chunk) == cap
+    rng = np.random.default_rng(chunk)
+    comp = rng.integers(0, 256, (3, 200, 2)).astype(np.uint8)
+    comp[:, :, 0] = 255 if codec == "rle_v1" else 2 << 6   # one literal
+    table = fmt.CompressedBlob(
+        codec=codec, width=1, chunk_elems=chunk, total_elems=3 * chunk,
+        orig_dtype="uint8", orig_shape=(3 * chunk,), comp=comp.reshape(3, -1),
+        comp_lens=np.full(3, 400, np.int32),
+        out_lens=np.array([chunk, cap + 1, cap - 1], np.int32))
+    want = _reference(table, codec, "xla")
+    assert np.array_equal(_ours(table, codec, "cuda"), want)
+    assert np.array_equal(_ours(table, codec, "torch"), want)
+    # past the cap, the last group's literal offset keeps counting: lane
+    # cap reads the next group's header byte
+    assert want[0, cap - 1] == comp[0, cap - 1, 1]
+    assert want[0, cap] == comp[0, cap, 0]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_dbp_wide_and_malformed_groups_equal_reference(width):
+    """A group of 256 32-bit fields; groups no encoder writes: 256 fields
+    of 40 bits, and of 255 bits whose payload runs past the row's end."""
+    rng = np.random.default_rng(width)
+    wide, vals = enc.encode_rle_groups(
+        "dbp", [("dbp", 32, 5, rng.integers(0, 1 << 32, 256,
+                                            dtype=np.uint64))], width)
+    rows = [(wide, 256)]
+    for bits, nbytes in ((40, 1400), (255, 900)):
+        rows.append((bytes([bits, 255]) + bytes(
+            rng.integers(0, 256, width + nbytes, dtype=np.uint8)), 300))
+    table = _hand_table("dbp", width, rows, 512)
+    want = _reference(table, "dbp", "xla")
+    for backend in ("torch", "cuda"):
+        assert np.array_equal(_ours(table, "dbp", backend), want), backend
+    assert np.array_equal(want[0, :256], vals.astype(DT[width]))
 
 
 # --------------------------------------------------------------------------
