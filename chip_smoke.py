@@ -23,7 +23,9 @@ line):
          256-element groups of 32-bit fields and malformed groups (fields of
          40 and 255 bits, a payload past the row's end); rows where the
          ``max_groups`` cap lands at groups 32 and 33 (rle_v1, rle_v2);
-       - ``bitpack_unpack`` at bits 1/7/9/17/32 and widths 1/2/4;
+       - ``bitpack_unpack`` at bits 1/4/7/8/9/17/32 and widths 1/2/4, with
+         tail rows, and the weight layout (4-bit fields into u8, 65,536
+         elements a chunk);
        - ``tdeflate_decode`` on an empty chunk, a one-byte tail, literals
          only, long overlapping matches, a match reaching before the row's
          start, a stream cut by an invalid code, and hand-built rows for
@@ -32,7 +34,12 @@ line):
          32 literals before a 258-long match of distance 1;
        - ``huffman_decode`` on a one-symbol alphabet, 12-bit codes forced by
          the Kraft fix-up, lengths 31/32/33/1023/1024, an empty chunk and a
-         full chunk of log text;
+         full chunk of log text, and rows whose segments leave the kernel's
+         staged tile (random bytes, 12-bit codes, shuffled gap entries,
+         offsets negative or past the row);
+       - every bitpack and huffman table again through each fused epilogue
+         (u8 -> int8 with a zero, float32 (x - z) * s, bf16 out), against
+         the plain version followed by ``Epilogue.apply``, bit for bit;
        - ``lzss_decode`` at widths 1/2/4 on dist-1 and period-3 overlaps,
          128-element literal runs, 129-element matches, a match at the
          65,535 distance limit, and hand-built rows: a match reaching before
@@ -57,15 +64,20 @@ line):
      the decode time, output GB/s, and each plan group's kernel time, bound
      and plain-version time (tokens or groups a chunk for tdeflate, lzss
      and the RLE family);
-  5. a fused dequant epilogue against its plain torch version;
+  5. epilogues against their plain torch versions: an rle_v2 column (the
+     epilogue after the kernel), a bitpack column and the huffman log text
+     (the epilogue in the kernel's stores);
   6. the quantized-weight path: ``decompress_dequant_matmul`` over the seven
      projections of ``--q-layers`` layers of qwen3-1.7B (W4A16: 4-bit
      bitpacked int8 weights, bf16 activations) at M = 128 and M = 2048,
      checked against the plain version (every call on the ``wgmma``
-     path), then timed in its steady state (cached plan, no host
-     transfers): decode, kernel, plain version and ``torch.matmul`` on the
-     dequantized weights, apart, per projection, and one sweep over all
-     projections a rep, whose weights exceed the L2 cache;
+     path, every weight decode one ``bitpack_unpack`` launch with the
+     zero-point epilogue fused), then timed in its steady state (cached
+     plan, no host transfers): decode, kernel, plain version and
+     ``torch.matmul`` on the dequantized weights, apart, per projection,
+     and one sweep over all projections a rep, whose weights exceed the L2
+     cache; the weight decode split into the host clock of the call and
+     the device time of its launch;
   7. a JSON line of the kernels, then ``{"ok": true, "device": {...}}``
      last.
 
@@ -75,6 +87,7 @@ exits non-zero without a card, or without the port's sources beside it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -102,6 +115,25 @@ def ms_of(fn, reps: int) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def device_ms(fn, reps: int) -> float:
+    """Median milliseconds of the work ``fn()`` queues on the card, over
+    ``reps`` runs: CUDA events with the stream held busy (a device sleep of
+    about a millisecond) until ``fn`` has queued its launches, so the
+    wrapper's host time does not fall between the events, as it does in
+    :func:`ms_of` when the card is idle."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -473,6 +505,55 @@ def huffman_edge_arrays(rng, chunk: int):
             "log_text_tail": log_text(rng, chunk + 1)}
 
 
+def huffman_tile_rows(rng, enc, chunk: int):
+    """huffman rows whose segments leave the kernel's staged tile: random
+    bytes (8-bit codes fill a batch's 2,048-word tile, so its last
+    segments overflow it), 12-bit codes, shuffled gap entries (offsets out
+    of order), offsets negative or past the row.  (name, blob) each."""
+    fib = [1, 1]
+    while len(fib) < 24:
+        fib.append(fib[-1] + fib[-2])
+    kraft = np.repeat(np.arange(24, dtype=np.uint8), fib)
+    rng.shuffle(kraft)
+    text = log_text(rng, chunk)
+    nseg = -(-chunk // 32)
+    out = [("random_bytes", enc.compress(rng.integers(0, 256, chunk)
+                                         .astype(np.uint8), "huffman",
+                                         chunk)),
+           ("codes_12bit", enc.compress(np.resize(kraft, chunk), "huffman",
+                                        chunk))]
+    blob = enc.compress(text, "huffman", chunk)
+    comp = blob.comp.copy()
+    gaps = comp[0, 5:5 * nseg].reshape(nseg - 1, 5)   # entry 0 stays
+    comp[0, 5:5 * nseg] = gaps[rng.permutation(nseg - 1)].reshape(-1)
+    out.append(("shuffled_gaps", dataclasses.replace(blob, comp=comp)))
+    comp = blob.comp.copy()
+    for g in range(3, nseg, 7):
+        comp[0, 5 * g + 3] |= 0x80               # negative offsets
+    for g in range(5, nseg, 11):
+        comp[0, 5 * g:5 * g + 4] = [0, 0, 0, 0x40]   # past the row
+    out.append(("bad_offsets", dataclasses.replace(blob, comp=comp)))
+    return out
+
+
+# the epilogues phase 3 fuses into bitpack's and huffman's stores
+FUSED_KINDS = (
+    ("int8_zero", dict(out_dtype="int8", zero_key="epi_zero"),
+     {"epi_zero": np.uint8(8)}),
+    ("f32_affine", dict(out_dtype="float32", zero_key="epi_zero",
+                        scale_key="epi_scale"),
+     {"epi_zero": np.uint8(3), "epi_scale": np.float32(0.173)}),
+    ("bf16_affine", dict(out_dtype="bfloat16", zero_key="epi_zero",
+                         scale_key="epi_scale"),
+     {"epi_zero": np.uint8(3), "epi_scale": np.float32(0.173)}),
+)
+
+
+def bit_view(t: torch.Tensor) -> torch.Tensor:
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
 def lzss_model(row: bytes, width: int, out_len: int) -> list:
     """What an lzss row decodes to, one element at a time, as the
     reference's pointer doubling resolves it: a match element reads the
@@ -625,10 +706,42 @@ def decode_pair(codec, dev, *, width, chunk_elems, bits, registry, harness):
     return kern, plain
 
 
+def fused_errs(codec, dev, *, width, chunk_elems, bits, registry, harness,
+               counter):
+    """Each of FUSED_KINDS through the kernel's stores against the plain
+    version followed by ``Epilogue.apply``, on the card: the largest bit
+    difference, after checking one launch and one fused epilogue each."""
+    spec = registry.get(codec).decode
+    worst = 0
+    for name, kw, operands in FUSED_KINDS:
+        d = {**dev, **{k: torch.from_numpy(np.asarray(v)).to(
+            dev["out_lens"].device) for k, v in operands.items()}}
+        epi = harness.Epilogue(**kw)
+        want = epi.apply(spec.body(spec.chunk_inputs(d), harness.consts_on(
+            spec, d["out_lens"].device), d["out_lens"],
+            chunk_elems=chunk_elems, width=width, bits=bits), d)
+        before = (counter.read(), harness.EPILOGUE_FUSED,
+                  harness.EPILOGUE_UNFUSED)
+        got = harness.run(spec, d, width=width, chunk_elems=chunk_elems,
+                          backend="cuda", bits=bits, epilogue=epi)
+        torch.cuda.synchronize()
+        after = (counter.read(), harness.EPILOGUE_FUSED,
+                 harness.EPILOGUE_UNFUSED)
+        if after != (before[0] + 1, before[1] + 1, before[2]):
+            raise AssertionError(f"{codec} {name}: launches / fused / "
+                                 f"unfused went {before} -> {after}")
+        if got.dtype != want.dtype:
+            raise AssertionError(f"{codec} {name}: {got.dtype} != "
+                                 f"{want.dtype}")
+        worst = max(worst, max_abs_err(bit_view(got), bit_view(want)))
+    return worst
+
+
 def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
-                          device) -> None:
+                          device, counters) -> None:
     log("== 3 kernels vs plain versions on the card (bit-exact)")
     pair = dict(registry=registry, harness=harness)
+    kinds = ", ".join(k for k, _, _ in FUSED_KINDS)
     for codec in ("rle_v1", "rle_v2", "dbp"):
         for width in (1, 2, 4):
             chunk_elems = CHUNK_BYTES // width
@@ -670,7 +783,7 @@ def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
             log(f"   {codec} w{width}: {table.num_chunks} rows x "
                 f"{chunk_elems} elems, kernel == plain (max_abs_err {err}), "
                 f"rows == inputs ({', '.join(k for k, _, _ in rows)}){cap}")
-    for bits in (1, 7, 9, 17, 32):
+    for bits in (1, 4, 7, 8, 9, 17, 32):
         for width in (w for w in (1, 2, 4) if bits <= 8 * w):
             chunk_elems = CHUNK_BYTES // width
             top = 1 << bits
@@ -684,19 +797,37 @@ def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
             }
             rows = [(k, enc.compress(a, "bitpack", CHUNK_BYTES, bits=bits), a)
                     for k, a in arrays.items()]
-            table = fmt.concat_blobs([b for _, b, _ in rows])
-            kern, plain = decode_pair("bitpack", fmt.to_device(table, device),
-                                      width=width, chunk_elems=chunk_elems,
-                                      bits=bits, **pair)
-            err = max_abs_err(kern, plain)
-            errs["bitpack_unpack"] = max(errs["bitpack_unpack"], err)
-            if err:
-                raise AssertionError(f"bitpack b{bits} w{width}: kernel "
-                                     f"differs from plain by {err}")
-            check_rows(f"bitpack b{bits} w{width}", kern, rows, fmt)
+            tables = [(chunk_elems, rows)]
+            # tail rows: 1,000 elements a chunk (a partial last vector)
+            tail = rng.integers(0, top, 2500, dtype=np.uint64) \
+                .astype(DT[width])
+            tables.append((1000, [("chunk_1000", enc.compress(
+                tail, "bitpack", 1000 * width, bits=bits), tail)]))
+            if bits == 4 and width == 1:     # the weight layout
+                q = rng.integers(0, 16, 2 * 65536 + 300).astype(np.uint8)
+                tables.append((65536, [("weights_65536", enc.compress(
+                    q, "bitpack", 65536, bits=4), q)]))
+            for ce, rows in tables:
+                table = fmt.concat_blobs([b for _, b, _ in rows])
+                dev = fmt.to_device(table, device)
+                kern, plain = decode_pair("bitpack", dev, width=width,
+                                          chunk_elems=ce, bits=bits, **pair)
+                err = max_abs_err(kern, plain)
+                err = max(err, fused_errs(
+                    "bitpack", dev, width=width, chunk_elems=ce, bits=bits,
+                    counter=counters["bitpack_unpack"], **pair))
+                errs["bitpack_unpack"] = max(errs["bitpack_unpack"], err)
+                if err:
+                    raise AssertionError(f"bitpack b{bits} w{width} chunk "
+                                         f"{ce}: kernel differs from plain "
+                                         f"by {err}")
+                check_rows(f"bitpack b{bits} w{width}", kern, rows, fmt)
         log(f"   bitpack b{bits}: widths "
-            f"{[w for w in (1, 2, 4) if bits <= 8 * w]}, kernel == plain "
-            "(max_abs_err 0), rows == inputs")
+            f"{[w for w in (1, 2, 4) if bits <= 8 * w]}, chunks of "
+            f"{CHUNK_BYTES} bytes and of 1,000 elements"
+            + (" and the 65,536-element weight layout" if bits == 4 else "")
+            + f", kernel == plain (max_abs_err 0), rows == inputs; fused "
+            f"{kinds} == plain + Epilogue.apply (bit for bit)")
     chunk = TD_EDGE_CHUNK
     rows = tdeflate_edge_blobs(rng, enc, fmt, chunk)
     table = fmt.concat_blobs([b for _, b, _ in rows])
@@ -715,17 +846,34 @@ def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
     rows = [(k, enc.compress(a, "huffman", CHUNK_BYTES), a)
             for k, a in huffman_edge_arrays(rng, CHUNK_BYTES).items()]
     table = fmt.concat_blobs([b for _, b, _ in rows])
-    kern, plain = decode_pair("huffman", fmt.to_device(table, device),
-                              width=1, chunk_elems=CHUNK_BYTES, bits=0,
-                              **pair)
+    dev = fmt.to_device(table, device)
+    kern, plain = decode_pair("huffman", dev, width=1,
+                              chunk_elems=CHUNK_BYTES, bits=0, **pair)
     err = max_abs_err(kern, plain)
+    err = max(err, fused_errs("huffman", dev, width=1,
+                              chunk_elems=CHUNK_BYTES, bits=0,
+                              counter=counters["huffman_decode"], **pair))
     errs["huffman_decode"] = max(errs["huffman_decode"], err)
     if err:
         raise AssertionError(f"huffman: kernel differs from plain by {err}")
     check_rows("huffman", kern, rows, fmt)
+    tile = huffman_tile_rows(rng, enc, CHUNK_BYTES)
+    dev = fmt.to_device(fmt.concat_blobs([b for _, b in tile]), device)
+    kern, plain = decode_pair("huffman", dev, width=1,
+                              chunk_elems=CHUNK_BYTES, bits=0, **pair)
+    tile_err = max(max_abs_err(kern, plain), fused_errs(
+        "huffman", dev, width=1, chunk_elems=CHUNK_BYTES, bits=0,
+        counter=counters["huffman_decode"], **pair))
+    errs["huffman_decode"] = max(errs["huffman_decode"], tile_err)
+    if tile_err:
+        raise AssertionError(f"huffman tile rows: kernel differs from plain "
+                             f"by {tile_err}")
     log(f"   huffman: {table.num_chunks} rows x {CHUNK_BYTES} bytes, kernel "
         f"== plain (max_abs_err {err}), rows == inputs "
-        f"({', '.join(k for k, _, _ in rows)})")
+        f"({', '.join(k for k, _, _ in rows)}); rows off the staged tile "
+        f"({', '.join(k for k, _ in tile)}) kernel == plain (max_abs_err "
+        f"{tile_err}); fused {kinds} == plain + Epilogue.apply (bit for "
+        "bit)")
     for width in (1, 2, 4):
         rows = lzss_edge_blobs(rng, enc, fmt, width)
         table = fmt.concat_blobs([b for _, b, _ in rows])
@@ -933,8 +1081,8 @@ def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
 
     # per plan group: kernel time, plain version time, bound, on the main
     # path's own staged tables
-    per = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "plain_rows": 0}
-           for k in KERNELS}
+    per = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "plain_rows": 0} for k in KERNELS}
     for gi, g in enumerate(plan.groups):
         codec, width, chunk_elems, bits = g.key
         dev = plan._staged[engine.device][gi]
@@ -947,6 +1095,8 @@ def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
         rows = min(g.num_chunks, cap.get(codec, g.num_chunks))
         out_k = spec.cuda(inputs, consts, lens, **kw)[:rows]   # also warms
         k_ms = ms_of(lambda: spec.cuda(inputs, consts, lens, **kw), args.reps)
+        d_ms = device_ms(lambda: spec.cuda(inputs, consts, lens, **kw),
+                         args.reps)
         cut = tuple(t[:rows] for t in inputs)
         res = {}
         plain_ms = ms_of(lambda: res.update(
@@ -959,6 +1109,7 @@ def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
         b = bound_ms(codec, int(g.merged.comp_lens.sum()), g.num_chunks,
                      chunk_elems, width)
         per[name]["ms"] += k_ms
+        per[name]["device_ms"] += d_ms
         per[name]["plain_ms"] += plain_ms
         per[name]["bound_ms"] += b
         per[name]["plain_rows"] += rows
@@ -986,35 +1137,67 @@ def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
             rate = mean * g.num_chunks / k_ms / 1e6
             extra = (f", tokens per chunk mean {mean:.1f} max "
                      f"{int(tok.max())} ({rate:.3f} G tokens/s)")
-        log(f"   group {g.key}: {g.num_chunks} chunks, kernel {k_ms:.3f} ms, "
-            f"bound {b:.3f} ms ({b / k_ms * 100:.1f}%), plain {plain_ms:.1f} "
+        log(f"   group {g.key}: {g.num_chunks} chunks, kernel {k_ms:.3f} ms "
+            f"(device {d_ms:.3f} ms), bound {b:.3f} ms "
+            f"({b / k_ms * 100:.1f}%), plain {plain_ms:.1f} "
             f"ms on {rows} rows, max_abs_err {err}{extra}")
         if err:
             raise AssertionError(f"group {g.key}: kernel differs from plain")
-    return launches, per, distinct, cols
+    return launches, per, distinct, cols, (hf_ca, text)
 
 
-def phase_epilogue(api, harness, engine, distinct, cols) -> None:
-    log("== 5 epilogue: u8 column -> float32 (x - zero) * scale")
-    idx = [n for n, _, _ in cols].index("flags_u8")
-    ca, flags = distinct[idx], cols[idx][1]
-    epi = harness.Epilogue(out_dtype="float32", scale_key="epi_scale",
-                           zero_key="epi_zero")
-    operands = {"epi_scale": np.float32(0.37), "epi_zero": np.uint8(2)}
-    [got] = api.decompress_many([ca], engine, device_out=True, epilogue=epi,
-                                epilogue_operands=operands)
-    x = torch.from_numpy(flags).to(engine.device)
-    want = ((x.to(torch.float32)
-             - torch.tensor(2, dtype=torch.uint8, device=x.device)
-             .to(torch.float32))
-            * torch.tensor(0.37, dtype=torch.float32, device=x.device))
-    if got.dtype != torch.float32 or not torch.equal(got, want):
-        raise AssertionError("epilogue output differs from the plain torch "
-                             "version")
-    log(f"   {flags.size} elements, exact against the plain torch version")
+def phase_epilogue(api, harness, engine, distinct, cols, text_hf) -> None:
+    log("== 5 epilogues against their plain torch versions")
+    dev = engine.device
+
+    def check(name, ca, x, epi, operands, fused):
+        before = (harness.EPILOGUE_FUSED, harness.EPILOGUE_UNFUSED)
+        [got] = api.decompress_many([ca], engine, device_out=True,
+                                    epilogue=epi, epilogue_operands=operands)
+        grew = (harness.EPILOGUE_FUSED - before[0],
+                harness.EPILOGUE_UNFUSED - before[1])
+        if grew != ((1, 0) if fused else (0, 1)):
+            raise AssertionError(f"{name}: fused / unfused epilogues grew by "
+                                 f"{grew}")
+        out = getattr(torch, epi.out_dtype or "float32")
+        x = torch.from_numpy(x).to(dev)
+        want = x.to(out)
+        if epi.zero_key:
+            want = want - torch.tensor(operands[epi.zero_key],
+                                       device=dev).to(out)
+        if epi.scale_key:
+            want = want * torch.tensor(operands[epi.scale_key],
+                                       device=dev).to(out)
+        if got.dtype != want.dtype or not torch.equal(bit_view(got),
+                                                      bit_view(want)):
+            raise AssertionError(f"{name}: epilogue output differs from the "
+                                 "plain torch version")
+        where = "in the kernel's stores" if fused else "torch ops after it"
+        log(f"   {name}: {x.numel()} elements -> {got.dtype}, exact against "
+            f"the plain torch version (epilogue {where})")
+
+    names = [n for n, _, _ in cols]
+    idx = names.index("flags_u8")
+    check("rle_v2 u8 column, float32 (x - zero) * scale", distinct[idx],
+          cols[idx][1],
+          harness.Epilogue(out_dtype="float32", scale_key="epi_scale",
+                           zero_key="epi_zero"),
+          {"epi_scale": np.float32(0.37), "epi_zero": np.uint8(2)}, False)
+    idx = names.index("dict_codes_u16")
+    check("bitpack 11-bit u16 column, float32 (x - zero) * scale",
+          distinct[idx], cols[idx][1],
+          harness.Epilogue(out_dtype="float32", scale_key="epi_scale",
+                           zero_key="epi_zero"),
+          {"epi_scale": np.float32(0.0123), "epi_zero": np.uint16(1024)},
+          True)
+    hf_ca, text = text_hf
+    check("huffman log text, bf16 (x - zero) * scale", hf_ca, text,
+          harness.Epilogue(out_dtype="bfloat16", scale_key="epi_scale",
+                           zero_key="epi_zero"),
+          {"epi_scale": np.float32(0.37), "epi_zero": np.uint8(97)}, True)
 
 
-def phase_quantized(args, rng, dq, transfers, counters, engine, errs,
+def phase_quantized(args, rng, dq, harness, transfers, counters, engine, errs,
                     per) -> dict:
     """decompress_dequant_matmul over every projection of ``--q-layers``
     layers of qwen3-1.7B; returns the path's launch counts."""
@@ -1050,6 +1233,7 @@ def phase_quantized(args, rng, dq, transfers, counters, engine, errs,
     # one run of the path through the user's entry point, counted
     for c in counters.values():
         c.reset()
+    harness.EPILOGUE_FUSED = harness.EPILOGUE_UNFUSED = 0
     by_path = dict(dq.LAUNCHES_BY_PATH)
     ys = {}
     for m in ms_list:
@@ -1063,13 +1247,19 @@ def phase_quantized(args, rng, dq, transfers, counters, engine, errs,
     if launches != want:
         raise AssertionError(f"quantized path launches {launches}, expected "
                              f"{want}")
+    epilogues = (harness.EPILOGUE_FUSED, harness.EPILOGUE_UNFUSED)
+    if epilogues != (len(ys), 0):
+        raise AssertionError(f"quantized path epilogues (fused, unfused) "
+                             f"{epilogues}, expected ({len(ys)}, 0)")
     paths = {p: v - by_path[p] for p, v in dq.LAUNCHES_BY_PATH.items()}
     if paths != {"wgmma": len(ys), "simt": 0}:
         raise AssertionError(f"quantized path took {paths}, expected every "
                              "call on the wgmma path")
     log(f"   {len(ys)} calls (M = {ms_list}): launches dequant_matmul "
         f"{launches['dequant_matmul']} (paths {paths}), bitpack_unpack "
-        f"{launches['bitpack_unpack']}")
+        f"{launches['bitpack_unpack']}, each weight decode one launch with "
+        f"its zero-point epilogue fused ({epilogues[0]} fused, "
+        f"{epilogues[1]} unfused epilogue passes)")
 
     rtol, atol = TOL[torch.bfloat16]
     worst = 0.0
@@ -1091,11 +1281,12 @@ def phase_quantized(args, rng, dq, transfers, counters, engine, errs,
         "decoded weights == the host int8 weights")
 
     # steady state: the plan is cached on each CompressedArray
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "library_ms": 0.0}
     by = {"bytes": 0.0, "operations": 0.0}
     for m in ms_list:
         acc = {"decode": 0.0, "kernel": 0.0, "plain": 0.0, "library": 0.0,
-               "bound": 0.0, "whole": 0.0}
+               "bound": 0.0, "whole": 0.0, "device": 0.0}
         for name, k, n, ca, q, s in weights:
             x = xs[m, k]
             qd = dq.decode_weights(ca, zero_point=8, engine=engine)
@@ -1120,6 +1311,7 @@ def phase_quantized(args, rng, dq, transfers, counters, engine, errs,
             for key, fn in fns.items():
                 fn()                    # warm: cuBLAS picks its algorithm
                 t[key] = ms_of(fn, args.reps)
+            t["device"] = device_ms(fns["kernel"], args.reps)
             b, what = matmul_bound(m, n, k, x.element_size())
             t["bound"] = b
             by[what] += b
@@ -1134,17 +1326,48 @@ def phase_quantized(args, rng, dq, transfers, counters, engine, errs,
                     f"{b / t['kernel'] * 100:.1f}%)")
         log(f"   M={m}, all {len(weights)} projections (sums of medians of "
             f"{args.reps}): decode {acc['decode']:.3f} ms, kernel "
-            f"{acc['kernel']:.3f} ms, decode+kernel {acc['whole']:.3f} ms, "
+            f"{acc['kernel']:.3f} ms (device {acc['device']:.3f} ms), "
+            f"decode+kernel {acc['whole']:.3f} ms, "
             f"plain {acc['plain']:.3f} ms, torch.matmul {acc['library']:.3f} "
             f"ms, bound {acc['bound']:.3f} ms "
             f"({acc['bound'] / acc['kernel'] * 100:.1f}% of the kernel); "
             "steady state under no_host_transfers()")
         tot["ms"] += acc["kernel"]
+        tot["device_ms"] += acc["device"]
         tot["plain_ms"] += acc["plain"]
         tot["bound_ms"] += acc["bound"]
         tot["library_ms"] += acc["library"]
         log(f"   M={m}: kernel / torch.matmul = "
             f"{acc['kernel'] / acc['library']:.2f} (sums of medians)")
+
+    # the weight decode's split: the host clock of the whole decode_weights
+    # call (it returns once the launch is queued) against the device time
+    # of its launch, by CUDA events with the stream held busy until the
+    # launch is queued (so the events see no host gap)
+    host, device = [], []
+    for _, k, n, ca, _, _ in weights:
+        def decode():
+            with transfers.no_host_transfers():
+                dq.decode_weights(ca, zero_point=8, engine=engine)
+
+        h = []
+        for _ in range(args.reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode()
+            h.append((time.perf_counter() - t0) * 1e3)
+        host.append(float(np.median(h)))
+        device.append(device_ms(decode, args.reps))
+    packed = sum(ca.compressed_bytes for _, _, _, ca, _, _ in weights)
+    decode_bound = (packed + raw) / HBM_BYTES_PER_S * 1e3
+    log(f"   weight decode split over all {len(weights)} projections (sums "
+        f"of medians of {args.reps}): host clock of decode_weights "
+        f"{sum(host):.3f} ms, device time of its launch {sum(device):.3f} "
+        f"ms, bytes bound {decode_bound:.3f} ms (packed read + int8 "
+        f"written); per projection {sum(host) / len(weights) * 1e3:.1f} us "
+        f"host, {sum(device) / len(weights) * 1e3:.1f} us device")
+    per["bitpack_unpack"]["weight_decode_host_ms"] = sum(host)
+    per["bitpack_unpack"]["weight_decode_device_ms"] = sum(device)
 
     # one sweep over every projection a rep: the int8 weights (and the
     # bf16 ones of torch.matmul) exceed the L2 cache, so each sweep reads
@@ -1247,15 +1470,15 @@ def main() -> int:
     counters["lzss_decode"] = Counter(lzss)
     counters["dequant_matmul"] = Counter(dq)
     phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
-                          engine.device)
+                          engine.device, counters)
     phase_dequant_vs_plain(rng, dq, errs, engine.device)
-    launches, per, distinct, cols = phase_main(
+    launches, per, distinct, cols, text_hf = phase_main(
         args, rng, api, plan_mod, transfers, registry, harness,
         {"tdeflate": tdeflate, "lzss": lzss, "cuda_rle": cuda_rle}, counters,
         engine, errs)
-    phase_epilogue(api, harness, engine, distinct, cols)
+    phase_epilogue(api, harness, engine, distinct, cols, text_hf)
     launches["dequant_matmul"] = phase_quantized(
-        args, rng, dq, transfers, counters, engine, errs,
+        args, rng, dq, harness, transfers, counters, engine, errs,
         per)["dequant_matmul"]
     log("== 7 kernels")
     kernels = []
@@ -1270,12 +1493,15 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": per[name]["ms"],
+            "device_ms": per[name]["device_ms"],
             "plain_ms": per[name]["plain_ms"],
             "plain_rows": per[name]["plain_rows"],
             "bound_ms": per[name]["bound_ms"],
             "bound_by": per[name].get("bound_by", "bytes"),
             "library_ms": per[name].get("library_ms"),
-            **{k: per[name][k] for k in ("sweep_ms", "library_sweep_ms")
+            **{k: per[name][k] for k in ("sweep_ms", "library_sweep_ms",
+                                         "weight_decode_host_ms",
+                                         "weight_decode_device_ms")
                if k in per[name]},
         })
         exact = name != "dequant_matmul"    # held to TOL in phases 3 and 6

@@ -41,6 +41,7 @@ TORCH_DTYPE = {
     "uint16": torch.uint16, "int16": torch.int16, "float16": torch.float16,
     "uint32": torch.uint32, "int32": torch.int32, "float32": torch.float32,
     "uint64": torch.uint64, "int64": torch.int64, "float64": torch.float64,
+    "bfloat16": torch.bfloat16,
 }
 
 
@@ -49,8 +50,9 @@ _SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """The torch dtype of a numpy dtype (or its name)."""
-    name = str(np.dtype(dtype))
+    """The torch dtype of a numpy dtype (or its name; "bfloat16", which
+    numpy lacks, by name)."""
+    name = dtype if dtype == "bfloat16" else str(np.dtype(dtype))
     if name not in TORCH_DTYPE:
         raise ValueError(f"no torch dtype for {name}")
     return TORCH_DTYPE[name]

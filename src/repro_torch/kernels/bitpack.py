@@ -14,12 +14,17 @@ width type):
     ``ref.unpack_bits`` (uint32 out, then cast);
   * ``scalar`` — one element per step (§V-E ablation, CPU tensors only);
   * ``cuda``   — :func:`decode`, which launches ``csrc/bitpack_unpack.cu``
-    on a CUDA tensor (or raises) and runs :func:`unpack` on a CPU tensor.
+    on a CUDA tensor (or raises) and runs :func:`unpack` on a CPU tensor;
+    it applies a fused epilogue (``harness.FusedEpilogue``) in the kernel's
+    stores, or after :func:`unpack` on the CPU.
 
 As in the reference, lanes at or past ``out_len`` are not zeroed: they
 unpack whatever bits lie there, which are the row's zero padding.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -29,9 +34,12 @@ from repro_torch.core import registry
 from repro_torch.core import streams as st
 from repro_torch.kernels import cuda_build, harness
 
-# (width, words, n, W, chunk_elems, bits, out, stream)
+# (width, words, n, W, chunk_elems, bits, tiles_per_row, vpt, out,
+#  out_code, src_code, zero, zero_code, scale, scale_code, stream)
 LIB = cuda_build.KernelLibrary(
-    "bitpack_unpack.cu", "codag_bitpack_unpack", "iplllipp")
+    "bitpack_unpack.cu", "codag_bitpack_unpack", "iplllilipiipipip")
+
+THREADS = 256          # a block: 256 threads of 16-byte output vectors
 
 # Kernel launches (one per call that reached the card).
 LAUNCHES = 0
@@ -85,13 +93,61 @@ def unpack_scalar(words: torch.Tensor, out_lens: torch.Tensor, *,
     return harness.truncate(buf, width)
 
 
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """One launch's shape: ``vec_elems`` output elements a vector (16
+    bytes), ``vpt`` vectors a thread, ``tiles_per_row`` blocks of
+    :data:`THREADS` threads a row, ``blocks`` in all; ``fast`` where
+    ``bits`` divides 32 and a vector spans >= 16 bits (the kernel's
+    ``unpack_fast``; otherwise ``unpack_tiled``)."""
+
+    vec_elems: int
+    vpt: int
+    tiles_per_row: int
+    blocks: int
+    fast: bool
+
+
+@functools.lru_cache(maxsize=256)
+def launch_geometry(n: int, chunk_elems: int, bits: int,
+                    out_size: int) -> Geometry:
+    """The kernel's grid for ``n`` rows of ``chunk_elems`` outputs of
+    ``out_size`` bytes.  A thread takes up to 4 vectors: on the fast path as
+    many as keep its words in 16 registers, on the tiled one as many as keep
+    a block's words in 32 KiB of shared memory."""
+    vec = 16 // out_size
+    fast = 32 % bits == 0 and vec * bits >= 16
+    if fast:
+        words = max(1, vec * bits // 32)
+        vpt = 1 if words >= 16 else 2 if words >= 8 else 4
+    else:
+        vpt = max(1, min(4, 8192 // (THREADS * vec * bits // 32)))
+    tiles = -(-chunk_elems // (THREADS * vpt * vec))
+    return Geometry(vec, vpt, tiles, n * tiles, fast)
+
+
+def thread_elems(geom: Geometry, chunk_elems: int, block: int,
+                 thread: int):
+    """[(row, first, end)] of the output elements thread ``thread`` of block
+    ``block`` writes, one entry a vector, as the kernel maps them (end ==
+    first: none)."""
+    row, tile = divmod(block, geom.tiles_per_row)
+    spans = []
+    for j in range(geom.vpt):
+        first = ((tile * geom.vpt + j) * THREADS + thread) * geom.vec_elems
+        first = min(first, chunk_elems)
+        spans.append((row, first, min(first + geom.vec_elems, chunk_elems)))
+    return spans
+
+
 def _check(words: torch.Tensor, chunk_elems: int, width: int,
            bits: int) -> None:
     _check_bits(bits)
     if width not in harness.DEV_DTYPE:
         raise ValueError(f"unsupported width {width}")
-    if chunk_elems < 1:
-        raise ValueError(f"chunk_elems must be positive, got {chunk_elems}")
+    if not 1 <= chunk_elems < 1 << 30:
+        raise ValueError(f"chunk_elems must be in 1..2^30-1, got "
+                         f"{chunk_elems}")
     if words.dtype != torch.uint32 or words.dim() != 2 or words.shape[1] < 1:
         raise ValueError(f"words must be a (n, W>=1) uint32 table, got "
                          f"{tuple(words.shape)} {words.dtype}")
@@ -99,25 +155,27 @@ def _check(words: torch.Tensor, chunk_elems: int, width: int,
         raise ValueError("words must be contiguous")
 
 
-def decode(words: torch.Tensor, *, chunk_elems: int, width: int,
-           bits: int) -> torch.Tensor:
+def decode(words: torch.Tensor, *, chunk_elems: int, width: int, bits: int,
+           epilogue: "harness.FusedEpilogue | None" = None) -> torch.Tensor:
     """Unpack every row of a word table; ``(n, chunk_elems)`` in the width
-    type, on the table's device."""
+    type (or ``epilogue.dtype``, with the epilogue applied), on the table's
+    device."""
     global LAUNCHES
     _check(words, chunk_elems, width, bits)
     if words.device.type == "cpu":
-        return unpack(words, chunk_elems=chunk_elems, width=width, bits=bits)
+        out = unpack(words, chunk_elems=chunk_elems, width=width, bits=bits)
+        return out if epilogue is None else epilogue.apply_plain(out)
     if words.device.type != "cuda":
         raise ValueError(f"no kernel for device {words.device}")
     n = words.shape[0]
-    out = torch.empty((n, chunk_elems), dtype=harness.DEV_DTYPE[width],
-                      device=words.device)
+    dtype, epi = harness.store_args(epilogue, harness.DEV_DTYPE[width])
+    out = torch.empty((n, chunk_elems), dtype=dtype, device=words.device)
     if n == 0:
         return out
-    with torch.cuda.device(words.device):
-        cuda_build.launch(LIB, width, words.data_ptr(), n, words.shape[1],
-                          chunk_elems, bits, out.data_ptr(),
-                          torch.cuda.current_stream().cuda_stream)
+    geom = launch_geometry(n, chunk_elems, bits, out.element_size())
+    cuda_build.launch_on(words.device, LIB, width, words.data_ptr(), n,
+                         words.shape[1], chunk_elems, bits,
+                         geom.tiles_per_row, geom.vpt, out.data_ptr(), *epi)
     LAUNCHES += 1
     return out
 
@@ -141,8 +199,10 @@ def _body_scalar(inputs, consts, out_lens, *, chunk_elems, width, bits):
                          width=width, bits=bits)
 
 
-def _kernel(inputs, consts, out_lens, *, chunk_elems, width, bits):
-    return decode(inputs[0], chunk_elems=chunk_elems, width=width, bits=bits)
+def _kernel(inputs, consts, out_lens, *, chunk_elems, width, bits,
+            epilogue=None):
+    return decode(inputs[0], chunk_elems=chunk_elems, width=width, bits=bits,
+                  epilogue=epilogue)
 
 
 CODEC = registry.register(registry.Codec(
@@ -150,7 +210,8 @@ CODEC = registry.register(registry.Codec(
     encode=enc.compress_bitpack,
     decode=harness.DecodeSpec(
         body=_body, body_scalar=_body_scalar, body_oracle=_body_oracle,
-        cuda=_kernel, chunk_inputs=harness.words_inputs),
+        cuda=_kernel, chunk_inputs=harness.words_inputs,
+        fuses_epilogue=True),
     needs_words=True,
     shared_extras=("bitpack_bits",),
     static_bits=lambda blob: int(blob.extras["bitpack_bits"][0]),

@@ -2,8 +2,9 @@
 
 Every source is compiled the same way: ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C entry point, at first use, into
-``build/repro_torch/`` of the checkout, named by a hash of the source and
-the flags (an edited source rebuilds), then bound with ``ctypes``.  A source
+``build/repro_torch/`` of the checkout, named by a hash of the source, the
+headers it includes from ``csrc/`` and the flags (an edited source or
+header rebuilds), then bound with ``ctypes``.  A source
 may add flags of its own to :data:`NVCC_FLAGS` (``-lcuda`` for one that
 calls into libcuda) and export more than one entry point
 (:meth:`KernelLibrary.entry_point`).  Nothing here runs ``nvcc`` or
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -55,6 +57,8 @@ class KernelEntry:
         return self._fn is not None
 
     def fn(self):
+        if self._fn is not None:
+            return self._fn
         with self.lib._lock:
             if self._fn is None:
                 if self.lib._dll is None:
@@ -86,7 +90,11 @@ class KernelLibrary:
 
     @property
     def path(self) -> Path:
-        tag = hashlib.blake2b(self.source.read_bytes()
+        text = self.source.read_bytes()
+        headers = re.findall(rb'#include "([^"]+)"', text)
+        tag = hashlib.blake2b(b"".join([text] + [(CSRC / h.decode())
+                                                 .read_bytes()
+                                                 for h in headers])
                               + " ".join(NVCC_FLAGS + self.flags).encode(),
                               digest_size=8).hexdigest()
         return BUILD_DIR / f"{self.source.stem}_{tag}.so"
@@ -127,9 +135,34 @@ class KernelLibrary:
 
 
 def build_all(libs: Sequence[KernelLibrary]) -> List[Path]:
-    """Build several libraries with one nvcc each, all started together."""
+    """Build several libraries with one nvcc each, all started together;
+    every nvcc has ended when this returns or raises the first failure."""
     procs = [lib._start() for lib in libs]
-    return [lib._finish(p) for lib, p in zip(libs, procs)]
+    paths, failure = [], None
+    for lib, p in zip(libs, procs):
+        try:
+            paths.append(lib._finish(p))
+        except RuntimeError as e:
+            failure = failure or e
+    if failure is not None:
+        raise failure
+    return paths
+
+
+def launch_on(device, lib, *args) -> None:
+    """:func:`launch` on ``device`` (a CUDA ``torch.device``) and its current
+    stream, which is passed as the last argument.  A decode or a serving
+    step calls a wrapper per table or projection, so the device is switched
+    only when it is not the current one and the stream is looked up without
+    a ``Stream`` object (each costs microseconds of host time)."""
+    import torch
+    dev = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if dev == torch.cuda.current_device():
+        launch(lib, *args, torch._C._cuda_getCurrentRawStream(dev))
+        return
+    with torch.cuda.device(dev):
+        launch(lib, *args, torch._C._cuda_getCurrentRawStream(dev))
 
 
 def launch(lib, *args) -> None:

@@ -13,8 +13,9 @@ the matmul means the memory system reads one byte per weight.
     chooses by dtype and shape alone;
   * :func:`compress_weights` / :func:`weight_epilogue` /
     :func:`decompress_dequant_matmul` — weights arrive compressed, are
-    decoded and zero-point-corrected to int8 on the device (a fused decode
-    ``Epilogue``), and feed the matmul with no host round trip; the staged
+    decoded and zero-point-corrected to int8 on the device (a decode
+    ``Epilogue``; with the default codec, bitpack, its kernel applies it in
+    its stores), and feed the matmul with no host round trip; the staged
     plan is cached on the ``CompressedArray``, so the steady state runs
     under ``transfers.no_host_transfers()``.
 """
@@ -165,9 +166,12 @@ def compress_weights(q: np.ndarray, codec: str = "bitpack",
 
 
 def weight_epilogue(zero_point: int = 0):
-    """The fused decode epilogue matching :func:`compress_weights`: the
-    stored uint8 back through the zero-point shift to int8, inside the decode
-    dispatch (epilogue operand key ``"epi_zero"``)."""
+    """The decode epilogue matching :func:`compress_weights`: the stored
+    uint8 back through the zero-point shift to int8 (epilogue operand key
+    ``"epi_zero"``).  The bitpack and huffman kernels apply it in their
+    stores, so their decode writes the int8 weights and nothing else; after
+    the other codecs' kernels it runs as torch ops on the decoded uint8
+    matrix (``harness.fused_epilogue``)."""
     from repro_torch.kernels.harness import Epilogue
     return (Epilogue(out_dtype="int8", zero_key="epi_zero"),
             {"epi_zero": np.uint8(zero_point)})
@@ -197,9 +201,13 @@ def decompress_dequant_matmul(x: torch.Tensor, ca, s: torch.Tensor, *,
                               bk: int = 128) -> torch.Tensor:
     """Compressed (K, N) int8 weights ``ca`` (from :func:`compress_weights`)
     decoded on the device, zero-point-corrected in the decode's epilogue,
-    then consumed by :func:`dequant_matmul`: no uint intermediate and no
-    host round trip.  Repeat calls over the same ``ca`` — the serving steady
-    state — perform no host transfers."""
+    then consumed by :func:`dequant_matmul`, with no host round trip.  With
+    codec ``bitpack`` (the default of :func:`compress_weights`) or
+    ``huffman`` the epilogue runs in the decode kernel's stores, so no uint
+    intermediate is written: the decode is one launch that writes the int8
+    weights.  With the other codecs the kernel writes the uint8 matrix and
+    the epilogue reads it back as torch ops.  Repeat calls over the same
+    ``ca`` — the serving steady state — perform no host transfers."""
     q = decode_weights(ca, zero_point=zero_point, engine=engine)
     return dequant_matmul(x, q, s, bm=bm, bn=bn, bk=bk)
 

@@ -27,6 +27,7 @@ int64 and truncated to the width type at the end.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -199,6 +200,13 @@ class Epilogue:
                            float32)
       3. zero/scale      — ``(x - zero) * scale`` (dequantization)
       4. ``fn``          — escape hatch: ``fn(out, dev) -> out``
+
+    Where it runs: on the ``cuda`` backend, the bitpack and huffman kernels
+    apply an epilogue that :func:`fused_epilogue` accepts in their stores,
+    so no uint matrix is materialized (``EPILOGUE_FUSED`` counts those
+    decodes).  Every other epilogue, and every epilogue after the RLE
+    family's, tdeflate's and lzss's kernels or a plain body, runs as torch
+    ops on the decoded matrix by :meth:`apply` (``EPILOGUE_UNFUSED``).
     """
 
     view_dtype: Optional[str] = None
@@ -221,6 +229,110 @@ class Epilogue:
         if self.fn is not None:
             out = self.fn(out, dev)
         return out
+
+
+# Epilogues applied as torch ops after a decode (:func:`run`), and decodes
+# whose kernel applied the epilogue in its stores.
+EPILOGUE_UNFUSED = 0
+EPILOGUE_FUSED = 0
+
+# dtype codes of ``csrc/epilogue.cuh`` (``epi::Code``)
+DTYPE_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2,
+               torch.int16: 3, torch.uint32: 4, torch.int32: 5,
+               torch.float32: 6, torch.bfloat16: 7, torch.float16: 8,
+               torch.int64: 9, torch.float64: 10, torch.bool: 11}
+# decoded values a kernel can read as (view dtypes), and the out dtypes it
+# casts and computes in
+FUSED_SOURCES = (torch.uint8, torch.int8, torch.uint16, torch.int16,
+                 torch.uint32, torch.int32, torch.float32, torch.bfloat16,
+                 torch.float16)
+FUSED_OUTS = (torch.uint8, torch.int8, torch.int16, torch.int32,
+              torch.float32, torch.bfloat16, torch.float16)
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FusedEpilogue:
+    """An epilogue a kernel applies in its stores (``csrc/epilogue.cuh``):
+    ``src`` is the dtype the decoded value is read as, ``dtype`` the output
+    dtype, ``zero`` / ``scale`` the single-element operands (or None)."""
+
+    epilogue: Epilogue
+    src: torch.dtype
+    dtype: torch.dtype
+    zero: Optional[torch.Tensor]
+    scale: Optional[torch.Tensor]
+
+    def kernel_args(self) -> tuple:
+        """``(out_code, src_code, zero, zero_code, scale, scale_code)`` of
+        the C entry points (an absent operand is a null pointer)."""
+        ops = []
+        for t in (self.zero, self.scale):
+            ops += [None, 0] if t is None else [t.data_ptr(),
+                                                DTYPE_CODES[t.dtype]]
+        return (DTYPE_CODES[self.dtype], DTYPE_CODES[self.src], *ops)
+
+    def apply_plain(self, out: torch.Tensor) -> torch.Tensor:
+        """The plain version: :meth:`Epilogue.apply` on the decoded matrix."""
+        e = self.epilogue
+        return e.apply(out, {e.zero_key: self.zero, e.scale_key: self.scale})
+
+
+def store_args(epilogue: Optional[FusedEpilogue], raw: torch.dtype):
+    """(output dtype, the C entry points' epilogue arguments) of a kernel
+    that decodes ``raw`` values: ``epilogue``'s, or a plain store."""
+    if epilogue is None:
+        code = DTYPE_CODES[raw]
+        return raw, (code, code, None, 0, None, 0)
+    return epilogue.dtype, epilogue.kernel_args()
+
+
+@functools.lru_cache(maxsize=256)
+def _fused_dtypes(epilogue: Epilogue, width: int):
+    """(source, output) dtypes of an epilogue a kernel can apply, or None:
+    the part of :func:`fused_epilogue` that depends on the epilogue alone
+    (a serving step decides it once a projection, so it is kept)."""
+    if epilogue.fn is not None:
+        return None
+    src = DEV_DTYPE[width]
+    if epilogue.view_dtype is not None:
+        src = torch_dtype(epilogue.view_dtype)
+        if src not in FUSED_SOURCES or src.itemsize != width:
+            return None
+    out = src
+    if (epilogue.zero_key is not None or epilogue.scale_key is not None
+            or epilogue.out_dtype is not None):
+        out = torch_dtype(epilogue.out_dtype or "float32")
+        if out not in FUSED_OUTS or (src in _FLOATS and out not in _FLOATS):
+            return None
+    return src, out
+
+
+def fused_epilogue(epilogue: Epilogue, dev: Dict[str, Any],
+                   width: int) -> Optional[FusedEpilogue]:
+    """The epilogue as a kernel applies it in its stores, or None where it
+    must run as torch ops after the decode.  It fuses when it has no ``fn``;
+    ``view_dtype`` keeps the itemsize; the output dtype is one of
+    :data:`FUSED_OUTS` (a float is never cast to an integer); and ``zero``
+    and ``scale`` are single-element tensors (at most 2-d, so they broadcast
+    to the chunk matrix without growing it) on the table's device.  The
+    choice depends on the epilogue and its operands alone."""
+    dtypes = _fused_dtypes(epilogue, width)
+    if dtypes is None:
+        return None
+    src, out = dtypes
+    device = dev["out_lens"].device
+    operands = []
+    for key in (epilogue.zero_key, epilogue.scale_key):
+        t = None if key is None else dev[key]
+        if t is not None and not (
+                isinstance(t, torch.Tensor) and t.numel() == 1
+                and t.dim() <= 2 and t.device == device
+                and t.dtype in DTYPE_CODES
+                and (out in _FLOATS or t.dtype not in _FLOATS)):
+            return None
+        operands.append(t)
+    return FusedEpilogue(epilogue, src, out, *operands)
 
 
 # --------------------------------------------------------------------------
@@ -250,7 +362,10 @@ class DecodeSpec:
     out_lens, *, chunk_elems, width, bits)`` to ``(n, chunk_elems)`` in
     ``DEV_DTYPE[width]``.  ``chunk_inputs(dev)`` pulls the per-chunk operands
     (row on the leading axis) out of the staged table; ``consts()`` gives
-    the broadcast tables (host arrays, staged once per device).
+    the broadcast tables (host arrays, staged once per device).  A spec with
+    ``fuses_epilogue`` has a ``cuda`` wrapper that also takes
+    ``epilogue=`` (a :class:`FusedEpilogue`), applied in the kernel's stores
+    on a card and by :meth:`FusedEpilogue.apply_plain` on the CPU.
     """
 
     body: BodyFn                # torch: the plain body, the kernel's twin
@@ -261,6 +376,9 @@ class DecodeSpec:
         comp_inputs
     consts: Callable[[], Tuple[Any, ...]] = tuple
     two_phase: Optional[TwoPhaseSpec] = None
+    # ``cuda`` takes ``epilogue=`` (a :class:`FusedEpilogue`) and applies it
+    # in the kernel's stores
+    fuses_epilogue: bool = False
 
     @classmethod
     def from_two_phase(cls, spec: TwoPhaseSpec,
@@ -307,7 +425,10 @@ def run(spec: DecodeSpec, dev: Dict[str, Any], *, width: int,
         chunk_elems: int, backend: str, bits: int,
         epilogue: Optional[Epilogue] = None) -> torch.Tensor:
     """Decode every chunk of a device table through one backend, then apply
-    the ``epilogue``, if any."""
+    the ``epilogue``, if any: in the kernel's stores where the ``cuda``
+    backend's kernel fuses it (:func:`fused_epilogue`), else as torch ops
+    on the decoded matrix."""
+    global EPILOGUE_FUSED, EPILOGUE_UNFUSED
     inputs = spec.chunk_inputs(dev)
     out_lens = dev["out_lens"]
     if backend == "scalar" and inputs[0].device.type != "cpu":
@@ -317,6 +438,15 @@ def run(spec: DecodeSpec, dev: Dict[str, Any], *, width: int,
             "CPU tensors")
     fn = {"cuda": spec.cuda, "torch": spec.body, "scalar": spec.body_scalar,
           "oracle": spec.body_oracle}[backend]
-    out = fn(inputs, consts_on(spec, out_lens.device), out_lens,
-             chunk_elems=chunk_elems, width=width, bits=bits)
-    return epilogue.apply(out, dev) if epilogue is not None else out
+    kw = dict(chunk_elems=chunk_elems, width=width, bits=bits)
+    fused = None
+    if epilogue is not None and backend == "cuda" and spec.fuses_epilogue:
+        fused = fused_epilogue(epilogue, dev, width)
+    if fused is not None:
+        EPILOGUE_FUSED += 1
+        kw["epilogue"] = fused
+    out = fn(inputs, consts_on(spec, out_lens.device), out_lens, **kw)
+    if epilogue is None or fused is not None:
+        return out
+    EPILOGUE_UNFUSED += 1
+    return epilogue.apply(out, dev)

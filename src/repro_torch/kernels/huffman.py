@@ -21,7 +21,9 @@ types, i16 symbols and i8 code lengths):
     entry 0's offset, ignoring the rest of the gap table (``_body_scalar``,
     CPU tensors only);
   * ``cuda``   — :func:`decode`, which launches ``csrc/huffman_decode.cu`` on
-    a CUDA tensor (or raises) and runs :func:`decode_lockstep` on a CPU one.
+    a CUDA tensor (or raises) and runs :func:`decode_lockstep` on a CPU one;
+    it applies a fused epilogue (``harness.FusedEpilogue``) in the kernel's
+    stores, or after :func:`decode_lockstep` on the CPU.
 
 A gap offset is read as the reference reads it: a u32 taken as int32, so an
 offset of 2^31 or more is negative and its word index clips to 0.
@@ -41,9 +43,12 @@ GAP_ENTRY_BYTES = enc.GAP_ENTRY_BYTES  # u32 LE bit offset + (count - 1)
 LUT_KEYS = ("lut_hsym", "lut_hbits")
 
 # (comp, n, C, words, W, lut_hsym, lut_hbits, out_lens, chunk_elems, out,
-#  stream)
+#  out_code, src_code, zero, zero_code, scale, scale_code, stream)
 LIB = cuda_build.KernelLibrary(
-    "huffman_decode.cu", "codag_huffman_decode", "pllplppplpp")
+    "huffman_decode.cu", "codag_huffman_decode", "pllplppplpiipipip")
+
+THREADS = 128          # a CTA a chunk row, two segments a thread a batch
+BATCH = 2 * THREADS    # segments a batch: thread t takes t and t + THREADS
 
 # Kernel launches (one per call that reached the card).
 LAUNCHES = 0
@@ -148,12 +153,32 @@ def count_groups(row, width: int) -> int:
 # --------------------------------------------------------------------------
 
 
+def launch_geometry(chunk_elems: int):
+    """(segments, batches) of one chunk row: the kernel's CTA walks
+    ``batches`` batches of :data:`BATCH` segments."""
+    nseg = -(-chunk_elems // SUB)
+    return nseg, -(-nseg // BATCH)
+
+
+def thread_lanes(chunk_elems: int, batch: int, thread: int):
+    """The output lanes thread ``thread`` writes in batch ``batch``, as the
+    kernel maps them: its two segments' 32 lanes each, up to the row's
+    end."""
+    nseg, _ = launch_geometry(chunk_elems)
+    lanes = []
+    for g in (batch * BATCH + thread, batch * BATCH + THREADS + thread):
+        if g < nseg:
+            lanes += range(g * SUB, min(g * SUB + SUB, chunk_elems))
+    return lanes
+
+
 def _check(comp, words, luts, out_lens, chunk_elems: int, width: int):
     if width != 1:
         raise ValueError(f"huffman decodes bytes: width must be 1, got "
                          f"{width}")
-    if chunk_elems < 1:
-        raise ValueError(f"chunk_elems must be positive, got {chunk_elems}")
+    if not 1 <= chunk_elems < 1 << 30:
+        raise ValueError(f"chunk_elems must be in 1..2^30-1, got "
+                         f"{chunk_elems}")
     if comp.dtype != torch.uint8 or comp.dim() != 2 or comp.shape[1] < 1:
         raise ValueError(f"comp must be a (n, C>=1) uint8 table, got "
                          f"{tuple(comp.shape)} {comp.dtype}")
@@ -177,29 +202,30 @@ def _check(comp, words, luts, out_lens, chunk_elems: int, width: int):
 
 
 def decode(comp: torch.Tensor, words: torch.Tensor, luts,
-           out_lens: torch.Tensor, *, chunk_elems: int,
-           width: int = 1) -> torch.Tensor:
+           out_lens: torch.Tensor, *, chunk_elems: int, width: int = 1,
+           epilogue: "harness.FusedEpilogue | None" = None) -> torch.Tensor:
     """Decode every row of a huffman chunk table to ``(n, chunk_elems)``
-    uint8 on the table's device.  ``comp`` holds the gap tables, ``words``
-    the same rows as uint32 words, ``luts`` the two staged LUTs."""
+    uint8 (or ``epilogue.dtype``, with the epilogue applied) on the table's
+    device.  ``comp`` holds the gap tables, ``words`` the same rows as
+    uint32 words, ``luts`` the two staged LUTs."""
     global LAUNCHES
     luts = tuple(luts)
     _check(comp, words, luts, out_lens, chunk_elems, width)
     if comp.device.type == "cpu":
-        return decode_lockstep(comp, words, *luts, out_lens,
-                               chunk_elems=chunk_elems, width=width)
+        out = decode_lockstep(comp, words, *luts, out_lens,
+                              chunk_elems=chunk_elems, width=width)
+        return out if epilogue is None else epilogue.apply_plain(out)
     if comp.device.type != "cuda":
         raise ValueError(f"no kernel for device {comp.device}")
     n = comp.shape[0]
-    out = torch.empty((n, chunk_elems), dtype=torch.uint8, device=comp.device)
+    dtype, epi = harness.store_args(epilogue, torch.uint8)
+    out = torch.empty((n, chunk_elems), dtype=dtype, device=comp.device)
     if n == 0:
         return out
-    with torch.cuda.device(comp.device):
-        cuda_build.launch(
-            LIB, comp.data_ptr(), n, comp.shape[1], words.data_ptr(),
-            words.shape[1], *(t.data_ptr() for t in luts),
-            out_lens.data_ptr(), chunk_elems, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    cuda_build.launch_on(
+        comp.device, LIB, comp.data_ptr(), n, comp.shape[1],
+        words.data_ptr(), words.shape[1], *(t.data_ptr() for t in luts),
+        out_lens.data_ptr(), chunk_elems, out.data_ptr(), *epi)
     LAUNCHES += 1
     return out
 
@@ -231,9 +257,10 @@ def _body_scalar(inputs, consts, out_lens, *, chunk_elems, width, bits):
                          width=width)
 
 
-def _kernel(inputs, consts, out_lens, *, chunk_elems, width, bits):
+def _kernel(inputs, consts, out_lens, *, chunk_elems, width, bits,
+            epilogue=None):
     return decode(inputs[0], inputs[1], inputs[2:], out_lens,
-                  chunk_elems=chunk_elems, width=width)
+                  chunk_elems=chunk_elems, width=width, epilogue=epilogue)
 
 
 CODEC = registry.register(registry.Codec(
@@ -241,7 +268,7 @@ CODEC = registry.register(registry.Codec(
     encode=enc.compress_huffman,
     decode=harness.DecodeSpec(
         body=_body, body_scalar=_body_scalar, body_oracle=_body_oracle,
-        cuda=_kernel, chunk_inputs=_chunk_inputs),
+        cuda=_kernel, chunk_inputs=_chunk_inputs, fuses_epilogue=True),
     needs_words=True,
     byte_stream=True,
 ))

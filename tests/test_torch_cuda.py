@@ -9,6 +9,8 @@ Each decode kernel's output must equal its plain version's on the same
 staged table (tolerance zero), the dequant matmul's within the stated
 tolerance, and each launch must add one to its count.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -270,3 +272,154 @@ def test_rle_group_cap_and_counts_on_the_card(card, codec, chunk):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     assert groups.cpu().tolist() == [cap, cap, cap - 1]
+
+
+# --------------------------------------------------------------------------
+# the decode epilogue in bitpack's and huffman's stores
+# --------------------------------------------------------------------------
+
+FUSED_EPILOGUES = [
+    ("identity", {}, {}),
+    ("view_signed", dict(view_dtype="int"), {}),
+    ("int8_zero", dict(out_dtype="int8", zero_key="z"), {"z": np.uint8(8)}),
+    ("uint8_zero", dict(out_dtype="uint8", zero_key="z"), {"z": np.int32(-3)}),
+    ("int16_affine", dict(view_dtype="int", out_dtype="int16", zero_key="z",
+                          scale_key="s"),
+     {"z": np.int16(300), "s": np.int16(-7)}),
+    ("int32", dict(out_dtype="int32"), {}),
+    ("f32_affine", dict(out_dtype="float32", zero_key="z", scale_key="s"),
+     {"z": np.uint8(3), "s": np.float32(0.173)}),
+    ("bf16_affine", dict(out_dtype="bfloat16", zero_key="z", scale_key="s"),
+     {"z": np.uint8(3), "s": np.float32(0.173)}),
+    ("f16_scale", dict(out_dtype="float16", scale_key="s"),
+     {"s": np.float64(0.37)}),
+]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def huffman_tile_rows(rng, chunk: int):
+    """Rows the huffman kernel cannot decode from its staged tile alone:
+    random bytes (8-bit codes fill a batch's 2,048-word tile, so its last
+    segments overflow it), 12-bit codes, gap entries shuffled (offsets out
+    of order), and offsets negative or past the row."""
+    fib = [1, 1]
+    while len(fib) < 24:
+        fib.append(fib[-1] + fib[-2])
+    kraft = np.repeat(np.arange(24, dtype=np.uint8), fib)
+    rng.shuffle(kraft)
+    text = np.resize(np.frombuffer(b"codag decodes a warp a chunk ", np.uint8),
+                     chunk)
+    blobs = [enc.compress(rng.integers(0, 256, chunk).astype(np.uint8),
+                          "huffman", chunk),
+             enc.compress(np.resize(kraft, chunk), "huffman", chunk)]
+    nseg = -(-chunk // 32)
+    shuffled = enc.compress(text, "huffman", chunk)
+    comp = shuffled.comp.copy()
+    gaps = comp[0, 5:5 * nseg].reshape(nseg - 1, 5)   # entry 0 stays
+    comp[0, 5:5 * nseg] = gaps[rng.permutation(nseg - 1)].reshape(-1)
+    blobs.append(dataclasses.replace(shuffled, comp=comp))
+    bad = enc.compress(text, "huffman", chunk)
+    comp = bad.comp.copy()
+    for g in range(3, nseg, 7):             # negative offsets
+        comp[0, 5 * g + 3] |= 0x80
+    for g in range(5, nseg, 11):            # past the row
+        comp[0, 5 * g:5 * g + 4] = [0, 0, 0, 0x40]
+    blobs.append(dataclasses.replace(bad, comp=comp))
+    return blobs
+
+
+def _fused_table(codec: str, width: int, bits: int) -> fmt.CompressedBlob:
+    rng = np.random.default_rng(bits)
+    if codec == "huffman":
+        return fmt.concat_blobs(huffman_tile_rows(rng, 16384) + [
+            enc.compress(np.zeros(0, np.uint8), "huffman", 16384),
+            enc.compress(rng.integers(0, 9, 20000).astype(np.uint8),
+                         "huffman", 16384)])
+    top = 1 << bits
+    chunk = 1000                # a partial last vector at every width
+    arrays = [rng.integers(0, top, n, dtype=np.uint64).astype(DT[width])
+              for n in (3 * chunk, chunk + 1, 7)]
+    return fmt.concat_blobs([enc.compress(a, "bitpack", chunk * width,
+                                          bits=bits) for a in arrays])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,operands", FUSED_EPILOGUES,
+                         ids=[e[0] for e in FUSED_EPILOGUES])
+@pytest.mark.parametrize("codec,width,bits", [
+    ("bitpack", 1, 4), ("bitpack", 1, 7), ("bitpack", 2, 11),
+    ("bitpack", 2, 16), ("bitpack", 4, 9), ("bitpack", 4, 32),
+    ("huffman", 1, 8)])
+def test_fused_epilogue_equals_plain_then_apply_on_the_card(
+        card, codec, width, bits, name, kw, operands):
+    """The kernel's fused output == its plain twin, then Epilogue.apply,
+    both on the card, bit for bit; one launch, counted as fused."""
+    if kw.get("view_dtype") == "int":
+        kw = {**kw, "view_dtype": f"int{8 * width}"}
+    epi = harness.Epilogue(**kw)
+    table = _fused_table(codec, width, bits)
+    dev, b = ops.table_inputs(table, card)
+    dev.update({k: torch.from_numpy(np.asarray(v)).to(card)
+                for k, v in operands.items()})
+    spec = registry.get(codec).decode
+    plain = spec.body(spec.chunk_inputs(dev), (), dev["out_lens"],
+                      chunk_elems=table.chunk_elems, width=width, bits=b)
+    want = epi.apply(plain, dev)
+    before = (_launches(codec), harness.EPILOGUE_FUSED,
+              harness.EPILOGUE_UNFUSED)
+    got = ops.decode(dev, codec=codec, width=width,
+                     chunk_elems=table.chunk_elems, backend="cuda", bits=b,
+                     epilogue=epi)
+    torch.cuda.synchronize()
+    assert (_launches(codec), harness.EPILOGUE_FUSED,
+            harness.EPILOGUE_UNFUSED) == (before[0] + 1, before[1] + 1,
+                                          before[2])
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["weight_layout", "unaligned_stride",
+                                  "tail_17"])
+def test_bitpack_layouts_on_the_card(card, case):
+    """The weight path's layout (4-bit fields into u8, 65,536-element
+    chunks, int8 - 8 fused), a word row whose stride is not 16-byte
+    aligned (4-byte loads, clipped), and a 17-element row."""
+    rng = np.random.default_rng(21)
+    epi = None
+    if case == "weight_layout":
+        q = rng.integers(-8, 8, 3 * 65536 + 100).astype(np.int8)
+        table = enc.compress((q.astype(np.int16) + 8).astype(np.uint8),
+                             "bitpack", 65536, bits=4)
+        words = ops.table_inputs(table, "cpu")[0]["comp_words"]
+        chunk, width, bits = 65536, 1, 4
+        epi = harness.Epilogue(out_dtype="int8", zero_key="z")
+    elif case == "unaligned_stride":
+        words = torch.from_numpy(rng.integers(0, 1 << 32, (5, 7),
+                                              dtype=np.uint64)
+                                 .astype(np.uint32))
+        chunk, width, bits = 300, 2, 13       # reads run past each row
+    else:
+        words = torch.from_numpy(rng.integers(0, 1 << 32, (2, 32),
+                                              dtype=np.uint64)
+                                 .astype(np.uint32))
+        chunk, width, bits = 17, 4, 32
+    z = torch.tensor(8, dtype=torch.uint8)
+    fused_cpu = None if epi is None else harness.fused_epilogue(
+        epi, {"out_lens": z, "z": z}, width)
+    fused_card = None if epi is None else harness.fused_epilogue(
+        epi, {"out_lens": z.to(card), "z": z.to(card)}, width)
+    want = bitpack.decode(words, chunk_elems=chunk, width=width, bits=bits,
+                          epilogue=fused_cpu)
+    before = bitpack.LAUNCHES
+    got = bitpack.decode(words.to(card), chunk_elems=chunk, width=width,
+                         bits=bits, epilogue=fused_card)
+    torch.cuda.synchronize()
+    assert bitpack.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want)
+    if case == "weight_layout":
+        assert np.array_equal(got.cpu().reshape(-1)[:q.size].numpy(), q)

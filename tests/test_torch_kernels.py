@@ -272,24 +272,55 @@ EPILOGUES = [
     ("dequant_f32", dict(out_dtype="float32", scale_key="s", zero_key="z"),
      {"s": np.float32(0.173), "z": np.uint8(3)}),
     ("zero_only", dict(zero_key="z"), {"z": np.uint8(100)}),
+    # the weight path: uint8 -> int8, then - zero in int8
+    ("int8_zero", dict(out_dtype="int8", zero_key="z"), {"z": np.uint8(8)}),
+    ("bf16_affine", dict(out_dtype="bfloat16", zero_key="z", scale_key="s"),
+     {"z": np.uint8(3), "s": np.float32(0.173)}),
+    ("f16_scale_f64", dict(out_dtype="float16", scale_key="s"),
+     {"s": np.float64(0.37)}),
+    ("int16_affine", dict(view_dtype="int8", out_dtype="int16",
+                          zero_key="z", scale_key="s"),
+     {"z": np.int16(300), "s": np.int16(-7)}),
 ]
+# rle_v1's kernel leaves the epilogue to torch ops; bitpack's and huffman's
+# apply it in their stores (the ``cuda`` backend on CPU tensors runs their
+# plain version, then the epilogue)
+EPILOGUE_CASES = [
+    pytest.param(codec, *e, id=e[0] if codec == "rle_v1" else
+                 f"{codec}-{e[0]}")
+    for codec in ("rle_v1", "bitpack", "huffman") for e in EPILOGUES]
 
 
-@pytest.mark.parametrize("name,kw,operands", EPILOGUES,
-                         ids=[e[0] for e in EPILOGUES])
-def test_epilogue_matches_reference(name, kw, operands):
+def _bits(a) -> np.ndarray:
+    """An array's bits (numpy has no bfloat16 of its own)."""
+    if isinstance(a, torch.Tensor):
+        return a.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[a.element_size()]).numpy()
+    return a.view({1: np.uint8, 2: np.int16, 4: np.int32,
+                   8: np.int64}[a.dtype.itemsize])
+
+
+@pytest.mark.parametrize("codec,name,kw,operands", EPILOGUE_CASES)
+def test_epilogue_matches_reference(codec, name, kw, operands):
     rng = np.random.default_rng(13)
-    table = _table("rle_v1", 1, [rng.integers(0, 256, 900).astype(np.uint8)],
-                   256)
+    data = rng.integers(0, 256, 900).astype(np.uint8)
+    if codec == "bitpack":
+        data %= 128                              # 7-bit fields
+    table = _table(codec, 1, [data], 256)
     ref_blob = ref_fmt.CompressedBlob(**ref_fmt.dataclasses.asdict(table))
+    ref_dev, bits = ref_ops.table_inputs(ref_blob)
     want = np.asarray(ref_ops.decode(
-        {**ref_blob.to_device(), **operands}, codec="rle_v1", width=1,
-        chunk_elems=table.chunk_elems, backend="xla",
+        {**ref_dev, **operands}, codec=codec, width=1,
+        chunk_elems=table.chunk_elems, backend="xla", bits=bits,
         epilogue=RefEpilogue(**kw)))
     extra = {k: torch.from_numpy(np.asarray(v)) for k, v in operands.items()}
-    got = _ours(table, "rle_v1", "torch", harness.Epilogue(**kw), extra)
-    assert got.dtype == want.dtype
-    assert np.array_equal(got, want)      # same op order: exact
+    for backend in ("torch", "cuda"):
+        dev, bits = ops.table_inputs(table, "cpu")
+        got = ops.decode({**dev, **extra}, codec=codec, width=1,
+                         chunk_elems=table.chunk_elems, backend=backend,
+                         bits=bits, epilogue=harness.Epilogue(**kw))
+        assert str(got.dtype) == f"torch.{want.dtype}", backend
+        assert np.array_equal(_bits(got), _bits(want)), backend  # exact
 
 
 def test_epilogue_fn_runs_last():
