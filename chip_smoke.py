@@ -5,6 +5,8 @@
                           [--text-mib 8] [--td-chunks 2048]
                           [--td-plain-rows 256] [--ent-chunks 1024]
                           [--lz-plain-rows 64] [--q-layers 4]
+    python3 chip_smoke.py --stage-only [--src DIR]   # phase 4's build and
+                                                     # stage by part, alone
 
 Phases, each of which must pass (any failure exits non-zero, with no result
 line):
@@ -37,9 +39,10 @@ line):
          full chunk of log text, and rows whose segments leave the kernel's
          staged tile (random bytes, 12-bit codes, shuffled gap entries,
          offsets negative or past the row);
-       - every bitpack and huffman table again through each fused epilogue
-         (u8 -> int8 with a zero, float32 (x - z) * s, bf16 out), against
-         the plain version followed by ``Epilogue.apply``, bit for bit;
+       - every table of every decode kernel again through each fused
+         epilogue (u8 -> int8 with a zero, float32 (x - z) * s, bf16 out),
+         against the plain version followed by ``Epilogue.apply``, bit for
+         bit, each one launch counted as fused;
        - ``lzss_decode`` at widths 1/2/4 on dist-1 and period-3 overlaps,
          128-element literal runs, 129-element matches, a match at the
          65,535 distance limit, and hand-built rows: a match reaching before
@@ -63,10 +66,12 @@ line):
      chunks), checked against the inputs, with every kernel's launch count,
      the decode time, output GB/s, and each plan group's kernel time, bound
      and plain-version time (tokens or groups a chunk for tdeflate, lzss
-     and the RLE family);
-  5. epilogues against their plain torch versions: an rle_v2 column (the
-     epilogue after the kernel), a bitpack column and the huffman log text
-     (the epilogue in the kernel's stores);
+     and the RLE family); before it, ``DecodePlan.build`` and ``stage`` of
+     the same blobs by part, cold and warm, with the upload's GB/s;
+  5. epilogues in the kernels' stores against their plain torch versions:
+     an rle_v2 column, a bitpack column, the log text through huffman and
+     tdeflate, the lzss token shard; then the fused decode timed against
+     the kernel followed by ``Epilogue.apply`` (rle_v2, tdeflate, lzss);
   6. the quantized-weight path: ``decompress_dequant_matmul`` over the seven
      projections of ``--q-layers`` layers of qwen3-1.7B (W4A16: 4-bit
      bitpacked int8 weights, bf16 activations) at M = 128 and M = 2048,
@@ -78,7 +83,21 @@ line):
      and one sweep over all projections a rep, whose weights exceed the L2
      cache; the weight decode split into the host clock of the call and
      the device time of its launch;
-  7. a JSON line of the kernels, then ``{"ok": true, "device": {...}}``
+  7. the serving layer: phase 4's arrays through one
+     ``DecompressionService`` (256 MiB decoded-blob cache, pow2 buckets)
+     from 8 producer threads, one ``submit_array`` a request, every other
+     one ``device_out``, twice (the second pass meets the cache), each
+     result bit-exact, with windows, blobs and dispatches a window, dispatch
+     amplification, hit rate, p50/p99 latency and GB/s, and every decode
+     kernel launched; then the same two passes through services with
+     and without pow2 buckets in turns (the buckets' padding cost, with
+     the bytes each pass stages); ``api.decompress_many(cas)`` through
+     ``default_service()`` beside the direct plan path (equal dispatches
+     and outputs); then every blob written to a filesystem backend and
+     restored through a ``TieredBlobStore`` under a host budget well below
+     the data, ``stream_windows(window=8)`` + ``submit_key``: each key
+     fetched once, evictions, bit-exact;
+  8. a JSON line of the kernels, then ``{"ok": true, "device": {...}}``
      last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  It
@@ -103,6 +122,9 @@ BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 CHUNK_BYTES = 128 * 1024           # the paper's chunk size
 TD_EDGE_CHUNK = 32 * 1024          # tdeflate edge rows (plain body: a step
                                    # per token, so keep the rows short)
+STORE_BUDGET = 128 << 20           # the restore's host budget (phase 7):
+                                   # well under phase 4's 463.5 MiB of blobs
+STORE_WINDOW = 8                   # blobs a window of the restore
 
 
 def log(msg: str) -> None:
@@ -536,7 +558,7 @@ def huffman_tile_rows(rng, enc, chunk: int):
     return out
 
 
-# the epilogues phase 3 fuses into bitpack's and huffman's stores
+# the epilogues phase 3 fuses into every decode kernel's stores
 FUSED_KINDS = (
     ("int8_zero", dict(out_dtype="int8", zero_key="epi_zero"),
      {"epi_zero": np.uint8(8)}),
@@ -674,9 +696,11 @@ def phase_build(cuda_build, libs) -> None:
     log(f"== 2 kernel build: {', '.join(p.name for p in paths)} in "
         f"{dt:.2f} s (one nvcc each, in parallel)")
     for lib in libs:
+        name = " ".join((lib.source.name,) + lib.flags)
+        log(f"   {name}: nvcc {lib.build_seconds:.2f} s")
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
-                log(f"   {lib.source.name} ptxas: {line.strip()}")
+                log(f"   {name} ptxas: {line.strip()}")
 
 
 def check_rows(name, out, blobs_and_wants, fmt) -> None:
@@ -706,20 +730,19 @@ def decode_pair(codec, dev, *, width, chunk_elems, bits, registry, harness):
     return kern, plain
 
 
-def fused_errs(codec, dev, *, width, chunk_elems, bits, registry, harness,
-               counter):
+def fused_errs(codec, dev, plain, *, width, chunk_elems, bits, registry,
+               harness, counter):
     """Each of FUSED_KINDS through the kernel's stores against the plain
-    version followed by ``Epilogue.apply``, on the card: the largest bit
-    difference, after checking one launch and one fused epilogue each."""
+    version's output ``plain`` followed by ``Epilogue.apply``, on the card:
+    the largest bit difference, after checking one launch and one fused
+    epilogue each."""
     spec = registry.get(codec).decode
     worst = 0
     for name, kw, operands in FUSED_KINDS:
         d = {**dev, **{k: torch.from_numpy(np.asarray(v)).to(
             dev["out_lens"].device) for k, v in operands.items()}}
         epi = harness.Epilogue(**kw)
-        want = epi.apply(spec.body(spec.chunk_inputs(d), harness.consts_on(
-            spec, d["out_lens"].device), d["out_lens"],
-            chunk_elems=chunk_elems, width=width, bits=bits), d)
+        want = epi.apply(plain, d)
         before = (counter.read(), harness.EPILOGUE_FUSED,
                   harness.EPILOGUE_UNFUSED)
         got = harness.run(spec, d, width=width, chunk_elems=chunk_elems,
@@ -761,10 +784,12 @@ def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
                              *dbp_wide_groups(rng, fmt, width)))
                 rows += dbp_malformed(rng, fmt, width)
             table = fmt.concat_blobs([b for _, b, _ in rows])
-            kern, plain = decode_pair(codec, fmt.to_device(table, device),
-                                      width=width, chunk_elems=chunk_elems,
-                                      bits=0, **pair)
-            err = max_abs_err(kern, plain)
+            dev = fmt.to_device(table, device)
+            kern, plain = decode_pair(codec, dev, width=width,
+                                      chunk_elems=chunk_elems, bits=0, **pair)
+            err = max(max_abs_err(kern, plain), fused_errs(
+                codec, dev, plain, width=width, chunk_elems=chunk_elems,
+                bits=0, counter=counters[kernel_of(codec)], **pair))
             errs[kernel_of(codec)] = max(errs[kernel_of(codec)], err)
             if err:
                 raise AssertionError(f"{codec} w{width}: kernel differs "
@@ -782,7 +807,8 @@ def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
                 cap = "; group-cap rows (caps 36, 32, 33) max_abs_err 0"
             log(f"   {codec} w{width}: {table.num_chunks} rows x "
                 f"{chunk_elems} elems, kernel == plain (max_abs_err {err}), "
-                f"rows == inputs ({', '.join(k for k, _, _ in rows)}){cap}")
+                f"rows == inputs ({', '.join(k for k, _, _ in rows)}){cap}; "
+                f"fused {kinds} == plain + Epilogue.apply (bit for bit)")
     for bits in (1, 4, 7, 8, 9, 17, 32):
         for width in (w for w in (1, 2, 4) if bits <= 8 * w):
             chunk_elems = CHUNK_BYTES // width
@@ -814,8 +840,8 @@ def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
                                           chunk_elems=ce, bits=bits, **pair)
                 err = max_abs_err(kern, plain)
                 err = max(err, fused_errs(
-                    "bitpack", dev, width=width, chunk_elems=ce, bits=bits,
-                    counter=counters["bitpack_unpack"], **pair))
+                    "bitpack", dev, plain, width=width, chunk_elems=ce,
+                    bits=bits, counter=counters["bitpack_unpack"], **pair))
                 errs["bitpack_unpack"] = max(errs["bitpack_unpack"], err)
                 if err:
                     raise AssertionError(f"bitpack b{bits} w{width} chunk "
@@ -831,18 +857,22 @@ def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
     chunk = TD_EDGE_CHUNK
     rows = tdeflate_edge_blobs(rng, enc, fmt, chunk)
     table = fmt.concat_blobs([b for _, b, _ in rows])
+    dev = fmt.to_device(table, device)
     t0 = time.perf_counter()
-    kern, plain = decode_pair("tdeflate", fmt.to_device(table, device),
-                              width=1, chunk_elems=chunk, bits=0, **pair)
+    kern, plain = decode_pair("tdeflate", dev, width=1, chunk_elems=chunk,
+                              bits=0, **pair)
     plain_s = time.perf_counter() - t0
-    err = max_abs_err(kern, plain)
+    err = max(max_abs_err(kern, plain), fused_errs(
+        "tdeflate", dev, plain, width=1, chunk_elems=chunk, bits=0,
+        counter=counters["tdeflate_decode"], **pair))
     errs["tdeflate_decode"] = max(errs["tdeflate_decode"], err)
     if err:
         raise AssertionError(f"tdeflate: kernel differs from plain by {err}")
     check_rows("tdeflate", kern, rows, fmt)
     log(f"   tdeflate: {table.num_chunks} rows x {chunk} bytes, kernel == "
         f"plain (max_abs_err {err}; plain {plain_s:.1f} s), rows == "
-        f"expected ({', '.join(k for k, _, _ in rows)})")
+        f"expected ({', '.join(k for k, _, _ in rows)}); fused {kinds} == "
+        "plain + Epilogue.apply (bit for bit)")
     rows = [(k, enc.compress(a, "huffman", CHUNK_BYTES), a)
             for k, a in huffman_edge_arrays(rng, CHUNK_BYTES).items()]
     table = fmt.concat_blobs([b for _, b, _ in rows])
@@ -850,7 +880,7 @@ def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
     kern, plain = decode_pair("huffman", dev, width=1,
                               chunk_elems=CHUNK_BYTES, bits=0, **pair)
     err = max_abs_err(kern, plain)
-    err = max(err, fused_errs("huffman", dev, width=1,
+    err = max(err, fused_errs("huffman", dev, plain, width=1,
                               chunk_elems=CHUNK_BYTES, bits=0,
                               counter=counters["huffman_decode"], **pair))
     errs["huffman_decode"] = max(errs["huffman_decode"], err)
@@ -862,7 +892,7 @@ def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
     kern, plain = decode_pair("huffman", dev, width=1,
                               chunk_elems=CHUNK_BYTES, bits=0, **pair)
     tile_err = max(max_abs_err(kern, plain), fused_errs(
-        "huffman", dev, width=1, chunk_elems=CHUNK_BYTES, bits=0,
+        "huffman", dev, plain, width=1, chunk_elems=CHUNK_BYTES, bits=0,
         counter=counters["huffman_decode"], **pair))
     errs["huffman_decode"] = max(errs["huffman_decode"], tile_err)
     if tile_err:
@@ -877,13 +907,15 @@ def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
     for width in (1, 2, 4):
         rows = lzss_edge_blobs(rng, enc, fmt, width)
         table = fmt.concat_blobs([b for _, b, _ in rows])
+        dev = fmt.to_device(table, device)
         t0 = time.perf_counter()
-        kern, plain = decode_pair("lzss", fmt.to_device(table, device),
-                                  width=width,
+        kern, plain = decode_pair("lzss", dev, width=width,
                                   chunk_elems=CHUNK_BYTES // width, bits=0,
                                   **pair)
         plain_s = time.perf_counter() - t0
-        err = max_abs_err(kern, plain)
+        err = max(max_abs_err(kern, plain), fused_errs(
+            "lzss", dev, plain, width=width, chunk_elems=CHUNK_BYTES // width,
+            bits=0, counter=counters["lzss_decode"], **pair))
         errs["lzss_decode"] = max(errs["lzss_decode"], err)
         if err:
             raise AssertionError(f"lzss w{width}: kernel differs from plain "
@@ -892,7 +924,8 @@ def phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
         log(f"   lzss w{width}: {table.num_chunks} rows x "
             f"{CHUNK_BYTES // width} elems, kernel == plain (max_abs_err "
             f"{err}; plain {plain_s:.1f} s), rows == expected "
-            f"({', '.join(k for k, _, _ in rows)})")
+            f"({', '.join(k for k, _, _ in rows)}); fused {kinds} == plain "
+            "+ Epilogue.apply (bit for bit)")
 
 
 def phase_dequant_vs_plain(rng, dq, errs, device) -> None:
@@ -961,10 +994,53 @@ def group_cap_err(rng, fmt, codec, width, device, pair, chunk: int) -> int:
     return max_abs_err(kern, plain)
 
 
-def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
-               kmods, counters, engine, errs):
-    log("== 4 main path: compress_many -> decompress_many(device_out=True) "
-        "on cuda")
+def build_stage_parts(plan_mod, fmt, ops, transfers, flat, device) -> None:
+    """``DecodePlan.build`` and ``stage`` of ``flat`` by part, each cold
+    (the first call of these sizes in the process) and warm (the second),
+    on the host clock.  build: the whole call, then its parts again apart,
+    grouping (``group_key``) and merging (``concat_blobs``).  stage: the
+    scatter tables (``reassemble_indices``, uploaded where a blob's rows are
+    not contiguous) and the chunk tables (the padded copy and the h2d
+    upload, ``ops.table_inputs``), each part ending in a device
+    synchronisation.  It calls only functions that every version of the
+    port has, so another checkout's package is timed alike (``--stage-only
+    --src``)."""
+    for run in ("cold", "warm"):
+        t0 = time.perf_counter()
+        plan = plan_mod.DecodePlan.build(flat)
+        t1 = time.perf_counter()
+        by_key = {}
+        for i, b in enumerate(flat):
+            by_key.setdefault(fmt.group_key(b), []).append(i)
+        t2 = time.perf_counter()
+        merged = [fmt.concat_blobs([flat[i] for i in ids])
+                  for ids in by_key.values()]
+        t3 = time.perf_counter()
+        del merged
+        with transfers.count_host_transfers() as c_scat:
+            scat = [transfers.to_device(idx, device) for g in plan.groups
+                    for idx in g.scatter if idx is not None]
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        with transfers.count_host_transfers() as c_tab:
+            staged = [ops.table_inputs(g.merged, device) for g in plan.groups]
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        del plan, scat, staged
+        torch.cuda.empty_cache()
+        tab_ms = (t5 - t4) * 1e3
+        log(f"   {run}: DecodePlan.build {(t1 - t0) * 1e3:.2f} ms (apart: "
+            f"grouping {(t2 - t1) * 1e3:.2f} ms, concat_blobs "
+            f"{(t3 - t2) * 1e3:.2f} ms); stage {(t5 - t3) * 1e3:.2f} ms = "
+            f"scatter tables {(t4 - t3) * 1e3:.2f} ms ({c_scat['h2d']} "
+            f"uploads) + chunk tables {tab_ms:.2f} ms ({c_tab['h2d']} "
+            f"uploads, {c_tab['h2d_bytes'] / 2**20:.1f} MiB, "
+            f"{c_tab['h2d_bytes'] / tab_ms / 1e6:.2f} GB/s host to card)")
+
+
+def main_data(args, rng, api):
+    """Phase 4's workload (§ the module docstring): the arrays, their
+    ``CompressedArray``s, the distinct columns, and the texts' arrays."""
     target = int(args.gib * (1 << 30))
     t0 = time.perf_counter()
     n_text = int(args.text_mib * (1 << 20))
@@ -993,13 +1069,6 @@ def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
               + [text] * hf_copies + [tokens] * lz_copies)
     cas = (distinct * copies + [text_ca] * text_copies + [hf_ca] * hf_copies
            + [lz_ca] * lz_copies)
-    out_bytes = sum(a.nbytes for a in arrays)
-    comp_bytes = sum(ca.compressed_bytes for ca in cas)
-    flat = [b for ca in cas for b in ca.blobs]
-    t0 = time.perf_counter()
-    plan = plan_mod.DecodePlan.build(flat)
-    build_ms = (time.perf_counter() - t0) * 1e3
-    n_groups = plan.num_dispatches
     log(f"   {len(cols)} distinct columns ({per_copy / 2**20:.0f} MiB, "
         f"encoded in {encode_s:.1f} s) listed {copies}x, and "
         f"{text.nbytes / 2**20:.1f} MiB of log text (tdeflate ratio "
@@ -1008,7 +1077,29 @@ def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
         f"{hf_ca.ratio:.4f}, {hf_s:.1f} s) listed {hf_copies}x, and its "
         f"{tokens.size} u32 token ids through lzss (ratio {lz_ca.ratio:.4f}, "
         f"{lz_s:.1f} s) listed {lz_copies}x: {len(cas)} arrays, "
-        f"{len(flat)} blobs, {plan.num_chunks} chunks, {n_groups} groups")
+        f"{sum(len(ca.blobs) for ca in cas)} blobs")
+    return dict(arrays=arrays, cas=cas, cols=cols, distinct=distinct,
+                text=text, tokens=tokens, text_ca=text_ca, hf_ca=hf_ca,
+                lz_ca=lz_ca)
+
+
+def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
+               kmods, counters, engine, errs):
+    log("== 4 main path: compress_many -> decompress_many(device_out=True) "
+        "on cuda")
+    data = main_data(args, rng, api)
+    arrays, cas = data["arrays"], data["cas"]
+    out_bytes = sum(a.nbytes for a in arrays)
+    comp_bytes = sum(ca.compressed_bytes for ca in cas)
+    flat = [b for ca in cas for b in ca.blobs]
+    log("   DecodePlan.build and stage by part (host clock):")
+    build_stage_parts(plan_mod, kmods["fmt"], kmods["ops"], transfers, flat,
+                      engine.device)
+    t0 = time.perf_counter()
+    plan = plan_mod.DecodePlan.build(flat)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    n_groups = plan.num_dispatches
+    log(f"   {plan.num_chunks} chunks, {n_groups} groups")
 
     # one call through the user's entry point, counted
     for c in counters.values():
@@ -1143,20 +1234,27 @@ def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
             f"ms on {rows} rows, max_abs_err {err}{extra}")
         if err:
             raise AssertionError(f"group {g.key}: kernel differs from plain")
-    return launches, per, distinct, cols, (hf_ca, text)
+    return launches, per, data
 
 
-def phase_epilogue(api, harness, engine, distinct, cols, text_hf) -> None:
+def phase_epilogue(args, api, fmt, registry, harness, engine, data) -> None:
+    """Epilogues through ``decompress_many`` against their plain torch
+    versions (each fused, in the kernel's stores), then the fused decode
+    timed against the kernel followed by ``Epilogue.apply``."""
     log("== 5 epilogues against their plain torch versions")
     dev = engine.device
 
-    def check(name, ca, x, epi, operands, fused):
+    def operands_on(operands):
+        return {k: torch.from_numpy(np.asarray(v)).to(dev)
+                for k, v in operands.items()}
+
+    def check(name, ca, x, epi, operands):
         before = (harness.EPILOGUE_FUSED, harness.EPILOGUE_UNFUSED)
         [got] = api.decompress_many([ca], engine, device_out=True,
                                     epilogue=epi, epilogue_operands=operands)
         grew = (harness.EPILOGUE_FUSED - before[0],
                 harness.EPILOGUE_UNFUSED - before[1])
-        if grew != ((1, 0) if fused else (0, 1)):
+        if grew != (len(ca.blobs), 0):
             raise AssertionError(f"{name}: fused / unfused epilogues grew by "
                                  f"{grew}")
         out = getattr(torch, epi.out_dtype or "float32")
@@ -1172,29 +1270,61 @@ def phase_epilogue(api, harness, engine, distinct, cols, text_hf) -> None:
                                                       bit_view(want)):
             raise AssertionError(f"{name}: epilogue output differs from the "
                                  "plain torch version")
-        where = "in the kernel's stores" if fused else "torch ops after it"
         log(f"   {name}: {x.numel()} elements -> {got.dtype}, exact against "
-            f"the plain torch version (epilogue {where})")
+            "the plain torch version (epilogue in the kernel's stores)")
 
+    def timed(name, ca, epi, operands):
+        """The fused decode against the kernel followed by Epilogue.apply,
+        on the array's staged table (median of ``--reps``)."""
+        [blob] = ca.blobs
+        d = {**fmt.to_device(blob, dev), **operands_on(operands)}
+        spec = registry.get(blob.codec).decode
+        bits = registry.get(blob.codec).static_bits(blob)
+        kw = dict(width=blob.width, chunk_elems=blob.chunk_elems, bits=bits)
+        inputs, lens = spec.chunk_inputs(d), d["out_lens"]
+        consts = harness.consts_on(spec, lens.device)
+
+        def fused():
+            return harness.run(spec, d, backend="cuda", epilogue=epi, **kw)
+
+        def unfused():
+            return epi.apply(spec.cuda(inputs, consts, lens, **kw), d)
+
+        if not torch.equal(bit_view(fused()), bit_view(unfused())):
+            raise AssertionError(f"{name}: fused != kernel + Epilogue.apply")
+        f_ms, u_ms = ms_of(fused, args.reps), ms_of(unfused, args.reps)
+        plain_ms = ms_of(lambda: spec.cuda(inputs, consts, lens, **kw),
+                         args.reps)
+        out_mib = blob.num_chunks * blob.chunk_elems * blob.width / 2**20
+        log(f"   {name}: {blob.num_chunks} chunks ({out_mib:.1f} MiB raw), "
+            f"fused {f_ms:.3f} ms vs kernel + Epilogue.apply {u_ms:.3f} ms "
+            f"({u_ms / f_ms:.2f}x; the kernel alone {plain_ms:.3f} ms)")
+
+    cols, distinct = data["cols"], data["distinct"]
     names = [n for n, _, _ in cols]
+    affine = dict(scale_key="epi_scale", zero_key="epi_zero")
+    f32 = harness.Epilogue(out_dtype="float32", **affine)
+    bf16 = harness.Epilogue(out_dtype="bfloat16", **affine)
     idx = names.index("flags_u8")
+    rle_ops = {"epi_scale": np.float32(0.37), "epi_zero": np.uint8(2)}
     check("rle_v2 u8 column, float32 (x - zero) * scale", distinct[idx],
-          cols[idx][1],
-          harness.Epilogue(out_dtype="float32", scale_key="epi_scale",
-                           zero_key="epi_zero"),
-          {"epi_scale": np.float32(0.37), "epi_zero": np.uint8(2)}, False)
-    idx = names.index("dict_codes_u16")
+          cols[idx][1], f32, rle_ops)
+    idx16 = names.index("dict_codes_u16")
     check("bitpack 11-bit u16 column, float32 (x - zero) * scale",
-          distinct[idx], cols[idx][1],
-          harness.Epilogue(out_dtype="float32", scale_key="epi_scale",
-                           zero_key="epi_zero"),
-          {"epi_scale": np.float32(0.0123), "epi_zero": np.uint16(1024)},
-          True)
-    hf_ca, text = text_hf
-    check("huffman log text, bf16 (x - zero) * scale", hf_ca, text,
-          harness.Epilogue(out_dtype="bfloat16", scale_key="epi_scale",
-                           zero_key="epi_zero"),
-          {"epi_scale": np.float32(0.37), "epi_zero": np.uint8(97)}, True)
+          distinct[idx16], cols[idx16][1], f32,
+          {"epi_scale": np.float32(0.0123), "epi_zero": np.uint16(1024)})
+    text, tokens = data["text"], data["tokens"]
+    text_ops = {"epi_scale": np.float32(0.37), "epi_zero": np.uint8(97)}
+    check("huffman log text, bf16 (x - zero) * scale", data["hf_ca"], text,
+          bf16, text_ops)
+    check("tdeflate log text, bf16 (x - zero) * scale", data["text_ca"],
+          text, bf16, text_ops)
+    tok_ops = {"epi_scale": np.float32(0.5), "epi_zero": np.uint32(3)}
+    check("lzss token shard, float32 (x - zero) * scale", data["lz_ca"],
+          tokens, f32, tok_ops)
+    timed("rle_v2 flags_u8 column, f32 affine", distinct[idx], f32, rle_ops)
+    timed("tdeflate log text, bf16 affine", data["text_ca"], bf16, text_ops)
+    timed("lzss token shard, f32 affine", data["lz_ca"], f32, tok_ops)
 
 
 def phase_quantized(args, rng, dq, harness, transfers, counters, engine, errs,
@@ -1400,6 +1530,193 @@ def phase_quantized(args, rng, dq, harness, transfers, counters, engine, errs,
     return launches
 
 
+def expected_planes(a: np.ndarray, n: int) -> list:
+    """What each of an array's ``n`` blobs decodes to: the array, or the lo
+    and hi uint32 planes of an 8-byte dtype."""
+    if n == 1:
+        return [a]
+    u64 = np.ascontiguousarray(a).reshape(-1).view(np.uint64)
+    return [(u64 & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            (u64 >> np.uint64(32)).astype(np.uint32)]
+
+
+def same(got, want: np.ndarray) -> bool:
+    if isinstance(got, torch.Tensor):
+        got = got.cpu().numpy()
+    return got.dtype == want.dtype and np.array_equal(
+        np.ascontiguousarray(got).reshape(-1).view(np.uint8),
+        np.ascontiguousarray(want).reshape(-1).view(np.uint8))
+
+
+def phase_service(args, api, fmt, ops, transfers, server, store, engine,
+                  data, counters):
+    """The serving layer: phase 4's arrays through one DecompressionService
+    from 8 producer threads, twice; ``decompress_many`` through the default
+    service beside the direct plan path; then a checkpoint-scale restore of
+    every blob through the tiered store."""
+    import tempfile
+    import threading
+    log("== 7 service: DecompressionService, default_service, TieredBlobStore")
+    arrays, cas = data["arrays"], data["cas"]
+    out_bytes = sum(a.nbytes for a in arrays)
+    n_threads = 8
+
+    def serve(svc, label):
+        """Two passes of every request from ``n_threads`` producers."""
+        prev = svc.stats()
+        walls = []
+        for rnd in (1, 2):
+            results = [None] * len(cas)
+            failed = []
+
+            def producer(tid):
+                try:
+                    for i in range(tid, len(cas), n_threads):
+                        results[i] = svc.submit_array(
+                            cas[i], device_out=i % 2 == 1).result(timeout=600)
+                except Exception as e:   # reported below, never swallowed
+                    failed.append(f"request {i}: {e!r}")
+
+            threads = [threading.Thread(target=producer, args=(t,))
+                       for t in range(n_threads)]
+            with transfers.count_host_transfers() as moved:
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(900)
+                wall = time.perf_counter() - t0
+            if failed or any(t.is_alive() for t in threads):
+                raise AssertionError(f"service {label} pass {rnd}: "
+                                     f"{failed[:3]}")
+            st = svc.stats()
+            bad = [i for i, (a, r) in enumerate(zip(arrays, results))
+                   if r is None
+                   or isinstance(r, torch.Tensor) != (i % 2 == 1)
+                   or (isinstance(r, torch.Tensor)
+                       and r.device != engine.device)
+                   or not same(r, a)]
+            if bad or st.errors:
+                raise AssertionError(f"service {label} pass {rnd}: arrays "
+                                     f"{bad[:5]} differ, {st.errors} errors")
+            del results
+            w = st.windows - prev.windows
+            hits = st.cache_hits - prev.cache_hits
+            looks = hits + st.cache_misses - prev.cache_misses
+            log(f"   {label} pass {rnd}: {len(cas)} requests "
+                f"({len(cas) // 2} device_out) from {n_threads} threads, {w} "
+                f"windows, {(st.blobs - prev.blobs) / w:.2f} blobs and "
+                f"{(st.dispatches - prev.dispatches) / w:.2f} dispatches a "
+                f"window, dispatch amplification "
+                f"{(st.dispatches - prev.dispatches) / (st.blobs - prev.blobs):.3f}"
+                f", cache hit rate {hits / max(1, looks):.3f}; staged "
+                f"{moved['h2d_bytes'] / 2**20:.1f} MiB in {moved['h2d']} "
+                f"uploads; wall {wall * 1e3:.1f} ms = "
+                f"{out_bytes / wall / 1e9:.2f} GB/s of output; all bit-exact")
+            prev = st
+            walls.append(wall * 1e3)
+        log(f"   {label}, both passes: request latency p50 "
+            f"{st.latency_p50_ms:.2f} ms, p99 {st.latency_p99_ms:.2f} ms; "
+            f"dispatch amplification {st.dispatch_amplification:.3f}; "
+            f"{st.device_dispatches}")
+        return walls
+
+    # pow2 buckets (the reference's default) against none, in turns
+    # (bucketed, unbucketed, unbucketed, bucketed), a fresh service each:
+    # the buckets' padding cost on the card
+    for c in counters.values():
+        c.reset()
+    walls = {True: [], False: []}
+    for bucket in (True, False, False, True):
+        svc = server.DecompressionService(
+            engine, cache_bytes=256 << 20, bucket_shapes=bucket,
+            devices=[engine.device])
+        walls[bucket].append(serve(
+            svc, "bucket_shapes=True" if bucket else "bucket_shapes=False"))
+        svc.close(timeout=60)
+        if bucket and len(walls[True]) == 1:
+            launched = {k: c.read() for k, c in counters.items()}
+            missing = [k for k, v in launched.items()
+                       if v < 1 and k != "dequant_matmul"]
+            if missing:
+                raise AssertionError(f"not launched by the service: "
+                                     f"{missing}")
+            log(f"   launches of the first service: {launched}")
+    log("   service wall, pass 1 / pass 2 (ms): bucketed "
+        + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in walls[True])
+        + "; unbucketed "
+        + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in walls[False]))
+
+    # one-shot host decodes: the default service against the direct plan,
+    # in turns (service, direct, direct, service), each call's outputs
+    # dropped before the next
+    ms = {"service": [], "direct": []}
+    for path in ("service", "direct", "direct", "service"):
+        with ops.count_dispatches() as calls:
+            t0 = time.perf_counter()
+            outs = (api.decompress_many(cas) if path == "service"
+                    else api.decompress_many(cas, engine))
+            ms[path].append((time.perf_counter() - t0) * 1e3)
+        if len(calls) != len({fmt.group_key(b) for ca in cas
+                              for b in ca.blobs}) or not all(
+                same(o, a) for o, a in zip(outs, arrays)):
+            raise AssertionError(f"decompress_many ({path}): {len(calls)} "
+                                 "dispatches, or outputs differ")
+        del outs
+    log(f"   api.decompress_many(cas) via default_service(): {len(calls)} "
+        f"dispatches, {ms['service'][0]:.1f} / {ms['service'][1]:.1f} ms; "
+        f"direct plan (engine=): the same dispatches, "
+        f"{ms['direct'][0]:.1f} / {ms['direct'][1]:.1f} ms (in turns: "
+        "service, direct, direct, service); host outputs bit-exact")
+
+    # checkpoint-scale restore: every blob through the tiered store
+    blobs = [(b, w) for ca, a in zip(cas, arrays)
+             for b, w in zip(ca.blobs, expected_planes(a, len(ca.blobs)))]
+    keys = [f"step_1/blob{i:03d}" for i in range(len(blobs))]
+    window = STORE_WINDOW
+    with tempfile.TemporaryDirectory() as root:
+        backend = store.FilesystemBackend(root)
+        writer = store.TieredBlobStore(backend)
+        t0 = time.perf_counter()
+        sizes = [writer.put(k, b) for k, (b, _) in zip(keys, blobs)]
+        write_s = time.perf_counter() - t0
+        writer.close()
+        wins = [sum(sizes[i:i + window]) for i in range(0, len(keys), window)]
+        pair = max(x + y for x, y in zip(wins, wins[1:] + [0]))
+        low = 0.8
+        budget = max(STORE_BUDGET, int(pair / low) + 1)
+        st = store.TieredBlobStore(backend, host_budget_bytes=budget,
+                                   low_watermark=low)
+        svc = server.DecompressionService(engine, cache_bytes=0, store=st)
+        bad = []
+        t0 = time.perf_counter()
+        for i, objs in enumerate(st.stream_windows(keys, window=window,
+                                                   release=False)):
+            wkeys = keys[i * window:(i + 1) * window]
+            futs = [svc.submit_key(k) for k in wkeys]
+            for j, f in enumerate(futs):
+                if not same(f.result(timeout=600),
+                            blobs[i * window + j][1]):
+                    bad.append(wkeys[j])
+            del objs, futs
+        restore_s = time.perf_counter() - t0
+        s = st.stats()
+        svc.close(timeout=60)
+        st.close()
+    if bad or s.backend_fetches != len(keys) or s.host_evictions < 1:
+        raise AssertionError(f"store restore: {len(bad)} blobs differ, "
+                             f"{s.backend_fetches} fetches for {len(keys)} "
+                             f"keys, {s.host_evictions} evictions")
+    log(f"   store: {len(keys)} blobs ({sum(sizes) / 2**20:.1f} MiB pickled, "
+        f"written in {write_s:.2f} s) restored through "
+        f"TieredBlobStore(host_budget_bytes={budget / 2**20:.1f} MiB; two "
+        f"windows of {window} reach {pair / 2**20:.1f} MiB) + "
+        f"stream_windows(window={window}) + submit_key: "
+        f"{s.backend_fetches} fetches (each key once), {s.host_evictions} "
+        f"evictions, host hit rate {s.host_hit_rate:.3f}, "
+        f"{restore_s:.2f} s; all bit-exact")
+
+
 class Counter:
     """A kernel's launch count on the main path: reset, then read."""
 
@@ -1439,11 +1756,20 @@ def main() -> int:
                     "(its token parse syncs once per token step)")
     ap.add_argument("--q-layers", type=int, default=4,
                     help="qwen3-1.7B layers of the quantized-weight path")
+    ap.add_argument("--stage-only", action="store_true",
+                    help="only time DecodePlan.build and stage by part on "
+                    "phase 4's workload (cold, then warm), and stop")
+    ap.add_argument("--src", type=Path, default=None,
+                    help="with --stage-only: the directory holding another "
+                    "checkout's repro_torch package, to time its staging "
+                    "alike")
     args = ap.parse_args()
+    if args.src is not None and not args.stage_only:
+        ap.error("--src needs --stage-only")
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device is available", file=sys.stderr)
         return 1
-    src = ROOT / "src"
+    src = (args.src or ROOT / "src").resolve()
     if not all((src / "repro_torch" / "csrc" / f).exists()
                for f, _ in SOURCES.values()):
         print(f"FAIL: the port's sources are not under {src}",
@@ -1454,12 +1780,24 @@ def main() -> int:
     from repro_torch.core import plan as plan_mod, registry, transfers
     from repro_torch.core.engine import CodagEngine
     from repro_torch.kernels import (bitpack, cuda_build, cuda_rle, harness,
-                                     huffman, lzss, tdeflate)
+                                     huffman, lzss, ops, tdeflate)
     from repro_torch.kernels import dequant_matmul as dq
 
     rng = np.random.default_rng(args.seed)
     phase_env()
-    phase_build(cuda_build, [cuda_rle.LIB, bitpack.LIB, tdeflate.LIB,
+    if args.stage_only:
+        log(f"== 4 DecodePlan.build and stage by part only, package under "
+            f"{src}")
+        data = main_data(args, rng, api)
+        device = torch.device("cuda", torch.cuda.current_device())
+        torch.zeros(1, device=device)     # the CUDA context, before timing
+        torch.cuda.synchronize()
+        build_stage_parts(plan_mod, fmt, ops, transfers,
+                          [b for ca in data["cas"] for b in ca.blobs], device)
+        return 0
+    from repro_torch.core import server, store
+    phase_build(cuda_build, [cuda_rle.LIB, *cuda_rle.LIB_EPI.values(),
+                             bitpack.LIB, tdeflate.LIB,
                              huffman.LIB, lzss.LIB, dq.LIB])
     engine = CodagEngine()
     errs = {k: 0 for k in KERNELS}
@@ -1472,15 +1810,18 @@ def main() -> int:
     phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
                           engine.device, counters)
     phase_dequant_vs_plain(rng, dq, errs, engine.device)
-    launches, per, distinct, cols, text_hf = phase_main(
+    launches, per, data = phase_main(
         args, rng, api, plan_mod, transfers, registry, harness,
-        {"tdeflate": tdeflate, "lzss": lzss, "cuda_rle": cuda_rle}, counters,
+        {"tdeflate": tdeflate, "lzss": lzss, "cuda_rle": cuda_rle,
+         "fmt": fmt, "ops": ops}, counters,
         engine, errs)
-    phase_epilogue(api, harness, engine, distinct, cols, text_hf)
+    phase_epilogue(args, api, fmt, registry, harness, engine, data)
     launches["dequant_matmul"] = phase_quantized(
         args, rng, dq, harness, transfers, counters, engine, errs,
         per)["dequant_matmul"]
-    log("== 7 kernels")
+    phase_service(args, api, fmt, ops, transfers, server, store, engine, data,
+                  counters)
+    log("== 8 kernels")
     kernels = []
     for name in KERNELS:
         source, replaces = SOURCES.get(

@@ -6,6 +6,8 @@
 
     cas  = api.compress_many(arrs, "rle_v2")        # list in, list out
     outs = api.decompress_many(cas, device_out=True)  # ONE launch per group
+    outs = api.decompress_many(cas)                 # host arrays, through
+                                                    # server.default_service()
 
 Decoding runs on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"`` or an engine configured for the CPU.  8-byte dtypes are
@@ -120,30 +122,47 @@ def decompress_many(cas: Sequence[CompressedArray],
                     mesh=None, mesh_axis: Optional[str] = None,
                     out_shardings=None, device=None) -> List:
     """Batched decompress: every chunk of every array in one launch per
-    (codec, width, chunk_elems, bits) group — the CODAG provisioning move —
-    through one ``core.plan.DecodePlan``.
+    (codec, width, chunk_elems, bits) group — the CODAG provisioning move.
+
+    With no ``engine`` and host output (``device_out=False``), or with an
+    explicit ``service=``, the arrays go through ``service.decode_arrays``
+    (default ``server.default_service(device)``): all blobs enter one
+    micro-batch window atomically, the same one dispatch per group as the
+    direct plan, plus coalescing with any other requests in flight.
+    Otherwise one ``core.plan.DecodePlan`` runs on ``engine`` (or an engine
+    on ``device``, default ``"cuda"``).
 
     ``device_out=True`` returns tensors on the engine's device: decode,
     per-blob scatter, 64-bit plane recombination and the optional
-    ``epilogue`` (a ``kernels.harness.Epilogue``) all run there.  Without
-    it, each group's table is copied to the host once and numpy arrays come
-    back.  ``device`` picks the device when no ``engine`` is given
-    (default ``"cuda"``).
-
-    The decode service (``service=``) and the mesh executor (``mesh=``,
-    ``out_shardings=``) are not ported yet.  Outputs follow input order.
+    ``epilogue`` (a ``kernels.harness.Epilogue``, plan path only) all run
+    there.  The mesh executor (``mesh=``, ``out_shardings=``) is not ported
+    yet.  Outputs follow input order.
     """
-    if service is not None:
-        raise NotImplementedError(
-            "service= is not ported yet (ROADMAP.md Queue 1 item 8); "
-            "pass engine= or device=")
+    if engine is not None and service is not None:
+        raise ValueError("pass engine= OR service=, not both: the service "
+                         "decodes on its own engine")
+    if epilogue is not None and not device_out:
+        raise ValueError("epilogue requires device_out=True: a fused "
+                         "epilogue's output has no host reassembly path")
+    if service is not None or (engine is None and not device_out):
+        if epilogue is not None:
+            raise ValueError("epilogue is not supported on the service "
+                             "path; pass engine= (or no engine) with "
+                             "device_out=True")
+        if mesh is not None or out_shardings is not None:
+            raise ValueError("mesh/out_shardings are not supported on the "
+                             "service path; pass engine= (or no engine) "
+                             "for the direct plan executors")
+        if service is None:
+            from repro_torch.core import server as server_mod
+            service = server_mod.default_service(device)
+        if not cas:
+            return []
+        return service.decode_arrays(cas, device_out=device_out)
     if mesh is not None or mesh_axis is not None or out_shardings is not None:
         raise NotImplementedError(
             "mesh=/mesh_axis=/out_shardings= are not ported yet (ROADMAP.md "
             "Queue 1 item 11)")
-    if epilogue is not None and not device_out:
-        raise ValueError("epilogue requires device_out=True: a fused "
-                         "epilogue's output has no host reassembly path")
     engine = _engine(engine, device)
     if not cas:
         return []

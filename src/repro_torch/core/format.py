@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -131,29 +131,35 @@ def blob_from_reference(fields: Dict[str, Any]) -> CompressedBlob:
 
 
 def to_device(blob: CompressedBlob, device,
-              pad_comp_to: Optional[int] = None) -> Dict[str, torch.Tensor]:
+              pad_comp_to: Optional[int] = None,
+              rows: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Stage a blob's device layout on ``device`` (the reference's
     ``CompressedBlob.to_device`` layout, as torch tensors).
 
-    Rows are zero-padded by at least 8 bytes and rounded up to a multiple of
-    128, so header peeks and literal reads past a row's last valid byte land
-    in zeros.  Every upload goes through the ``transfers.to_device`` funnel.
-    A bit codec's ``comp_words`` is a uint32 view of the staged ``comp``, so
-    its bytes cross once.
+    Rows are zero-padded by at least 8 bytes, to at least ``pad_comp_to``
+    columns, and rounded up to a multiple of 128, so header peeks and
+    literal reads past a row's last valid byte land in zeros.  ``rows``
+    appends zero-length chunks (zero rows, zero ``comp_lens`` /
+    ``out_lens`` and per-chunk extras; :func:`pad_table_rows` on the host).
+    The padding is written as the rows are copied into the staging buffer
+    (``transfers.to_device(rows=, cols=)``), so the compressed bytes are
+    copied on the host once.  Every upload goes through the
+    ``transfers.to_device`` funnel.  A bit codec's ``comp_words`` is a
+    uint32 view of the staged ``comp``, so its bytes cross once.
     """
-    comp = blob.comp
-    want = max(comp.shape[1] + 8, pad_comp_to or 0)
+    want = max(blob.comp.shape[1] + 8, pad_comp_to or 0)
     want = int(np.ceil(want / 128) * 128)  # lane-align
-    if want != comp.shape[1]:
-        comp = np.zeros((comp.shape[0], want), np.uint8)
-        comp[:, : blob.comp.shape[1]] = blob.comp
-    host = {
-        "comp": comp,
-        "comp_lens": blob.comp_lens.astype(np.int32),
-        "out_lens": blob.out_lens.astype(np.int32),
-    }
+    rows = None if rows == blob.num_chunks else rows
+    dev = {"comp": transfers.to_device(blob.comp, device, rows=rows,
+                                       cols=want)}
+    host = {"comp_lens": blob.comp_lens.astype(np.int32),
+            "out_lens": blob.out_lens.astype(np.int32)}
+    shared = registry.get(blob.codec).shared_extras
     host.update(blob.extras)
-    dev = {k: transfers.to_device(v, device) for k, v in host.items()}
+    for k, v in host.items():
+        per_chunk = k not in shared and v.shape[:1] == (blob.num_chunks,)
+        dev[k] = transfers.to_device(v, device,
+                                     rows=rows if per_chunk else None)
     if registry.get(blob.codec).needs_words:
         dev["comp_words"] = dev["comp"].view(torch.uint32)
     return dev
@@ -240,6 +246,45 @@ def pad_table_rows(table: CompressedBlob, target_rows: int) -> CompressedBlob:
         out_lens=np.concatenate(
             [table.out_lens, np.zeros(pad, np.int32)]).astype(np.int32),
         extras=extras)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length() if n > 1 else 1
+
+
+def bucket_shape(table: CompressedBlob,
+                 cols_floor: Optional[int] = None) -> Tuple[int, int]:
+    """The pow2 ``(rows, cols)`` bucket of a merged chunk table's ``comp``
+    (:func:`pad_table_to_bucket`'s shape)."""
+    floor = 128 if cols_floor is None else int(cols_floor)
+    return (_next_pow2(table.num_chunks),
+            max(floor, _next_pow2(int(table.comp.shape[1]))))
+
+
+def pad_table_to_bucket(table: CompressedBlob,
+                        cols_floor: Optional[int] = None) -> CompressedBlob:
+    """Pad a merged chunk table to power-of-two row/column buckets.
+
+    Rows are padded with zero-length chunks (:func:`pad_table_rows`) and
+    columns with zero bytes, so a long-lived caller (the service's window
+    loop) sees a few table shapes per group key.  The reference buckets to
+    bound its jit cache; the port has no per-shape compile, so here the
+    buckets only shape the table, kept for parity with the reference.
+    ``DecodePlan.build(bucket=True)`` does not call this: it records
+    :func:`bucket_shape` and pads while staging, with no host copy.
+
+    ``cols_floor`` is the minimum column bucket.  Until the tuning table is
+    ported (ROADMAP.md Queue 1 item 9), ``None`` means 128, the reference's
+    floor for a device kind without a tuning entry.
+    """
+    rows, target_cols = bucket_shape(table, cols_floor)
+    padded = pad_table_rows(table, rows)
+    cols = int(padded.comp.shape[1])
+    if target_cols == cols:
+        return padded
+    comp = np.zeros((padded.num_chunks, target_cols), np.uint8)
+    comp[:, :cols] = padded.comp
+    return dataclasses.replace(padded, comp=comp)
 
 
 def blob_digest(blob: CompressedBlob) -> str:

@@ -19,8 +19,11 @@ The counterpart of ``repro/core/plan.py`` (single-device executors):
     outs = plan.execute(engine)                     # host ndarrays
     devs = plan.execute_device(engine)              # tensors on engine.device
 
-The sharded executor, pow2 bucketing and the service's window loop are not
-ported yet (ROADMAP.md Queue 1 items 8 and 11).
+``DecodePlan.build(bucket=True)`` pads each merged table to pow2 row and
+column buckets (the service's window loop builds its plans so), and
+:meth:`DecodePlan.decode_group_device` stages and decodes one group on a
+chosen device.  The sharded executor is not ported yet (ROADMAP.md Queue 1
+item 11).
 """
 from __future__ import annotations
 
@@ -115,6 +118,8 @@ class PlanGroup:
     merged: fmt.CompressedBlob
     members: Tuple[fmt.CompressedBlob, ...] = dataclasses.field(
         default=(), repr=False, compare=False)
+    # pow2 (rows, cols) the table is padded to as it is staged, or None
+    bucket: Optional[Tuple[int, int]] = None
 
     @property
     def scatter(self) -> Tuple[Optional[np.ndarray], ...]:
@@ -124,7 +129,16 @@ class PlanGroup:
 
     @property
     def num_chunks(self) -> int:
-        return self.merged.num_chunks
+        """Rows of the staged (and decoded) table, bucket padding
+        included."""
+        return self.bucket[0] if self.bucket else self.merged.num_chunks
+
+    def stage(self, device) -> Dict[str, torch.Tensor]:
+        """The group's device table (``ops.table_inputs``), padded to its
+        bucket as it is copied."""
+        rows, cols = self.bucket or (None, None)
+        return ops.table_inputs(self.merged, device, rows=rows,
+                                pad_comp_to=cols)[0]
 
 
 @dataclasses.dataclass
@@ -146,9 +160,19 @@ class DecodePlan:
                           repr=False, compare=False)
 
     @classmethod
-    def build(cls, blobs: Sequence[fmt.CompressedBlob]) -> "DecodePlan":
+    def build(cls, blobs: Sequence[fmt.CompressedBlob], *,
+              bucket: bool = False,
+              bucket_floor: Optional[int] = None) -> "DecodePlan":
         """Parse/group stage: one ``PlanGroup`` per distinct group key, in
-        order of first occurrence."""
+        order of first occurrence.
+
+        ``bucket=True`` pads each merged table to pow2 row/column buckets
+        (the shape of ``format.pad_table_to_bucket``, recorded as
+        ``PlanGroup.bucket`` and padded as the table is staged, with no
+        host copy); padding rows trail the real rows, so per-blob row
+        ranges are unaffected.  ``bucket_floor`` overrides the minimum
+        column bucket (default 128).
+        """
         blobs = list(blobs)
         by_key: Dict[tuple, List[int]] = {}
         for i, b in enumerate(blobs):
@@ -159,10 +183,12 @@ class DecodePlan:
             for i in ids:
                 offsets.append(row)
                 row += blobs[i].num_chunks
+            merged = fmt.concat_blobs([blobs[i] for i in ids])
             groups.append(PlanGroup(
                 key=key, blob_ids=tuple(ids), row_offsets=tuple(offsets),
-                merged=fmt.concat_blobs([blobs[i] for i in ids]),
-                members=tuple(blobs[i] for i in ids)))
+                merged=merged, members=tuple(blobs[i] for i in ids),
+                bucket=fmt.bucket_shape(merged, bucket_floor) if bucket
+                else None))
         return cls(blobs=blobs, groups=groups)
 
     @property
@@ -183,7 +209,7 @@ class DecodePlan:
         scat = self._staged_scatter.setdefault(device, {})
         for gi, g in enumerate(self.groups):
             if gi not in staged:
-                staged[gi] = ops.table_inputs(g.merged, device)[0]
+                staged[gi] = g.stage(device)
             if gi not in scat:
                 scat[gi] = tuple(
                     None if s is None else transfers.to_device(s, device)
@@ -207,6 +233,26 @@ class DecodePlan:
         while len(self._staged_operands) > OPERAND_CACHE_SLOTS:
             self._staged_operands.popitem(last=False)
         return staged
+
+    def decode_group_device(self, gi: int, engine=None, *, device=None,
+                            epilogue=None) -> torch.Tensor:
+        """Stage and dispatch one group; returns its raw decoded
+        ``(num_chunks, chunk_elems)`` matrix on the device (no reassembly).
+
+        ``device``: where to stage and decode (default ``engine.device``);
+        the service's round-robin group->device assignment passes it.
+        Callers owning the blob->row mapping (the service's window loop)
+        scatter the result themselves.
+        """
+        engine = _default_engine(engine)
+        device = engine.device if device is None else torch.device(device)
+        staged = self._staged.setdefault(device, {})
+        if gi not in staged:
+            staged[gi] = self.groups[gi].stage(device)
+        codec, width, chunk_elems, bits = self.groups[gi].key
+        return dispatch(staged[gi], config=engine.config, codec=codec,
+                        width=width, chunk_elems=chunk_elems, bits=bits,
+                        epilogue=epilogue)
 
     def execute(self, engine=None) -> List[np.ndarray]:
         """Host executor: one dispatch per group, one sanctioned d2h

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -37,6 +37,11 @@ def to_host(x) -> np.ndarray:
     """Materialize a tensor on the host (the ONE sanctioned d2h path).
 
     Raises ``RuntimeError`` inside :func:`no_host_transfers` on this thread.
+    From a card the copy is queued on the tensor's current stream and waited
+    for by an event, not by a stream synchronisation, so a decode thread
+    (the service's worker) may materialize while another thread holds
+    :func:`no_host_transfers`, whose sync-debug mode catches only
+    synchronising calls.
     """
     if getattr(_tls, "disallow", 0):
         raise RuntimeError(
@@ -47,21 +52,71 @@ def to_host(x) -> np.ndarray:
     if not isinstance(x, torch.Tensor):
         return np.asarray(x)
     _count(d2h=1, bytes=x.numel() * x.element_size())
-    return x.detach().cpu().numpy()
+    x = x.detach()
+    if x.device.type != "cuda":
+        return x.cpu().numpy()
+    out = torch.empty(x.shape, dtype=x.dtype)
+    out.copy_(x, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(x.device))
+    done.synchronize()
+    return out.numpy()
 
 
-def to_device(x, device) -> torch.Tensor:
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def to_device(x, device, rows: Optional[int] = None,
+              cols: Optional[int] = None) -> torch.Tensor:
     """Stage a host array (or numpy scalar) on ``device`` (the ONE
     sanctioned h2d path).  Counted, never forbidden: staging is how data
     legitimately reaches the device.  Tensors pass through, moved to
-    ``device`` if they live elsewhere."""
+    ``device`` if they live elsewhere.
+
+    ``rows`` / ``cols``: stage the array zero-padded at the end of its
+    first axis to ``rows`` and (2-D only) on the right to ``cols``; the
+    array is copied once, straight into the staging buffer, and only the
+    padding is zeroed.  To a card the array goes through pinned host memory
+    (torch's caching host allocator) and a ``non_blocking`` copy on the
+    device's current stream; the allocator records the copy on the buffer
+    and reuses it only once the copy has completed, so the buffer may be
+    dropped at once.
+    """
     if isinstance(x, torch.Tensor):
         return x.to(device)
     a = np.asarray(x)
-    if not (a.flags.c_contiguous and a.flags.writeable):
-        a = a.copy()
-    _count(h2d=1, h2d_bytes=int(a.nbytes))
-    return torch.from_numpy(a).to(device)
+    device = torch.device(device)
+    if cols is not None and (a.ndim != 2 or cols < a.shape[1]):
+        raise ValueError(f"cannot pad a {a.shape} array to {cols} columns")
+    if rows is not None and (a.ndim == 0 or rows < a.shape[0]):
+        raise ValueError(f"cannot pad a {a.shape} array to {rows} rows")
+    shape = list(a.shape)
+    if rows is not None:
+        shape[0] = int(rows)
+    if cols is not None:
+        shape[1] = int(cols)
+    shape = tuple(shape)
+    _count(h2d=1, h2d_bytes=int(np.prod(shape)) * a.itemsize)
+    if device.type == "cuda":
+        buf = torch.empty(shape, dtype=_torch_dtype(a.dtype),
+                          pin_memory=True)
+        host = buf.numpy()
+    elif shape != a.shape or not (a.flags.c_contiguous
+                                  and a.flags.writeable):
+        host = np.empty(shape, a.dtype)
+        buf = torch.from_numpy(host)
+    else:
+        return torch.from_numpy(a).to(device)
+    if shape == a.shape:
+        np.copyto(host, a)
+    else:
+        n = a.shape[0]
+        np.copyto(host[:n, :a.shape[1]] if cols is not None else host[:n], a)
+        host[n:] = 0
+        if cols is not None:
+            host[:n, a.shape[1]:] = 0
+    return buf.to(device, non_blocking=True)
 
 
 @contextlib.contextmanager

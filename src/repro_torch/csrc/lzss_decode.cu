@@ -70,6 +70,14 @@
 //    matches in token order, reading the stage (a source always lies
 //    before its match's start).  Then the stage goes to the row, coalesced.
 //
+// The decode epilogue (`epilogue.cuh`).  A match loads its source from the
+// row's earlier batches, so with an epilogue whose output is not the raw
+// elements the kernel keeps the raw row where its matches read it, in a
+// scratch matrix of the launch, and once the row is final the warp writes
+// its epilogue in one vectorised pass (`epi::warp_row`), off the token
+// chain; without one (or for an epilogue that only views the elements) it
+// stores as before.
+//
 // Residency: 4 warps (chunks) a CTA, 4 x 4.8 KiB of shared memory at width
 // 4.  At 1,024 chunks that is ~8 chunks an SM, one wave.
 //
@@ -77,7 +85,10 @@
 // row written once, over 3.35 TB/s.  The kernel stays bound by the token
 // chain: a shared load and a few integer operations a token.
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
+
+#include "epilogue.cuh"
 
 namespace {
 
@@ -196,13 +207,20 @@ struct Batch {
   bool t_m, dep;    // a match; a match reading its own batch
 };
 
-template <typename T>
+// T: the width type.  S: the store (`epi::Raw`, or `epi::Store<O>` for a
+// fused epilogue), E the unsigned type of its output.  With a fused
+// epilogue the decoded elements, which later matches read, go to `raw` (a
+// scratch matrix of the launch) and their epilogue to `eout`; without one
+// `raw` is the output and `eout` is not used.
+template <typename T, typename S, typename E>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 lzss_decode_kernel(const uint8_t* __restrict__ comp, int64_t n,
                    int64_t ncols, const int32_t* __restrict__ out_lens,
-                   int64_t chunk_elems, T* __restrict__ out,
+                   int64_t chunk_elems, T* __restrict__ raw,
+                   E* __restrict__ eout, epi::Args ea,
                    int32_t* __restrict__ tokens) {
   constexpr int kWidth = static_cast<int>(sizeof(T));
+  constexpr bool kEpi = !std::is_same<S, epi::Raw>::value;
   __shared__ __align__(16) uint8_t s_ring[kWarpsPerBlock][kTileBytes];
   __shared__ T s_stage[kWarpsPerBlock][kSpan];
   __shared__ uint32_t s_tok[kWarpsPerBlock][32];
@@ -213,7 +231,9 @@ lzss_decode_kernel(const uint8_t* __restrict__ comp, int64_t n,
                    (ncols & 15) == 0;
   Tile tile{comp + row * ncols, ncols, s_ring[wib], lane, vec, 0, {}};
   tile.init();
-  T* dst = out + row * chunk_elems;
+  T* dst = raw + row * chunk_elems;
+  E* edst = eout + row * chunk_elems;
+  const S st(ea);
   T* stage = s_stage[wib];
   const int64_t out_len = out_lens[row];
   int64_t limit = out_len < chunk_elems ? out_len : chunk_elems;
@@ -366,48 +386,86 @@ lzss_decode_kernel(const uint8_t* __restrict__ comp, int64_t n,
       if (cur.span > 0) gather(cur);
     }
   }
-  for (int64_t i = (cnt < limit ? cnt : limit) + lane; i < chunk_elems;
-       i += 32)
-    dst[i] = 0;
+  const int64_t end = cnt < limit ? cnt : limit;
+  if constexpr (kEpi) {
+    // the finished row's epilogue, the elements past the stream as zeros
+    // (the scratch row's tail is never read)
+    __syncwarp();
+    epi::warp_row<static_cast<int>(sizeof(E))>(st, dst, edst, end,
+                                               chunk_elems, lane);
+  } else {
+    for (int64_t i = end + lane; i < chunk_elems; i += 32) dst[i] = 0;
+  }
   if (tokens != nullptr && lane == 0) tokens[row] = static_cast<int32_t>(ntok);
 }
 
-template <typename T>
+template <typename T, typename S, typename E>
 int launch(const void* comp, int64_t n, int64_t ncols, const void* out_lens,
-           int64_t chunk_elems, void* out, void* tokens, void* stream) {
+           int64_t chunk_elems, void* raw, void* out, const epi::Args& ea,
+           void* tokens, cudaStream_t stream) {
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid(static_cast<unsigned>((n + kWarpsPerBlock - 1) /
                                         kWarpsPerBlock));
-  lzss_decode_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  lzss_decode_kernel<T, S, E><<<grid, block, 0, stream>>>(
       static_cast<const uint8_t*>(comp), n, ncols,
       static_cast<const int32_t*>(out_lens), chunk_elems,
-      static_cast<T*>(out), static_cast<int32_t*>(tokens));
+      static_cast<T*>(raw), static_cast<E*>(out), ea,
+      static_cast<int32_t*>(tokens));
   return static_cast<int>(cudaGetLastError());
+}
+
+// One width: its plain store, or the epilogue of `out_code`.
+template <typename T>
+int launch_width(const void* comp, int64_t n, int64_t ncols,
+                 const void* out_lens, int64_t chunk_elems, void* out,
+                 void* raw, int out_code, const epi::Args& ea, void* tokens,
+                 cudaStream_t s) {
+  if (epi::plain_store(out_code, ea))
+    return launch<T, epi::Raw, T>(comp, n, ncols, out_lens, chunk_elems, out,
+                                  out, ea, tokens, s);
+  if (raw == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return epi::dispatch(out_code, [&](auto tag) {
+    using O = typename decltype(tag)::type;
+    return launch<T, epi::Store<O>,
+                  typename epi::Bits<static_cast<int>(sizeof(O))>::T>(
+        comp, n, ncols, out_lens, chunk_elems, raw, out, ea, tokens, s);
+  });
 }
 
 }  // namespace
 
 // Decode n lzss chunk rows of `width`-byte elements into `out` ((n,
-// chunk_elems) of that width) on `stream`.  `comp` is the (n, ncols) byte
-// table, `out_lens` (n,) int32.  `tokens`, if not null, receives each row's
-// token count.  Returns the CUDA error of the launch (0 on success).
-// Allocates nothing and does not synchronise.
+// chunk_elems) of the output type) on `stream`.  `comp` is the (n, ncols)
+// byte table, `out_lens` (n,) int32.  `out_code` is the output dtype's code
+// and `src_code`, `zero`, `zero_code`, `scale`, `scale_code` the epilogue
+// (`epilogue.cuh`; null operands are absent).  With no operands and
+// `out_code == src_code` the kernel writes the decoded elements to `out`;
+// otherwise `raw`, an (n, chunk_elems) scratch matrix of the width type,
+// takes them (later matches read them there) and `out` their epilogue.
+// `tokens`, if not null, receives each row's token count.  Returns the CUDA
+// error of the launch (0 on success).  Allocates nothing and does not
+// synchronise.
 extern "C" int codag_lzss_decode(int width, const void* comp, int64_t n,
                                  int64_t ncols, const void* out_lens,
-                                 int64_t chunk_elems, void* out, void* tokens,
+                                 int64_t chunk_elems, void* out, void* raw,
+                                 void* tokens, int out_code, int src_code,
+                                 const void* zero, int zero_code,
+                                 const void* scale, int scale_code,
                                  void* stream) {
   if (n <= 0 || chunk_elems <= 0) return 0;
   if (ncols <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const epi::Args ea{src_code, zero, zero_code, scale, scale_code};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (width) {
     case 1:
-      return launch<uint8_t>(comp, n, ncols, out_lens, chunk_elems, out,
-                             tokens, stream);
+      return launch_width<uint8_t>(comp, n, ncols, out_lens, chunk_elems,
+                                   out, raw, out_code, ea, tokens, s);
     case 2:
-      return launch<uint16_t>(comp, n, ncols, out_lens, chunk_elems, out,
-                              tokens, stream);
+      return launch_width<uint16_t>(comp, n, ncols, out_lens, chunk_elems,
+                                    out, raw, out_code, ea, tokens, s);
     case 4:
-      return launch<uint32_t>(comp, n, ncols, out_lens, chunk_elems, out,
-                              tokens, stream);
+      return launch_width<uint32_t>(comp, n, ncols, out_lens, chunk_elems,
+                                    out, raw, out_code, ea, tokens, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

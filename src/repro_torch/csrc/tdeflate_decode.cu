@@ -70,6 +70,14 @@
 //    all lanes copying, each after a `__syncwarp()` that makes the earlier
 //    bytes visible.
 //
+// The decode epilogue (`epilogue.cuh`).  A match copies earlier output
+// bytes, so with an epilogue whose output is not the raw bytes the kernel
+// keeps the raw row where its matches read it, in a scratch matrix of the
+// launch, and once the row is final the warp writes its epilogue in one
+// vectorised pass (`epi::warp_row`), off the token chain; without one (or
+// for an epilogue that only views the bytes) it stores as before, with no
+// extra writes.
+//
 // Residency: 8 warps (chunks) a CTA, 8 x 10 KiB of LUTs, 2 CTAs an SM:
 // 16 chunks an SM, 2,112 on 132 SMs, so 2,048 chunks run in one wave.
 //
@@ -83,7 +91,10 @@
 // are the deflate ones (bases >= 1, extra bits <= 16) and code lengths are
 // not negative.
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
+
+#include "epilogue.cuh"
 
 namespace {
 
@@ -208,6 +219,12 @@ struct Tables {
   }
 };
 
+// S: the store (`epi::Raw`, or `epi::Store<O>` for a fused epilogue), T the
+// unsigned type of its output.  With a fused epilogue the decoded bytes,
+// which later matches read, go to `raw` (a scratch matrix of the launch) and
+// their epilogue to `eout`; without one `raw` is the output and `eout` is
+// not used.
+template <typename S, typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, 2)
 tdeflate_decode_kernel(const uint32_t* __restrict__ words, int64_t n,
                        int64_t nw, const int16_t* __restrict__ lut_lsym,
@@ -219,8 +236,10 @@ tdeflate_decode_kernel(const uint32_t* __restrict__ words, int64_t n,
                        const int32_t* __restrict__ dist_extra,
                        const int32_t* __restrict__ dist_base,
                        const int32_t* __restrict__ out_lens,
-                       int64_t chunk_elems, uint8_t* __restrict__ out,
+                       int64_t chunk_elems, uint8_t* __restrict__ raw,
+                       T* __restrict__ eout, epi::Args ea,
                        int32_t* __restrict__ tokens) {
+  constexpr bool kEpi = !std::is_same<S, epi::Raw>::value;
   extern __shared__ __align__(16) uint16_t s_luts[];
   __shared__ int2 s_len[kLenCodes], s_dist[kDistCodes];
   for (int i = threadIdx.x; i < kDistCodes; i += blockDim.x) {
@@ -255,7 +274,9 @@ tdeflate_decode_kernel(const uint32_t* __restrict__ words, int64_t n,
   Bits bits{words + row * nw, static_cast<int>(nw), 0, lane, 0, 0};
   bits.cur = bits.load(lane);
   bits.nxt = bits.load(32 + lane);
-  uint8_t* dst = out + row * chunk_elems;
+  uint8_t* dst = raw + row * chunk_elems;
+  T* edst = eout + row * chunk_elems;
+  const S st(ea);
   const int64_t out_len = out_lens[row];
   int64_t limit64 = out_len < chunk_elems ? out_len : chunk_elems;
   const int limit = static_cast<int>(limit64 < 0 ? 0 : limit64);
@@ -398,47 +419,38 @@ tdeflate_decode_kernel(const uint32_t* __restrict__ words, int64_t n,
     }
     __syncwarp();   // this batch's bytes are visible to the next batch
   }
-  for (int64_t i = (cnt < static_cast<uint32_t>(limit) ? cnt : limit) + lane;
-       i < chunk_elems;
-       i += 32)
-    dst[i] = 0;
+  const int64_t end = cnt < static_cast<uint32_t>(limit) ? cnt : limit;
+  if constexpr (kEpi) {
+    // the finished row's epilogue, the bytes past the stream as zeros (the
+    // scratch row's tail is never read)
+    __syncwarp();
+    epi::warp_row<static_cast<int>(sizeof(T))>(st, dst, edst, end,
+                                               chunk_elems, lane);
+  } else {
+    for (int64_t i = end + lane; i < chunk_elems; i += 32) dst[i] = 0;
+  }
   if (tokens != nullptr && lane == 0) tokens[row] = static_cast<int32_t>(ntok);
 }
 
-}  // namespace
-
-// Decode n tdeflate chunk rows into `out` ((n, chunk_elems) uint8) on
-// `stream`.  `words` is (n, nw) uint32; the four LUTs are (n, 4096) as
-// staged (i16 symbols, i8 code lengths; 16- and 8-byte aligned); the four
-// deflate tables are int32 (29, 29, 30, 30 entries); nw < 2^26 - 64 and
-// chunk_elems < 2^31 - 1024.  `tokens`, if not null, receives each row's
-// count of literal and match tokens.  Returns the CUDA error of the launch
-// (0 on success).  Allocates nothing and does not synchronise.
-extern "C" int codag_tdeflate_decode(
-    const void* words, int64_t n, int64_t nw, const void* lut_lsym,
-    const void* lut_lbits, const void* lut_dsym, const void* lut_dbits,
-    const void* len_extra, const void* len_base, const void* dist_extra,
-    const void* dist_base, const void* out_lens, int64_t chunk_elems,
-    void* out, void* tokens, void* stream) {
-  if (n <= 0 || chunk_elems <= 0) return 0;
-  if (nw <= 0 || nw > (1 << 26) - 64 || chunk_elems > 0x7FFFFC00 ||
-      (reinterpret_cast<uintptr_t>(lut_lsym) & 15) ||
-      (reinterpret_cast<uintptr_t>(lut_dsym) & 15) ||
-      (reinterpret_cast<uintptr_t>(lut_lbits) & 7) ||
-      (reinterpret_cast<uintptr_t>(lut_dbits) & 7))
-    return static_cast<int>(cudaErrorInvalidValue);
-  static bool configured[64] = {};   // the attribute is per device
+template <typename S, typename T>
+int launch(const void* words, int64_t n, int64_t nw, const void* lut_lsym,
+           const void* lut_lbits, const void* lut_dsym, const void* lut_dbits,
+           const void* len_extra, const void* len_base,
+           const void* dist_extra, const void* dist_base,
+           const void* out_lens, int64_t chunk_elems, void* raw, void* out,
+           const epi::Args& ea, void* tokens, cudaStream_t stream) {
+  auto* kernel = tdeflate_decode_kernel<S, T>;
+  static bool configured[64] = {};   // the attributes are per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || dev >= 64) return static_cast<int>(err);
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(tdeflate_decode_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmem);
     if (err == cudaSuccess)   // two CTAs an SM need its whole shared memory
       err = cudaFuncSetAttribute(
-          tdeflate_decode_kernel,
-          cudaFuncAttributePreferredSharedMemoryCarveout,
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
           cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured[dev] = true;
@@ -446,8 +458,7 @@ extern "C" int codag_tdeflate_decode(
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid(static_cast<unsigned>((n + kWarpsPerBlock - 1) /
                                         kWarpsPerBlock));
-  tdeflate_decode_kernel<<<grid, block, kSmem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, block, kSmem, stream>>>(
       static_cast<const uint32_t*>(words), n, nw,
       static_cast<const int16_t*>(lut_lsym),
       static_cast<const int8_t*>(lut_lbits),
@@ -458,6 +469,55 @@ extern "C" int codag_tdeflate_decode(
       static_cast<const int32_t*>(dist_extra),
       static_cast<const int32_t*>(dist_base),
       static_cast<const int32_t*>(out_lens), chunk_elems,
-      static_cast<uint8_t*>(out), static_cast<int32_t*>(tokens));
+      static_cast<uint8_t*>(raw), static_cast<T*>(out), ea,
+      static_cast<int32_t*>(tokens));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Decode n tdeflate chunk rows into `out` ((n, chunk_elems) of the output
+// type) on `stream`.  `words` is (n, nw) uint32; the four LUTs are (n,
+// 4096) as staged (i16 symbols, i8 code lengths; 16- and 8-byte aligned);
+// the four deflate tables are int32 (29, 29, 30, 30 entries); nw < 2^26 -
+// 64 and chunk_elems < 2^31 - 1024.  `out_code` is the output dtype's code
+// and `src_code`, `zero`, `zero_code`, `scale`, `scale_code` the epilogue
+// (`epilogue.cuh`; null operands are absent).  With no operands and
+// `out_code == src_code` the kernel writes the decoded bytes to `out`;
+// otherwise `raw`, an (n, chunk_elems) uint8 scratch matrix, takes them
+// (later matches read them there) and `out` their epilogue.  `tokens`, if
+// not null, receives each row's count of literal and match tokens.  Returns
+// the CUDA error of the launch (0 on success).  Allocates nothing and does
+// not synchronise.
+extern "C" int codag_tdeflate_decode(
+    const void* words, int64_t n, int64_t nw, const void* lut_lsym,
+    const void* lut_lbits, const void* lut_dsym, const void* lut_dbits,
+    const void* len_extra, const void* len_base, const void* dist_extra,
+    const void* dist_base, const void* out_lens, int64_t chunk_elems,
+    void* out, void* raw, void* tokens, int out_code, int src_code,
+    const void* zero, int zero_code, const void* scale, int scale_code,
+    void* stream) {
+  if (n <= 0 || chunk_elems <= 0) return 0;
+  if (nw <= 0 || nw > (1 << 26) - 64 || chunk_elems > 0x7FFFFC00 ||
+      (reinterpret_cast<uintptr_t>(lut_lsym) & 15) ||
+      (reinterpret_cast<uintptr_t>(lut_dsym) & 15) ||
+      (reinterpret_cast<uintptr_t>(lut_lbits) & 7) ||
+      (reinterpret_cast<uintptr_t>(lut_dbits) & 7))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const epi::Args ea{src_code, zero, zero_code, scale, scale_code};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (epi::plain_store(out_code, ea))
+    return launch<epi::Raw, uint8_t>(
+        words, n, nw, lut_lsym, lut_lbits, lut_dsym, lut_dbits, len_extra,
+        len_base, dist_extra, dist_base, out_lens, chunk_elems, out, out, ea,
+        tokens, s);
+  if (raw == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return epi::dispatch(out_code, [&](auto tag) {
+    using O = typename decltype(tag)::type;
+    return launch<epi::Store<O>,
+                  typename epi::Bits<static_cast<int>(sizeof(O))>::T>(
+        words, n, nw, lut_lsym, lut_lbits, lut_dsym, lut_dbits, len_extra,
+        len_base, dist_extra, dist_base, out_lens, chunk_elems, raw, out, ea,
+        tokens, s);
+  });
 }

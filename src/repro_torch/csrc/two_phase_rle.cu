@@ -55,6 +55,15 @@
 //       map does for the whole chunk, and a row without a start takes its
 //       values from the entry every lane already holds.
 //
+// The decode epilogue (`epilogue.cuh`, the reference's `Epilogue` inside
+// the decode dispatch, src/repro/kernels/harness.py:190-194) is applied in
+// the stores: every store maps its value through a store functor, `epi::Raw`
+// (the value as it is, truncated to the width type: the plain instance,
+// whose code is the kernel without an epilogue) or `epi::Store<O>`, and the
+// lanes past out_len get the epilogue of zero.  A run's epilogue is taken
+// once a group in the long-group path.  The epilogue instances live in
+// builds of their own, one a codec (see the entry points).
+//
 // Residency: 8 warps (chunks) a CTA, 38 KiB of shared memory.
 //
 // Bound: bytes.  The function must read the compressed rows (sum of
@@ -66,7 +75,10 @@
 // output); out_lens is read from device memory, so a launch needs no host
 // sync.
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
+
+#include "epilogue.cuh"
 
 namespace {
 
@@ -261,10 +273,10 @@ __device__ __forceinline__ uint32_t dbp_value(const Tile& tile, int64_t off,
 // lane l's group is gq (the group of the row's first element) plus the
 // starts below its bit, and a row whose mask is 0 lies in group gq, whose
 // entry f every lane already holds.
-template <int CODEC, int W, bool kChecked, typename T>
+template <int CODEC, int W, bool kChecked, typename S, typename T>
 __device__ __forceinline__ void expand(const Tile& tile, const uint4* tab,
-                                       T* __restrict__ out, int span, int nt,
-                                       int lane, int t_s) {
+                                       const S& st, T* __restrict__ out,
+                                       int span, int nt, int lane, int t_s) {
   const bool mine = lane < nt;
   const int64_t base = tile.begin();
   auto value = [&](const uint4 f, int i) -> uint32_t {
@@ -291,10 +303,10 @@ __device__ __forceinline__ void expand(const Tile& tile, const uint4* tab,
     for (int r = 0; r < 4; ++r) {
       const int i = q0 + 32 * r + lane;
       if (mask[r] == 0) {
-        if (i < span) out[i] = static_cast<T>(value(f, i));
+        if (i < span) out[i] = static_cast<T>(st(value(f, i)));
       } else {
         const int o = gq + __popc(mask[r] & ((1u << lane) - 1u));
-        if (i < span) out[i] = static_cast<T>(value(tab[o], i));
+        if (i < span) out[i] = static_cast<T>(st(value(tab[o], i)));
         gq += __popc(mask[r]);
         f = tab[gq];
       }
@@ -305,9 +317,9 @@ __device__ __forceinline__ void expand(const Tile& tile, const uint4* tab,
 // Phase 2 of a batch of long groups (at least 64 elements on average):
 // one group at a time, all lanes striding over its elements, the group's
 // entry uniform.
-template <int CODEC, int W, bool kChecked, typename T>
+template <int CODEC, int W, bool kChecked, typename S, typename T>
 __device__ __forceinline__ void expand_groups(const Tile& tile,
-                                              const uint4* tab,
+                                              const uint4* tab, const S& st,
                                               T* __restrict__ out, int span,
                                               int nt, int lane) {
   const int64_t base = tile.begin();
@@ -323,25 +335,32 @@ __device__ __forceinline__ void expand_groups(const Tile& tile,
     if (CODEC == kDbp) {
       for (int i = s + lane; i < e; i += 32)
         out[i] = static_cast<T>(
-            dbp_value<kChecked>(tile, off, meta >> 1, g.z, i - s));
+            st(dbp_value<kChecked>(tile, off, meta >> 1, g.z, i - s)));
     } else if (meta & 1) {
       for (int i = s + lane; i < e; i += 32)
-        out[i] = static_cast<T>(tile.value<kChecked, W>(
-            off + static_cast<int64_t>(i - s) * W));
+        out[i] = static_cast<T>(st(tile.value<kChecked, W>(
+            off + static_cast<int64_t>(i - s) * W)));
+    } else if (!std::is_same<S, epi::Raw>::value && g.w == 0) {
+      // a run of one value: its epilogue once, then plain stores
+      const T v = static_cast<T>(st(g.z));
+      for (int i = s + lane; i < e; i += 32) out[i] = v;
     } else {
       for (int i = s + lane; i < e; i += 32)
-        out[i] = static_cast<T>(g.z + g.w * static_cast<uint32_t>(i - s));
+        out[i] = static_cast<T>(st(g.z + g.w * static_cast<uint32_t>(i - s)));
     }
     g = h;
   }
 }
 
-template <int CODEC, int W, typename T>
+// S: the store (`epi::Raw`, or `epi::Store<O>` for a fused epilogue), T the
+// unsigned type of its output.
+template <int CODEC, int W, typename S, typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 two_phase_rle_kernel(const uint8_t* __restrict__ comp, int64_t c,
                      const int32_t* __restrict__ out_lens, int64_t n,
                      int64_t chunk_elems, int64_t max_groups,
-                     T* __restrict__ out, int32_t* __restrict__ groups) {
+                     T* __restrict__ out, int32_t* __restrict__ groups,
+                     epi::Args ea) {
   __shared__ __align__(16) uint8_t s_ring[kWarpsPerBlock][kTileBytes];
   __shared__ uint2 s_hdr[kWarpsPerBlock][32];
   __shared__ uint4 s_grp[kWarpsPerBlock][32];
@@ -353,6 +372,7 @@ two_phase_rle_kernel(const uint8_t* __restrict__ comp, int64_t c,
   Tile tile{comp + row * c, c, s_ring[wib], lane, vec, 0, {}};
   tile.init();
   T* dst = out + row * chunk_elems;
+  const S st(ea);
   const int64_t out_len = out_lens[row];
   int64_t limit = out_len < chunk_elems ? out_len : chunk_elems;
   if (limit < 0) limit = 0;
@@ -408,61 +428,112 @@ two_phase_rle_kernel(const uint8_t* __restrict__ comp, int64_t c,
     const bool resident = !capped && pos + 12 <= tile_end;
     if (span >= 64 * nt) {
       if (resident)
-        expand_groups<CODEC, W, false>(tile, s_grp[wib], dst + bs, span, nt,
-                                       lane);
+        expand_groups<CODEC, W, false>(tile, s_grp[wib], st, dst + bs,
+                                       span, nt, lane);
       else
-        expand_groups<CODEC, W, true>(tile, s_grp[wib], dst + bs, span, nt,
-                                      lane);
+        expand_groups<CODEC, W, true>(tile, s_grp[wib], st, dst + bs, span,
+                                      nt, lane);
     } else if (resident) {
-      expand<CODEC, W, false>(tile, s_grp[wib], dst + bs, span, nt, lane,
-                              t_s);
+      expand<CODEC, W, false>(tile, s_grp[wib], st, dst + bs, span, nt,
+                              lane, t_s);
     } else {
-      expand<CODEC, W, true>(tile, s_grp[wib], dst + bs, span, nt, lane,
-                             t_s);
+      expand<CODEC, W, true>(tile, s_grp[wib], st, dst + bs, span, nt,
+                             lane, t_s);
     }
     __syncwarp();   // the ring is read to the end of this batch
   }
-  for (int64_t i = limit + lane; i < chunk_elems; i += 32) dst[i] = 0;
+  // the lanes past out_len: zero, or the epilogue of zero
+  const T zero = static_cast<T>(st(0u));
+  for (int64_t i = limit + lane; i < chunk_elems; i += 32) dst[i] = zero;
   if (groups != nullptr && lane == 0) groups[row] = static_cast<int32_t>(g);
 }
 
-template <int CODEC, int W, typename T>
-void launch(const void* comp, int64_t c, const void* out_lens, int64_t n,
-            int64_t chunk_elems, int64_t max_groups, void* out, void* groups,
-            cudaStream_t stream) {
+template <int CODEC, int W, typename S, typename T>
+int launch(const void* comp, int64_t c, const void* out_lens, int64_t n,
+           int64_t chunk_elems, int64_t max_groups, void* out, void* groups,
+           const epi::Args& ea, cudaStream_t stream) {
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid(static_cast<unsigned>((n + kWarpsPerBlock - 1) /
                                         kWarpsPerBlock));
-  two_phase_rle_kernel<CODEC, W, T><<<grid, block, 0, stream>>>(
+  two_phase_rle_kernel<CODEC, W, S, T><<<grid, block, 0, stream>>>(
       static_cast<const uint8_t*>(comp), c,
       static_cast<const int32_t*>(out_lens), n, chunk_elems, max_groups,
-      static_cast<T*>(out), static_cast<int32_t*>(groups));
+      static_cast<T*>(out), static_cast<int32_t*>(groups), ea);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Two kinds of build of this source.  Without CODAG_EPI_CODEC: the plain
+// store of every codec and width, `codag_two_phase_rle`.  With
+// -DCODAG_EPI_CODEC=c (0 rle_v1, 1 rle_v2, 2 dbp): the fused-epilogue
+// instances of codec c alone, `codag_two_phase_rle_epi`, with the same
+// arguments.  The four builds compile in parallel (`cuda_rle.LIB`,
+// `cuda_rle.LIB_EPI`), each with a tenth to a third of the instances.
+//
 // Decode n chunk rows of `comp` ((n, c) uint8, row stride c) into `out`
-// ((n, chunk_elems) of the width type) on `stream`.  `groups`, if not null,
-// receives each row's group count.  Returns the CUDA error of the launch (0
-// on success).  Allocates nothing and does not synchronise.
+// ((n, chunk_elems) of the output type) on `stream`.  `groups`, if not null,
+// receives each row's group count.  `out_code` is the output dtype's code
+// and `src_code`, `zero`, `zero_code`, `scale`, `scale_code` the epilogue
+// (`epilogue.cuh`; null operands are absent): `codag_two_phase_rle` takes
+// only a plain store (no operands, `out_code == src_code`: the decoded
+// values as they are, the width type's bits) and `codag_two_phase_rle_epi`
+// any other.  Returns the CUDA error of the launch (0 on success;
+// cudaErrorInvalidValue for a codec, width or epilogue the build does not
+// hold).  Allocates nothing and does not synchronise.
+#ifndef CODAG_EPI_CODEC
 extern "C" int codag_two_phase_rle(int codec, int width, const void* comp,
                                    int64_t c, const void* out_lens, int64_t n,
                                    int64_t chunk_elems, int64_t max_groups,
-                                   void* out, void* groups, void* stream) {
+                                   void* out, void* groups, int out_code,
+                                   int src_code, const void* zero,
+                                   int zero_code, const void* scale,
+                                   int scale_code, void* stream) {
   if (n <= 0) return 0;
-  if (c <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const epi::Args ea{src_code, zero, zero_code, scale, scale_code};
+  if (c <= 0 || !epi::plain_store(out_code, ea))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CODAG_RLE(C, W)                                                      \
+  case C * 8 + W:                                                            \
+    return launch<C, W, epi::Raw, typename epi::Bits<W>::T>(                 \
+        comp, c, out_lens, n, chunk_elems, max_groups, out, groups, ea, s);
   switch (codec * 8 + width) {
-    case kRleV1 * 8 + 1: launch<kRleV1, 1, uint8_t>(comp, c, out_lens, n, chunk_elems, max_groups, out, groups, s); break;
-    case kRleV1 * 8 + 2: launch<kRleV1, 2, uint16_t>(comp, c, out_lens, n, chunk_elems, max_groups, out, groups, s); break;
-    case kRleV1 * 8 + 4: launch<kRleV1, 4, uint32_t>(comp, c, out_lens, n, chunk_elems, max_groups, out, groups, s); break;
-    case kRleV2 * 8 + 1: launch<kRleV2, 1, uint8_t>(comp, c, out_lens, n, chunk_elems, max_groups, out, groups, s); break;
-    case kRleV2 * 8 + 2: launch<kRleV2, 2, uint16_t>(comp, c, out_lens, n, chunk_elems, max_groups, out, groups, s); break;
-    case kRleV2 * 8 + 4: launch<kRleV2, 4, uint32_t>(comp, c, out_lens, n, chunk_elems, max_groups, out, groups, s); break;
-    case kDbp * 8 + 1: launch<kDbp, 1, uint8_t>(comp, c, out_lens, n, chunk_elems, max_groups, out, groups, s); break;
-    case kDbp * 8 + 2: launch<kDbp, 2, uint16_t>(comp, c, out_lens, n, chunk_elems, max_groups, out, groups, s); break;
-    case kDbp * 8 + 4: launch<kDbp, 4, uint32_t>(comp, c, out_lens, n, chunk_elems, max_groups, out, groups, s); break;
+    CODAG_RLE(kRleV1, 1) CODAG_RLE(kRleV1, 2) CODAG_RLE(kRleV1, 4)
+    CODAG_RLE(kRleV2, 1) CODAG_RLE(kRleV2, 2) CODAG_RLE(kRleV2, 4)
+    CODAG_RLE(kDbp, 1) CODAG_RLE(kDbp, 2) CODAG_RLE(kDbp, 4)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+#undef CODAG_RLE
 }
+#else
+extern "C" int codag_two_phase_rle_epi(int codec, int width, const void* comp,
+                                       int64_t c, const void* out_lens,
+                                       int64_t n, int64_t chunk_elems,
+                                       int64_t max_groups, void* out,
+                                       void* groups, int out_code,
+                                       int src_code, const void* zero,
+                                       int zero_code, const void* scale,
+                                       int scale_code, void* stream) {
+  if (n <= 0) return 0;
+  if (c <= 0 || codec != CODAG_EPI_CODEC)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const epi::Args ea{src_code, zero, zero_code, scale, scale_code};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto width_tag) {
+    constexpr int W = decltype(width_tag)::value;
+    return epi::dispatch(out_code, [&](auto tag) {
+      using O = typename decltype(tag)::type;
+      return launch<CODAG_EPI_CODEC, W, epi::Store<O>,
+                    typename epi::Bits<static_cast<int>(sizeof(O))>::T>(
+          comp, c, out_lens, n, chunk_elems, max_groups, out, groups, ea, s);
+    });
+  };
+  switch (width) {
+    case 1: return run(std::integral_constant<int, 1>{});
+    case 2: return run(std::integral_constant<int, 2>{});
+    case 4: return run(std::integral_constant<int, 4>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+#endif

@@ -168,16 +168,16 @@ def decode(words: torch.Tensor, *, chunk_elems: int, width: int, bits: int,
     if words.device.type != "cuda":
         raise ValueError(f"no kernel for device {words.device}")
     n = words.shape[0]
-    dtype, epi = harness.store_args(epilogue, harness.DEV_DTYPE[width])
+    _, dtype, epi = harness.launch_store(epilogue, harness.DEV_DTYPE[width])
     out = torch.empty((n, chunk_elems), dtype=dtype, device=words.device)
     if n == 0:
-        return out
+        return harness.finish_store(out, epilogue)
     geom = launch_geometry(n, chunk_elems, bits, out.element_size())
     cuda_build.launch_on(words.device, LIB, width, words.data_ptr(), n,
                          words.shape[1], chunk_elems, bits,
                          geom.tiles_per_row, geom.vpt, out.data_ptr(), *epi)
     LAUNCHES += 1
-    return out
+    return harness.finish_store(out, epilogue)
 
 
 # --------------------------------------------------------------------------

@@ -21,6 +21,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import List, Optional, Sequence
 
@@ -79,6 +80,7 @@ class KernelLibrary:
         self.source = CSRC / source
         self.flags = tuple(flags)
         self.build_log = ""        # ptxas report of this process's build
+        self.build_seconds = 0.0   # its nvcc's wall time (``build_all``)
         self._dll = None
         self._lock = threading.Lock()
         self._main = KernelEntry(self, entry, argtypes)
@@ -136,17 +138,31 @@ class KernelLibrary:
 
 def build_all(libs: Sequence[KernelLibrary]) -> List[Path]:
     """Build several libraries with one nvcc each, all started together;
-    every nvcc has ended when this returns or raises the first failure."""
+    every nvcc has ended when this returns or raises the first failure.
+    Each library's ``build_seconds`` is then its own nvcc's wall time (0
+    for one already built)."""
+    t0 = time.perf_counter()
     procs = [lib._start() for lib in libs]
-    paths, failure = [], None
-    for lib, p in zip(libs, procs):
+    results: list = [None] * len(libs)
+
+    def finish(i: int) -> None:
         try:
-            paths.append(lib._finish(p))
+            results[i] = libs[i]._finish(procs[i])
         except RuntimeError as e:
-            failure = failure or e
-    if failure is not None:
-        raise failure
-    return paths
+            results[i] = e
+        libs[i].build_seconds = (time.perf_counter() - t0
+                                 if procs[i] is not None else 0.0)
+
+    waiters = [threading.Thread(target=finish, args=(i,))
+               for i in range(len(libs))]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    for r in results:
+        if isinstance(r, RuntimeError):
+            raise r
+    return results
 
 
 def launch_on(device, lib, *args) -> None:

@@ -26,10 +26,16 @@ from repro_torch.core import registry
 from repro_torch.kernels import cuda_build, harness
 
 # (codec id, width, comp, C, out_lens, n, chunk_elems, max_groups, out,
-#  groups, stream)
-LIB = cuda_build.KernelLibrary(
-    "two_phase_rle.cu", "codag_two_phase_rle", "iiplplllppp")
+#  groups, out_code, src_code, zero, zero_code, scale, scale_code, stream)
+ARGTYPES = "iiplplllppiipipip"
 CODEC_IDS = {"rle_v1": 0, "rle_v2": 1, "dbp": 2}
+# the plain store of every codec, and each codec's fused-epilogue instances
+# in a build of their own (one nvcc each, in parallel: see the source)
+LIB = cuda_build.KernelLibrary(
+    "two_phase_rle.cu", "codag_two_phase_rle", ARGTYPES)
+LIB_EPI = {codec: cuda_build.KernelLibrary(
+    "two_phase_rle.cu", "codag_two_phase_rle_epi", ARGTYPES,
+    flags=(f"-DCODAG_EPI_CODEC={cid}",)) for codec, cid in CODEC_IDS.items()}
 
 # Kernel launches (one per call that reached the card), in total and by codec.
 LAUNCHES = 0
@@ -66,15 +72,18 @@ def plain(codec: str, comp: torch.Tensor, out_lens: torch.Tensor, *,
 
 def decode(codec: str, comp: torch.Tensor, out_lens: torch.Tensor, *,
            chunk_elems: int, width: int,
-           groups: Optional[torch.Tensor] = None) -> torch.Tensor:
+           groups: Optional[torch.Tensor] = None,
+           epilogue: "harness.FusedEpilogue | None" = None) -> torch.Tensor:
     """Decode every row of a chunk table; ``(n, chunk_elems)`` in the width
-    type, on the tables' device.  On a CUDA tensor, ``groups`` (an ``(n,)``
-    int32 tensor), if given, receives each row's group count."""
+    type (or ``epilogue.dtype``, with the epilogue applied in the kernel's
+    stores), on the tables' device.  On a CUDA tensor, ``groups`` (an
+    ``(n,)`` int32 tensor), if given, receives each row's group count."""
     global LAUNCHES
     _check(codec, comp, out_lens, chunk_elems, width)
     if comp.device.type == "cpu":
-        return plain(codec, comp, out_lens, chunk_elems=chunk_elems,
-                     width=width)
+        out = plain(codec, comp, out_lens, chunk_elems=chunk_elems,
+                    width=width)
+        return out if epilogue is None else epilogue.apply_plain(out)
     if comp.device.type != "cuda":
         raise ValueError(f"no kernel for device {comp.device}")
     n = comp.shape[0]
@@ -82,17 +91,18 @@ def decode(codec: str, comp: torch.Tensor, out_lens: torch.Tensor, *,
                                or tuple(groups.shape) != (n,)
                                or groups.device != comp.device):
         raise ValueError(f"groups must be ({n},) int32 on {comp.device}")
-    out = torch.empty((n, chunk_elems), dtype=harness.DEV_DTYPE[width],
-                      device=comp.device)
+    fused, dtype, epi = harness.launch_store(epilogue,
+                                             harness.DEV_DTYPE[width])
+    out = torch.empty((n, chunk_elems), dtype=dtype, device=comp.device)
     if n == 0:
-        return out
+        return harness.finish_store(out, epilogue)
     spec = registry.get(codec).decode.two_phase
-    with torch.cuda.device(comp.device):
-        cuda_build.launch(LIB, CODEC_IDS[codec], width, comp.data_ptr(),
-                          comp.shape[1], out_lens.data_ptr(), n, chunk_elems,
-                          spec.max_groups(chunk_elems), out.data_ptr(),
-                          None if groups is None else groups.data_ptr(),
-                          torch.cuda.current_stream().cuda_stream)
+    lib = LIB if fused is None else LIB_EPI[codec]
+    cuda_build.launch_on(comp.device, lib, CODEC_IDS[codec], width,
+                         comp.data_ptr(), comp.shape[1], out_lens.data_ptr(),
+                         n, chunk_elems, spec.max_groups(chunk_elems),
+                         out.data_ptr(),
+                         None if groups is None else groups.data_ptr(), *epi)
     LAUNCHES += 1
     CODEC_LAUNCHES[codec] += 1
-    return out
+    return harness.finish_store(out, epilogue)

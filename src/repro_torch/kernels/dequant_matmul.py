@@ -168,10 +168,9 @@ def compress_weights(q: np.ndarray, codec: str = "bitpack",
 def weight_epilogue(zero_point: int = 0):
     """The decode epilogue matching :func:`compress_weights`: the stored
     uint8 back through the zero-point shift to int8 (epilogue operand key
-    ``"epi_zero"``).  The bitpack and huffman kernels apply it in their
-    stores, so their decode writes the int8 weights and nothing else; after
-    the other codecs' kernels it runs as torch ops on the decoded uint8
-    matrix (``harness.fused_epilogue``)."""
+    ``"epi_zero"``).  Every decode kernel applies it in its stores
+    (``harness.fused_epilogue``), so the decode writes the int8 weights
+    and nothing else."""
     from repro_torch.kernels.harness import Epilogue
     return (Epilogue(out_dtype="int8", zero_key="epi_zero"),
             {"epi_zero": np.uint8(zero_point)})

@@ -201,12 +201,13 @@ class Epilogue:
       3. zero/scale      — ``(x - zero) * scale`` (dequantization)
       4. ``fn``          — escape hatch: ``fn(out, dev) -> out``
 
-    Where it runs: on the ``cuda`` backend, the bitpack and huffman kernels
-    apply an epilogue that :func:`fused_epilogue` accepts in their stores,
-    so no uint matrix is materialized (``EPILOGUE_FUSED`` counts those
-    decodes).  Every other epilogue, and every epilogue after the RLE
-    family's, tdeflate's and lzss's kernels or a plain body, runs as torch
-    ops on the decoded matrix by :meth:`apply` (``EPILOGUE_UNFUSED``).
+    Where it runs: on the ``cuda`` backend, every codec's kernel applies
+    an epilogue that :func:`fused_epilogue` accepts in its stores, so no
+    uint matrix is materialized (``EPILOGUE_FUSED`` counts those decodes;
+    tdeflate and lzss keep their raw output, which their matches read, in
+    a scratch matrix of the launch).  Every other epilogue, and every
+    epilogue after a plain body, runs as torch ops on the decoded matrix by
+    :meth:`apply` (``EPILOGUE_UNFUSED``).
     """
 
     view_dtype: Optional[str] = None
@@ -277,14 +278,38 @@ class FusedEpilogue:
         e = self.epilogue
         return e.apply(out, {e.zero_key: self.zero, e.scale_key: self.scale})
 
+    @property
+    def bits_only(self) -> bool:
+        """Whether the output's bits are the decoded bits (a view, or an
+        integer cast of the same size, with no operands): a kernel then
+        stores as it does without an epilogue, and the wrapper views its
+        output as :attr:`dtype`."""
+        return (self.zero is None and self.scale is None
+                and self.dtype.itemsize == self.src.itemsize
+                and (self.dtype == self.src
+                     or not (self.dtype in _FLOATS or self.src in _FLOATS)))
 
-def store_args(epilogue: Optional[FusedEpilogue], raw: torch.dtype):
-    """(output dtype, the C entry points' epilogue arguments) of a kernel
-    that decodes ``raw`` values: ``epilogue``'s, or a plain store."""
-    if epilogue is None:
+
+def launch_store(epilogue: Optional[FusedEpilogue], raw: torch.dtype):
+    """(epilogue the kernel applies, or None for its plain store; output
+    dtype; the C entry points' epilogue arguments) of a decode kernel that
+    decodes ``raw`` values.  Every decode wrapper launches through it.  An
+    epilogue whose output bits are the decoded bits takes the plain store:
+    the caller views the output as ``epilogue.dtype``
+    (:func:`finish_store`)."""
+    if epilogue is None or epilogue.bits_only:
         code = DTYPE_CODES[raw]
-        return raw, (code, code, None, 0, None, 0)
-    return epilogue.dtype, epilogue.kernel_args()
+        return None, raw, (code, code, None, 0, None, 0)
+    return epilogue, epilogue.dtype, epilogue.kernel_args()
+
+
+def finish_store(out: torch.Tensor,
+                 epilogue: Optional[FusedEpilogue]) -> torch.Tensor:
+    """A kernel's output as the epilogue's dtype (a view where the kernel
+    took its plain store for a bits-only epilogue)."""
+    if epilogue is None or out.dtype == epilogue.dtype:
+        return out
+    return out.view(epilogue.dtype)
 
 
 @functools.lru_cache(maxsize=256)
@@ -384,7 +409,8 @@ class DecodeSpec:
     def from_two_phase(cls, spec: TwoPhaseSpec,
                        cuda: Callable[..., torch.Tensor]) -> "DecodeSpec":
         """Every backend from a parse + express pair and the kernel wrapper
-        ``cuda(comp, out_lens, *, chunk_elems, width)``."""
+        ``cuda(comp, out_lens, *, chunk_elems, width, epilogue)``, which
+        applies a fused epilogue in its stores."""
         def body(inputs, consts, out_lens, *, chunk_elems, width, bits):
             return two_phase_chunk(spec, inputs[0], out_lens, chunk_elems,
                                    width)
@@ -398,12 +424,14 @@ class DecodeSpec:
             return group_serial_chunk(spec, inputs[0], out_lens, chunk_elems,
                                       width)
 
-        def kernel(inputs, consts, out_lens, *, chunk_elems, width, bits):
+        def kernel(inputs, consts, out_lens, *, chunk_elems, width, bits,
+                   epilogue=None):
             return cuda(inputs[0], out_lens, chunk_elems=chunk_elems,
-                        width=width)
+                        width=width, epilogue=epilogue)
 
         return cls(body=body, body_scalar=body_scalar,
-                   body_oracle=body_oracle, cuda=kernel, two_phase=spec)
+                   body_oracle=body_oracle, cuda=kernel, two_phase=spec,
+                   fuses_epilogue=True)
 
 
 # broadcast tables staged per (consts hook, device), once (a staged decode

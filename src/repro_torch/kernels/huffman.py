@@ -218,16 +218,16 @@ def decode(comp: torch.Tensor, words: torch.Tensor, luts,
     if comp.device.type != "cuda":
         raise ValueError(f"no kernel for device {comp.device}")
     n = comp.shape[0]
-    dtype, epi = harness.store_args(epilogue, torch.uint8)
+    _, dtype, epi = harness.launch_store(epilogue, torch.uint8)
     out = torch.empty((n, chunk_elems), dtype=dtype, device=comp.device)
     if n == 0:
-        return out
+        return harness.finish_store(out, epilogue)
     cuda_build.launch_on(
         comp.device, LIB, comp.data_ptr(), n, comp.shape[1],
         words.data_ptr(), words.shape[1], *(t.data_ptr() for t in luts),
         out_lens.data_ptr(), chunk_elems, out.data_ptr(), *epi)
     LAUNCHES += 1
-    return out
+    return harness.finish_store(out, epilogue)
 
 
 # --------------------------------------------------------------------------

@@ -30,7 +30,9 @@ Backends (every body maps the byte table and ``out_lens`` to
     element 0 where the chain reaches before the row's start, its own
     literal bytes for a zero distance or a first-token match); the matches
     that read their own batch run in token order.  Every byte read clips to
-    the row's last byte.
+    the row's last byte.  A fused epilogue (``harness.FusedEpilogue``) is
+    applied in the kernel's stores (the raw row, which the matches read,
+    in a scratch matrix beside it), or after the plain body on the CPU.
 
 The three reference bodies agree on well-formed streams and differ on
 malformed ones (a zero distance, a match reaching before the row's start);
@@ -55,9 +57,10 @@ MAX_DIST = enc.LZSS_MAX_DIST        # 65535 elements
 CW = 132                            # oracle blend window >= max(MAX_MATCH,
                                     # MAX_LIT)
 
-# (width, comp, n, C, out_lens, chunk_elems, out, tokens, stream)
+# (width, comp, n, C, out_lens, chunk_elems, out, raw, tokens, out_code,
+#  src_code, zero, zero_code, scale, scale_code, stream)
 LIB = cuda_build.KernelLibrary(
-    "lzss_decode.cu", "codag_lzss_decode", "ipllplppp")
+    "lzss_decode.cu", "codag_lzss_decode", "ipllplpppiipipip")
 
 # Kernel launches (one per call that reached the card).
 LAUNCHES = 0
@@ -221,15 +224,18 @@ def _check(comp, out_lens, chunk_elems: int, width: int) -> None:
 
 
 def decode(comp: torch.Tensor, out_lens: torch.Tensor, *, chunk_elems: int,
-           width: int, tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
+           width: int, tokens: Optional[torch.Tensor] = None,
+           epilogue: "harness.FusedEpilogue | None" = None) -> torch.Tensor:
     """Decode every row of an lzss chunk table to ``(n, chunk_elems)`` in
-    the width type, on the table's device.  On a CUDA tensor, ``tokens``
+    the width type (or ``epilogue.dtype``, with the epilogue applied in the
+    kernel's stores), on the table's device.  On a CUDA tensor, ``tokens``
     (an ``(n,)`` int32 tensor), if given, receives each row's token count."""
     global LAUNCHES
     _check(comp, out_lens, chunk_elems, width)
     if comp.device.type == "cpu":
-        return decode_two_phase(comp, out_lens, chunk_elems=chunk_elems,
-                                width=width)
+        out = decode_two_phase(comp, out_lens, chunk_elems=chunk_elems,
+                               width=width)
+        return out if epilogue is None else epilogue.apply_plain(out)
     if comp.device.type != "cuda":
         raise ValueError(f"no kernel for device {comp.device}")
     n = comp.shape[0]
@@ -237,18 +243,21 @@ def decode(comp: torch.Tensor, out_lens: torch.Tensor, *, chunk_elems: int,
                                or tuple(tokens.shape) != (n,)
                                or tokens.device != comp.device):
         raise ValueError(f"tokens must be ({n},) int32 on {comp.device}")
-    out = torch.empty((n, chunk_elems), dtype=harness.DEV_DTYPE[width],
-                      device=comp.device)
+    raw_dtype = harness.DEV_DTYPE[width]
+    fused, dtype, epi = harness.launch_store(epilogue, raw_dtype)
+    out = torch.empty((n, chunk_elems), dtype=dtype, device=comp.device)
     if n == 0:
-        return out
-    with torch.cuda.device(comp.device):
-        cuda_build.launch(
-            LIB, width, comp.data_ptr(), n, comp.shape[1],
-            out_lens.data_ptr(), chunk_elems, out.data_ptr(),
-            None if tokens is None else tokens.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        return harness.finish_store(out, epilogue)
+    # the raw elements, which later matches read, beside an epilogue's output
+    raw = None if fused is None else torch.empty(
+        (n, chunk_elems), dtype=raw_dtype, device=comp.device)
+    cuda_build.launch_on(
+        comp.device, LIB, width, comp.data_ptr(), n, comp.shape[1],
+        out_lens.data_ptr(), chunk_elems, out.data_ptr(),
+        None if raw is None else raw.data_ptr(),
+        None if tokens is None else tokens.data_ptr(), *epi)
     LAUNCHES += 1
-    return out
+    return harness.finish_store(out, epilogue)
 
 
 # --------------------------------------------------------------------------
@@ -271,8 +280,10 @@ def _body_scalar(inputs, consts, out_lens, *, chunk_elems, width, bits):
                          width=width)
 
 
-def _kernel(inputs, consts, out_lens, *, chunk_elems, width, bits):
-    return decode(inputs[0], out_lens, chunk_elems=chunk_elems, width=width)
+def _kernel(inputs, consts, out_lens, *, chunk_elems, width, bits,
+            epilogue=None):
+    return decode(inputs[0], out_lens, chunk_elems=chunk_elems, width=width,
+                  epilogue=epilogue)
 
 
 CODEC = registry.register(registry.Codec(
@@ -280,6 +291,6 @@ CODEC = registry.register(registry.Codec(
     encode=enc.compress_lzss,
     decode=harness.DecodeSpec(
         body=_body, body_scalar=_body_scalar, body_oracle=_body_oracle,
-        cuda=_kernel),
+        cuda=_kernel, fuses_epilogue=True),
     plane_decompose_64=True,
 ))

@@ -68,8 +68,10 @@ def count_dispatches():
                     break
 
 
-def table_inputs(table: fmt.CompressedBlob, device):
+def table_inputs(table: fmt.CompressedBlob, device, *, rows=None,
+                 pad_comp_to=None):
     """(device dict, static decode bits) for a blob / merged chunk table,
-    staged on ``device`` through the ``transfers.to_device`` funnel."""
-    return (fmt.to_device(table, device),
+    staged on ``device`` through the ``transfers.to_device`` funnel
+    (``rows`` / ``pad_comp_to``: ``format.to_device``'s padding)."""
+    return (fmt.to_device(table, device, pad_comp_to=pad_comp_to, rows=rows),
             registry.get(table.codec).static_bits(table))

@@ -18,7 +18,9 @@ stopped keeps its state, as a vmapped ``while_loop`` does):
   * ``scalar`` — :func:`decode_scalar`, one output byte per step (§V-E
     ablation, CPU tensors only; ``decode_chunk_scalar``);
   * ``cuda``   — :func:`decode`, which launches ``csrc/tdeflate_decode.cu``
-    on a CUDA tensor (or raises) and runs :func:`decode_chunk` on a CPU one.
+    on a CUDA tensor (or raises) and runs :func:`decode_chunk` on a CPU one;
+    it applies a fused epilogue (``harness.FusedEpilogue``) in the kernel's
+    stores, or after :func:`decode_chunk` on the CPU.
 
 The LUTs are read in their staged types (i16 symbols, i8 code lengths).
 A back-reference that reaches before the row's start reads what each
@@ -46,9 +48,11 @@ CMD_WIN = 272             # write window >= max(MAX_MATCH=258, LITRUN_CAP)
 SCALAR_PAD = 16           # the scalar body's buffer slack
 
 # (words, n, W, lsym, lbits, dsym, dbits, len_extra, len_base, dist_extra,
-#  dist_base, out_lens, chunk_elems, out, tokens, stream)
+#  dist_base, out_lens, chunk_elems, out, raw, tokens, out_code, src_code,
+#  zero, zero_code, scale, scale_code, stream)
 LIB = cuda_build.KernelLibrary(
-    "tdeflate_decode.cu", "codag_tdeflate_decode", "pllppppppppplppp")
+    "tdeflate_decode.cu", "codag_tdeflate_decode",
+    "pllppppppppplpppiipipip")
 
 # Kernel launches (one per call that reached the card).
 LAUNCHES = 0
@@ -288,9 +292,11 @@ def _check(words, luts, tables, out_lens, chunk_elems: int, width: int):
 
 def decode(words: torch.Tensor, luts, tables, out_lens: torch.Tensor, *,
            chunk_elems: int, width: int = 1,
-           tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
+           tokens: Optional[torch.Tensor] = None,
+           epilogue: "harness.FusedEpilogue | None" = None) -> torch.Tensor:
     """Decode every row of a tdeflate chunk table to ``(n, chunk_elems)``
-    uint8 on the tables' device.  ``luts`` are the four staged LUTs,
+    uint8 (or ``epilogue.dtype``, with the epilogue applied in the kernel's
+    stores) on the tables' device.  ``luts`` are the four staged LUTs,
     ``tables`` the four int32 deflate tables on the same device.  On a CUDA
     tensor, ``tokens`` (an ``(n,)`` int32 tensor), if given, receives each
     row's count of literal and match tokens."""
@@ -298,7 +304,8 @@ def decode(words: torch.Tensor, luts, tables, out_lens: torch.Tensor, *,
     luts, tables = tuple(luts), tuple(tables)
     _check(words, luts, tables, out_lens, chunk_elems, width)
     if words.device.type == "cpu":
-        return decode_chunk(words, luts, out_lens, chunk_elems, tables)
+        out = decode_chunk(words, luts, out_lens, chunk_elems, tables)
+        return out if epilogue is None else epilogue.apply_plain(out)
     if words.device.type != "cuda":
         raise ValueError(f"no kernel for device {words.device}")
     n = words.shape[0]
@@ -306,19 +313,21 @@ def decode(words: torch.Tensor, luts, tables, out_lens: torch.Tensor, *,
                                or tuple(tokens.shape) != (n,)
                                or tokens.device != words.device):
         raise ValueError(f"tokens must be ({n},) int32 on {words.device}")
-    out = torch.empty((n, chunk_elems), dtype=torch.uint8,
-                      device=words.device)
+    fused, dtype, epi = harness.launch_store(epilogue, torch.uint8)
+    out = torch.empty((n, chunk_elems), dtype=dtype, device=words.device)
     if n == 0:
-        return out
-    with torch.cuda.device(words.device):
-        cuda_build.launch(
-            LIB, words.data_ptr(), n, words.shape[1],
-            *(t.data_ptr() for t in luts), *(t.data_ptr() for t in tables),
-            out_lens.data_ptr(), chunk_elems, out.data_ptr(),
-            None if tokens is None else tokens.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        return harness.finish_store(out, epilogue)
+    # the raw bytes, which later matches read, beside an epilogue's output
+    raw = None if fused is None else torch.empty(
+        (n, chunk_elems), dtype=torch.uint8, device=words.device)
+    cuda_build.launch_on(
+        words.device, LIB, words.data_ptr(), n, words.shape[1],
+        *(t.data_ptr() for t in luts), *(t.data_ptr() for t in tables),
+        out_lens.data_ptr(), chunk_elems, out.data_ptr(),
+        None if raw is None else raw.data_ptr(),
+        None if tokens is None else tokens.data_ptr(), *epi)
     LAUNCHES += 1
-    return out
+    return harness.finish_store(out, epilogue)
 
 
 # --------------------------------------------------------------------------
@@ -344,9 +353,10 @@ def _body_scalar(inputs, consts, out_lens, *, chunk_elems, width, bits):
     return decode_scalar(inputs[0], inputs[1:], out_lens, chunk_elems, consts)
 
 
-def _kernel(inputs, consts, out_lens, *, chunk_elems, width, bits):
+def _kernel(inputs, consts, out_lens, *, chunk_elems, width, bits,
+            epilogue=None):
     return decode(inputs[0], inputs[1:], consts, out_lens,
-                  chunk_elems=chunk_elems, width=width)
+                  chunk_elems=chunk_elems, width=width, epilogue=epilogue)
 
 
 CODEC = registry.register(registry.Codec(
@@ -356,7 +366,8 @@ CODEC = registry.register(registry.Codec(
         body=_body, body_scalar=_body_scalar, body_oracle=_body_oracle,
         cuda=_kernel, chunk_inputs=_chunk_inputs,
         consts=lambda: tuple(np.ascontiguousarray(t, np.int32)
-                             for t in TABLES)),
+                             for t in TABLES),
+        fuses_epilogue=True),
     needs_words=True,
     byte_stream=True,
 ))

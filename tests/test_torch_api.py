@@ -190,6 +190,9 @@ def test_no_device_means_the_card_and_never_falls_back():
     ca = api.compress(np.arange(10, dtype=np.uint8), "rle_v1", CHUNK)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.decompress_many([ca], device_out=True)
+    # the service path raises in the caller's thread, before any future
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.decompress_many([ca])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.decompress(ca)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -202,7 +205,7 @@ def test_engine_and_device_must_agree():
         api.decompress_many([ca], CPU, device="meta")
 
 
-@pytest.mark.parametrize("kw", [{"service": object()}, {"mesh": object()},
+@pytest.mark.parametrize("kw", [{"mesh": object()},
                                 {"out_shardings": object()}])
 def test_unported_paths_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -267,3 +270,95 @@ def test_staged_plan_runs_without_host_transfers():
     with transfers.count_host_transfers() as c:
         plan.execute(CPU)
     assert c["d2h"] == plan.num_dispatches
+
+
+# --------------------------------------------------------------------------
+# the service path (engine-less host decodes) and staging
+# --------------------------------------------------------------------------
+
+
+def test_engine_less_host_decode_goes_through_the_default_service():
+    """No engine and host output: the port's default service on the CPU
+    and the reference's default service decode the same arrays with the
+    same dispatches (one per group, one window), equal to the inputs."""
+    from repro.kernels import ops as ref_ops
+    from repro_torch.core import server
+
+    cols = _columns(7)
+    arrays, codecs = [a for a, _ in cols], [c for _, c in cols]
+    cas = api.compress_many(arrays, codecs, CHUNK)
+    ref_cas = ref_api.compress_many(arrays, codecs, CHUNK)
+    svc = server.default_service("cpu")
+    windows = svc.stats().windows
+    with ops.count_dispatches() as calls:
+        outs = api.decompress_many(cas, device="cpu")
+    with ref_ops.count_dispatches() as ref_calls:
+        ref_outs = ref_api.decompress_many(ref_cas)
+    assert svc.stats().windows == windows + 1
+    assert len(calls) == len(ref_calls) == plan_mod.DecodePlan.build(
+        [b for ca in cas for b in ca.blobs]).num_dispatches
+    for a, o, r in zip(arrays, outs, ref_outs):
+        _equal(o, a)
+        _equal(o, np.asarray(r))
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(engine=CPU, service=object()), "engine= OR service="),
+    (dict(device_out=True, epilogue=harness.Epilogue(out_dtype="int32")),
+     "service path"),
+    (dict(mesh=object()), "service path"),
+])
+def test_service_path_refusals(kw, match):
+    """As in the reference: an engine with a service, and an epilogue or a
+    mesh on the service path, raise ValueError."""
+    from repro_torch.core import server
+    kw = dict(kw)
+    kw.setdefault("service", server.default_service("cpu"))
+    ca = api.compress(np.arange(10, dtype=np.uint8), "rle_v1", CHUNK)
+    with pytest.raises(ValueError, match=match):
+        api.decompress_many([ca], **kw)
+
+
+def test_staging_pads_once_and_counts_exactly():
+    """``format.to_device`` stages comp padded to the 128-byte lane width
+    (at least 8 zero bytes a row) in one copy; each array is one counted
+    upload of its staged bytes: comp, comp_lens, out_lens, then extras."""
+    cols = _columns(9)
+    cas = api.compress_many([a for a, _ in cols], [c for _, c in cols], CHUNK)
+    for blob in (b for ca in cas for b in ca.blobs):
+        blob.comp.flags.writeable = False     # read-only input is copied
+        with transfers.count_host_transfers() as c:
+            dev = fmt.to_device(blob, "cpu")
+        cols_want = -(-(blob.comp.shape[1] + 8) // 128) * 128
+        want_bytes = (blob.num_chunks * cols_want + 8 * blob.num_chunks
+                      + sum(v.nbytes for v in blob.extras.values()))
+        assert c == {"d2h": 0, "bytes": 0, "h2d": 3 + len(blob.extras),
+                     "h2d_bytes": want_bytes}
+        comp = dev["comp"].numpy()
+        assert comp.shape == (blob.num_chunks, cols_want)
+        assert np.array_equal(comp[:, :blob.comp.shape[1]], blob.comp)
+        assert not comp[:, blob.comp.shape[1]:].any()
+
+
+def test_to_device_cols_refuses_to_cut_rows():
+    a = np.ones((2, 5), np.uint8)
+    for bad, cols in ((a, 4), (np.ones(5, np.uint8), 7)):
+        with pytest.raises(ValueError, match="columns"):
+            transfers.to_device(bad, "cpu", cols=cols)
+    got = transfers.to_device(a, "cpu", cols=7).numpy()
+    assert got.shape == (2, 7) and got[:, :5].all() and not got[:, 5:].any()
+
+
+def test_to_device_rows_pads_the_first_axis_once():
+    """``rows=`` appends zero rows (with ``cols=``, zero columns as well)
+    in one counted upload of the padded shape; it never cuts rows."""
+    a = np.arange(1, 11, dtype=np.int32).reshape(2, 5)
+    with transfers.count_host_transfers() as c:
+        got = transfers.to_device(a, "cpu", rows=4, cols=8).numpy()
+        vec = transfers.to_device(a[:, 0], "cpu", rows=3).numpy()
+    assert c["h2d"] == 2 and c["h2d_bytes"] == (4 * 8 + 3) * 4
+    assert got.shape == (4, 8) and np.array_equal(got[:2, :5], a)
+    assert not got[2:].any() and not got[:, 5:].any()
+    assert np.array_equal(vec, [1, 6, 0])
+    with pytest.raises(ValueError, match="rows"):
+        transfers.to_device(a, "cpu", rows=1)

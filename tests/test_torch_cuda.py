@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import encoders as enc, format as fmt, registry
+from repro_torch.core import api, encoders as enc, format as fmt, registry
+from repro_torch.core import server as srv
 from repro_torch.kernels import (bitpack, cuda_rle, harness, huffman, lzss,
                                  ops, tdeflate)
 from repro_torch.kernels import dequant_matmul as dq
@@ -275,7 +276,7 @@ def test_rle_group_cap_and_counts_on_the_card(card, codec, chunk):
 
 
 # --------------------------------------------------------------------------
-# the decode epilogue in bitpack's and huffman's stores
+# the decode epilogue in every decode kernel's stores
 # --------------------------------------------------------------------------
 
 FUSED_EPILOGUES = [
@@ -334,6 +335,8 @@ def huffman_tile_rows(rng, chunk: int):
 
 def _fused_table(codec: str, width: int, bits: int) -> fmt.CompressedBlob:
     rng = np.random.default_rng(bits)
+    if codec not in ("bitpack", "huffman"):
+        return _table(codec, width)
     if codec == "huffman":
         return fmt.concat_blobs(huffman_tile_rows(rng, 16384) + [
             enc.compress(np.zeros(0, np.uint8), "huffman", 16384),
@@ -353,7 +356,9 @@ def _fused_table(codec: str, width: int, bits: int) -> fmt.CompressedBlob:
 @pytest.mark.parametrize("codec,width,bits", [
     ("bitpack", 1, 4), ("bitpack", 1, 7), ("bitpack", 2, 11),
     ("bitpack", 2, 16), ("bitpack", 4, 9), ("bitpack", 4, 32),
-    ("huffman", 1, 8)])
+    ("huffman", 1, 8), ("rle_v1", 1, 0), ("rle_v1", 4, 0), ("rle_v2", 2, 0),
+    ("rle_v2", 4, 0), ("dbp", 1, 0), ("dbp", 4, 0), ("tdeflate", 1, 0),
+    ("lzss", 1, 0), ("lzss", 2, 0), ("lzss", 4, 0)])
 def test_fused_epilogue_equals_plain_then_apply_on_the_card(
         card, codec, width, bits, name, kw, operands):
     """The kernel's fused output == its plain twin, then Epilogue.apply,
@@ -366,8 +371,10 @@ def test_fused_epilogue_equals_plain_then_apply_on_the_card(
     dev.update({k: torch.from_numpy(np.asarray(v)).to(card)
                 for k, v in operands.items()})
     spec = registry.get(codec).decode
-    plain = spec.body(spec.chunk_inputs(dev), (), dev["out_lens"],
-                      chunk_elems=table.chunk_elems, width=width, bits=b)
+    plain = spec.body(spec.chunk_inputs(dev),
+                      harness.consts_on(spec, dev["out_lens"].device),
+                      dev["out_lens"], chunk_elems=table.chunk_elems,
+                      width=width, bits=b)
     want = epi.apply(plain, dev)
     before = (_launches(codec), harness.EPILOGUE_FUSED,
               harness.EPILOGUE_UNFUSED)
@@ -423,3 +430,118 @@ def test_bitpack_layouts_on_the_card(card, case):
     assert torch.equal(got.cpu(), want)
     if case == "weight_layout":
         assert np.array_equal(got.cpu().reshape(-1)[:q.size].numpy(), q)
+
+
+# --------------------------------------------------------------------------
+# staging, and the service on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_pinned_staging_equals_cpu_staging_on_the_card(card):
+    """Staging through pinned memory uploads the same arrays, bytes and
+    counts as staging to the CPU; the staged tensors are equal."""
+    from repro_torch.core import transfers
+    for codec, width in (("tdeflate", 1), ("bitpack", 2), ("lzss", 4)):
+        table = _table(codec, width)
+        with transfers.count_host_transfers() as c_cpu:
+            on_cpu = fmt.to_device(table, "cpu")
+        with transfers.count_host_transfers() as c_card:
+            on_card = fmt.to_device(table, card)
+        torch.cuda.synchronize()
+        assert c_card == c_cpu and c_cpu["h2d"] == 3 + len(table.extras)
+        assert on_card.keys() == on_cpu.keys()
+        for k, v in on_cpu.items():
+            assert on_card[k].device.type == "cuda"
+            assert torch.equal(on_card[k].cpu(), v), (codec, k)
+
+
+def _service_arrays():
+    rng = np.random.default_rng(17)
+    arrays = [np.repeat(rng.integers(0, 1 << 10, 300), 20).astype(np.uint32),
+              np.frombuffer(b"codag service window " * 400, np.uint8).copy(),
+              np.repeat(rng.integers(0, 1 << 40, 50).astype(np.int64), 30)]
+    cas = [api.compress(a, c, 4096) for a, c in
+           zip(arrays, ("rle_v2", "tdeflate", "lzss"))]
+    return arrays, cas
+
+
+@pytest.mark.cuda
+def test_service_device_out_read_on_a_side_stream(card):
+    """A ``device_out`` future resolves to a complete tensor: a consumer on
+    another stream reads it without waiting on the default stream."""
+    arrays, cas = _service_arrays()
+    with srv.DecompressionService(cache_bytes=0) as svc:
+        futs = [svc.submit_array(ca, device_out=True) for ca in cas]
+        outs = [f.result(timeout=60) for f in futs]
+        side = torch.cuda.Stream(card)
+        with torch.cuda.stream(side):
+            copies = [o.clone() for o in outs]
+        side.synchronize()
+        assert svc.stats().dispatches >= 1
+    for a, o, c in zip(arrays, outs, copies):
+        assert o.device.type == "cuda" and c.dtype == o.dtype
+        assert np.array_equal(c.cpu().numpy(), a)
+
+
+@pytest.mark.cuda
+def test_service_cache_hit_device_out_read_on_a_side_stream(card):
+    """A ``device_out`` cache hit is staged from the host LRU and resolves
+    only once its copy has landed: a consumer on another stream reads the
+    whole array.  The block the hit is staged into is first filled with
+    0xFF, so a read before the copy lands shows."""
+    a = np.repeat(np.arange(1 << 17, dtype=np.uint32), 64)     # 32 MiB
+    (blob,) = api.compress(a, "rle_v2", 1 << 16).blobs
+    with srv.DecompressionService(cache_bytes=64 << 20) as svc:
+        first = svc.submit(blob, device_out=True).result(timeout=60)
+        side = torch.cuda.Stream(card)
+        for _ in range(3):
+            poison = torch.full((a.nbytes,), 255, dtype=torch.uint8,
+                                device=card)
+            del poison
+            hit = svc.submit(blob, device_out=True).result(timeout=60)
+            with torch.cuda.stream(side):
+                copy = hit.clone()
+            side.synchronize()
+            assert torch.equal(copy.cpu(), first.cpu())
+        stats = svc.stats()
+        assert stats.cache_hits == 3 and stats.dispatches == 1
+    assert np.array_equal(first.cpu().numpy(), a)
+
+
+@pytest.mark.cuda
+def test_service_decodes_while_another_thread_forbids_transfers(card):
+    """The service's worker stages, decodes and materializes host results
+    while another thread holds ``no_host_transfers()``; that thread's own
+    host materialization still raises."""
+    import threading
+    from repro_torch.core import transfers
+    arrays, cas = _service_arrays()
+    inside, leave = threading.Event(), threading.Event()
+    raised = []
+
+    def guard():
+        with transfers.no_host_transfers():
+            inside.set()
+            try:
+                transfers.to_host(torch.zeros(4, device=card))
+            except RuntimeError as e:
+                raised.append(str(e))
+            leave.wait(60)
+
+    t = threading.Thread(target=guard)
+    t.start()
+    try:
+        assert inside.wait(60)
+        with srv.DecompressionService(cache_bytes=1 << 20) as svc:
+            outs = [svc.submit_array(ca).result(timeout=60) for ca in cas]
+            devs = [svc.submit_array(ca, device_out=True).result(timeout=60)
+                    for ca in cas]
+            assert svc.stats().errors == 0
+    finally:
+        leave.set()
+        t.join(60)
+    assert not t.is_alive() and raised and "no_host_transfers" in raised[0]
+    for a, o, d in zip(arrays, outs, devs):
+        assert np.array_equal(o, a)
+        assert np.array_equal(d.cpu().numpy(), a)

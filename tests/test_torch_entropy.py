@@ -388,8 +388,8 @@ def test_ctypes_signatures_match_the_c_entry_points():
     """Each wrapper's ctypes argument kinds equal its C entry point's
     parameters (a pointer passed as a 32-bit int would be cut)."""
     kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_int64: "l"}
-    for lib in (cuda_rle.LIB, bitpack.LIB, tdeflate.LIB, huffman.LIB,
-                lzss.LIB, dequant_matmul.LIB):
+    for lib in (cuda_rle.LIB, *cuda_rle.LIB_EPI.values(), bitpack.LIB,
+                tdeflate.LIB, huffman.LIB, lzss.LIB, dequant_matmul.LIB):
         src = lib.source.read_text()
         m = re.search(rf'extern "C" int {lib.entry}\s*\(([^)]*)\)', src)
         assert m, lib.entry

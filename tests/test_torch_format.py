@@ -203,7 +203,8 @@ def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
     names = {p.name for p in files}
     assert {"tdeflate.py", "bitpack.py", "dbp.py", "cuda_build.py",
-            "huffman.py", "lzss.py", "dequant_matmul.py", "batch.py"} <= names
+            "huffman.py", "lzss.py", "dequant_matmul.py", "batch.py",
+            "server.py", "store.py"} <= names
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
@@ -219,7 +220,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.kernels.bitpack, repro_torch.kernels.dbp, "
         "repro_torch.kernels.cuda_build, repro_torch.kernels.huffman, "
         "repro_torch.kernels.lzss, repro_torch.kernels.dequant_matmul, "
-        "repro_torch.core.batch\n"
+        "repro_torch.core.batch, repro_torch.core.server, "
+        "repro_torch.core.store\n"
         "from repro_torch.core import registry\n"
         "for c in ('rle_v1', 'rle_v2', 'tdeflate', 'bitpack', 'dbp', "
         "'huffman', 'lzss'):\n"

@@ -1,5 +1,5 @@
-"""The decode epilogue as the bitpack and huffman kernels apply it in their
-stores, and those kernels' launch geometry.
+"""The decode epilogue as every codec's kernel applies it in its stores,
+and the bitpack and huffman kernels' launch geometry.
 
 ``harness.fused_epilogue`` decides which epilogues a kernel applies: the
 ones that fuse, and the ones that take the unfused route (torch ops after
@@ -93,6 +93,35 @@ def test_epilogues_that_fuse(name, epi, width, operands, dtype):
     assert (codes[4] is None) == (epi.scale_key is None)
 
 
+# the fused epilogues whose output bits are the decoded bits
+BITS_ONLY = {"identity", "view_int8", "view_f32", "int32_narrow_u32"}
+
+
+@pytest.mark.parametrize("name,epi,width,operands,dtype", FUSES,
+                         ids=[c[0] for c in FUSES])
+def test_bits_only_epilogues_take_the_plain_store(name, epi, width, operands,
+                                                  dtype):
+    """A bits-only epilogue launches the plain store (no epilogue
+    arguments, no scratch) and its output is a view of the decoded bits,
+    equal to ``Epilogue.apply``; every other epilogue reaches the kernel."""
+    fused = harness.fused_epilogue(epi, _dev(**operands), width)
+    assert fused.bits_only == (name in BITS_ONLY)
+    raw = harness.DEV_DTYPE[width]
+    kept, out_dtype, args = harness.launch_store(fused, raw)
+    if fused.bits_only:
+        assert kept is None and out_dtype == raw
+        code = harness.DTYPE_CODES[raw]
+        assert args == (code, code, None, 0, None, 0)
+        x = torch.arange(250, dtype=torch.int64).to(raw)
+        got = harness.finish_store(x, fused)
+        assert got.dtype == dtype
+        want = fused.apply_plain(x)
+        assert torch.equal(got.view(raw), want.view(raw))
+    else:
+        assert kept is fused and out_dtype == dtype
+        assert args == fused.kernel_args()
+
+
 @pytest.mark.parametrize("name,epi,width,operands", UNFUSED,
                          ids=[c[0] for c in UNFUSED])
 def test_epilogues_left_to_torch(name, epi, width, operands):
@@ -109,7 +138,16 @@ def _bitpack_table():
     ("bitpack", "cuda", Epi(out_dtype="int8", zero_key="z"), True),
     ("bitpack", "cuda", Epi(out_dtype="int64", zero_key="z"), False),
     ("bitpack", "torch", Epi(out_dtype="int8", zero_key="z"), False),
-    ("rle_v1", "cuda", Epi(out_dtype="int8", zero_key="z"), False),
+    ("rle_v1", "cuda", Epi(out_dtype="int8", zero_key="z"), True),
+    ("rle_v1", "cuda", Epi(out_dtype="int64", zero_key="z"), False),
+    ("rle_v2", "cuda", Epi(out_dtype="float32", zero_key="z"), True),
+    ("dbp", "cuda", Epi(out_dtype="bfloat16", zero_key="z"), True),
+    ("huffman", "cuda", Epi(out_dtype="int8", zero_key="z"), True),
+    ("tdeflate", "cuda", Epi(out_dtype="float16", zero_key="z"), True),
+    ("tdeflate", "cuda", Epi(view_dtype="int8"), True),
+    ("tdeflate", "oracle", Epi(view_dtype="int8"), False),
+    ("lzss", "cuda", Epi(out_dtype="int32", zero_key="z"), True),
+    ("lzss", "cuda", Epi(fn=lambda out, dev: out), False),
 ])
 def test_unfused_route_is_counted(codec, backend, epi, fused):
     rng = np.random.default_rng(3)

@@ -282,13 +282,13 @@ EPILOGUES = [
                           zero_key="z", scale_key="s"),
      {"z": np.int16(300), "s": np.int16(-7)}),
 ]
-# rle_v1's kernel leaves the epilogue to torch ops; bitpack's and huffman's
-# apply it in their stores (the ``cuda`` backend on CPU tensors runs their
-# plain version, then the epilogue)
+# every codec's kernel applies the epilogue in its stores (the ``cuda``
+# backend on CPU tensors runs its plain version, then the epilogue)
 EPILOGUE_CASES = [
     pytest.param(codec, *e, id=e[0] if codec == "rle_v1" else
                  f"{codec}-{e[0]}")
-    for codec in ("rle_v1", "bitpack", "huffman") for e in EPILOGUES]
+    for codec in ("rle_v1", "rle_v2", "dbp", "bitpack", "huffman",
+                  "tdeflate", "lzss") for e in EPILOGUES]
 
 
 def _bits(a) -> np.ndarray:
@@ -306,6 +306,8 @@ def test_epilogue_matches_reference(codec, name, kw, operands):
     data = rng.integers(0, 256, 900).astype(np.uint8)
     if codec == "bitpack":
         data %= 128                              # 7-bit fields
+    if codec in ("tdeflate", "lzss"):
+        data = np.tile(data[:90], 10)            # matches as well
     table = _table(codec, 1, [data], 256)
     ref_blob = ref_fmt.CompressedBlob(**ref_fmt.dataclasses.asdict(table))
     ref_dev, bits = ref_ops.table_inputs(ref_blob)
@@ -383,3 +385,38 @@ def test_scalar_backend_refuses_card_tensors():
     with pytest.raises(NotImplementedError, match="all_thread=False"):
         ops.decode(dev, codec="rle_v1", width=1, chunk_elems=64,
                    backend="scalar")
+
+
+def test_build_all_waits_for_every_nvcc_and_times_each(tmp_path,
+                                                       monkeypatch):
+    """One nvcc a library, all started together (a stand-in nvcc here): each
+    library of one source and distinct flags gets its own build and its own
+    wall time; a built library starts none; a failure is raised once every
+    nvcc has ended."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(
+        '#!/bin/sh\nout=""; prev=""\n'
+        'for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done\n'
+        'case "$*" in *bad.cu*) echo boom >&2; exit 1;; esac\n'
+        'sleep 0.3\necho "ptxas info    : Used 8 registers"\n: > "$out"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    src, bad = tmp_path / "k.cu", tmp_path / "bad.cu"
+    src.write_text("// a kernel\n")
+    bad.write_text("// a broken kernel\n")
+    libs = [cuda_build.KernelLibrary(str(src), "entry", "p",
+                                     flags=(f"-DX={i}",)) for i in range(3)]
+    paths = cuda_build.build_all(libs)
+    assert len(set(paths)) == 3 and all(p.exists() for p in paths)
+    assert all(0.3 <= lib.build_seconds < 30 for lib in libs)
+    assert "Used 8 registers" in libs[0].build_log
+    assert cuda_build.build_all(libs) == paths
+    assert all(lib.build_seconds == 0.0 for lib in libs)
+    broken = [cuda_build.KernelLibrary(str(bad), "entry", "p"),
+              cuda_build.KernelLibrary(str(src), "entry", "p",
+                                       flags=("-DY",))]
+    with pytest.raises(RuntimeError, match="boom"):
+        cuda_build.build_all(broken)
+    assert broken[1].path.exists()
