@@ -5,6 +5,7 @@
                           [--text-mib 8] [--td-chunks 2048]
                           [--td-plain-rows 256] [--ent-chunks 1024]
                           [--lz-plain-rows 64] [--q-layers 4]
+                          [--scalar-plain-elems 8192] [--scalar-reps 5]
     python3 chip_smoke.py --stage-only [--src DIR]   # phase 4's build and
                                                      # stage by part, alone
 
@@ -12,8 +13,12 @@ Phases, each of which must pass (any failure exits non-zero, with no result
 line):
 
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. kernel build: one nvcc (sm_90a) per ``csrc`` source, all started
-     together, with ptxas registers, spills and shared memory;
+  2. kernel build: one nvcc (sm_90a) per ``csrc`` source (the single-thread
+     ``scalar_decode.cu`` too), all started together, with ptxas registers,
+     spills and shared memory, into a fresh compile cache
+     (``tuning.enable_compile_cache`` on a new directory under ``build/``);
+     then a second interpreter enables the same directory and binds every
+     library: its wall time and its nvcc count, which must be 0;
   3. each kernel vs its plain PyTorch version on the card, bit-exact, and
      every row against its input:
        - ``two_phase_rle`` for rle_v1, rle_v2 and dbp at widths 1/2/4, on a
@@ -97,7 +102,21 @@ line):
      restored through a ``TieredBlobStore`` under a host budget well below
      the data, ``stream_windows(window=8)`` + ``submit_key``: each key
      fetched once, evictions, bit-exact;
-  8. a JSON line of the kernels, then ``{"ok": true, "device": {...}}``
+  8. the §V-E ablation: phase 4's staged plan through
+     ``CodagEngine(EngineConfig(all_thread=False))`` with
+     ``execute_device``, one single-thread launch (``scalar_decode.cu``,
+     one thread a chunk) a group, counted, every blob bit for bit against
+     the inputs and the all-thread output; per group and in total the
+     single-thread kernel's device time beside the all-thread kernel's and
+     their ratio; each entry against its plain scalar body on phase 4's
+     plain-version rows, each row's first ``--scalar-plain-elems``
+     elements (the plain bodies take one step of torch ops an element);
+  9. tuning: ``tuning.autotune(smoke=True)`` on the card into an in-memory
+     table (never saved), tuned and default MB/s and the knob point of
+     each codec; then ``api.compress(arr, codec)`` with
+     ``chunk_bytes=None`` for every codec: the card's kind has no row, so
+     128 KiB chunks;
+ 10. a JSON line of the kernels, then ``{"ok": true, "device": {...}}``
      last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  It
@@ -110,6 +129,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -207,7 +227,8 @@ def matmul_bound(m: int, n: int, k: int, x_bytes: int):
 DT = {1: np.uint8, 2: np.uint16, 4: np.uint32}
 KERNELS = ("two_phase_rle<rle_v1>", "two_phase_rle<rle_v2>",
            "two_phase_rle<dbp>", "bitpack_unpack", "tdeflate_decode",
-           "huffman_decode", "lzss_decode", "dequant_matmul")
+           "huffman_decode", "lzss_decode", "dequant_matmul",
+           "scalar_decode")
 # kernel -> (source under src/repro_torch/csrc, the TPU kernel it replaces)
 SOURCES = {
     "bitpack_unpack": ("bitpack_unpack.cu", "src/repro/kernels/bitpack.py:55"),
@@ -218,6 +239,9 @@ SOURCES = {
     "lzss_decode": ("lzss_decode.cu", "src/repro/kernels/lzss.py:245"),
     "dequant_matmul": ("dequant_matmul.cu",
                        "src/repro/kernels/dequant_matmul.py:53"),
+    # not a Pallas kernel: the reference's single-thread backend is jax.vmap
+    # of each codec's body_scalar
+    "scalar_decode": ("scalar_decode.cu", "src/repro/kernels/harness.py:345"),
 }
 # qwen3-1.7B (src/repro/configs/qwen3_1b7.py, hf:Qwen/Qwen3-1.7B): one
 # layer's projections as (name, K, N) of y = x @ W
@@ -689,7 +713,34 @@ def phase_env() -> None:
     log(smi.stdout.strip().splitlines()[0])
 
 
-def phase_build(cuda_build, libs) -> None:
+# A second interpreter on phase 2's compile cache: binds every library
+# (argv: the package's directory, the cache) and reports its nvcc count.
+BIND_CHILD = """
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+from repro_torch.core import tuning
+from repro_torch.kernels import (bitpack, cuda_build, cuda_rle, huffman,
+                                 lzss, scalar, tdeflate)
+from repro_torch.kernels import dequant_matmul as dq
+tuning.enable_compile_cache(sys.argv[2])
+t1 = time.perf_counter()
+libs = [cuda_rle.LIB, *cuda_rle.LIB_EPI.values(), bitpack.LIB, tdeflate.LIB,
+        huffman.LIB, lzss.LIB, dq.LIB, scalar.LIB]
+for x in libs + [dq.WGMMA, scalar.TDEFLATE, scalar.LZSS, scalar.HUFFMAN,
+                 scalar.BITPACK]:
+    x.fn()
+print(json.dumps({"import_s": t1 - t0, "bind_s": time.perf_counter() - t1,
+                  "nvcc": cuda_build.NVCC_RUNS, "libs": len(libs)}))
+"""
+
+
+def phase_build(cuda_build, tuning, libs, entries, src: Path) -> None:
+    """Build every library into a fresh compile cache, bind them, then bind
+    them again from a second interpreter on the same cache."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    cache = tuning.enable_compile_cache(
+        tempfile.mkdtemp(prefix="compile-cache-", dir=ROOT / "build"))
     t0 = time.perf_counter()
     paths = cuda_build.build_all(libs)
     dt = time.perf_counter() - t0
@@ -701,6 +752,28 @@ def phase_build(cuda_build, libs) -> None:
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"   {name} ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    for x in (*libs, *entries):
+        x.fn()
+    bind_s = time.perf_counter() - t0
+    log(f"   compile cache {cache.relative_to(ROOT)}: "
+        f"{cuda_build.NVCC_RUNS} nvcc in this process; cold: build "
+        f"{dt:.2f} s, then bind {len(libs)} libraries in {bind_s:.3f} s")
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", BIND_CHILD, str(src),
+                            str(cache)], capture_output=True, text=True,
+                           timeout=300)
+    wall = time.perf_counter() - t0
+    if child.returncode:
+        raise AssertionError(f"second process on the cache failed:\n"
+                             f"{child.stderr[-2000:]}")
+    rec = json.loads(child.stdout.strip().splitlines()[-1])
+    log(f"   warm: a second process on the same cache, wall {wall:.2f} s "
+        f"(imports {rec['import_s']:.2f} s, bind {rec['libs']} libraries "
+        f"{rec['bind_s']:.3f} s), nvcc {rec['nvcc']}")
+    if rec["nvcc"] != 0 or rec["libs"] != len(libs):
+        raise AssertionError(f"the second process ran {rec['nvcc']} nvcc "
+                             "on a filled cache")
 
 
 def check_rows(name, out, blobs_and_wants, fmt) -> None:
@@ -1234,6 +1307,7 @@ def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
             f"ms on {rows} rows, max_abs_err {err}{extra}")
         if err:
             raise AssertionError(f"group {g.key}: kernel differs from plain")
+    data["plan"] = plan
     return launches, per, data
 
 
@@ -1684,7 +1758,9 @@ def phase_service(args, api, fmt, ops, transfers, server, store, engine,
         wins = [sum(sizes[i:i + window]) for i in range(0, len(keys), window)]
         pair = max(x + y for x, y in zip(wins, wins[1:] + [0]))
         low = 0.8
-        budget = max(STORE_BUDGET, int(pair / low) + 1)
+        # under the data even when a short run's data is small
+        budget = max(min(STORE_BUDGET, sum(sizes) // 2),
+                     int(pair / low) + 1)
         st = store.TieredBlobStore(backend, host_budget_bytes=budget,
                                    low_watermark=low)
         svc = server.DecompressionService(engine, cache_bytes=0, store=st)
@@ -1715,6 +1791,147 @@ def phase_service(args, api, fmt, ops, transfers, server, store, engine,
         f"{s.backend_fetches} fetches (each key once), {s.host_evictions} "
         f"evictions, host hit rate {s.host_hit_rate:.3f}, "
         f"{restore_s:.2f} s; all bit-exact")
+
+
+def phase_ablation(args, data, engine, scalar, registry, harness,
+                   transfers, errs, per) -> int:
+    """The §V-E ablation on phase 4's staged plan: returns the single-thread
+    kernel's launches in its counted run."""
+    from repro_torch.core.engine import CodagEngine
+    log("== 8 §V-E ablation: phase 4's staged plan through "
+        "CodagEngine(EngineConfig(all_thread=False)).execute_device")
+    plan = data["plan"]
+    seng = CodagEngine(dataclasses.replace(engine.config, all_thread=False))
+    n_groups = plan.num_dispatches
+    scalar.LAUNCHES = 0
+    for k in scalar.CODEC_LAUNCHES:
+        scalar.CODEC_LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    outs_s = plan.execute_device(seng)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = scalar.LAUNCHES
+    by_codec = dict(scalar.CODEC_LAUNCHES)
+    if launches != n_groups:
+        raise AssertionError(f"single-thread launches {launches}, expected "
+                             f"{n_groups} (one per plan group)")
+    outs_a = plan.execute_device(engine)
+    torch.cuda.synchronize()
+    wants = [w for a, ca in zip(data["arrays"], data["cas"])
+             for w in expected_planes(a, len(ca.blobs))]
+    for i, (o_s, o_a, want) in enumerate(zip(outs_s, outs_a, wants)):
+        if not torch.equal(o_s.contiguous().reshape(-1).view(torch.uint8),
+                           o_a.contiguous().reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"blob {i}: single-thread output differs "
+                                 "from the all-thread output")
+        if not same(o_s, want):
+            raise AssertionError(f"blob {i}: single-thread output differs "
+                                 "from the input")
+    log(f"   {launches} single-thread launches == {n_groups} plan groups "
+        f"{ {k: v for k, v in by_codec.items() if v} }; first call "
+        f"{first_ms:.1f} ms; all {len(outs_s)} blobs bit-exact against the "
+        "inputs and the all-thread output")
+    del outs_s, outs_a
+    torch.cuda.empty_cache()
+
+    def run_staged(eng):
+        with transfers.no_host_transfers():
+            plan.execute_device(eng)
+
+    reps = args.scalar_reps
+    whole_s = ms_of(lambda: run_staged(seng), reps)
+    whole_a = ms_of(lambda: run_staged(engine), reps)
+    cap = {"tdeflate": args.td_plain_rows, "lzss": args.lz_plain_rows}
+    tot = per["scalar_decode"]
+    tot.update(all_thread_device_ms=0.0, plain_elems=args.scalar_plain_elems)
+    for gi, g in enumerate(plan.groups):
+        codec, width, chunk_elems, bits = g.key
+        dev = plan._staged[engine.device][gi]
+        spec = registry.get(codec).decode
+        inputs = spec.chunk_inputs(dev)
+        lens = dev["out_lens"]
+        consts = harness.consts_on(spec, lens.device)
+        kw = dict(chunk_elems=chunk_elems, width=width, bits=bits)
+        s_ms = ms_of(lambda: spec.scalar(inputs, consts, lens, **kw), reps)
+        s_dev = device_ms(lambda: spec.scalar(inputs, consts, lens, **kw),
+                          reps)
+        a_dev = device_ms(lambda: spec.cuda(inputs, consts, lens, **kw),
+                          reps)
+        # the plain scalar body on phase 4's plain-version rows, each row's
+        # first --scalar-plain-elems elements (the same out_lens for both)
+        rows = min(g.num_chunks, cap.get(codec, g.num_chunks))
+        cut = tuple(t[:rows] for t in inputs)
+        lens_cut = lens[:rows].clamp(max=args.scalar_plain_elems)
+        out_k = spec.scalar(cut, consts, lens_cut, **kw)
+        res = {}
+        plain_ms = ms_of(lambda: res.update(
+            p=spec.body_scalar(cut, consts, lens_cut, **kw)), 1)
+        err = max_abs_err(out_k, res.pop("p"))
+        del out_k
+        errs["scalar_decode"] = max(errs["scalar_decode"], err)
+        b = bound_ms(codec, int(g.merged.comp_lens.sum()), g.num_chunks,
+                     chunk_elems, width)
+        tot["ms"] += s_ms
+        tot["device_ms"] += s_dev
+        tot["all_thread_device_ms"] += a_dev
+        tot["plain_ms"] += plain_ms
+        tot["bound_ms"] += b
+        tot["plain_rows"] += rows
+        log(f"   group {g.key}: {g.num_chunks} chunks, "
+            f"{scalar.block_threads(g.num_chunks, scalar._sms(lens.device))}"
+            f" threads a CTA; single-thread {s_dev:.3f} ms device ({s_ms:.3f}"
+            f" ms), all-thread {a_dev:.3f} ms device: {s_dev / a_dev:.1f}x; "
+            f"bound {b:.3f} ms ({b / s_dev * 100:.2f}% of single-thread); 1 "
+            f"launch; plain scalar body {plain_ms:.1f} ms on {rows} rows x "
+            f"{args.scalar_plain_elems} elements, max_abs_err {err}")
+        if err:
+            raise AssertionError(f"group {g.key}: single-thread kernel "
+                                 "differs from the plain scalar body")
+    log(f"   total: single-thread {tot['device_ms']:.3f} ms device, "
+        f"all-thread {tot['all_thread_device_ms']:.3f} ms device: "
+        f"{tot['device_ms'] / tot['all_thread_device_ms']:.1f}x; staged "
+        f"plan (execute_device, median of {reps}) {whole_s:.3f} ms "
+        f"single-thread against {whole_a:.3f} ms all-thread: "
+        f"{whole_s / whole_a:.1f}x")
+    return launches
+
+
+def phase_tuning(args, tuning, api, fmt, registry, engine) -> None:
+    """autotune(smoke=True) on the card, in memory; then chunk_bytes=None on
+    the card's kind."""
+    log("== 9 tuning: tuning.autotune(smoke=True) on the card (an in-memory "
+        "table, never saved)")
+    t0 = time.perf_counter()
+    table, rows = tuning.autotune(smoke=True, engine=engine, seed=args.seed)
+    kind = tuning.device_kind()
+    for name in registry.names():
+        [(w, kinds)] = table["codecs"][name].items()
+        [entry] = kinds.values()     # the one kind autotune ran on
+        knobs = {k: v for k, v in entry.items() if not k.startswith("_")}
+        log(f"   {name} {w}: tuned {entry['_tuned_MBps']:.3f} MB/s at "
+            f"{knobs}, default {entry['_default_MBps']:.3f} MB/s "
+            f"(chunk_bytes {fmt.DEFAULT_CHUNK_BYTES}, the launch's own "
+            f"knobs); {entry['_size_mb']} MB of demo data")
+    improved = dict((n, v) for n, v, _ in rows)["autotune/codecs_improved"]
+    log(f"   {improved} of {len(registry.names())} codecs improved; kind "
+        f"{kind!r}; {time.perf_counter() - t0:.1f} s")
+    committed = tuning.load_table()
+    if any(kind in kinds for ws in committed["codecs"].values()
+           for kinds in ws.values()):
+        raise AssertionError(f"the committed table has a {kind!r} row")
+    rng = np.random.default_rng(args.seed)
+    for name in registry.names():
+        a = registry.get(name).demo_data(50_000, rng)
+        ca = api.compress(a, name)
+        blob = ca.blobs[0]
+        if blob.chunk_elems * blob.width != fmt.DEFAULT_CHUNK_BYTES:
+            raise AssertionError(f"{name}: chunk_bytes=None gave "
+                                 f"{blob.chunk_elems} x {blob.width} bytes")
+        if not same(api.decompress(ca, engine), a):
+            raise AssertionError(f"{name}: chunk_bytes=None round trip")
+    log(f"   no {kind!r} row in the committed table: api.compress(arr, "
+        "codec) with chunk_bytes=None gives 128 KiB chunks for all seven "
+        "codecs, and decodes back")
 
 
 class Counter:
@@ -1756,6 +1973,12 @@ def main() -> int:
                     "(its token parse syncs once per token step)")
     ap.add_argument("--q-layers", type=int, default=4,
                     help="qwen3-1.7B layers of the quantized-weight path")
+    ap.add_argument("--scalar-plain-elems", type=int, default=8192,
+                    help="elements of each row the plain scalar bodies "
+                    "decode in phase 8 (one step of torch ops an element)")
+    ap.add_argument("--scalar-reps", type=int, default=None,
+                    help="timing repetitions of phase 8's single-thread "
+                    "pass (default: --reps)")
     ap.add_argument("--stage-only", action="store_true",
                     help="only time DecodePlan.build and stage by part on "
                     "phase 4's workload (cold, then warm), and stop")
@@ -1766,6 +1989,8 @@ def main() -> int:
     args = ap.parse_args()
     if args.src is not None and not args.stage_only:
         ap.error("--src needs --stage-only")
+    if args.scalar_reps is None:
+        args.scalar_reps = args.reps
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1778,9 +2003,10 @@ def main() -> int:
     sys.path.insert(0, str(src))
     from repro_torch.core import api, encoders as enc, format as fmt
     from repro_torch.core import plan as plan_mod, registry, transfers
+    from repro_torch.core import tuning
     from repro_torch.core.engine import CodagEngine
     from repro_torch.kernels import (bitpack, cuda_build, cuda_rle, harness,
-                                     huffman, lzss, ops, tdeflate)
+                                     huffman, lzss, ops, scalar, tdeflate)
     from repro_torch.kernels import dequant_matmul as dq
 
     rng = np.random.default_rng(args.seed)
@@ -1796,9 +2022,11 @@ def main() -> int:
                           [b for ca in data["cas"] for b in ca.blobs], device)
         return 0
     from repro_torch.core import server, store
-    phase_build(cuda_build, [cuda_rle.LIB, *cuda_rle.LIB_EPI.values(),
-                             bitpack.LIB, tdeflate.LIB,
-                             huffman.LIB, lzss.LIB, dq.LIB])
+    phase_build(cuda_build, tuning,
+                [cuda_rle.LIB, *cuda_rle.LIB_EPI.values(), bitpack.LIB,
+                 tdeflate.LIB, huffman.LIB, lzss.LIB, dq.LIB, scalar.LIB],
+                [dq.WGMMA, scalar.TDEFLATE, scalar.LZSS, scalar.HUFFMAN,
+                 scalar.BITPACK], src)
     engine = CodagEngine()
     errs = {k: 0 for k in KERNELS}
     counters = {kernel_of(c): Counter(cuda_rle, c) for c in cuda_rle.CODEC_IDS}
@@ -1821,7 +2049,11 @@ def main() -> int:
         per)["dequant_matmul"]
     phase_service(args, api, fmt, ops, transfers, server, store, engine, data,
                   counters)
-    log("== 8 kernels")
+    launches["scalar_decode"] = phase_ablation(
+        args, data, engine, scalar, registry, harness, transfers, errs, per)
+    del data
+    phase_tuning(args, tuning, api, fmt, registry, engine)
+    log("== 10 kernels")
     kernels = []
     for name in KERNELS:
         source, replaces = SOURCES.get(
@@ -1842,7 +2074,9 @@ def main() -> int:
             "library_ms": per[name].get("library_ms"),
             **{k: per[name][k] for k in ("sweep_ms", "library_sweep_ms",
                                          "weight_decode_host_ms",
-                                         "weight_decode_device_ms")
+                                         "weight_decode_device_ms",
+                                         "all_thread_device_ms",
+                                         "plain_elems")
                if k in per[name]},
         })
         exact = name != "dequant_matmul"    # held to TOL in phases 3 and 6

@@ -50,7 +50,10 @@ class CompressedArray:
 def compress(arr: np.ndarray, codec: str,
              chunk_bytes: Optional[int] = None,
              bits: Optional[int] = None) -> CompressedArray:
-    """Compress one array (``chunk_bytes=None``: the default 128 KiB)."""
+    """Compress one array.  ``chunk_bytes=None`` resolves the tuned chunk
+    size for this codec, width and device kind from ``core.tuning``'s
+    committed table, falling back to ``format.DEFAULT_CHUNK_BYTES``; an
+    explicit value always wins (``encoders.compress`` resolves it)."""
     if arr.dtype.itemsize == 8 and registry.get(codec).plane_decompose_64:
         # plane decomposition: lo/hi u32 planes keep runs intact
         as_u64 = arr.reshape(-1).view(np.uint64)

@@ -795,9 +795,15 @@ def compress(arr: np.ndarray, codec: str,
              bits: int | None = None) -> fmt.CompressedBlob:
     """Encode ``arr`` through the codec registry.
 
-    ``chunk_bytes=None`` means ``format.DEFAULT_CHUNK_BYTES``: the port has
-    no tuned-defaults table yet (ROADMAP.md Queue 1 item 9).
+    ``chunk_bytes=None`` (the default) resolves the tuned chunk size for
+    this (codec, element width) on the current device kind from the
+    tuned-defaults table (``core.tuning``), falling back to
+    ``format.DEFAULT_CHUNK_BYTES``; an explicit value always wins.
     """
     if chunk_bytes is None:
-        chunk_bytes = fmt.DEFAULT_CHUNK_BYTES
+        from repro_torch.core import tuning
+        chunk_bytes = tuning.chunk_bytes_for(
+            codec, tuning.encode_width(codec, arr.dtype))
+        if chunk_bytes is None:
+            chunk_bytes = fmt.DEFAULT_CHUNK_BYTES
     return registry.get(codec).encode(arr, chunk_bytes, bits=bits)

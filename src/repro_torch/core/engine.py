@@ -6,8 +6,9 @@
                 streams: one launch per serial batch of ``n_units`` chunks.
 
   all_thread=True   (§IV-D) every lane decodes and writes.
-  all_thread=False  (§V-E ablation) one element per step; runs on CPU
-                tensors only until its kernel is ported.
+  all_thread=False  (§V-E ablation) one thread a chunk, one element per
+                step: ``csrc/scalar_decode.cu`` on a card, the plain
+                scalar bodies on CPU tensors.
 
   backend="cuda"    the Hopper kernels (plain torch bodies on CPU tensors);
   backend="torch"   the plain two-phase bodies; also "oracle".
@@ -53,6 +54,9 @@ class EngineConfig:
     all_thread: bool = True     # False = §V-E single-thread decoding
     backend: str = "cuda"       # "cuda" | "torch" | "oracle"
     device: str = "cuda"
+    # explicit kernel knobs ((name, value), ...), merged over the
+    # tuned-defaults table per dispatch (explicit wins; ``core.tuning``)
+    tune: tuple = ()
 
 
 class CodagEngine:

@@ -255,7 +255,12 @@ def _next_pow2(n: int) -> int:
 def bucket_shape(table: CompressedBlob,
                  cols_floor: Optional[int] = None) -> Tuple[int, int]:
     """The pow2 ``(rows, cols)`` bucket of a merged chunk table's ``comp``
-    (:func:`pad_table_to_bucket`'s shape)."""
+    (:func:`pad_table_to_bucket`'s shape).  ``cols_floor=None`` consults
+    the tuned-defaults table for the table's (codec, width) on the current
+    device kind (``core.tuning``), else 128."""
+    if cols_floor is None:
+        from repro_torch.core import tuning
+        cols_floor = tuning.bucket_cols_floor(table.codec, table.width)
     floor = 128 if cols_floor is None else int(cols_floor)
     return (_next_pow2(table.num_chunks),
             max(floor, _next_pow2(int(table.comp.shape[1]))))
@@ -273,9 +278,9 @@ def pad_table_to_bucket(table: CompressedBlob,
     ``DecodePlan.build(bucket=True)`` does not call this: it records
     :func:`bucket_shape` and pads while staging, with no host copy.
 
-    ``cols_floor`` is the minimum column bucket.  Until the tuning table is
-    ported (ROADMAP.md Queue 1 item 9), ``None`` means 128, the reference's
-    floor for a device kind without a tuning entry.
+    ``cols_floor`` is the minimum column bucket: explicit values win;
+    ``None`` consults the tuned-defaults table (:func:`bucket_shape`), and
+    with no entry the floor is 128.
     """
     rows, target_cols = bucket_shape(table, cols_floor)
     padded = pad_table_rows(table, rows)

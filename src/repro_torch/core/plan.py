@@ -56,14 +56,22 @@ def _default_engine(engine):
 
 
 def dispatch(dev: Dict[str, Any], *, config, codec: str, width: int,
-             chunk_elems: int, bits: int = 0, epilogue=None) -> torch.Tensor:
+             chunk_elems: int, bits: int = 0, epilogue=None,
+             tune=None) -> torch.Tensor:
     """Lower one fused chunk table to ``ops.decode``.
 
     ``config`` (an ``engine.EngineConfig``) selects the provisioning unit:
     ``warp`` issues the whole table as one launch of independent streams
     (CODAG); ``block`` reproduces the fixed-pool RAPIDS baseline with one
-    launch per serial batch of ``n_units`` rows.
+    launch per serial batch of ``n_units`` rows.  ``all_thread=False``
+    decodes through the ``scalar`` backend (the §V-E ablation).
+
+    ``tune``: the kernel-knob tuple (``core.tuning.kernel_tune``); None
+    resolves the tuned defaults merged with ``config.tune`` (explicit wins).
     """
+    if tune is None:
+        from repro_torch.core import tuning
+        tune = tuning.kernel_tune(codec, width, getattr(config, "tune", ()))
     backend = config.backend if config.all_thread else "scalar"
     n_chunks = dev["comp"].shape[0]
     if config.unit == "warp":
@@ -81,7 +89,7 @@ def dispatch(dev: Dict[str, Any], *, config, codec: str, width: int,
                  for k, v in dev.items()}
         outs.append(ops.decode(batch, codec=codec, width=width,
                                chunk_elems=chunk_elems, backend=backend,
-                               bits=bits, epilogue=epilogue))
+                               bits=bits, epilogue=epilogue, tune=tune))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
@@ -171,7 +179,8 @@ class DecodePlan:
         ``PlanGroup.bucket`` and padded as the table is staged, with no
         host copy); padding rows trail the real rows, so per-blob row
         ranges are unaffected.  ``bucket_floor`` overrides the minimum
-        column bucket (default 128).
+        column bucket (None: the tuned-defaults table's floor for the
+        group, else 128).
         """
         blobs = list(blobs)
         by_key: Dict[tuple, List[int]] = {}

@@ -12,7 +12,9 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
 
 
 def _no_bits(blob: Any) -> int:
@@ -35,6 +37,9 @@ class Codec:
     byte_stream: bool = False
     plane_decompose_64: bool = False  # split 8-byte dtypes into u32 planes
     static_bits: Callable[[Any], int] = _no_bits   # part of the group key
+    # (n_elems, rng) -> np.ndarray of compressible data the codec is made
+    # for (the autotuner's workload)
+    demo_data: Optional[Callable[[int, Any], np.ndarray]] = None
 
 
 _REGISTRY: Dict[str, Codec] = {}
@@ -68,3 +73,11 @@ def get(name: str) -> Codec:
             f"unknown codec {name!r}; registered: "
             f"{sorted(set(_REGISTRY) | set(_PLUGINS))}")
     return codec
+
+
+def names() -> Tuple[str, ...]:
+    """Every registered codec name (the built-in plugins loaded first)."""
+    for name in _PLUGINS:
+        if name not in _REGISTRY:
+            importlib.import_module(_PLUGINS[name])
+    return tuple(_REGISTRY)

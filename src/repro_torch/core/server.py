@@ -169,10 +169,12 @@ class DecompressionService:
                       shape, so it only shapes the table (up to 2x zero
                       rows); kept for parity.  The default service turns
                       it and the cache off.
-    bucket_cols_floor: the minimum pow2 column bucket (None: 128).
-    compile_cache:    the reference's persistent jit cache; no counterpart
-                      until the tuning layer is ported (a truthy value
-                      raises).
+    bucket_cols_floor: the minimum pow2 column bucket (None: the
+                      tuned-defaults table's floor, else 128).
+    compile_cache:    where the CUDA kernels' libraries are built and found
+                      (``tuning.enable_compile_cache``): True for the
+                      default directory, or a path.  A replica's second
+                      process then runs no ``nvcc``.
     devices:          optional list of devices: each window's fused group
                       dispatches go round robin across them (group i ->
                       device (rr + i) mod N), counted per device in
@@ -197,9 +199,9 @@ class DecompressionService:
         if max_batch_blobs < 1:
             raise ValueError("max_batch_blobs must be >= 1")
         if compile_cache:
-            raise NotImplementedError(
-                "compile_cache= has no counterpart until the tuning layer "
-                "is ported (ROADMAP.md Queue 1 item 9)")
+            from repro_torch.core import tuning
+            tuning.enable_compile_cache(
+                None if compile_cache is True else compile_cache)
         self.engine = engine or CodagEngine(EngineConfig())
         self.max_batch_blobs = int(max_batch_blobs)
         self.max_delay_ms = float(max_delay_ms)

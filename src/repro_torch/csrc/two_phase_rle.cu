@@ -64,6 +64,10 @@
 // once a group in the long-group path.  The epilogue instances live in
 // builds of their own, one a codec (see the entry points).
 //
+// The codecs' group parse and element expression (`rle::span_of`,
+// `rle::group_at`, `rle::element`) are in `rle_codecs.cuh`, which the
+// single-thread kernel (`scalar_decode.cu`) shares; here they read the ring.
+//
 // Residency: 8 warps (chunks) a CTA, 38 KiB of shared memory.
 //
 // Bound: bytes.  The function must read the compressed rows (sum of
@@ -79,13 +83,14 @@
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "rle_codecs.cuh"
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kRleV1 = 0;
-constexpr int kRleV2 = 1;
-constexpr int kDbp = 2;
+using rle::kDbp;
+using rle::kRleV1;
+using rle::kRleV2;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kBlockBytes = 1024;                 // a block of the ring
 constexpr int kTileBlocks = 4;                    // resident blocks a warp
@@ -191,30 +196,6 @@ struct Tile {
   }
 };
 
-// The group at pos: the elements it expands to and the bytes it takes
-// (its header, values and payload).  Its header is resident.
-template <int CODEC, int W>
-__device__ __forceinline__ void span_of(const Tile& tile, int64_t pos,
-                                        int& length, int& advance) {
-  const int h = static_cast<int>(tile.byte<false>(pos));
-  if (CODEC == kDbp) {
-    // bits, count-1, ref (W bytes), payload of ceil(count*bits/8) bytes
-    length = static_cast<int>(tile.byte<false>(pos + 1)) + 1;
-    advance = 2 + W + ((length * h + 7) >> 3);
-  } else if (CODEC == kRleV1) {
-    const bool lit = h >= 128;
-    length = lit ? 256 - h : h + 3;
-    advance = 1 + (lit ? length * W : W);
-  } else {
-    const int mode = h >> 6, f = h & 63;
-    const int nxt = static_cast<int>(tile.byte<false>(pos + 1));
-    length = mode == 2 ? f + 1 : (mode == 3 ? ((f << 8) | nxt) + 3 : f + 3);
-    advance = mode == 2 ? 1 + length * W
-            : mode == 1 ? 1 + 2 * W
-            : mode == 3 ? 2 + W : 1 + W;
-  }
-}
-
 // The fields of the group at pos, as a table entry: (its start from the
 // batch's first element | (lit | bits << 1) << 20, its literal or payload
 // offset from the tile's start, run value / delta base / dbp frame of
@@ -222,47 +203,10 @@ __device__ __forceinline__ void span_of(const Tile& tile, int64_t pos,
 template <int CODEC, int W>
 __device__ __forceinline__ uint4 fields(const Tile& tile, int64_t pos,
                                         int start) {
-  const uint32_t h = tile.byte<false>(pos);
-  uint32_t meta = 0, base, delta = 0;
-  int64_t off = pos + 1;
-  if (CODEC == kDbp) {
-    meta = h << 1;
-    base = tile.value<false, W>(pos + 2);
-    off = pos + 2 + W;
-  } else if (CODEC == kRleV1) {
-    meta = h >= 128 ? 1u : 0u;
-    base = tile.value<false, W>(pos + 1);
-  } else {
-    const uint32_t mode = h >> 6;
-    const int64_t val_off = pos + 1 + (mode == 3 ? 1 : 0);
-    meta = mode == 2 ? 1u : 0u;
-    base = tile.value<false, W>(val_off);
-    if (mode == 1) delta = tile.value<false, W>(val_off + W);
-  }
-  return make_uint4(static_cast<uint32_t>(start) | meta << 20,
-                    static_cast<uint32_t>(off - tile.begin()), base, delta);
-}
-
-// dbp element k: the 40-bit window (an unaligned u32 + one spill byte) at the
-// field's byte, shifted by its bit offset, masked to `bits` (all ones from 32
-// up; the mask shift is capped at 31), plus the reference, mod 2^32.
-template <bool kChecked>
-__device__ __forceinline__ uint32_t dbp_value(const Tile& tile, int64_t off,
-                                              uint32_t bits, uint32_t base,
-                                              int64_t k) {
-  const int64_t bitpos = off * 8 + k * bits;
-  const int64_t byte = bitpos >> 3;
-  const uint32_t sh = static_cast<uint32_t>(bitpos & 7);
-  uint32_t v;
-  if (kChecked && !tile.holds(byte)) {
-    const uint32_t lo = tile.value<true, 4>(byte) >> sh;
-    v = lo | (sh ? tile.byte<true>(byte + 4) << ((32 - sh) & 31) : 0u);
-  } else {
-    v = static_cast<uint32_t>(tile.window(byte) >> sh);
-  }
-  const uint32_t nb = bits < 31 ? bits : 31;
-  const uint32_t mask = bits >= 32 ? 0xFFFFFFFFu : (1u << nb) - 1u;
-  return base + (v & mask);
+  const rle::Group gr = rle::group_at<CODEC, W>(tile, pos);
+  return make_uint4(static_cast<uint32_t>(start) | gr.meta << 20,
+                    static_cast<uint32_t>(gr.off - tile.begin()), gr.base,
+                    gr.delta);
 }
 
 // Phase 2 of a batch of short groups: elements [0, span) from out (its
@@ -281,13 +225,8 @@ __device__ __forceinline__ void expand(const Tile& tile, const uint4* tab,
   const int64_t base = tile.begin();
   auto value = [&](const uint4 f, int i) -> uint32_t {
     const int k = i - static_cast<int>(f.x & 0xFFFFF);
-    const uint32_t meta = f.x >> 20;
-    const int64_t off = base + f.y;
-    if (CODEC == kDbp)
-      return dbp_value<kChecked>(tile, off, meta >> 1, f.z, k);
-    if (meta & 1)
-      return tile.value<kChecked, W>(off + static_cast<int64_t>(k) * W);
-    return f.z + f.w * static_cast<uint32_t>(k);
+    return rle::element<CODEC, W, kChecked>(tile, f.x >> 20, base + f.y, f.z,
+                                            f.w, k);
   };
   int gq = 0;
   uint4 f = tab[0];
@@ -335,7 +274,7 @@ __device__ __forceinline__ void expand_groups(const Tile& tile,
     if (CODEC == kDbp) {
       for (int i = s + lane; i < e; i += 32)
         out[i] = static_cast<T>(
-            st(dbp_value<kChecked>(tile, off, meta >> 1, g.z, i - s)));
+            st(rle::dbp_value<kChecked>(tile, off, meta >> 1, g.z, i - s)));
     } else if (meta & 1) {
       for (int i = s + lane; i < e; i += 32)
         out[i] = static_cast<T>(st(tile.value<kChecked, W>(
@@ -399,7 +338,7 @@ two_phase_rle_kernel(const uint8_t* __restrict__ comp, int64_t c,
     int nt = 0, rel = static_cast<int>(pos - base), span = 0;
     while (nt < nt_max && span < span_max) {
       int len, adv;
-      span_of<CODEC, W>(tile, base + rel, len, adv);
+      rle::span_of<CODEC, W>(tile, base + rel, len, adv);
       if (nt > 0 && rel + adv > rel_end) break;
       s_hdr[wib][nt] = make_uint2(static_cast<uint32_t>(rel),
                                   static_cast<uint32_t>(span));

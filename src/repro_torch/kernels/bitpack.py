@@ -12,7 +12,8 @@ width type):
     whole table; the plain twin of the kernel;
   * ``oracle`` — :func:`unpack_oracle`, the counterpart of
     ``ref.unpack_bits`` (uint32 out, then cast);
-  * ``scalar`` — one element per step (§V-E ablation, CPU tensors only);
+  * ``scalar`` — :func:`unpack_scalar`, one element per step (§V-E
+    ablation; on a card ``kernels/scalar.py`` launches its kernel);
   * ``cuda``   — :func:`decode`, which launches ``csrc/bitpack_unpack.cu``
     on a CUDA tensor (or raises) and runs :func:`unpack` on a CPU tensor;
     it applies a fused epilogue (``harness.FusedEpilogue``) in the kernel's
@@ -25,14 +26,16 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import encoders as enc
 from repro_torch.core import format as fmt
 from repro_torch.core import registry
 from repro_torch.core import streams as st
-from repro_torch.kernels import cuda_build, harness
+from repro_torch.kernels import cuda_build, harness, scalar
 
 # (width, words, n, W, chunk_elems, bits, tiles_per_row, vpt, out,
 #  out_code, src_code, zero, zero_code, scale, scale_code, stream)
@@ -108,18 +111,28 @@ class Geometry:
     fast: bool
 
 
+# The tiled path's vectors a thread, a launch-time argument of the kernel
+# (``core.tuning``'s knob; the fast path fixes its own at build time).
+VPT = harness.Tunable("vpt", (1, 2, 4))
+
+
 @functools.lru_cache(maxsize=256)
 def launch_geometry(n: int, chunk_elems: int, bits: int,
-                    out_size: int) -> Geometry:
+                    out_size: int, vpt: Optional[int] = None) -> Geometry:
     """The kernel's grid for ``n`` rows of ``chunk_elems`` outputs of
     ``out_size`` bytes.  A thread takes up to 4 vectors: on the fast path as
-    many as keep its words in 16 registers, on the tiled one as many as keep
-    a block's words in 32 KiB of shared memory."""
+    many as keep its words in 16 registers, on the tiled one ``vpt`` if
+    given, else as many as keep a block's words in 32 KiB of shared
+    memory."""
     vec = 16 // out_size
     fast = 32 % bits == 0 and vec * bits >= 16
     if fast:
         words = max(1, vec * bits // 32)
         vpt = 1 if words >= 16 else 2 if words >= 8 else 4
+    elif vpt is not None:
+        if vpt not in VPT.candidates:
+            raise ValueError(f"vpt must be one of {VPT.candidates}, got "
+                             f"{vpt}")
     else:
         vpt = max(1, min(4, 8192 // (THREADS * vec * bits // 32)))
     tiles = -(-chunk_elems // (THREADS * vpt * vec))
@@ -156,10 +169,12 @@ def _check(words: torch.Tensor, chunk_elems: int, width: int,
 
 
 def decode(words: torch.Tensor, *, chunk_elems: int, width: int, bits: int,
-           epilogue: "harness.FusedEpilogue | None" = None) -> torch.Tensor:
+           epilogue: "harness.FusedEpilogue | None" = None,
+           vpt: Optional[int] = None) -> torch.Tensor:
     """Unpack every row of a word table; ``(n, chunk_elems)`` in the width
     type (or ``epilogue.dtype``, with the epilogue applied), on the table's
-    device."""
+    device.  ``vpt``: the tiled path's vectors a thread (:data:`VPT`; None:
+    :func:`launch_geometry`'s choice)."""
     global LAUNCHES
     _check(words, chunk_elems, width, bits)
     if words.device.type == "cpu":
@@ -172,7 +187,7 @@ def decode(words: torch.Tensor, *, chunk_elems: int, width: int, bits: int,
     out = torch.empty((n, chunk_elems), dtype=dtype, device=words.device)
     if n == 0:
         return harness.finish_store(out, epilogue)
-    geom = launch_geometry(n, chunk_elems, bits, out.element_size())
+    geom = launch_geometry(n, chunk_elems, bits, out.element_size(), vpt)
     cuda_build.launch_on(words.device, LIB, width, words.data_ptr(), n,
                          words.shape[1], chunk_elems, bits,
                          geom.tiles_per_row, geom.vpt, out.data_ptr(), *epi)
@@ -199,10 +214,20 @@ def _body_scalar(inputs, consts, out_lens, *, chunk_elems, width, bits):
                          width=width, bits=bits)
 
 
+def _scalar_kernel(inputs, consts, out_lens, *, chunk_elems, width, bits):
+    return scalar.decode_bitpack(inputs[0], out_lens, chunk_elems=chunk_elems,
+                                 width=width, bits=bits)
+
+
 def _kernel(inputs, consts, out_lens, *, chunk_elems, width, bits,
-            epilogue=None):
+            epilogue=None, vpt=None):
     return decode(inputs[0], chunk_elems=chunk_elems, width=width, bits=bits,
-                  epilogue=epilogue)
+                  epilogue=epilogue, vpt=vpt)
+
+
+def _demo_data(n, rng):
+    """Low-dynamic-range uint32s (gradient-index / quantized-state shaped)."""
+    return rng.integers(0, 1 << 9, n).astype("uint32")
 
 
 CODEC = registry.register(registry.Codec(
@@ -210,9 +235,11 @@ CODEC = registry.register(registry.Codec(
     encode=enc.compress_bitpack,
     decode=harness.DecodeSpec(
         body=_body, body_scalar=_body_scalar, body_oracle=_body_oracle,
-        cuda=_kernel, chunk_inputs=harness.words_inputs,
-        fuses_epilogue=True),
+        cuda=_kernel, scalar=_scalar_kernel,
+        chunk_inputs=harness.words_inputs,
+        fuses_epilogue=True, tunables=(VPT,)),
     needs_words=True,
     shared_extras=("bitpack_bits",),
     static_bits=lambda blob: int(blob.extras["bitpack_bits"][0]),
+    demo_data=_demo_data,
 ))

@@ -2,9 +2,10 @@
 
 Every source is compiled the same way: ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C entry point, at first use, into
-``build/repro_torch/`` of the checkout, named by a hash of the source, the
-headers it includes from ``csrc/`` and the flags (an edited source or
-header rebuilds), then bound with ``ctypes``.  A source
+``build/repro_torch/`` of the checkout (:data:`BUILD_DIR`;
+``core.tuning.enable_compile_cache`` points it elsewhere), named by a hash
+of the source, the headers it includes from ``csrc/`` and the flags (an
+edited source or header rebuilds), then bound with ``ctypes``.  A source
 may add flags of its own to :data:`NVCC_FLAGS` (``-lcuda`` for one that
 calls into libcuda) and export more than one entry point
 (:meth:`KernelLibrary.entry_point`).  Nothing here runs ``nvcc`` or
@@ -29,6 +30,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# nvcc processes this process has started (a build found in BUILD_DIR
+# starts none)
+NVCC_RUNS = 0
 
 # ctypes argument kinds: "p" pointer (or stream), "i" int, "l" int64
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_int64}
@@ -107,24 +112,30 @@ class KernelLibrary:
 
     def _start(self) -> Optional[subprocess.Popen]:
         """Start nvcc unless this build exists; None if it does."""
-        if self.path.exists():
+        global NVCC_RUNS
+        path = self.path
+        if path.exists():
             return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = self.path.with_name(f"{self.path.name}.{os.getpid()}.tmp")
-        return subprocess.Popen(
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source),
              *self.flags],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        NVCC_RUNS += 1
+        return proc
 
     def _finish(self, proc: Optional[subprocess.Popen]) -> Path:
-        if proc is not None:
-            out, err = proc.communicate()
-            if proc.returncode:
-                raise RuntimeError(f"nvcc failed on {self.source.name}:\n"
-                                   f"{err}")
-            self.build_log = out + err
-            os.replace(proc.args[proc.args.index("-o") + 1], self.path)
-        return self.path
+        if proc is None:
+            return self.path
+        out, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {self.source.name}:\n{err}")
+        self.build_log = out + err
+        tmp = Path(proc.args[proc.args.index("-o") + 1])
+        path = tmp.with_name(tmp.name.rsplit(".", 2)[0])
+        os.replace(tmp, path)
+        return path
 
     def build(self) -> Path:
         """Compile the library if this source and flags have no build yet;

@@ -24,7 +24,7 @@ from repro_torch.core import encoders as enc
 from repro_torch.core import format as fmt
 from repro_torch.core import registry
 from repro_torch.core import streams as st
-from repro_torch.kernels import cuda_rle, harness
+from repro_torch.kernels import cuda_rle, harness, scalar
 
 GROUP = 128            # encoder group size (any count in 1..256 decodes)
 MAX_GROUP_LEN = 256
@@ -119,10 +119,17 @@ def count_groups(row, width: int) -> int:
     return groups
 
 
+def _demo_data(n: int, rng) -> np.ndarray:
+    """Sorted-id / timestamp-like uint32s: small per-group value ranges."""
+    return np.cumsum(rng.integers(0, 16, n)).astype(np.uint32)
+
+
 CODEC = registry.register(registry.Codec(
     name=fmt.DBP,
     encode=compress_dbp,
     decode=harness.DecodeSpec.from_two_phase(
-        SPEC, cuda=functools.partial(cuda_rle.decode, fmt.DBP)),
+        SPEC, cuda=functools.partial(cuda_rle.decode, fmt.DBP),
+        scalar=functools.partial(scalar.decode_rle, fmt.DBP)),
     plane_decompose_64=True,
+    demo_data=_demo_data,
 ))

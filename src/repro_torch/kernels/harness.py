@@ -11,7 +11,9 @@ a value expression — and gets every backend:
     (counterpart of ``pallas``; ``kernels/cuda_rle.py``).
   * ``oracle`` — :func:`group_serial_chunk`, serial across groups and
     vector-parallel within each (the paper-faithful reference).
-  * ``scalar`` — :func:`scalar_chunk`, one element per step (§V-E ablation).
+  * ``scalar`` — :func:`scalar_chunk`, one element per step (§V-E
+    ablation); on a card the codec's ``scalar`` wrapper launches
+    ``csrc/scalar_decode.cu`` (``kernels/scalar.py``), one thread a chunk.
 
 Codecs whose decode is not lane-independent (tdeflate's LZ copies) or that
 need no Phase 1 (bitpack) register their own bodies in the same
@@ -368,6 +370,24 @@ def fused_epilogue(epilogue: Epilogue, dev: Dict[str, Any],
 BodyFn = Callable[..., torch.Tensor]
 
 
+@dataclasses.dataclass(frozen=True)
+class Tunable:
+    """One launch-time knob of a codec's ``cuda`` wrapper (``core.tuning``).
+
+    ``name`` must not collide with ``core.tuning.KNOWN_KNOBS``;
+    ``candidates`` is the grid ``tuning.autotune`` searches on a card;
+    ``default`` what the wrapper uses when neither the table nor the caller
+    gives a value (None: the wrapper's own choice for each launch).  A
+    codec declares a knob only where its wrapper passes the value to the
+    kernel at launch time: a value the kernel fixes at build time would
+    need an ``nvcc`` build per value.
+    """
+
+    name: str
+    candidates: Tuple[Any, ...]
+    default: Any = None
+
+
 def comp_inputs(dev: Dict[str, Any]) -> Tuple[torch.Tensor, ...]:
     """Default chunk inputs: the byte table."""
     return (dev["comp"],)
@@ -390,11 +410,14 @@ class DecodeSpec:
     the broadcast tables (host arrays, staged once per device).  A spec with
     ``fuses_epilogue`` has a ``cuda`` wrapper that also takes
     ``epilogue=`` (a :class:`FusedEpilogue`), applied in the kernel's stores
-    on a card and by :meth:`FusedEpilogue.apply_plain` on the CPU.
+    on a card and by :meth:`FusedEpilogue.apply_plain` on the CPU.  The
+    ``cuda`` wrapper also takes each of ``tunables`` by name.  ``scalar``
+    is the single-thread kernel's wrapper: it launches
+    ``csrc/scalar_decode.cu`` on a card and runs ``body_scalar`` on the CPU.
     """
 
     body: BodyFn                # torch: the plain body, the kernel's twin
-    body_scalar: BodyFn         # §V-E single-thread driver
+    body_scalar: BodyFn         # §V-E single-thread driver, the plain twin
     body_oracle: BodyFn         # sequential reference
     cuda: BodyFn                # the hand-written kernel's wrapper
     chunk_inputs: Callable[[Dict[str, Any]], Tuple[torch.Tensor, ...]] = \
@@ -404,13 +427,18 @@ class DecodeSpec:
     # ``cuda`` takes ``epilogue=`` (a :class:`FusedEpilogue`) and applies it
     # in the kernel's stores
     fuses_epilogue: bool = False
+    scalar: Optional[BodyFn] = None  # the single-thread kernel's wrapper
+    tunables: Tuple[Tunable, ...] = ()
 
     @classmethod
     def from_two_phase(cls, spec: TwoPhaseSpec,
-                       cuda: Callable[..., torch.Tensor]) -> "DecodeSpec":
-        """Every backend from a parse + express pair and the kernel wrapper
+                       cuda: Callable[..., torch.Tensor],
+                       scalar: Optional[Callable[..., torch.Tensor]] = None
+                       ) -> "DecodeSpec":
+        """Every backend from a parse + express pair, the kernel wrapper
         ``cuda(comp, out_lens, *, chunk_elems, width, epilogue)``, which
-        applies a fused epilogue in its stores."""
+        applies a fused epilogue in its stores, and the single-thread
+        kernel's wrapper ``scalar(comp, out_lens, *, chunk_elems, width)``."""
         def body(inputs, consts, out_lens, *, chunk_elems, width, bits):
             return two_phase_chunk(spec, inputs[0], out_lens, chunk_elems,
                                    width)
@@ -429,9 +457,15 @@ class DecodeSpec:
             return cuda(inputs[0], out_lens, chunk_elems=chunk_elems,
                         width=width, epilogue=epilogue)
 
+        def scalar_kernel(inputs, consts, out_lens, *, chunk_elems, width,
+                          bits):
+            return scalar(inputs[0], out_lens, chunk_elems=chunk_elems,
+                          width=width)
+
         return cls(body=body, body_scalar=body_scalar,
                    body_oracle=body_oracle, cuda=kernel, two_phase=spec,
-                   fuses_epilogue=True)
+                   fuses_epilogue=True,
+                   scalar=None if scalar is None else scalar_kernel)
 
 
 # broadcast tables staged per (consts hook, device), once (a staged decode
@@ -451,22 +485,33 @@ def consts_on(spec: DecodeSpec, device) -> Tuple[torch.Tensor, ...]:
 
 def run(spec: DecodeSpec, dev: Dict[str, Any], *, width: int,
         chunk_elems: int, backend: str, bits: int,
-        epilogue: Optional[Epilogue] = None) -> torch.Tensor:
+        epilogue: Optional[Epilogue] = None,
+        tune: Tuple[Tuple[str, Any], ...] = ()) -> torch.Tensor:
     """Decode every chunk of a device table through one backend, then apply
     the ``epilogue``, if any: in the kernel's stores where the ``cuda``
     backend's kernel fuses it (:func:`fused_epilogue`), else as torch ops
-    on the decoded matrix."""
+    on the decoded matrix.
+
+    ``tune``: ``((knob, value), ...)`` of the spec's ``tunables``, passed to
+    the ``cuda`` wrapper (the other backends have no launch to shape).  The
+    ``scalar`` backend runs the spec's single-thread kernel wrapper.
+    """
     global EPILOGUE_FUSED, EPILOGUE_UNFUSED
     inputs = spec.chunk_inputs(dev)
     out_lens = dev["out_lens"]
-    if backend == "scalar" and inputs[0].device.type != "cpu":
-        raise NotImplementedError(
-            "the single-thread (all_thread=False) decode has no CUDA "
-            "kernel yet (ROADMAP.md Queue 1 item 6a); run it on "
-            "CPU tensors")
-    fn = {"cuda": spec.cuda, "torch": spec.body, "scalar": spec.body_scalar,
+    knobs = dict(tune)
+    unknown = set(knobs) - {t.name for t in spec.tunables}
+    if unknown:
+        raise ValueError(f"unknown kernel knobs {sorted(unknown)}; this codec "
+                         f"takes {[t.name for t in spec.tunables]}")
+    fn = {"cuda": spec.cuda, "torch": spec.body, "scalar": spec.scalar,
           "oracle": spec.body_oracle}[backend]
+    if fn is None:
+        raise ValueError("this codec registers no single-thread kernel "
+                         "wrapper (DecodeSpec.scalar)")
     kw = dict(chunk_elems=chunk_elems, width=width, bits=bits)
+    if backend == "cuda":
+        kw.update(knobs)
     fused = None
     if epilogue is not None and backend == "cuda" and spec.fuses_epilogue:
         fused = fused_epilogue(epilogue, dev, width)

@@ -18,8 +18,8 @@ types, i16 symbols and i8 code lengths):
   * ``oracle`` — :func:`decode_oracle`, segment by segment, trusting the
     gap offsets and the count bytes (``_body_oracle``);
   * ``scalar`` — :func:`decode_scalar`, one sequential bit stream from
-    entry 0's offset, ignoring the rest of the gap table (``_body_scalar``,
-    CPU tensors only);
+    entry 0's offset, ignoring the rest of the gap table (``_body_scalar``);
+    on a card ``kernels/scalar.py`` launches its kernel;
   * ``cuda``   — :func:`decode`, which launches ``csrc/huffman_decode.cu`` on
     a CUDA tensor (or raises) and runs :func:`decode_lockstep` on a CPU one;
     it applies a fused epilogue (``harness.FusedEpilogue``) in the kernel's
@@ -30,13 +30,14 @@ offset of 2^31 or more is negative and its word index clips to 0.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import encoders as enc
 from repro_torch.core import format as fmt
 from repro_torch.core import registry
 from repro_torch.core import streams as st
-from repro_torch.kernels import cuda_build, harness
+from repro_torch.kernels import cuda_build, harness, scalar
 
 SUB = enc.HUFFMAN_SUB                 # symbols per segment
 GAP_ENTRY_BYTES = enc.GAP_ENTRY_BYTES  # u32 LE bit offset + (count - 1)
@@ -257,10 +258,19 @@ def _body_scalar(inputs, consts, out_lens, *, chunk_elems, width, bits):
                          width=width)
 
 
+def _scalar_kernel(inputs, consts, out_lens, *, chunk_elems, width, bits):
+    return scalar.decode_huffman(*inputs, out_lens, chunk_elems=chunk_elems)
+
+
 def _kernel(inputs, consts, out_lens, *, chunk_elems, width, bits,
             epilogue=None):
     return decode(inputs[0], inputs[1], inputs[2:], out_lens,
                   chunk_elems=chunk_elems, width=width, epilogue=epilogue)
+
+
+def _demo_data(n: int, rng) -> np.ndarray:
+    """Geometrically skewed bytes — the entropy coder's natural habitat."""
+    return np.minimum(rng.geometric(0.25, n) - 1, 255).astype(np.uint8)
 
 
 CODEC = registry.register(registry.Codec(
@@ -268,7 +278,9 @@ CODEC = registry.register(registry.Codec(
     encode=enc.compress_huffman,
     decode=harness.DecodeSpec(
         body=_body, body_scalar=_body_scalar, body_oracle=_body_oracle,
-        cuda=_kernel, chunk_inputs=_chunk_inputs, fuses_epilogue=True),
+        cuda=_kernel, scalar=_scalar_kernel, chunk_inputs=_chunk_inputs,
+        fuses_epilogue=True),
     needs_words=True,
     byte_stream=True,
+    demo_data=_demo_data,
 ))

@@ -19,7 +19,8 @@ Backends (every body maps the byte table and ``out_lens`` to
   * ``oracle`` — :func:`decode_oracle`, the serial token walk with the
     overlap-safe ``memcpy`` (``_body_oracle``);
   * ``scalar`` — :func:`decode_scalar`, one element per step through a
-    back-reference cursor (``_body_scalar``, CPU tensors only);
+    back-reference cursor (``_body_scalar``); on a card
+    ``kernels/scalar.py`` launches its kernel;
   * ``cuda``   — :func:`decode`, which launches ``csrc/lzss_decode.cu`` on a
     CUDA tensor (or raises) and runs :func:`decode_two_phase` on a CPU one.
     The kernel gives one warp a chunk: it stages the compressed row through
@@ -42,13 +43,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import encoders as enc
 from repro_torch.core import format as fmt
 from repro_torch.core import registry
 from repro_torch.core import streams as st
-from repro_torch.kernels import cuda_build, harness
+from repro_torch.kernels import cuda_build, harness, scalar
 
 MIN_MATCH = enc.LZSS_MIN_MATCH
 MAX_MATCH = enc.LZSS_MAX_MATCH      # 129 elements
@@ -280,10 +282,24 @@ def _body_scalar(inputs, consts, out_lens, *, chunk_elems, width, bits):
                          width=width)
 
 
+def _scalar_kernel(inputs, consts, out_lens, *, chunk_elems, width, bits):
+    return scalar.decode_lzss(inputs[0], out_lens, chunk_elems=chunk_elems,
+                              width=width)
+
+
 def _kernel(inputs, consts, out_lens, *, chunk_elems, width, bits,
             epilogue=None):
     return decode(inputs[0], out_lens, chunk_elems=chunk_elems, width=width,
                   epilogue=epilogue)
+
+
+def _demo_data(n: int, rng) -> np.ndarray:
+    """Repeating element motifs + sparse noise (LZ's bread and butter)."""
+    motif = rng.integers(0, 1 << 12, 48).astype(np.uint32)
+    out = np.tile(motif, n // motif.size + 1)[:n].copy()
+    noise = rng.random(n) < 0.04
+    out[noise] = rng.integers(0, 1 << 12, int(noise.sum()))
+    return out
 
 
 CODEC = registry.register(registry.Codec(
@@ -291,6 +307,7 @@ CODEC = registry.register(registry.Codec(
     encode=enc.compress_lzss,
     decode=harness.DecodeSpec(
         body=_body, body_scalar=_body_scalar, body_oracle=_body_oracle,
-        cuda=_kernel, fuses_epilogue=True),
+        cuda=_kernel, scalar=_scalar_kernel, fuses_epilogue=True),
     plane_decompose_64=True,
+    demo_data=_demo_data,
 ))

@@ -5,7 +5,8 @@ Backends:
              ``xla``).
   "cuda"   — the hand-written Hopper kernels (counterpart of ``pallas``).
   "oracle" — the sequential reference decoders.
-  "scalar" — the single-thread-decoding §V-E ablation (CPU tensors only).
+  "scalar" — the single-thread-decoding §V-E ablation: one thread a chunk
+             (``kernels/scalar.py``, ``csrc/scalar_decode.cu``).
 
 Dispatch is pure registry lookup: ``registry.get(codec).decode`` is a
 ``kernels.harness.DecodeSpec``, so this module names no codec.  PyTorch runs
@@ -34,11 +35,18 @@ _observers_lock = threading.Lock()
 
 def decode(dev: Dict[str, Any], *, codec: str, width: int, chunk_elems: int,
            backend: str = "cuda", bits: int = 0,
-           epilogue=None) -> torch.Tensor:
+           epilogue=None, tune=None) -> torch.Tensor:
     """Decode every chunk; returns ``(num_chunks, chunk_elems)`` on the
-    table's device.  ``epilogue`` overrides the codec's default one."""
+    table's device.  ``epilogue`` overrides the codec's default one.
+
+    ``tune``: sorted kernel-knob tuple (``core.tuning``); None resolves the
+    tuned defaults for ``(codec, width)`` on the current device kind.
+    """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    if tune is None:
+        from repro_torch.core import tuning
+        tune = tuning.kernel_tune(codec, width)
     with _observers_lock:
         if _observers:
             rec = {"num_chunks": int(dev["comp"].shape[0]), "codec": codec,
@@ -48,7 +56,7 @@ def decode(dev: Dict[str, Any], *, codec: str, width: int, chunk_elems: int,
                 calls.append(dict(rec))
     return harness.run(registry.get(codec).decode, dev, width=width,
                        chunk_elems=chunk_elems, backend=backend, bits=bits,
-                       epilogue=epilogue)
+                       epilogue=epilogue, tune=tune)
 
 
 @contextlib.contextmanager

@@ -12,13 +12,14 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core import encoders as enc
 from repro_torch.core import format as fmt
 from repro_torch.core import registry
 from repro_torch.core import streams as st
-from repro_torch.kernels import cuda_rle, harness
+from repro_torch.kernels import cuda_rle, harness, scalar
 
 MAX_GROUP_LEN = 132          # >= 130, the longest run
 
@@ -59,10 +60,18 @@ SPEC = harness.TwoPhaseSpec(
 )
 
 
+def _demo_data(n: int, rng) -> np.ndarray:
+    """Run-heavy uint32 stream (the codec's natural workload)."""
+    vals = rng.integers(0, 100, max(4, n // 50)).astype(np.uint32)
+    return np.resize(np.repeat(vals, rng.integers(1, 100, len(vals))), n)
+
+
 CODEC = registry.register(registry.Codec(
     name=fmt.RLE_V1,
     encode=enc.compress_rle_v1,
     decode=harness.DecodeSpec.from_two_phase(
-        SPEC, cuda=functools.partial(cuda_rle.decode, fmt.RLE_V1)),
+        SPEC, cuda=functools.partial(cuda_rle.decode, fmt.RLE_V1),
+        scalar=functools.partial(scalar.decode_rle, fmt.RLE_V1)),
     plane_decompose_64=True,
+    demo_data=_demo_data,
 ))

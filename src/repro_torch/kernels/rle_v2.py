@@ -15,13 +15,14 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core import encoders as enc
 from repro_torch.core import format as fmt
 from repro_torch.core import registry
 from repro_torch.core import streams as st
-from repro_torch.kernels import cuda_rle, harness
+from repro_torch.kernels import cuda_rle, harness, scalar
 
 MAX_GROUP_LEN = enc.RLE2_MAX_LONG + 2
 
@@ -75,10 +76,29 @@ SPEC = harness.TwoPhaseSpec(
 )
 
 
+def _demo_data(n: int, rng) -> np.ndarray:
+    """Runs + arithmetic ramps (exercises run, delta, and literal modes)."""
+    parts, total = [], 0
+    while total < n:
+        if rng.random() < 0.5:
+            v = np.uint32(rng.integers(0, 1000))
+            parts.append(np.full(int(rng.integers(3, 120)), v, np.uint32))
+        else:
+            base = rng.integers(0, 1 << 20)
+            step = rng.integers(1, 64)
+            m = int(rng.integers(4, 80))
+            parts.append((base + step * np.arange(m, dtype=np.uint32))
+                         .astype(np.uint32))
+        total += len(parts[-1])
+    return np.concatenate(parts)[:n]
+
+
 CODEC = registry.register(registry.Codec(
     name=fmt.RLE_V2,
     encode=enc.compress_rle_v2,
     decode=harness.DecodeSpec.from_two_phase(
-        SPEC, cuda=functools.partial(cuda_rle.decode, fmt.RLE_V2)),
+        SPEC, cuda=functools.partial(cuda_rle.decode, fmt.RLE_V2),
+        scalar=functools.partial(scalar.decode_rle, fmt.RLE_V2)),
     plane_decompose_64=True,
+    demo_data=_demo_data,
 ))

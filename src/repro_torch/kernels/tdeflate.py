@@ -16,7 +16,8 @@ stopped keeps its state, as a vmapped ``while_loop`` does):
   * ``oracle`` — :func:`decode_oracle`, the classic inflate loop
     (``ref.decode_tdeflate_impl``): one token, one write, per step;
   * ``scalar`` — :func:`decode_scalar`, one output byte per step (§V-E
-    ablation, CPU tensors only; ``decode_chunk_scalar``);
+    ablation; ``decode_chunk_scalar``); on a card ``kernels/scalar.py``
+    launches its kernel;
   * ``cuda``   — :func:`decode`, which launches ``csrc/tdeflate_decode.cu``
     on a CUDA tensor (or raises) and runs :func:`decode_chunk` on a CPU one;
     it applies a fused epilogue (``harness.FusedEpilogue``) in the kernel's
@@ -37,7 +38,7 @@ from repro_torch.core import encoders as enc
 from repro_torch.core import format as fmt
 from repro_torch.core import registry
 from repro_torch.core import streams as st
-from repro_torch.kernels import cuda_build, harness
+from repro_torch.kernels import cuda_build, harness, scalar
 
 # the broadcast deflate tables, in the order of the reference's consts
 TABLES = (enc.LEN_EXTRA, enc.LEN_BASE, enc.DIST_EXTRA, enc.DIST_BASE)
@@ -353,10 +354,24 @@ def _body_scalar(inputs, consts, out_lens, *, chunk_elems, width, bits):
     return decode_scalar(inputs[0], inputs[1:], out_lens, chunk_elems, consts)
 
 
+def _scalar_kernel(inputs, consts, out_lens, *, chunk_elems, width, bits):
+    return scalar.decode_tdeflate(inputs[0], inputs[1:], consts, out_lens,
+                                  chunk_elems=chunk_elems)
+
+
 def _kernel(inputs, consts, out_lens, *, chunk_elems, width, bits,
             epilogue=None):
     return decode(inputs[0], inputs[1:], consts, out_lens,
                   chunk_elems=chunk_elems, width=width, epilogue=epilogue)
+
+
+def _demo_data(n, rng):
+    """Repetitive text bytes (LZ matches + skewed literal frequencies)."""
+    motifs = [b"the quick brown fox ", b"abcabcabc", b"codag streams "]
+    out = bytearray()
+    while len(out) < n:
+        out += motifs[int(rng.integers(0, len(motifs)))]
+    return np.frombuffer(bytes(out[:n]), np.uint8).copy()
 
 
 CODEC = registry.register(registry.Codec(
@@ -364,10 +379,11 @@ CODEC = registry.register(registry.Codec(
     encode=enc.compress_tdeflate,
     decode=harness.DecodeSpec(
         body=_body, body_scalar=_body_scalar, body_oracle=_body_oracle,
-        cuda=_kernel, chunk_inputs=_chunk_inputs,
+        cuda=_kernel, scalar=_scalar_kernel, chunk_inputs=_chunk_inputs,
         consts=lambda: tuple(np.ascontiguousarray(t, np.int32)
                              for t in TABLES),
         fuses_epilogue=True),
     needs_words=True,
     byte_stream=True,
+    demo_data=_demo_data,
 ))

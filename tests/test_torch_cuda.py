@@ -545,3 +545,104 @@ def test_service_decodes_while_another_thread_forbids_transfers(card):
     for a, o, d in zip(arrays, outs, devs):
         assert np.array_equal(o, a)
         assert np.array_equal(d.cpu().numpy(), a)
+
+
+# --------------------------------------------------------------------------
+# the single-thread kernel (csrc/scalar_decode.cu), all_thread=False
+# --------------------------------------------------------------------------
+
+
+def _scalar(table, device, epilogue=None, operands=None):
+    """The ``scalar`` backend on one staged table: the single-thread kernel
+    on a card, the plain scalar body on the CPU."""
+    dev, bits = ops.table_inputs(table, device)
+    dev.update({k: torch.as_tensor(v, device=device)
+                for k, v in (operands or {}).items()})
+    return harness.run(registry.get(table.codec).decode, dev,
+                       width=table.width, chunk_elems=table.chunk_elems,
+                       backend="scalar", bits=bits, epilogue=epilogue)
+
+
+def _tdeflate_batch_table():
+    blobs = []
+    for tokens in TD_BATCH_ROWS:
+        n = sum(1 if t[0] == "l" else t[1] for t in tokens)
+        blobs.append(enc.tdeflate_blob(np.zeros(n, np.uint8),
+                                       [enc.encode_tdeflate_tokens(tokens)],
+                                       1024, n))
+    return fmt.concat_blobs(blobs)
+
+
+SCALAR_CASES = [(c, w) for c in ("rle_v1", "rle_v2", "dbp", "lzss",
+                                 "bitpack") for w in (1, 2, 4)] + [
+    ("tdeflate", 1), ("huffman", 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec,width", SCALAR_CASES)
+def test_scalar_kernel_equals_plain_scalar_body_on_the_card(card, codec,
+                                                            width):
+    from repro_torch.kernels import scalar
+    table = _table(codec, width)
+    want = _scalar(table, "cpu")
+    before = scalar.CODEC_LAUNCHES[codec]
+    got = _scalar(table, card)
+    torch.cuda.synchronize()
+    assert scalar.CODEC_LAUNCHES[codec] == before + 1
+    assert got.device.type == "cuda" and got.dtype == want.dtype
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,codec,width", [
+    ("ring", "rle_v1", 1), ("ring", "rle_v2", 2), ("ring", "dbp", 4),
+    ("ring", "dbp", 1), ("lzss", "lzss", 1), ("lzss", "lzss", 4),
+    ("tdeflate", "tdeflate", 1)])
+def test_scalar_kernel_edge_rows_on_the_card(card, rows, codec, width):
+    """The all-thread kernels' edge rows (malformed dbp fields, lzss
+    matches before the row's start and of zero distance, tdeflate matches
+    reaching before the row) through the single-thread kernel, against the
+    plain scalar body."""
+    table = {"ring": lambda: _rle_ring_table(codec, width),
+             "lzss": lambda: _lzss_batch_table(width),
+             "tdeflate": _tdeflate_batch_table}[rows]()
+    want = _scalar(table, "cpu")
+    got = _scalar(table, card)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_scalar_engine_block_unit_and_epilogue_on_the_card(card):
+    """``EngineConfig(all_thread=False)`` through the plan on a card: one
+    single-thread launch a group (``unit="warp"``) or a batch of
+    ``n_units`` rows (``unit="block"``), bit-exact against the inputs; an
+    epilogue follows the kernel as ``Epilogue.apply``."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.engine import CodagEngine, EngineConfig
+    from repro_torch.kernels import scalar
+    rng = np.random.default_rng(8)
+    arrays = [np.repeat(rng.integers(0, 900, 80), 20).astype(np.uint32),
+              rng.integers(0, 1 << 9, 3000).astype(np.uint32),
+              np.frombuffer(b"single thread decode " * 90, np.uint8).copy()]
+    codecs = ["rle_v2", "bitpack", "tdeflate"]
+    blobs = [enc.compress(a, c, 1024) for a, c in zip(arrays, codecs)]
+    plan = plan_mod.DecodePlan.build(blobs)
+    for unit, n_units in (("warp", 8), ("block", 3)):
+        eng = CodagEngine(EngineConfig(all_thread=False, unit=unit,
+                                       n_units=n_units))
+        before = dict(scalar.CODEC_LAUNCHES)
+        outs = plan.execute_device(eng)
+        torch.cuda.synchronize()
+        for a, o, b, c in zip(arrays, outs, blobs, codecs):
+            assert np.array_equal(o.cpu().numpy(), a)
+            want = 1 if unit == "warp" else -(-b.num_chunks // n_units)
+            assert scalar.CODEC_LAUNCHES[c] - before[c] == want
+    epi = harness.Epilogue(out_dtype="float32", scale_key="s")
+    table = _table("rle_v1", 2)
+    unfused = harness.EPILOGUE_UNFUSED
+    got = _scalar(table, card, epi, {"s": np.float32(0.5)})
+    want = _scalar(table, "cpu", epi, {"s": np.float32(0.5)})
+    torch.cuda.synchronize()
+    assert harness.EPILOGUE_UNFUSED == unfused + 2
+    assert got.dtype == torch.float32 and torch.equal(got.cpu(), want)

@@ -378,13 +378,97 @@ def test_kernel_build_is_lazy():
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
 
 
-def test_scalar_backend_refuses_card_tensors():
-    table = _table("rle_v1", 1, [np.arange(10, dtype=np.uint8)], 64)
-    dev = fmt.to_device(table, "cpu")
-    dev["comp"] = dev["comp"].to("meta")
-    with pytest.raises(NotImplementedError, match="all_thread=False"):
-        ops.decode(dev, codec="rle_v1", width=1, chunk_elems=64,
-                   backend="scalar")
+def _stub_scalar_launches(monkeypatch):
+    """Record the single-thread kernel's launches instead of making them
+    (a stand-in for its library: no card here) and make every plain body
+    and every all-thread wrapper raise, so a dispatch can reach nothing
+    else."""
+    from repro_torch.kernels import (bitpack, huffman, lzss, scalar,
+                                     tdeflate)
+    launched = []
+
+    def launch_on(device, entry, *args):
+        launched.append((device, entry, args))
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain body or all-thread kernel ran")
+
+    monkeypatch.setattr(cuda_build, "launch_on", launch_on)
+    monkeypatch.setattr(scalar, "_sms", lambda device: 132)
+    for mod, name in ((harness, "scalar_chunk"), (tdeflate, "decode_scalar"),
+                      (lzss, "decode_scalar"), (huffman, "decode_scalar"),
+                      (bitpack, "unpack_scalar"), (cuda_rle, "decode"),
+                      (tdeflate, "decode"), (lzss, "decode"),
+                      (huffman, "decode"), (bitpack, "decode")):
+        monkeypatch.setattr(mod, name, refuse)
+    return launched
+
+
+@pytest.mark.parametrize("codec,width", [
+    ("rle_v1", 1), ("rle_v2", 2), ("dbp", 4), ("tdeflate", 1),
+    ("huffman", 1), ("lzss", 2), ("bitpack", 4)])
+def test_scalar_dispatch_of_a_card_table_reaches_the_scalar_kernel(
+        monkeypatch, codec, width):
+    """``all_thread=False`` on a table that is not on the CPU reaches
+    ``kernels/scalar.py``'s launch, and nothing else: one launch of the
+    codec's entry point, with the arguments its ``argtypes`` name (the
+    stream is appended by the launcher), counted; the epilogue follows as
+    ``Epilogue.apply``.  A meta-device table stands in for a card's."""
+    from repro_torch.core import registry
+    from repro_torch.kernels import scalar
+    rng = np.random.default_rng(4)
+    a = rng.integers(0, 1 << (4 * width), 300).astype(DT[width])
+    table = enc.compress(a, codec, 128, bits=4 * width)
+    dev, bits = ops.table_inputs(table, "cpu")
+    dev = {k: v.to("meta") for k, v in dev.items()}
+    spec = registry.get(codec).decode
+    harness._STAGED_CONSTS[(spec.consts, torch.device("meta"))] = tuple(
+        c.to("meta") for c in harness.consts_on(spec, torch.device("cpu")))
+    launched = _stub_scalar_launches(monkeypatch)
+    before = (scalar.LAUNCHES, dict(scalar.CODEC_LAUNCHES),
+              harness.EPILOGUE_UNFUSED)
+    out = ops.decode(dev, codec=codec, width=width,
+                     chunk_elems=table.chunk_elems, backend="scalar",
+                     bits=bits, epilogue=harness.Epilogue(out_dtype="float32"))
+    assert out.device.type == "meta" and out.dtype == torch.float32
+    assert tuple(out.shape) == (table.num_chunks, table.chunk_elems)
+    [(device, entry, args)] = launched
+    want = {"tdeflate": scalar.TDEFLATE, "huffman": scalar.HUFFMAN,
+            "lzss": scalar.LZSS, "bitpack": scalar.BITPACK}.get(codec,
+                                                               scalar.LIB)
+    assert device.type == "meta" and entry is want
+    assert len(args) == len(entry.argtypes) - 1
+    assert args[-1] == scalar.block_threads(table.num_chunks, 132)
+    assert scalar.LAUNCHES == before[0] + 1
+    assert scalar.CODEC_LAUNCHES[codec] == before[1][codec] + 1
+    assert harness.EPILOGUE_UNFUSED == before[2] + 1
+
+
+def test_scalar_kernel_import_builds_nothing_and_threads_spread():
+    """Importing the single-thread wrapper built nothing, and its CTAs
+    reach every SM: 2,048 chunks on 132 SMs are 128 CTAs of 16 threads;
+    a CTA holds at most 32."""
+    import subprocess
+    import sys
+    from repro_torch.kernels import scalar
+    assert not scalar.LIB.loaded and scalar.LIB.source.exists()
+    assert not any(e.loaded for e in (scalar.TDEFLATE, scalar.LZSS,
+                                      scalar.HUFFMAN, scalar.BITPACK))
+    code = ("import repro_torch.kernels.scalar, repro_torch.core.api, "
+            "repro_torch.core.server, repro_torch.core.tuning\n"
+            "from repro_torch.core import registry\n"
+            "from repro_torch.kernels import cuda_build\n"
+            "registry.names()\n"
+            "print(cuda_build.NVCC_RUNS)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ["0"]
+    assert scalar.block_threads(2048, 132) == 16
+    assert -(-2048 // scalar.block_threads(2048, 132)) == 128
+    assert scalar.block_threads(12304, 132) == 32
+    assert scalar.block_threads(1, 132) == 1
+    assert scalar.block_threads(205, 132) == 2
 
 
 def test_build_all_waits_for_every_nvcc_and_times_each(tmp_path,

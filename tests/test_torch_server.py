@@ -325,9 +325,20 @@ def test_default_service_needs_the_card():
         srv.default_service()
 
 
-def test_compile_cache_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        _svc(compile_cache=True)
+def test_compile_cache_names_its_roadmap_item(tmp_path, monkeypatch):
+    """``compile_cache=`` enables the kernels' compile cache, as the
+    reference's service enables its jit cache: a path pins the directory,
+    True takes the port's own env var."""
+    from repro_torch.core import tuning
+    from repro_torch.kernels import cuda_build
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    monkeypatch.setattr(tuning, "_cache_enabled_at", None)
+    _svc(compile_cache=tmp_path / "a").close()
+    assert cuda_build.BUILD_DIR == (tmp_path / "a").resolve()
+    monkeypatch.setenv(tuning.CACHE_DIR_ENV, str(tmp_path / "b"))
+    _svc(compile_cache=True).close()
+    assert tuning.compile_cache_dir() == (tmp_path / "b").resolve()
+    assert cuda_build.BUILD_DIR == (tmp_path / "b").resolve()
 
 
 def test_submit_array_and_device_out():
