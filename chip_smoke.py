@@ -6,6 +6,7 @@
                           [--td-plain-rows 256] [--ent-chunks 1024]
                           [--lz-plain-rows 64] [--q-layers 4]
                           [--scalar-plain-elems 8192] [--scalar-reps 5]
+                          [--ckpt-layers 4] [--corpus-tokens 16777216]
     python3 chip_smoke.py --stage-only [--src DIR]   # phase 4's build and
                                                      # stage by part, alone
 
@@ -116,8 +117,28 @@ line):
      each codec; then ``api.compress(arr, codec)`` with
      ``chunk_bytes=None`` for every codec: the card's kind has no row, so
      128 KiB chunks;
- 10. a JSON line of the kernels, then ``{"ok": true, "device": {...}}``
-     last.
+ 10. the decode path's consumers (``repro_torch.checkpoint``,
+     ``repro_torch.data``, ``repro_torch.distributed.fault``):
+       - the AdamW int8 moments (per-128-block f32 scales) of
+         ``--ckpt-layers`` qwen3-1.7B layers at full widths saved with
+         bitpack, and one layer's bf16 K and V weights with tdeflate; each
+         restored on the host, with ``device_out`` and with ``device_out``
+         streamed through a filesystem store under a budget below the
+         checkpoint (each key fetched once): timed, bit for bit equal to
+         the saved state and to the host restore, launches by kernel;
+       - ``synthetic_corpus(--corpus-tokens, vocab=151936)`` spilled as
+         rle_v2 shards under a host budget below the compressed corpus,
+         one epoch through ``CompressedLoader(batch=8, seq=4096,
+         device_out=True)`` in engine mode (``decode_window=4``, prefetch
+         thread) and in service mode: tokens/s, every batch equal to the
+         corpus, no prefetch thread left after the iterator is dropped;
+       - a ``FaultTolerantRunner`` whose step updates a card tensor from
+         the loader's batches, rle_v2 checkpoints every 5 steps (async),
+         failures injected at 2 steps: 2 restarts, every restore on the
+         card through ``two_phase_rle``, equal to the state saved at its
+         step;
+ 11. a JSON line of the kernels (``consumer_launches``: phase 10's), then
+     ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  It
 exits non-zero without a card, or without the port's sources beside it.
@@ -1934,6 +1955,355 @@ def phase_tuning(args, tuning, api, fmt, registry, engine) -> None:
         "codecs, and decodes back")
 
 
+# --------------------------------------------------------------------------
+# phase 10: the decode path's consumers
+# --------------------------------------------------------------------------
+
+QBLOCK = 128                       # src/repro/optim/adamw.py: int8 moments
+                                   # with one f32 scale a block of 128
+QWEN3_NORMS = ("attn_norm", "mlp_norm")   # a layer's two RMSNorm weights
+VOCAB = 151936                     # qwen3's vocabulary
+LOADER_BATCH, LOADER_SEQ = 8, 4096
+LOW_WATERMARK = 0.8                # the store's default
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def int8_moment(gen, n: int, device, sqrt_domain: bool) -> dict:
+    """An AdamW moment of ``n`` elements as the reference optimizer keeps
+    it: int8 ``q`` of (n / 128, 128) and f32 ``s`` of (n / 128, 1); the
+    second moment in the sqrt domain (non-negative)."""
+    x = torch.randn(n // QBLOCK, QBLOCK, generator=gen, device=device)
+    if sqrt_domain:
+        x = x.abs()
+    s = x.abs().amax(1, keepdim=True) / 127.0 + 1e-12
+    return {"q": (x / s).round().clamp(-127, 127).to(torch.int8), "s": s}
+
+
+def moment_state(gen, layers: int, device) -> dict:
+    """The int8 AdamW state of ``layers`` qwen3-1.7B layers at full widths:
+    m and v of the seven projections and two RMSNorm weights, and the
+    step."""
+    params = [(name, k * n) for name, k, n in QWEN3_PROJECTIONS]
+    params += [(name, D_MODEL) for name in QWEN3_NORMS]
+    state = {"step": torch.tensor(1000, dtype=torch.int32, device=device)}
+    for which, sqrt_domain in (("m", False), ("v", True)):
+        state[which] = {f"layer{i:02d}": {
+            name: int8_moment(gen, n, device, sqrt_domain)
+            for name, n in params} for i in range(layers)}
+    return state
+
+
+def same_tensor(got: torch.Tensor, want: torch.Tensor) -> bool:
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got, want.to(got.device)))
+
+
+def restore_bound_ms(cas) -> float:
+    """PERF.md §2's bytes bound of decoding every blob of ``cas``."""
+    return sum(bound_ms(b.codec, int(b.comp_lens.sum()), b.num_chunks,
+                        b.chunk_elems, b.width) for ca in cas for b in ca.blobs)
+
+
+def store_budget(window_bytes: list, total: int) -> int:
+    """A host budget below ``total`` that still fits one window under the
+    low watermark, so each key is fetched once."""
+    budget = max(total // 4, int(max(window_bytes) / LOW_WATERMARK) + 1)
+    if budget >= total:
+        raise AssertionError(f"a window of {max(window_bytes)} bytes does "
+                             f"not fit a budget below the {total} bytes")
+    return budget
+
+
+def checkpoint_case(label, ckpt, store_mod, root: Path, state, codec: str,
+                    window: int, engine, counters) -> dict:
+    """Save ``state`` with ``codec``, then restore it three ways (host,
+    ``device_out``, ``device_out`` streamed through a filesystem store
+    under a budget below the checkpoint): each timed, each bit for bit equal
+    to the saved state; launches by kernel."""
+    device = engine.device
+    sync(device)
+    t0 = time.perf_counter()
+    ckpt.save(str(root), 1, state, codec=codec)
+    save_s = time.perf_counter() - t0
+    manifest = json.loads((root / "step_1" / "manifest.json").read_text())
+    keys = list(ckpt._flatten(state))
+    files = [manifest["leaves"][k]["file"] + ".blob" for k in keys
+             if manifest["leaves"][k]["codec"] != "none"]
+    sizes = [(root / "step_1" / f).stat().st_size for f in files]
+    cas = [ckpt._load_blob(root / "step_1" / f) for f in files]
+    total = sum(sizes)
+    budget = store_budget([sum(sizes[i:i + window])
+                           for i in range(0, len(sizes), window)], total)
+    want = ckpt._flatten(state)
+    out_bytes = sum(t.numel() * t.element_size() for t in want.values())
+    bound = restore_bound_ms(cas)
+    comp = sum(ca.compressed_bytes for ca in cas) / max(1, sum(
+        b.uncompressed_bytes for ca in cas for b in ca.blobs))
+    log(f"   {label}: {len(keys)} leaves, {out_bytes / 2**20:.1f} MiB, "
+        f"{len(files)} compressed with {codec} (ratio "
+        f"{comp:.4f}; {total / 2**20:.1f} MiB of blob files); "
+        f"save {save_s:.2f} s")
+    res = {"save_s": save_s, "launches": {}}
+    for way in ("host", "device_out", "store"):
+        for c in counters.values():
+            c.reset()
+        stats = None
+        sync(device)
+        t0 = time.perf_counter()
+        if way == "store":
+            with store_mod.filesystem_store(
+                    root, host_budget_bytes=budget) as st:
+                out = ckpt.restore(str(root), 1, state, engine=engine,
+                                   device_out=True, store=st,
+                                   decode_window=window)
+                sync(device)
+                stats = st.stats()
+        else:
+            out = ckpt.restore(str(root), 1, state, engine=engine,
+                               device_out=way == "device_out")
+        sync(device)
+        dt = time.perf_counter() - t0
+        launched = {k: c.read() for k, c in counters.items() if c.read()}
+        got = ckpt._flatten(out)
+        home = torch.device("cpu") if way == "host" else device
+        bad = [k for k in keys if got[k].device != home
+               or not same_tensor(got[k], want[k])]
+        if bad:
+            raise AssertionError(f"{label} {way} restore: {bad[:5]} differ")
+        if way == "host":
+            res["host"] = got
+        elif any(not same_tensor(got[k], res["host"][k]) for k in keys):
+            raise AssertionError(f"{label} {way}: differs from the host "
+                                 "restore")
+        extra = ""
+        if stats is not None:
+            if stats.backend_fetches != len(files) or \
+                    stats.host_evictions + stats.host_released < 1:
+                raise AssertionError(
+                    f"{label} store restore: {stats.backend_fetches} "
+                    f"fetches for {len(files)} blobs, "
+                    f"{stats.host_evictions} evictions")
+            extra = (f"; store host_budget_bytes {budget / 2**20:.2f} MiB "
+                     f"(< {total / 2**20:.2f} MiB), decode_window {window}: "
+                     f"{stats.backend_fetches} fetches for {len(files)} keys "
+                     f"(each once), {stats.host_evictions} evictions, "
+                     f"{stats.host_released} released")
+        log(f"   {label} restore {way}: {dt:.3f} s = "
+            f"{out_bytes / dt / 1e9:.3f} GB/s decoded (the decode's bound "
+            f"{bound:.3f} ms); launches {launched}; bit-exact{extra}")
+        res[way + "_s"] = dt
+        for k, v in launched.items():
+            res["launches"][k] = res["launches"].get(k, 0) + v
+        del out, got
+    del res["host"]
+    return res
+
+
+def loader_epoch(label, loader, ref: torch.Tensor, n_batches: int, device,
+                 counters) -> dict:
+    """One epoch of ``loader``: every batch against the corpus, mismatches
+    summed on the device and read once at the end; returns the launches by
+    kernel."""
+    import threading
+    for c in counters.values():
+        c.reset()
+    per = LOADER_BATCH * LOADER_SEQ
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    it = iter(loader)
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(n_batches):
+        b = next(it)
+        lo = i * per
+        for key, off in (("tokens", 0), ("labels", 1)):
+            t = b[key]
+            if t.device != device or t.dtype != torch.int32:
+                raise AssertionError(f"loader {label}: {key} on {t.device}, "
+                                     f"{t.dtype}")
+            want = ref[lo + off:lo + off + per].view(LOADER_BATCH,
+                                                     LOADER_SEQ)
+            bad += (t != want).sum()
+    sync(device)
+    dt = time.perf_counter() - t0
+    it.close()
+    del it
+    launched = {k: c.read() for k, c in counters.items() if c.read()}
+    if int(bad):
+        raise AssertionError(f"loader {label}: {int(bad)} tokens differ")
+    deadline = time.time() + 5
+    while time.time() < deadline:
+        leaked = [t for t in threading.enumerate()
+                  if t.name.startswith("codag-loader-prefetch")
+                  and t.is_alive()]
+        if not leaked:
+            break
+        time.sleep(0.05)
+    if leaked:
+        raise AssertionError(f"loader {label}: {leaked} outlive the iterator")
+    log(f"   loader {label}: {n_batches} batches of {LOADER_BATCH} x "
+        f"{LOADER_SEQ} in {dt:.3f} s = {n_batches * per / dt:.0f} tokens/s; "
+        f"every batch equal to the corpus; launches {launched}; no "
+        "codag-loader-prefetch thread after the iterator is dropped")
+    return launched
+
+
+def phase_consumers(args, engine, counters, server, store_mod):
+    """Phase 10: a compressed checkpoint of qwen3-1.7B train state restored
+    three ways, the compressed token loader over one epoch in engine and
+    service modes, and the fault-tolerant runner on the card."""
+    import gc
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.data import pipeline
+    from repro_torch.distributed import fault
+    log("== 10 consumers: compressed checkpoints, the token loader, the "
+        "fault-tolerant runner")
+    device = engine.device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    launches: dict = {}
+
+    def count(res):
+        for k, v in res.items():
+            launches[k] = launches.get(k, 0) + v
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        # (a) int8 AdamW moments through bitpack
+        state = moment_state(gen, args.ckpt_layers, device)
+        count(checkpoint_case(
+            f"(a) bitpack, AdamW int8 moments of {args.ckpt_layers} "
+            "qwen3-1.7B layers", ckpt, store_mod, tmp / "moments", state,
+            "bitpack", 8, engine, counters)["launches"])
+        del state
+        # (b) one layer's K and V projections, bf16, through tdeflate
+        state = {name: torch.randn(k, n, generator=gen, device=device).to(
+            torch.bfloat16) * 0.02 for name, k, n in QWEN3_PROJECTIONS
+            if name in ("k", "v")}
+        count(checkpoint_case(
+            "(b) tdeflate, bf16 K and V weights of one layer", ckpt,
+            store_mod, tmp / "weights", state, "tdeflate", 1, engine,
+            counters)["launches"])
+        del state
+        gc.collect()
+
+        # the token loader over one epoch of a spilled rle_v2 corpus
+        t0 = time.perf_counter()
+        toks = pipeline.synthetic_corpus(args.corpus_tokens, VOCAB,
+                                         seed=args.seed)
+        corpus_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store = pipeline.CompressedTokenStore.build(
+            toks, VOCAB, spill_dir=str(tmp / "shards"))
+        build_s = time.perf_counter() - t0
+        # half the payload bytes the store holds (nothing admitted yet)
+        sizes = [p.stat().st_size
+                 for p in sorted((tmp / "shards").glob("shard_*.blob"))]
+        budget = sum(sizes) // 2
+        store.store.host_budget_bytes = budget
+        # 64 KiB chunks of u32 tokens: PERF.md §2's bound of one epoch
+        shard = 1 << 20
+        chunks = sum(-(-min(shard, toks.size - i) // (16 << 10))
+                     for i in range(0, toks.size, shard))
+        bound = bound_ms("rle_v2", int(store.ratio * toks.nbytes), chunks,
+                         16 << 10, 4)
+        log(f"   corpus: {toks.size} tokens (vocab {VOCAB}, "
+            f"{toks.nbytes / 2**20:.1f} MiB of u32, made in {corpus_s:.1f} s),"
+            f" {store.num_shards} rle_v2 shards spilled to disk, ratio "
+            f"{store.ratio:.4f} ({sum(sizes) / 2**20:.2f} MiB pickled, "
+            f"encoded in {build_s:.1f} s), host budget "
+            f"{budget / 2**20:.2f} MiB; the epoch's decode bound "
+            f"{bound:.3f} ms ({chunks} chunks)")
+        ref = torch.from_numpy(toks.astype(np.int32)).to(device) % VOCAB
+        n_batches = (toks.size - 1) // (LOADER_BATCH * LOADER_SEQ)
+        count(loader_epoch(
+            "engine mode (decode_window=4, prefetch thread)",
+            pipeline.CompressedLoader(store, LOADER_BATCH, LOADER_SEQ,
+                                      engine=engine, decode_window=4,
+                                      device_out=True),
+            ref, n_batches, device, counters))
+        with server.DecompressionService(engine, cache_bytes=0) as svc:
+            count(loader_epoch(
+                "service mode (4 shards in flight)",
+                pipeline.CompressedLoader(store, LOADER_BATCH, LOADER_SEQ,
+                                          service=svc, decode_window=4,
+                                          device_out=True),
+                ref, n_batches, device, counters))
+        s = store.store.stats()
+        log(f"   shard store after both epochs: {s.backend_fetches} fetches "
+            f"for {store.num_shards} shards, {s.host_evictions} evictions, "
+            f"host hit rate {s.host_hit_rate:.3f}")
+
+        # the fault-tolerant runner, its state and steps on the card
+        saved, restored = {}, []
+        real_save, real_restore = ckpt.save, ckpt.restore
+        rle = counters[kernel_of("rle_v2")]
+
+        def spy_save(d, step, st, **kw):
+            saved[step] = st["w"].clone()
+            return real_save(d, step, st, **kw)
+
+        def spy_restore(d, step, like, **kw):
+            rle.reset()
+            sync(device)
+            t0 = time.perf_counter()
+            out = real_restore(d, step, like, **kw)
+            sync(device)
+            restored.append((step, kw, out["w"], rle.read(),
+                             time.perf_counter() - t0))
+            return out
+
+        def step_fn(st, batch):
+            target = batch["tokens"].float() / VOCAB
+            w = st["w"] - 0.2 * (st["w"] - target)
+            return {"w": w}, float(((w - target) ** 2).mean())
+
+        ckpt.save, ckpt.restore = spy_save, spy_restore
+        try:
+            runner = fault.FaultTolerantRunner(
+                step_fn, str(tmp / "runner"), ckpt_every=5,
+                injector=fault.FailureInjector(fail_at_steps=[7, 13]),
+                async_ckpt=True, ckpt_codec="rle_v2", engine=engine)
+            loader = pipeline.CompressedLoader(
+                store, LOADER_BATCH, LOADER_SEQ, engine=engine,
+                prefetch=False, device_out=True)
+            t0 = time.perf_counter()
+            w0 = torch.zeros(LOADER_BATCH, LOADER_SEQ, device=device)
+            out, report = runner.run({"w": w0}, loader, 20)
+            sync(device)
+            run_s = time.perf_counter() - t0
+        finally:
+            ckpt.save, ckpt.restore = real_save, real_restore
+        store.store.close()
+    if (report.restarts, report.steps_done) != (2, 20) or \
+            out["w"].device != device:
+        raise AssertionError(f"runner: {report}")
+    for step, kw, w, n, _ in restored:
+        if not kw.get("device_out") or w.device != device or n < 1 or \
+                not same_tensor(w, saved[step]):
+            raise AssertionError(f"runner restore of step {step}: "
+                                 f"device_out={kw.get('device_out')}, on "
+                                 f"{w.device}, {n} launches, or it differs")
+    count({kernel_of("rle_v2"): sum(r[3] for r in restored)})
+    log(f"   runner: {report.steps_done} steps, {report.restarts} restarts "
+        f"(failures injected at steps 7 and 13), rle_v2 checkpoints every 5 "
+        f"steps (async), {run_s:.2f} s; restores of steps "
+        f"{[r[0] for r in restored]} on {device}, "
+        f"{[r[3] for r in restored]} two_phase_rle<rle_v2> launches, "
+        f"{', '.join(f'{r[4] * 1e3:.1f}' for r in restored)} ms, each equal "
+        "to the state saved at its step; final loss "
+        f"{report.losses[-1]:.6f}")
+    for name in ("bitpack_unpack", "tdeflate_decode", kernel_of("rle_v2")):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"phase 10 launched no {name}")
+    log(f"   phase 10 launches: {launches}")
+    return launches
+
+
 class Counter:
     """A kernel's launch count on the main path: reset, then read."""
 
@@ -1979,6 +2349,12 @@ def main() -> int:
     ap.add_argument("--scalar-reps", type=int, default=None,
                     help="timing repetitions of phase 8's single-thread "
                     "pass (default: --reps)")
+    ap.add_argument("--ckpt-layers", type=int, default=4,
+                    help="qwen3-1.7B layers of AdamW int8 moments in phase "
+                    "10's bitpack checkpoint")
+    ap.add_argument("--corpus-tokens", type=int, default=1 << 24,
+                    help="tokens of phase 10's rle_v2 corpus (one epoch "
+                    "through the loader in each mode)")
     ap.add_argument("--stage-only", action="store_true",
                     help="only time DecodePlan.build and stage by part on "
                     "phase 4's workload (cold, then warm), and stop")
@@ -2053,7 +2429,8 @@ def main() -> int:
         args, data, engine, scalar, registry, harness, transfers, errs, per)
     del data
     phase_tuning(args, tuning, api, fmt, registry, engine)
-    log("== 10 kernels")
+    consumer = phase_consumers(args, engine, counters, server, store)
+    log("== 11 kernels")
     kernels = []
     for name in KERNELS:
         source, replaces = SOURCES.get(
@@ -2079,6 +2456,8 @@ def main() -> int:
                                          "plain_elems")
                if k in per[name]},
         })
+        if name in consumer:       # phase 10's launches
+            kernels[-1]["consumer_launches"] = consumer[name]
         exact = name != "dequant_matmul"    # held to TOL in phases 3 and 6
         if kernels[-1]["launches"] < 1 or (exact and errs[name]):
             raise AssertionError(f"{name}: not launched on the main path, or "

@@ -406,7 +406,7 @@ def device_view(flat: torch.Tensor, dtype, shape=None) -> torch.Tensor:
     1-D tensor.  Widening views regroup consecutive elements."""
     od = torch_dtype(dtype)
     if flat.dtype != od:
-        k = np.dtype(dtype).itemsize // flat.element_size()
+        k = od.itemsize // flat.element_size()
         if k > 1 and flat.shape[0] % k:
             raise ValueError(f"{flat.shape[0]} {flat.dtype} elements do not "
                              f"view evenly as {od}")

@@ -28,8 +28,10 @@ item 11).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import hashlib
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -54,6 +56,34 @@ def _default_engine(engine):
 # dispatch — the ONE ops.decode call site in the package
 # --------------------------------------------------------------------------
 
+# Lowering observers (``count_lowered``): the discipline of
+# ``ops.count_dispatches``, a list of lists under one lock.
+_lowered: list = []
+_lowered_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def count_lowered():
+    """Observe :func:`dispatch` calls (the lowering funnel).  Yields a list
+    that grows one entry per call: the table's chunk count, the group key
+    and the engine's ``unit`` and ``backend``.
+
+    Paired with ``ops.count_dispatches``, equal counts show that every
+    kernel launch of a warp-unit engine was lowered through the plan (a
+    block-unit dispatch issues one ``ops.decode`` a batch of rows).
+    """
+    calls: list = []
+    with _lowered_lock:
+        _lowered.append(calls)
+    try:
+        yield calls
+    finally:
+        with _lowered_lock:
+            for i, obs in enumerate(_lowered):
+                if obs is calls:
+                    del _lowered[i]
+                    break
+
 
 def dispatch(dev: Dict[str, Any], *, config, codec: str, width: int,
              chunk_elems: int, bits: int = 0, epilogue=None,
@@ -72,8 +102,15 @@ def dispatch(dev: Dict[str, Any], *, config, codec: str, width: int,
     if tune is None:
         from repro_torch.core import tuning
         tune = tuning.kernel_tune(codec, width, getattr(config, "tune", ()))
-    backend = config.backend if config.all_thread else "scalar"
     n_chunks = dev["comp"].shape[0]
+    with _lowered_lock:
+        if _lowered:
+            rec = {"num_chunks": int(n_chunks), "codec": codec,
+                   "width": width, "chunk_elems": chunk_elems, "bits": bits,
+                   "unit": config.unit, "backend": config.backend}
+            for calls in _lowered:
+                calls.append(dict(rec))
+    backend = config.backend if config.all_thread else "scalar"
     if config.unit == "warp":
         batches = [(0, n_chunks)]
     elif config.unit == "block":

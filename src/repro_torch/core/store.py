@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import io
 import os
 import pickle
 import threading
@@ -214,9 +215,53 @@ class StoreStats:
 # --------------------------------------------------------------------------
 
 
+def _admitted() -> Dict[tuple, Any]:
+    """What :class:`BlobUnpickler` may construct, by pickled name."""
+    import numpy as np
+
+    from repro_torch.core import api
+    from repro_torch.core import format as fmt
+
+    reconstruct = np.empty(0).__reduce__()[0]
+    scalar = np.int64(0).__reduce__()[0]
+    admitted = {("numpy", "ndarray"): np.ndarray,
+                ("numpy", "dtype"): np.dtype}
+    for core in ("numpy.core.multiarray", "numpy._core.multiarray"):
+        admitted[(core, "_reconstruct")] = reconstruct
+        admitted[(core, "scalar")] = scalar
+    # the reference package's classes have the same fields as the port's,
+    # so a blob the reference pickled becomes the port's without importing
+    # the reference (and JAX with it)
+    for pkg in ("repro_torch", "repro"):
+        admitted[(f"{pkg}.core.api", "CompressedArray")] = api.CompressedArray
+        admitted[(f"{pkg}.core.format", "CompressedBlob")] = \
+            fmt.CompressedBlob
+    return admitted
+
+
+class BlobUnpickler(pickle.Unpickler):
+    """Restricted unpickler of compressed payloads: ``CompressedArray`` and
+    ``CompressedBlob`` (the port's, or the reference package's names mapped
+    onto the port's classes), numpy arrays, dtypes and scalars, and the
+    builtin containers.  Any other global raises ``UnpicklingError``."""
+
+    def find_class(self, module: str, name: str) -> Any:
+        obj = _admitted().get((module, name))
+        if obj is None:
+            raise pickle.UnpicklingError(
+                f"{module}.{name} is not a compressed-blob class")
+        return obj
+
+
+def load_blob(f) -> Any:
+    """Unpickle one compressed payload from the binary file ``f`` through
+    :class:`BlobUnpickler`."""
+    return BlobUnpickler(f).load()
+
+
 def _default_loads(data: bytes) -> Any:
     try:
-        return pickle.loads(data)
+        return load_blob(io.BytesIO(data))
     except Exception as e:
         raise StoreError(f"corrupt blob payload: {e}") from e
 
@@ -236,7 +281,9 @@ class TieredBlobStore:
                         fan-out of one window's parallel fetches.
     loads / dumps:      (de)serializers between payload bytes and blob
                         objects.  Defaults: pickle (what a checkpoint
-                        writes); ``loads`` failures surface as
+                        writes), read back through :class:`BlobUnpickler`,
+                        which constructs compressed blobs and numpy arrays
+                        only; ``loads`` failures surface as
                         :class:`StoreError`.
 
     Sizes are accounted in PAYLOAD bytes (what the backend stores), so the

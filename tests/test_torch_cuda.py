@@ -646,3 +646,127 @@ def test_scalar_engine_block_unit_and_epilogue_on_the_card(card):
     torch.cuda.synchronize()
     assert harness.EPILOGUE_UNFUSED == unfused + 2
     assert got.dtype == torch.float32 and torch.equal(got.cpu(), want)
+
+
+# --------------------------------------------------------------------------
+# the decode path's consumers: checkpoint, token loader, runner
+# --------------------------------------------------------------------------
+
+
+def _ckpt_state():
+    rng = np.random.default_rng(12)
+    return {"w": torch.from_numpy(rng.normal(size=(64, 48)).astype(
+                np.float32)).to(torch.bfloat16),
+            "m": torch.from_numpy(rng.integers(-127, 128, 6000).astype(
+                np.int8)),
+            "ids": torch.from_numpy(np.repeat(np.arange(60, dtype=np.int64)
+                                              << 33, 40)),
+            "step": torch.tensor(7, dtype=torch.int32),
+            "small": torch.ones(3, dtype=torch.bfloat16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["none", "rle_v2", "tdeflate", "bitpack"])
+def test_checkpoint_device_restore_equals_host_restore_on_the_card(
+        card, tmp_path, codec):
+    """``restore(device_out=True)`` decodes on the card (the codec's kernel
+    launched) and equals the host restore and the saved state, bit for
+    bit, through ``store=`` too."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import store as bs
+    s = _ckpt_state()
+    ckpt.save(str(tmp_path), 1, s, codec=codec)
+    host = ckpt.restore(str(tmp_path), 1, s)
+    before = None if codec == "none" else _launches(codec)
+    dev = ckpt.restore(str(tmp_path), 1, s, device_out=True)
+    with bs.filesystem_store(tmp_path, host_budget_bytes=4096) as st:
+        streamed = ckpt.restore(str(tmp_path), 1, s, device_out=True,
+                                store=st, decode_window=1)
+    torch.cuda.synchronize()
+    if before is not None:
+        assert _launches(codec) - before >= 2
+    for k, want in s.items():
+        assert host[k].device.type == "cpu"
+        for got in (host[k], dev[k], streamed[k]):
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert torch.equal(got.cpu(), want), (codec, k)
+        assert dev[k].device.type == "cuda"
+        assert streamed[k].device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_loader_device_batches_equal_host_batches_on_the_card(card):
+    """Token shards decode on the card through ``two_phase_rle``: the
+    ``device_out`` loader's batches are card tensors equal to the host
+    loader's and to the corpus, in engine and service modes."""
+    from repro_torch.data import pipeline
+    toks = pipeline.synthetic_corpus(1 << 16, 151936, seed=4)
+    store = pipeline.CompressedTokenStore.build(toks, 151936,
+                                                shard_tokens=1 << 13)
+    seq, batch = 512, 4
+    want = toks.astype(np.int32) % 151936
+    before = cuda_rle.CODEC_LAUNCHES["rle_v2"]
+    host = iter(pipeline.CompressedLoader(store, batch=batch, seq=seq,
+                                          prefetch=False))
+    dev = iter(pipeline.CompressedLoader(store, batch=batch, seq=seq,
+                                         device_out=True))
+    with srv.DecompressionService(max_delay_ms=5) as svc:
+        via_svc = iter(pipeline.CompressedLoader(
+            store, batch=batch, seq=seq, service=svc, device_out=True))
+        for i in range(40):           # past an epoch's end
+            h, d, v = next(host), next(dev), next(via_svc)
+            assert d["tokens"].device.type == "cuda"
+            assert v["tokens"].device.type == "cuda"
+            for k in ("tokens", "labels"):
+                assert torch.equal(d[k].cpu(), h[k])
+                assert torch.equal(v[k].cpu(), h[k])
+            lo = (i * batch * seq) % len(toks)
+            if lo + batch * seq <= len(toks):
+                assert np.array_equal(h["tokens"].reshape(-1).numpy(),
+                                      want[lo:lo + batch * seq])
+        via_svc.close()
+    dev.close()
+    assert cuda_rle.CODEC_LAUNCHES["rle_v2"] > before
+
+
+@pytest.mark.cuda
+def test_runner_restarts_on_the_card(card, tmp_path):
+    """A runner whose state lives on the card restores it there: two
+    injected failures, each restore ``device_out`` through the decode
+    kernels and equal to the state saved at that step."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.distributed import fault
+    saved, restored = {}, []
+    real_save, real_restore = ckpt.save, ckpt.restore
+
+    def spy_save(d, step, state, **kw):
+        saved[step] = state["w"].clone()
+        return real_save(d, step, state, **kw)
+
+    def spy_restore(d, step, like, **kw):
+        out = real_restore(d, step, like, **kw)
+        restored.append((step, kw["device_out"], out["w"]))
+        return out
+
+    def step_fn(state, batch):
+        w = state["w"] - 0.2 * (state["w"] - batch)
+        return {"w": w}, float(((w - batch) ** 2).mean())
+
+    ckpt.save, ckpt.restore = spy_save, spy_restore
+    try:
+        before = cuda_rle.CODEC_LAUNCHES["rle_v2"]
+        runner = fault.FaultTolerantRunner(
+            step_fn, str(tmp_path), ckpt_every=5, ckpt_codec="rle_v2",
+            injector=fault.FailureInjector(fail_at_steps=[7, 13]))
+        target = torch.full((4096,), 3.0, device=card)
+        state, report = runner.run({"w": torch.zeros(4096, device=card)},
+                                   (target for _ in iter(int, 1)), 20)
+    finally:
+        ckpt.save, ckpt.restore = real_save, real_restore
+    assert report.restarts == 2 and report.steps_done == 20
+    assert [s for s, _, _ in restored] == [5, 10]
+    for step, device_out, w in restored:
+        assert device_out and w.device.type == "cuda"
+        assert torch.equal(w, saved[step])
+    assert cuda_rle.CODEC_LAUNCHES["rle_v2"] - before >= 2
+    assert state["w"].device.type == "cuda"

@@ -204,7 +204,8 @@ def test_port_imports_neither_jax_nor_repro():
     names = {p.name for p in files}
     assert {"tdeflate.py", "bitpack.py", "dbp.py", "cuda_build.py",
             "huffman.py", "lzss.py", "dequant_matmul.py", "batch.py",
-            "server.py", "store.py", "tuning.py", "scalar.py"} <= names
+            "server.py", "store.py", "tuning.py", "scalar.py",
+            "checkpoint.py", "pipeline.py", "fault.py"} <= names
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
@@ -222,7 +223,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.kernels.lzss, repro_torch.kernels.dequant_matmul, "
         "repro_torch.core.batch, repro_torch.core.server, "
         "repro_torch.core.store, repro_torch.core.tuning, "
-        "repro_torch.kernels.scalar\n"
+        "repro_torch.kernels.scalar, repro_torch.checkpoint.checkpoint, "
+        "repro_torch.data.pipeline, repro_torch.distributed.fault\n"
         "from repro_torch.core import registry\n"
         "for c in ('rle_v1', 'rle_v2', 'tdeflate', 'bitpack', 'dbp', "
         "'huffman', 'lzss'):\n"
