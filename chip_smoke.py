@@ -137,8 +137,29 @@ line):
          failures injected at 2 steps: 2 restarts, every restore on the
          card through ``two_phase_rle``, equal to the state saved at its
          step;
- 11. a JSON line of the kernels (``consumer_launches``: phase 10's), then
-     ``{"ok": true, "device": {...}}`` last.
+ 11. the model stack (``repro_torch.models``, ``optim``, ``launch``):
+       - (a) ``launch.serve.run_serving`` of qwen3-1.7B at full width and
+         depth (28 layers, 2.03 B parameters, bf16): 8 prompts of 64
+         tokens, 32 greedy tokens; prefill s, decode tok/s and decode-step
+         ms beside the step's weight-read bound; every position's
+         ``decode_step`` logits against ``forward``'s within a stated bf16
+         tolerance, and the greedy tokens against ``forward``'s argmax
+         wherever its top-2 margin exceeds twice that tolerance;
+       - (b) ``launch.train.run_training`` at full width cut to 4 layers,
+         batch 8 x seq 512, ``--grad-int8 --compress-moments``, 12 steps,
+         checkpoints every 5, a failure at step 7: the loss falls, one
+         restart restored on the card, one fused ``bitpack_unpack`` launch
+         a gradient leaf a step (the wire's per-row scale in its stores;
+         the first step's each equal to the plain body + ``Epilogue.apply``
+         bit for bit), rle_v2 launches from the loader; step ms beside
+         6 N T FLOP at the bf16 peak, and one step's wire decode, device
+         time, beside its bytes bound;
+       - (c) 2 layers at full width in float32, TF32 off: ``forward`` and
+         ``loss_fn`` on the card equal the same on the CPU on the same
+         weights (rtol = atol = 1e-3);
+ 12. a JSON line of the kernels (``consumer_launches``: phase 10's,
+     ``model_launches``: phase 11's), then ``{"ok": true, "device":
+     {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  It
 exits non-zero without a card, or without the port's sources beside it.
@@ -186,17 +207,17 @@ def ms_of(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, sleep_cycles: int = 2_000_000) -> float:
     """Median milliseconds of the work ``fn()`` queues on the card, over
     ``reps`` runs: CUDA events with the stream held busy (a device sleep of
-    about a millisecond) until ``fn`` has queued its launches, so the
-    wrapper's host time does not fall between the events, as it does in
-    :func:`ms_of` when the card is idle."""
+    ``sleep_cycles``, about a millisecond by default) until ``fn`` has
+    queued its launches, so the wrapper's host time does not fall between
+    the events, as it does in :func:`ms_of` when the card is idle."""
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         fn()
         end.record()
@@ -2304,6 +2325,298 @@ def phase_consumers(args, engine, counters, server, store_mod):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 11: the model stack on the card
+# --------------------------------------------------------------------------
+
+# decode-step logits against forward's, bf16 on the card: 8 bf16 ulps at
+# the logits' scale (|logit| in [4, 8): an ulp is 2^-5); the two paths
+# round their matmuls (M = 8 rows against M = 768) and softmaxes apart
+SERVE_TOL = 0.25
+TRAIN_LAYERS = 4                   # the training run's depth cut (of 28)
+# The reference's int8 moments keep v in the sqrt domain: where an
+# element's v quantizes to 0 and its m does not (and the int8 wire rounds
+# its gradient to 0), the update is lr * m / eps.  At 3e-5 and above the
+# 12-step run diverges; at this rate its loss falls.
+TRAIN_LR = 1e-5
+MODEL_TOL = 1e-3                   # (c): card against CPU, float32, no TF32
+
+
+def phase_model(args, engine, counters):
+    """Phase 11: qwen3-1.7B served at full width and depth, a 4-layer
+    full-width training run through the loader, the int8 gradient wire and
+    the fault-tolerant runner, and the model on the card against the CPU.
+    Returns the launches by kernel."""
+    import gc
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.tree import leaves as tree_leaves, map_tree
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import bitpack, harness
+    from repro_torch.launch import serve, train
+    from repro_torch.models import model
+    from repro_torch.optim import grad_compress as gc_mod
+    log("== 11 the model stack: qwen3-1.7B (hf:Qwen/Qwen3-1.7B) served at "
+        "full width and depth, trained at 4 layers through the int8 "
+        "gradient wire, card against CPU")
+    device = engine.device
+    for c in counters.values():
+        c.reset()
+
+    # (a) serve: 28 layers, bf16, 8 prompts of 64 tokens, 32 greedy tokens
+    sargs = serve.build_parser().parse_args(
+        ["--arch", "qwen3-1.7b", "--preset", "full", "--batch", "8",
+         "--prompt-len", "64", "--gen", "32", "--device", str(device)])
+    t0 = time.perf_counter()
+    out = serve.run_serving(sargs)
+    serve_s = time.perf_counter() - t0
+    cfg, params = out["cfg"], out["params"]
+    B, P, G = sargs.batch, sargs.prompt_len, sargs.gen
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    step_ms = out["decode_s"] / G * 1e3
+    # a decode step reads every block weight and the head, B rows of the
+    # embedding, and the whole cache it scores
+    emb = params["embed"]
+    cache_bytes = sum(out["cache"][k].numel() * out["cache"][k].element_size()
+                      for k in ("k", "v"))
+    step_bytes = (sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+                  - emb.numel() * emb.element_size()
+                  + B * emb.shape[1] * emb.element_size() + cache_bytes)
+    all_bytes = n_params * emb.element_size()
+    log(f"   (a) serve: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.hd}, {cfg.n_kv} KV heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}: {n_params / 1e9:.3f} B parameters "
+        f"in {cfg.dtype}; run_serving {serve_s:.2f} s (init included)")
+    log(f"   prefill (per-token loop) {B}x{P} in {out['prefill_s']:.3f} s; "
+        f"decode {B}x{G} in {out['decode_s']:.3f} s = "
+        f"{B * G / out['decode_s']:.1f} tok/s, {step_ms:.3f} ms a decode "
+        f"step; weight-read bound {step_bytes / 1e9:.3f} GB a step "
+        f"(blocks, head, {B} embedding rows, the cache) = "
+        f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({all_bytes / 1e9:.2f} "
+        f"GB of all parameters: {all_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
+    # decode-step logits against forward's at every position
+    seq = torch.cat([out["prompts"].to(device),
+                     torch.from_numpy(out["tokens"]).to(device)], dim=1)
+    with torch.no_grad():
+        full = model.forward(cfg, params, seq)
+        cache = model.init_cache(cfg, B, P + G + 8, device=device)
+        dec = []
+        for i in range(P + G):
+            lg, cache = model.decode_step(cfg, params, cache, seq[:, i:i + 1])
+            dec.append(lg)
+        dec = torch.cat(dec, dim=1)
+        diff = (dec.float() - full.float()).abs()
+        top2 = full[:, P - 1:P + G - 1].float().topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        greedy = torch.from_numpy(out["tokens"]).to(device)
+        arg = full[:, P - 1:P + G - 1].argmax(-1)
+        sure = margin > 2 * SERVE_TOL
+        wrong = int(((arg != greedy) & sure).sum())
+        max_d, mean_d = float(diff.max()), float(diff.mean())
+        finite = bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
+    if not finite or max_d > SERVE_TOL or wrong:
+        raise AssertionError(f"serve: finite={finite}, max |decode - forward|"
+                             f" {max_d} (tolerance {SERVE_TOL}), {wrong} "
+                             "greedy tokens differ from forward's argmax")
+    log(f"   decode_step logits == forward's at all {P + G} positions of "
+        f"{B} rows within {SERVE_TOL} (bf16; max |diff| {max_d:.4f}, mean "
+        f"{mean_d:.5f}, max |logit| {float(full.float().abs().max()):.3f}); "
+        f"greedy tokens == forward's argmax at all {int(sure.sum())} of "
+        f"{B * G} positions whose top-2 margin exceeds {2 * SERVE_TOL} "
+        f"({int((arg == greedy).sum())} of {B * G} equal in all)")
+    del out, params, full, dec, cache, diff, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) train: 4 layers at full width, batch 8 x seq 512, int8 wire and
+    # moments, 12 steps, checkpoints every 5, a failure at step 7
+    (ROOT / "build").mkdir(exist_ok=True)
+    wire = {"launches": [], "checked": 0, "err": 0, "first": 0}
+    restored = []
+    real_dispatch, real_restore = plan_mod.dispatch, ckpt.restore
+    bp = counters["bitpack_unpack"]
+    rle = counters[kernel_of("rle_v2")]
+
+    def spy_dispatch(dev, **kw):
+        before = bp.read()
+        res = real_dispatch(dev, **kw)
+        if kw.get("codec") == "bitpack" and "wire_scale" in dev:
+            wire["launches"].append(bp.read() - before)
+            if wire["checked"] < wire["first"]:
+                # the first step's wire: kernel == plain body + apply
+                plain = kw["epilogue"].apply(bitpack.unpack(
+                    dev["comp_words"], chunk_elems=kw["chunk_elems"],
+                    width=1, bits=kw["bits"]), dev)
+                if res.dtype != plain.dtype or not torch.equal(res, plain):
+                    wire["err"] += 1
+                wire["checked"] += 1
+        return res
+
+    def spy_restore(d, step, like, **kw):
+        res = real_restore(d, step, like, **kw)
+        restored.append((step, kw.get("device_out"),
+                         {t.device for t in tree_leaves(res[0])}))
+        return res
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        targs = train.build_parser().parse_args(
+            ["--arch", "qwen3-1.7b", "--preset", "full", "--n-layers",
+             str(TRAIN_LAYERS), "--batch", "8", "--seq", "512", "--steps",
+             "12", "--lr", str(TRAIN_LR), "--grad-int8",
+             "--compress-moments", "--ckpt-every", "5",
+             "--fail-at", "7", "--ckpt-dir", str(Path(tmp) / "ckpt"),
+             "--device", str(device)])
+        tcfg = train._resolve_cfg(targs)
+        # the first step's wire decodes: one a leaf of the tree (every
+        # qwen3 leaf at full width is a quantization block or more)
+        wire["first"] = len(list(tree_leaves(model.init_params(
+            reduced(tcfg), torch.Generator(), device="cpu"))))
+        unfused = harness.EPILOGUE_UNFUSED
+        plan_mod.dispatch, ckpt.restore = spy_dispatch, spy_restore
+        try:
+            bp.reset()
+            rle.reset()
+            t0 = time.perf_counter()
+            m = train.run_training(targs)
+            run_s = time.perf_counter() - t0
+        finally:
+            plan_mod.dispatch, ckpt.restore = real_dispatch, real_restore
+        train_launches = {"bitpack_unpack": bp.read(),
+                          kernel_of("rle_v2"): rle.read()}
+        params, opt_state = m["state"]
+    leaves = list(tree_leaves(params))
+    n_wire = sum(t.numel() >= gc_mod.QBLOCK for t in leaves)
+    steps_run = len(m["losses"])
+    losses = m["losses"]
+    k = max(1, len(losses) // 10)
+    fell = float(np.mean(losses[-k:])) < float(np.mean(losses[:k]))
+    problems = []
+    if not fell:
+        problems.append(f"loss did not fall: {losses}")
+    if m["restarts"] != 1 or m["steps_done"] != 12:
+        problems.append(f"{m['restarts']} restarts, {m['steps_done']} steps")
+    if [(s, d) for s, d, _ in restored] != [(5, True)] or \
+            restored[0][2] != {device}:
+        problems.append(f"restores {restored}")
+    if wire["launches"] != [1] * (n_wire * steps_run) or \
+            train_launches["bitpack_unpack"] != n_wire * steps_run:
+        problems.append(f"wire launches {train_launches['bitpack_unpack']} "
+                        f"for {n_wire} leaves x {steps_run} steps")
+    if harness.EPILOGUE_UNFUSED != unfused:
+        problems.append("an unfused wire epilogue")
+    if wire["err"] or wire["checked"] != n_wire:
+        problems.append(f"{wire['err']} of {wire['checked']} wire decodes "
+                        "differ from the plain body + Epilogue.apply")
+    if train_launches[kernel_of("rle_v2")] < 1:
+        problems.append("the loader launched no rle_v2 decode")
+    if problems:
+        raise AssertionError("train: " + "; ".join(problems))
+    tokens = targs.batch * targs.seq
+    step_s = float(np.median(m["step_seconds"]))
+    flop_ms = 6 * tcfg.param_count() * tokens / BF16_FLOPS * 1e3
+    log(f"   (b) train: {tcfg.n_layers} layers at full width "
+        f"({tcfg.param_count() / 1e6:.1f} M parameters), batch "
+        f"{targs.batch} x seq {targs.seq}, --grad-int8 --compress-moments, "
+        f"12 steps in {run_s:.2f} s (loader, checkpoints and the restart "
+        f"included); losses {', '.join(f'{x:.4f}' for x in losses)}: "
+        f"first {np.mean(losses[:k]):.4f} -> last {np.mean(losses[-k:]):.4f}")
+    log(f"   restarts {m['restarts']} (failure at step 7), the restore of "
+        f"step {restored[0][0]} on {restored[0][2].pop()} (device_out); "
+        f"launches {train_launches}: {n_wire} wire leaves x {steps_run} "
+        f"steps run = {n_wire * steps_run} bitpack_unpack launches, one a "
+        f"leaf a step, every one fused (EPILOGUE_UNFUSED unchanged); the "
+        f"first step's {wire['checked']} wire decodes == plain bitpack body "
+        f"+ Epilogue.apply bit for bit")
+    log(f"   step {step_s * 1e3:.2f} ms (median of {len(m['step_seconds'])}"
+        f", host clock, synchronised) = {tokens / step_s:.0f} tokens/s; "
+        f"bound 6 x {tcfg.param_count() / 1e6:.1f} M x {tokens} FLOP at "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s = {flop_ms:.2f} ms")
+    # the wire decode of one step's leaves, its device time: the final
+    # parameters stand in for gradients of the same shapes
+    tables = []
+    for t in leaves:
+        if t.numel() >= gc_mod.QBLOCK:
+            dev, s = collectives.quantized_wire(t)
+            dev["wire_scale"] = s
+            dev["wire_zero"] = torch.full((), collectives.WIRE_ZERO,
+                                          device=device)
+            tables.append(dev)
+    epi = harness.Epilogue(out_dtype="float32", scale_key="wire_scale",
+                           zero_key="wire_zero")
+    cfg_e = engine.config
+
+    def decode_all():
+        for dev in tables:
+            plan_mod.dispatch(dev, config=cfg_e, codec="bitpack", width=1,
+                              chunk_elems=gc_mod.QBLOCK, bits=8,
+                              epilogue=epi)
+
+    decode_all()
+    # ~20 ms of device sleep: the 14 launches' host time stays behind it
+    wire_ms = device_ms(decode_all, args.reps, sleep_cycles=40_000_000)
+    rows = sum(d["comp_words"].shape[0] for d in tables)
+    wire_bytes = rows * (4 * 32 + 4 + 4 * gc_mod.QBLOCK)
+    big = max(tables, key=lambda d: d["comp_words"].shape[0])
+    plain_ms = ms_of(lambda: epi.apply(bitpack.unpack(
+        big["comp_words"], chunk_elems=gc_mod.QBLOCK, width=1, bits=8), big),
+        1)
+    log(f"   wire decode a step: {len(tables)} bitpack_unpack launches over "
+        f"{rows} rows of {gc_mod.QBLOCK}, device {wire_ms:.3f} ms (median "
+        f"of {args.reps}); bound {wire_bytes / 1e9:.3f} GB (words read, "
+        f"scales, float32 written) = "
+        f"{wire_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; the plain body + "
+        f"apply on the largest leaf ({big['comp_words'].shape[0]} rows) "
+        f"{plain_ms:.3f} ms")
+    del m, params, opt_state, leaves, tables
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) 2 layers at full width in float32, TF32 off: card == CPU
+    ccfg = dataclasses.replace(get_arch("qwen3-1.7b"), n_layers=2,
+                               dtype="float32")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        cpu = model.init_params(ccfg, torch.Generator().manual_seed(args.seed),
+                                device="cpu")
+        gpu = map_tree(lambda t: t.to(device), cpu)
+        rng = np.random.default_rng(args.seed)
+        tok = torch.from_numpy(rng.integers(0, ccfg.vocab, (2, 32)).astype(
+            np.int32))
+        lab = torch.from_numpy(rng.integers(0, ccfg.vocab, (2, 32)).astype(
+            np.int32))
+        with torch.no_grad():
+            want = model.forward(ccfg, cpu, tok)
+            got = model.forward(ccfg, gpu, tok.to(device)).cpu()
+            lw = model.loss_fn(ccfg, cpu, tok, lab)
+            lg = model.loss_fn(ccfg, gpu, tok.to(device), lab.to(device)).cpu()
+        c_s = time.perf_counter() - t0
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, rtol=MODEL_TOL, atol=MODEL_TOL) and \
+        torch.allclose(lg, lw, rtol=MODEL_TOL, atol=MODEL_TOL)
+    if not ok:
+        raise AssertionError(f"(c) card != CPU: max |logit diff| {err}, loss "
+                             f"{float(lg)} against {float(lw)}")
+    log(f"   (c) 2 layers at full width, float32, TF32 off: forward on "
+        f"{device} == on the CPU within rtol=atol={MODEL_TOL} (max |diff| "
+        f"{err:.2e} over {got.numel()} logits), loss_fn {float(lg):.6f} "
+        f"against {float(lw):.6f}; {c_s:.1f} s")
+    del cpu, gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"   phase 11 launches: {train_launches}")
+    return train_launches
+
+
+
 class Counter:
     """A kernel's launch count on the main path: reset, then read."""
 
@@ -2430,7 +2743,8 @@ def main() -> int:
     del data
     phase_tuning(args, tuning, api, fmt, registry, engine)
     consumer = phase_consumers(args, engine, counters, server, store)
-    log("== 11 kernels")
+    model_launches = phase_model(args, engine, counters)
+    log("== 12 kernels")
     kernels = []
     for name in KERNELS:
         source, replaces = SOURCES.get(
@@ -2458,6 +2772,8 @@ def main() -> int:
         })
         if name in consumer:       # phase 10's launches
             kernels[-1]["consumer_launches"] = consumer[name]
+        if name in model_launches:  # phase 11's
+            kernels[-1]["model_launches"] = model_launches[name]
         exact = name != "dequant_matmul"    # held to TOL in phases 3 and 6
         if kernels[-1]["launches"] < 1 or (exact and errs[name]):
             raise AssertionError(f"{name}: not launched on the main path, or "

@@ -1,0 +1,35 @@
+"""Nested dicts of tensors (parameter, gradient and optimizer trees): the
+few pytree operations the model stack needs, in ``jax.tree``'s leaf order
+(dict keys sorted)."""
+from __future__ import annotations
+
+from typing import Any, Callable, Iterator, List
+
+
+def map_tree(fn: Callable, *trees):
+    """``fn`` applied leaf by leaf to trees of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: map_tree(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def leaves(tree) -> Iterator[Any]:
+    """The leaves, dict keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k])
+    else:
+        yield tree
+
+
+def rebuild(like, new_leaves: List[Any]):
+    """``like``'s structure with its leaves (in :func:`leaves`' order)
+    replaced by ``new_leaves``."""
+    it = iter(new_leaves)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return walk(like)

@@ -35,6 +35,14 @@
 //     into shared memory with coalesced 16-byte loads (clipped to the row's
 //     last word), then each thread walks its vector's fields through a
 //     two-word funnel, one shared load a word.
+//   - short rows share a block on the fast path: where a row fills at most
+//     half of a block's 256 * vpt vector slots, a block takes rows_per_block
+//     whole rows (slot g: row g / vectors-a-row, its vector g % vectors-a-
+//     row), so a table of 128-element rows (the int8 gradient wire, one
+//     quantization block a row) runs full blocks instead of one row's 32
+//     vectors in each;
+//   - the epilogue's zero and scale may be one value a chunk row (the wire's
+//     per-block scale, `epilogue.cuh`): a thread reads its vector's row's;
 //   - every vector leaves in one 16-byte store; a row whose byte length is
 //     not a multiple of 16, or its partial last vector, takes per-element
 //     stores, and a word row whose stride is not 16-byte aligned takes
@@ -98,7 +106,7 @@ unpack_tiled(const uint32_t* __restrict__ words, int64_t nw,
   load_tile(s, rw, nw, wb, static_cast<int>(wl - wb), vec);
   __syncthreads();
 
-  const epi::Store<O> st(ea);
+  const epi::Store<O> st(ea, row);
   const uint32_t mask = field_mask(bits);
   const bool aligned = ((static_cast<int64_t>(chunk_elems) * OS) & 15) == 0;
   uint8_t* orow = static_cast<uint8_t*>(out) +
@@ -135,8 +143,9 @@ __host__ __device__ constexpr int fast_vpt(int words) {
 
 template <typename O, int BITS>
 __global__ void __launch_bounds__(kThreads)
-unpack_fast(const uint32_t* __restrict__ words, int64_t nw, int chunk_elems,
-            int tiles_per_row, void* __restrict__ out, epi::Args ea) {
+unpack_fast(const uint32_t* __restrict__ words, int64_t n, int64_t nw,
+            int chunk_elems, int tiles_per_row, int rows_per_block,
+            void* __restrict__ out, epi::Args ea) {
   constexpr int OS = sizeof(O);
   constexpr int kE = 16 / OS;
   constexpr int kSpan = kE * BITS;                  // bits a vector
@@ -144,17 +153,39 @@ unpack_fast(const uint32_t* __restrict__ words, int64_t nw, int chunk_elems,
   constexpr int kVpt = fast_vpt(kWords);
   constexpr uint32_t kMask = BITS >= 32 ? 0xFFFFFFFFu : (1u << BITS) - 1u;
   static_assert(32 % BITS == 0 && kSpan >= 16, "fast path geometry");
-  const uint32_t row = blockIdx.x / static_cast<uint32_t>(tiles_per_row);
-  const uint32_t tile = blockIdx.x - row * tiles_per_row;
-  const uint32_t* rw = words + static_cast<int64_t>(row) * nw;
+  // each of the thread's vectors: its row and first element (chunk_elems
+  // or more: no vector)
+  int64_t vrow[kVpt];
+  uint32_t ve0[kVpt];
+  if (rows_per_block == 1) {
+    const uint32_t row = blockIdx.x / static_cast<uint32_t>(tiles_per_row);
+    const uint32_t tile = blockIdx.x - row * tiles_per_row;
+#pragma unroll
+    for (int j = 0; j < kVpt; ++j) {
+      vrow[j] = row;
+      ve0[j] = ((tile * kVpt + j) * kThreads + threadIdx.x) * kE;
+    }
+  } else {
+    const uint32_t vpr = (chunk_elems + kE - 1) / kE;   // vectors a row
+#pragma unroll
+    for (int j = 0; j < kVpt; ++j) {
+      const uint32_t g = j * kThreads + threadIdx.x;
+      const uint32_t r = g / vpr;
+      vrow[j] = static_cast<int64_t>(blockIdx.x) * rows_per_block + r;
+      ve0[j] = r < static_cast<uint32_t>(rows_per_block) && vrow[j] < n
+                   ? (g - r * vpr) * kE
+                   : static_cast<uint32_t>(chunk_elems);
+    }
+  }
   const bool vec = (nw & 3) == 0 &&
                    (reinterpret_cast<uintptr_t>(words) & 15) == 0;
   // every vector's words first, so all of a thread's loads are in flight
   uint32_t w[kVpt][kWords];
 #pragma unroll
   for (int j = 0; j < kVpt; ++j) {
-    const uint32_t e0 = ((tile * kVpt + j) * kThreads + threadIdx.x) * kE;
-    const uint64_t bit0 = static_cast<uint64_t>(e0) * BITS;
+    if (ve0[j] >= static_cast<uint32_t>(chunk_elems)) continue;
+    const uint32_t* rw = words + vrow[j] * nw;
+    const uint64_t bit0 = static_cast<uint64_t>(ve0[j]) * BITS;
     const int64_t w0 = static_cast<int64_t>(bit0 >> 5);
     const bool direct = vec && w0 + kWords <= nw;
     if constexpr (kWords >= 4) {
@@ -179,14 +210,18 @@ unpack_fast(const uint32_t* __restrict__ words, int64_t nw, int chunk_elems,
     }
     if (kSpan < 32) w[j][0] >>= (bit0 & 31);        // a half word
   }
-  const epi::Store<O> st(ea);
+  // the operands of the thread's first row (a slot past the table's last
+  // row reads the last row's, and stores nothing); rows that share a block
+  // read their own where an operand has one a row
+  epi::Store<O> st(ea, vrow[0] < n ? vrow[0] : n - 1);
+  const bool per_vector = rows_per_block > 1 && epi::Store<O>::by_row(ea);
   const bool aligned = ((static_cast<int64_t>(chunk_elems) * OS) & 15) == 0;
-  uint8_t* orow = static_cast<uint8_t*>(out) +
-                  static_cast<int64_t>(row) * chunk_elems * OS;
 #pragma unroll
   for (int j = 0; j < kVpt; ++j) {
-    const uint32_t e0 = ((tile * kVpt + j) * kThreads + threadIdx.x) * kE;
-    if (e0 >= static_cast<uint32_t>(chunk_elems)) break;
+    const uint32_t e0 = ve0[j];
+    if (e0 >= static_cast<uint32_t>(chunk_elems)) continue;
+    if (per_vector) st.set_row(ea, vrow[j]);
+    uint8_t* orow = static_cast<uint8_t*>(out) + vrow[j] * chunk_elems * OS;
     uint32_t pk[4] = {0, 0, 0, 0};
 #pragma unroll
     for (int k = 0; k < kE; ++k) {
@@ -209,25 +244,31 @@ int fast_bits(int bits, int os) {
 // Launch the kernel for this geometry; cudaErrorInvalidValue where the
 // geometry is not one this source launches.
 template <typename O>
-int launch(const void* words, int64_t nw, int chunk_elems, int bits,
-           int tiles_per_row, int vpt, unsigned blocks, void* out,
-           const epi::Args& ea, cudaStream_t s) {
+int launch(const void* words, int64_t n, int64_t nw, int chunk_elems,
+           int bits, int tiles_per_row, int vpt, int rows_per_block,
+           unsigned blocks, void* out, const epi::Args& ea, cudaStream_t s) {
   constexpr int OS = sizeof(O);
   const auto* w = static_cast<const uint32_t*>(words);
+  const int64_t row_vectors = (chunk_elems + 16 / OS - 1) / (16 / OS);
   switch (fast_bits(bits, OS)) {
 #define CODAG_FAST(B)                                                        \
   case B:                                                                    \
     if constexpr ((16 / OS) * B >= 16) {                                     \
       constexpr int kWords = (16 / OS) * B >= 32 ? (16 / OS) * B / 32 : 1;   \
       if (vpt != fast_vpt(kWords)) break; /* not the caller's geometry */    \
-      unpack_fast<O, B><<<blocks, kThreads, 0, s>>>(w, nw, chunk_elems,      \
-                                                    tiles_per_row, out, ea); \
+      if (rows_per_block > 1 &&                                              \
+          (tiles_per_row != 1 ||                                             \
+           rows_per_block * row_vectors > int64_t{kThreads} * vpt))          \
+        break;                /* the block's slots must hold its rows */     \
+      unpack_fast<O, B><<<blocks, kThreads, 0, s>>>(                         \
+          w, n, nw, chunk_elems, tiles_per_row, rows_per_block, out, ea);    \
     }                                                                        \
     return 0;
     CODAG_FAST(1) CODAG_FAST(2) CODAG_FAST(4) CODAG_FAST(8) CODAG_FAST(16)
     CODAG_FAST(32)
 #undef CODAG_FAST
     default: {
+      if (rows_per_block != 1) break;   // the tiled path takes a row a tile
       const int e = 16 / OS;
       const size_t smem =
           4 * (static_cast<size_t>(kThreads) * vpt * e * bits / 32 + 12);
@@ -243,30 +284,39 @@ int launch(const void* words, int64_t nw, int chunk_elems, int bits,
 }  // namespace
 
 // Unpack n rows of `words` ((n, nw) uint32, row stride nw) into `out`
-// ((n, chunk_elems) of the output type) on `stream`, in n * tiles_per_row
-// blocks of 256 threads, `vpt` 16-byte vectors a thread
-// (`bitpack.launch_geometry`).  `width` is the decoded element's byte
-// width; `out_code` the output dtype's code and `src_code`, `zero`,
-// `zero_code`, `scale`, `scale_code` the epilogue (`epilogue.cuh`; null
-// operands are absent).  Returns the CUDA error of the launch (0 on
-// success).  Allocates nothing and does not synchronise.
+// ((n, chunk_elems) of the output type) on `stream`, in
+// ceil(n / rows_per_block) * tiles_per_row blocks of 256 threads, `vpt`
+// 16-byte vectors a thread (`bitpack.launch_geometry`; rows_per_block > 1
+// only on the fast path, with one tile a row).  `width` is the decoded
+// element's byte width; `out_code` the output dtype's code and `src_code`,
+// `zero`, `zero_code`, `scale`, `scale_code`, `zero_stride`, `scale_stride`
+// the epilogue (`epilogue.cuh`; null operands are absent, a stride of 1
+// reads one operand a chunk row).  Returns the CUDA error of the launch (0
+// on success).  Allocates nothing and does not synchronise.
 extern "C" int codag_bitpack_unpack(int width, const void* words, int64_t n,
                                     int64_t nw, int64_t chunk_elems, int bits,
-                                    int64_t tiles_per_row, int vpt, void* out,
+                                    int64_t tiles_per_row, int vpt,
+                                    int rows_per_block, void* out,
                                     int out_code, int src_code,
                                     const void* zero, int zero_code,
                                     const void* scale, int scale_code,
+                                    int64_t zero_stride, int64_t scale_stride,
                                     void* stream) {
   if (n <= 0 || chunk_elems <= 0) return 0;
-  const int64_t blocks = n * tiles_per_row;
+  if (rows_per_block < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks =
+      (n + rows_per_block - 1) / rows_per_block * tiles_per_row;
   if (nw <= 0 || bits < 1 || bits > 32 || chunk_elems > 0x3FFFFFFF ||
       tiles_per_row <= 0 || blocks > 0x7FFFFFFF || vpt < 1 || vpt > 4 ||
+      zero_stride < 0 || scale_stride < 0 ||
       (width != 1 && width != 2 && width != 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  const epi::Args ea{src_code, zero, zero_code, scale, scale_code};
-  return EPI_DISPATCH(out_code, launch, words, nw,
+  epi::Args ea{src_code, zero, zero_code, scale, scale_code};
+  ea.zero_stride = zero_stride;
+  ea.scale_stride = scale_stride;
+  return EPI_DISPATCH(out_code, launch, words, n, nw,
                       static_cast<int>(chunk_elems), bits,
-                      static_cast<int>(tiles_per_row), vpt,
+                      static_cast<int>(tiles_per_row), vpt, rows_per_block,
                       static_cast<unsigned>(blocks), out, ea,
                       static_cast<cudaStream_t>(stream));
 }

@@ -22,9 +22,11 @@
 //      FMA).  bf16 and fp16: each op in float32, rounded to O after it, as
 //      torch computes them in its float "opmath" type.  Integers: mod
 //      2^(8 * sizeof(O)), as torch's integer ops wrap.
-// The zero and scale operands are single-element device tensors, read once
-// a thread through a pointer and a dtype code, and cast to O as torch's
-// `.to(O)` casts them.
+// The zero and scale operands are device tensors read through a pointer, a
+// dtype code and a row stride: one element for the whole table (stride 0),
+// or one a chunk row (stride 1: an (n_chunks, 1) operand, a kernel that
+// declares it, bitpack's), each read once a thread for the row it stores and
+// cast to O as torch's `.to(O)` casts it.
 #pragma once
 
 #include <cstdint>
@@ -43,14 +45,32 @@ enum Code : int {
 
 // What the host passes: the source code (the raw width's unsigned code, or
 // the view dtype's), and each operand as a device pointer (null: absent)
-// with its dtype code.
+// with its dtype code and its stride in elements from one chunk row's value
+// to the next (0: one value for every row; a kernel that is not given a row
+// reads row 0).
 struct Args {
   int src;
   const void* zero;
   int zero_code;
   const void* scale;
   int scale_code;
+  int64_t zero_stride = 0;
+  int64_t scale_stride = 0;
 };
+
+// Bytes of an element of dtype `code`
+__host__ __device__ __forceinline__ int code_size(int code) {
+  return code == kI64 || code == kF64 ? 8
+         : code == kU32 || code == kI32 || code == kF32 ? 4
+         : code == kU16 || code == kI16 || code == kBF16 || code == kF16 ? 2
+         : 1;
+}
+
+// Row `row`'s element of an operand of dtype `code` and row stride `stride`
+__device__ __forceinline__ const void* row_elem(const void* p, int code,
+                                                int64_t stride, int64_t row) {
+  return static_cast<const char*>(p) + row * stride * code_size(code);
+}
 
 template <typename O> struct Traits;
 template <> struct Traits<uint8_t> { static constexpr bool kFloat = false; };
@@ -150,12 +170,13 @@ struct Store {
   uint32_t z, s;  // the operands, O's bits
   float zf, sf;   // a float O: the operands as float32 (exact)
 
-  __device__ __forceinline__ explicit Store(const Args& a)
+  // the epilogue of chunk row `row` (its operands' values where they have
+  // one a row)
+  __device__ __forceinline__ explicit Store(const Args& a, int64_t row = 0)
       : src(a.src), zero(a.zero != nullptr), scale(a.scale != nullptr),
         ident(false), same(false), fsrc(false), sgn(false), big(false),
         shl(0), z(0), s(1), zf(0.0f), sf(1.0f) {
-    if (zero) z = operand<O>(a.zero, a.zero_code);
-    if (scale) s = operand<O>(a.scale, a.scale_code);
+    set_row(a, row);
     const int size = src <= kI8 ? 1 : src <= kI16 ? 2 : 4;
     fsrc = src == kF32 || src == kBF16 || src == kF16;
     sgn = src == kI8 || src == kI16 || src == kI32;
@@ -163,10 +184,28 @@ struct Store {
     shl = 32 - 8 * size;
     if constexpr (Traits<O>::kFloat) {
       same = src == Traits<O>::kCode;
-      zf = widen<O>(z);
-      sf = widen<O>(s);
     } else {
       ident = !zero && !scale && size == static_cast<int>(sizeof(O));
+    }
+  }
+
+  // Whether the operands differ from row to row
+  static __device__ __forceinline__ bool by_row(const Args& a) {
+    return (a.zero != nullptr && a.zero_stride != 0) ||
+           (a.scale != nullptr && a.scale_stride != 0);
+  }
+
+  // Read chunk row `row`'s operands
+  __device__ __forceinline__ void set_row(const Args& a, int64_t row) {
+    if (zero)
+      z = operand<O>(row_elem(a.zero, a.zero_code, a.zero_stride, row),
+                     a.zero_code);
+    if (scale)
+      s = operand<O>(row_elem(a.scale, a.scale_code, a.scale_stride, row),
+                     a.scale_code);
+    if constexpr (Traits<O>::kFloat) {
+      zf = widen<O>(z);
+      sf = widen<O>(s);
     }
   }
 

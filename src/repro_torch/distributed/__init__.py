@@ -1,1 +1,2 @@
-# Distribution layer: fault tolerance (sharding and collectives: ROADMAP.md Queue 1 item 11).
+# Distribution layer: fault tolerance, the mesh-free sharding context and the
+# single-device gradient wire (meshes and collectives: ROADMAP.md Queue 1 item 11).

@@ -17,7 +17,9 @@ width type):
   * ``cuda``   — :func:`decode`, which launches ``csrc/bitpack_unpack.cu``
     on a CUDA tensor (or raises) and runs :func:`unpack` on a CPU tensor;
     it applies a fused epilogue (``harness.FusedEpilogue``) in the kernel's
-    stores, or after :func:`unpack` on the CPU.
+    stores, or after :func:`unpack` on the CPU; its zero and scale may be
+    one value a chunk row (``(n, 1)``: the int8 gradient wire's per-block
+    scale, ``DecodeSpec.row_operands``).
 
 As in the reference, lanes at or past ``out_len`` are not zeroed: they
 unpack whatever bits lie there, which are the row's zero padding.
@@ -37,10 +39,11 @@ from repro_torch.core import registry
 from repro_torch.core import streams as st
 from repro_torch.kernels import cuda_build, harness, scalar
 
-# (width, words, n, W, chunk_elems, bits, tiles_per_row, vpt, out,
-#  out_code, src_code, zero, zero_code, scale, scale_code, stream)
+# (width, words, n, W, chunk_elems, bits, tiles_per_row, vpt,
+#  rows_per_block, out, out_code, src_code, zero, zero_code, scale,
+#  scale_code, zero_stride, scale_stride, stream)
 LIB = cuda_build.KernelLibrary(
-    "bitpack_unpack.cu", "codag_bitpack_unpack", "iplllilipiipipip")
+    "bitpack_unpack.cu", "codag_bitpack_unpack", "ipllliliipiipipillp")
 
 THREADS = 256          # a block: 256 threads of 16-byte output vectors
 
@@ -100,15 +103,18 @@ def unpack_scalar(words: torch.Tensor, out_lens: torch.Tensor, *,
 class Geometry:
     """One launch's shape: ``vec_elems`` output elements a vector (16
     bytes), ``vpt`` vectors a thread, ``tiles_per_row`` blocks of
-    :data:`THREADS` threads a row, ``blocks`` in all; ``fast`` where
-    ``bits`` divides 32 and a vector spans >= 16 bits (the kernel's
-    ``unpack_fast``; otherwise ``unpack_tiled``)."""
+    :data:`THREADS` threads a row, or ``rows_per_block`` whole rows a block
+    (short rows on the fast path), ``blocks`` in all over ``rows`` rows;
+    ``fast`` where ``bits`` divides 32 and a vector spans >= 16 bits (the
+    kernel's ``unpack_fast``; otherwise ``unpack_tiled``)."""
 
     vec_elems: int
     vpt: int
     tiles_per_row: int
     blocks: int
     fast: bool
+    rows_per_block: int = 1
+    rows: int = 0
 
 
 # The tiled path's vectors a thread, a launch-time argument of the kernel
@@ -123,7 +129,9 @@ def launch_geometry(n: int, chunk_elems: int, bits: int,
     ``out_size`` bytes.  A thread takes up to 4 vectors: on the fast path as
     many as keep its words in 16 registers, on the tiled one ``vpt`` if
     given, else as many as keep a block's words in 32 KiB of shared
-    memory."""
+    memory.  On the fast path a row that fills at most half of a block's
+    vector slots shares its block with the next rows (the int8 gradient
+    wire's 128-element rows: 32 rows a block)."""
     vec = 16 // out_size
     fast = 32 % bits == 0 and vec * bits >= 16
     if fast:
@@ -136,18 +144,31 @@ def launch_geometry(n: int, chunk_elems: int, bits: int,
     else:
         vpt = max(1, min(4, 8192 // (THREADS * vec * bits // 32)))
     tiles = -(-chunk_elems // (THREADS * vpt * vec))
-    return Geometry(vec, vpt, tiles, n * tiles, fast)
+    rpb = 1
+    row_vectors = -(-chunk_elems // vec)
+    if fast and 2 * row_vectors <= THREADS * vpt:
+        rpb = THREADS * vpt // row_vectors
+    return Geometry(vec, vpt, tiles, -(-n // rpb) * tiles, fast, rpb, n)
 
 
 def thread_elems(geom: Geometry, chunk_elems: int, block: int,
                  thread: int):
     """[(row, first, end)] of the output elements thread ``thread`` of block
-    ``block`` writes, one entry a vector, as the kernel maps them (end ==
-    first: none)."""
-    row, tile = divmod(block, geom.tiles_per_row)
+    ``block`` writes, one entry a vector, as the kernel maps them (none
+    where end == first)."""
     spans = []
     for j in range(geom.vpt):
-        first = ((tile * geom.vpt + j) * THREADS + thread) * geom.vec_elems
+        if geom.rows_per_block == 1:
+            row, tile = divmod(block, geom.tiles_per_row)
+            first = ((tile * geom.vpt + j) * THREADS + thread) \
+                * geom.vec_elems
+        else:
+            row_vectors = -(-chunk_elems // geom.vec_elems)
+            r, v = divmod(j * THREADS + thread, row_vectors)
+            row = block * geom.rows_per_block + r
+            first = v * geom.vec_elems
+            if r >= geom.rows_per_block or row >= geom.rows:
+                row, first = 0, chunk_elems
         first = min(first, chunk_elems)
         spans.append((row, first, min(first + geom.vec_elems, chunk_elems)))
     return spans
@@ -183,14 +204,17 @@ def decode(words: torch.Tensor, *, chunk_elems: int, width: int, bits: int,
     if words.device.type != "cuda":
         raise ValueError(f"no kernel for device {words.device}")
     n = words.shape[0]
-    _, dtype, epi = harness.launch_store(epilogue, harness.DEV_DTYPE[width])
+    fused, dtype, epi = harness.launch_store(epilogue,
+                                             harness.DEV_DTYPE[width])
     out = torch.empty((n, chunk_elems), dtype=dtype, device=words.device)
     if n == 0:
         return harness.finish_store(out, epilogue)
     geom = launch_geometry(n, chunk_elems, bits, out.element_size(), vpt)
+    strides = (0, 0) if fused is None else fused.row_strides()
     cuda_build.launch_on(words.device, LIB, width, words.data_ptr(), n,
                          words.shape[1], chunk_elems, bits,
-                         geom.tiles_per_row, geom.vpt, out.data_ptr(), *epi)
+                         geom.tiles_per_row, geom.vpt, geom.rows_per_block,
+                         out.data_ptr(), *epi, *strides)
     LAUNCHES += 1
     return harness.finish_store(out, epilogue)
 
@@ -237,7 +261,7 @@ CODEC = registry.register(registry.Codec(
         body=_body, body_scalar=_body_scalar, body_oracle=_body_oracle,
         cuda=_kernel, scalar=_scalar_kernel,
         chunk_inputs=harness.words_inputs,
-        fuses_epilogue=True, tunables=(VPT,)),
+        fuses_epilogue=True, row_operands=True, tunables=(VPT,)),
     needs_words=True,
     shared_extras=("bitpack_bits",),
     static_bits=lambda blob: int(blob.extras["bitpack_bits"][0]),

@@ -258,7 +258,8 @@ _FLOATS = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
 class FusedEpilogue:
     """An epilogue a kernel applies in its stores (``csrc/epilogue.cuh``):
     ``src`` is the dtype the decoded value is read as, ``dtype`` the output
-    dtype, ``zero`` / ``scale`` the single-element operands (or None)."""
+    dtype, ``zero`` / ``scale`` the operands (or None): single-element, or
+    ``(n_chunks, 1)``, one a chunk row, for a spec with ``row_operands``."""
 
     epilogue: Epilogue
     src: torch.dtype
@@ -274,6 +275,13 @@ class FusedEpilogue:
             ops += [None, 0] if t is None else [t.data_ptr(),
                                                 DTYPE_CODES[t.dtype]]
         return (DTYPE_CODES[self.dtype], DTYPE_CODES[self.src], *ops)
+
+    def row_strides(self) -> tuple:
+        """``(zero_stride, scale_stride)`` in elements from one chunk row's
+        operand to the next: 0 for a single value (or none), 1 for one a
+        row."""
+        return tuple(int(t is not None and t.numel() > 1)
+                     for t in (self.zero, self.scale))
 
     def apply_plain(self, out: torch.Tensor) -> torch.Tensor:
         """The plain version: :meth:`Epilogue.apply` on the decoded matrix."""
@@ -335,27 +343,33 @@ def _fused_dtypes(epilogue: Epilogue, width: int):
     return src, out
 
 
-def fused_epilogue(epilogue: Epilogue, dev: Dict[str, Any],
-                   width: int) -> Optional[FusedEpilogue]:
+def fused_epilogue(epilogue: Epilogue, dev: Dict[str, Any], width: int,
+                   row_operands: bool = False) -> Optional[FusedEpilogue]:
     """The epilogue as a kernel applies it in its stores, or None where it
     must run as torch ops after the decode.  It fuses when it has no ``fn``;
     ``view_dtype`` keeps the itemsize; the output dtype is one of
     :data:`FUSED_OUTS` (a float is never cast to an integer); and ``zero``
-    and ``scale`` are single-element tensors (at most 2-d, so they broadcast
-    to the chunk matrix without growing it) on the table's device.  The
-    choice depends on the epilogue and its operands alone."""
+    and ``scale`` are tensors on the table's device that are single-element
+    (at most 2-d, so they broadcast to the chunk matrix without growing it)
+    or, where the kernel reads one a row (``row_operands``, the spec's
+    :attr:`DecodeSpec.row_operands`), contiguous ``(n_chunks, 1)``: one value
+    a chunk row, as :meth:`Epilogue.apply` broadcasts it.  The choice
+    depends on the epilogue and its operands alone."""
     dtypes = _fused_dtypes(epilogue, width)
     if dtypes is None:
         return None
     src, out = dtypes
     device = dev["out_lens"].device
+    rows = tuple(dev["out_lens"].shape[:1]) + (1,)
     operands = []
     for key in (epilogue.zero_key, epilogue.scale_key):
         t = None if key is None else dev[key]
         if t is not None and not (
-                isinstance(t, torch.Tensor) and t.numel() == 1
-                and t.dim() <= 2 and t.device == device
-                and t.dtype in DTYPE_CODES
+                isinstance(t, torch.Tensor)
+                and ((t.numel() == 1 and t.dim() <= 2)
+                     or (row_operands and tuple(t.shape) == rows
+                         and t.is_contiguous()))
+                and t.device == device and t.dtype in DTYPE_CODES
                 and (out in _FLOATS or t.dtype not in _FLOATS)):
             return None
         operands.append(t)
@@ -411,7 +425,9 @@ class DecodeSpec:
     ``fuses_epilogue`` has a ``cuda`` wrapper that also takes
     ``epilogue=`` (a :class:`FusedEpilogue`), applied in the kernel's stores
     on a card and by :meth:`FusedEpilogue.apply_plain` on the CPU.  The
-    ``cuda`` wrapper also takes each of ``tunables`` by name.  ``scalar``
+    ``cuda`` wrapper also takes each of ``tunables`` by name.  A spec with
+    ``row_operands`` also fuses a zero or scale of one value a chunk row
+    (``(n_chunks, 1)``; :func:`fused_epilogue`).  ``scalar``
     is the single-thread kernel's wrapper: it launches
     ``csrc/scalar_decode.cu`` on a card and runs ``body_scalar`` on the CPU.
     """
@@ -427,6 +443,8 @@ class DecodeSpec:
     # ``cuda`` takes ``epilogue=`` (a :class:`FusedEpilogue`) and applies it
     # in the kernel's stores
     fuses_epilogue: bool = False
+    # the kernel also reads a zero / scale of one value a chunk row
+    row_operands: bool = False
     scalar: Optional[BodyFn] = None  # the single-thread kernel's wrapper
     tunables: Tuple[Tunable, ...] = ()
 
@@ -514,7 +532,7 @@ def run(spec: DecodeSpec, dev: Dict[str, Any], *, width: int,
         kw.update(knobs)
     fused = None
     if epilogue is not None and backend == "cuda" and spec.fuses_epilogue:
-        fused = fused_epilogue(epilogue, dev, width)
+        fused = fused_epilogue(epilogue, dev, width, spec.row_operands)
     if fused is not None:
         EPILOGUE_FUSED += 1
         kw["epilogue"] = fused

@@ -1,0 +1,193 @@
+"""Training entry point on one device: the compressed data pipeline and the
+fault-tolerant loop.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
+        --preset tiny --steps 50 --batch 4 --seq 128 [--device cpu] \\
+        [--grad-int8] [--compress-moments] [--spill-dir DIR] \\
+        [--fail-at 12 --ckpt-every 5] [--n-layers N]
+
+The counterpart of ``repro/launch/train.py``'s single-device path: token
+shards compressed with a registry codec (rle_v2 by default) and decoded on
+the device by the loader (``data/pipeline.py``; ``--spill-dir`` pages them
+through the tiered blob store), AdamW (``--compress-moments``: int8
+moments), checkpoints and restarts (``distributed/fault.py``; ``--fail-at``
+injects failures), and ``--grad-int8``: every gradient leaf through the
+int8 bitpack wire and back through ``plan.dispatch``, one fused bitpack
+launch a leaf on a card (``distributed/collectives.py``).  ``--device``
+defaults to ``cuda``, which must exist; ``--n-layers`` cuts a preset's depth
+(widths unchanged).  ``--diloco`` (multi-pod training)
+needs a mesh and raises (ROADMAP.md Queue 1 item 11).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch, reduced
+from repro_torch.core.engine import CodagEngine, EngineConfig, resolve_device
+from repro_torch.data import pipeline
+from repro_torch.distributed import fault
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import model
+from repro_torch.optim import adamw
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--preset", choices=("tiny", "small", "100m", "full"),
+                    default="tiny")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--codec", default="rle_v2")
+    ap.add_argument("--spill-dir", default=None,
+                    help="route token shards through the tiered blob store "
+                         "(disk-backed, demand-paged) instead of host RAM")
+    ap.add_argument("--fail-at", type=int, nargs="*", default=[])
+    ap.add_argument("--grad-int8", action="store_true",
+                    help="push gradients through the int8 bitpack wire + "
+                         "DecodePlan decode (collectives.make_wire_compressor)")
+    ap.add_argument("--compress-moments", action="store_true")
+    ap.add_argument("--diloco", type=int, default=0, metavar="N_PODS",
+                    help="DiLoCo multi-pod training (needs a mesh: not "
+                         "ported yet, so its outer-sync flags are not "
+                         "taken either)")
+    ap.add_argument("--compile-cache", nargs="?", const=True, default=None,
+                    metavar="DIR",
+                    help="persistent kernel-library cache (optional dir; "
+                         "default dir when given bare)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu for a CPU run)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the preset's depth to this many layers "
+                         "(widths unchanged)")
+    return ap
+
+
+def _resolve_cfg(args):
+    cfg = _preset_cfg(args)
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    return cfg
+
+
+def _preset_cfg(args):
+    base = get_arch(args.arch)
+    if args.preset == "tiny":
+        return reduced(base)
+    if args.preset == "small":
+        return reduced(base, n_layers=4, d_model=256, vocab=2048)
+    if args.preset == "100m":
+        return dataclasses.replace(
+            reduced(base, n_layers=12, d_model=768, vocab=32768, d_ff=2304),
+            dtype="float32")
+    return base
+
+
+def _build_loader(args, cfg, device: torch.device):
+    """The reference's corpus and store; shards decode on ``device`` and
+    the batches are tensors there."""
+    corpus = pipeline.synthetic_corpus(
+        max(args.batch * args.seq * 8, 1 << 18), cfg.vocab)
+    store = pipeline.CompressedTokenStore.build(
+        corpus, cfg.vocab, codec=args.codec, spill_dir=args.spill_dir)
+    print(f"token store: {store.num_shards} shards, "
+          f"compression ratio {store.ratio:.3f} ({args.codec}"
+          f"{', spilled' if args.spill_dir else ''})")
+    engine = CodagEngine(EngineConfig(device=str(device)))
+    return pipeline.CompressedLoader(store, args.batch, args.seq,
+                                     engine=engine, device_out=True)
+
+
+def _run_single(args, cfg, loader, device: torch.device,
+                params=None) -> dict:
+    opt_cfg = adamw.AdamWConfig(lr=args.lr,
+                                compress_moments=args.compress_moments)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = model.init_params(cfg, gen, device=device)
+    opt_state = adamw.init(params, opt_cfg)
+    if args.grad_int8:
+        from repro_torch.distributed import collectives
+        compressor = collectives.make_wire_compressor(
+            EngineConfig(device=str(device)))
+    else:
+        compressor = None
+    train_step = steps_lib.build_train_step(cfg, opt_cfg,
+                                            grad_compressor=compressor)
+
+    def step_fn(state, batch):
+        params, opt_state = state
+        params, opt_state, loss = train_step(params, opt_state, batch)
+        if device.type == "cuda":     # the monitor times the whole step
+            torch.cuda.synchronize(device)
+        return (params, opt_state), loss
+
+    injector = fault.FailureInjector(args.fail_at) if args.fail_at else None
+    monitor = fault.StepMonitor()
+    runner = fault.FaultTolerantRunner(
+        step_fn, args.ckpt_dir, ckpt_every=args.ckpt_every, monitor=monitor,
+        injector=injector)
+
+    t0 = time.time()
+    (params, opt_state), report = runner.run(
+        (params, opt_state), iter(loader), args.steps)
+    dt = time.time() - t0
+    return {"losses": report.losses, "seconds": dt,
+            "steps_done": report.steps_done, "restarts": report.restarts,
+            "stragglers": report.stragglers,
+            "tokens_per_step": args.batch * args.seq,
+            "step_seconds": [r.seconds for r in monitor.records],
+            "state": (params, opt_state)}
+
+
+def run_training(args, params=None) -> dict:
+    """Drive one training run; returns a metrics dict (losses, timings,
+    the final state).  ``params`` (the model's tree on the device)
+    replaces the random init, e.g. weights carried across from the JAX
+    package."""
+    if args.diloco:
+        raise NotImplementedError(
+            "--diloco trains pods over a mesh, not ported yet (ROADMAP.md "
+            "Queue 1 item 11)")
+    if args.compile_cache:
+        from repro_torch.core import tuning
+        path = tuning.enable_compile_cache(
+            None if args.compile_cache is True else args.compile_cache)
+        print(f"compile cache: {path}")
+    device = resolve_device(args.device)
+    cfg = _resolve_cfg(args)
+    print(f"arch={cfg.name} preset={args.preset} device={device} "
+          f"params~{cfg.param_count()/1e6:.1f}M")
+    loader = _build_loader(args, cfg, device)
+    return _run_single(args, cfg, loader, device, params)
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    m = run_training(args)
+    losses, dt = m["losses"], m["seconds"]
+    print(f"done: {m['steps_done']} steps in {dt:.1f}s "
+          f"({m['tokens_per_step'] * len(losses) / dt:.0f} tok/s), "
+          f"restarts={m['restarts']} stragglers={m['stragglers']}")
+    k = max(1, len(losses) // 10)
+    print(f"loss: first10={np.mean(losses[:k]):.4f} "
+          f"last10={np.mean(losses[-k:]):.4f}")
+    if not np.mean(losses[-k:]) < np.mean(losses[:k]):
+        raise RuntimeError("loss did not improve")
+    print("OK")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,107 @@
+"""AdamW with optional int8 block-quantized moments.
+
+The counterpart of ``repro/optim/adamw.py``: moments stored as int8 with a
+float32 scale a block of ``QBLOCK`` (the second moment in the sqrt domain)
+and dequantized on use, in the reference's order of float32 operations;
+``torch.round`` rounds half to even, as ``jnp.round`` does.  The state is
+``{"step": int32 0-d tensor, "m": tree, "v": tree}`` on the parameters'
+device, each moment a float32 tensor or ``{"q": int8 (nb, QBLOCK), "s":
+float32 (nb, 1)}``: the reference's tree, so a checkpoint of either has the
+same leaves (``models.model.params_from_numpy`` carries one across).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.core.tree import leaves, map_tree
+
+QBLOCK = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    compress_moments: bool = False   # int8 + per-block scale
+
+
+def _quantize(x: torch.Tensor, sqrt_domain: bool = False):
+    """int8 block quantization; the second moment in the sqrt domain."""
+    flat = x.reshape(-1)
+    if sqrt_domain:
+        flat = torch.sqrt(torch.clamp(flat, min=0.0))
+    pad = (-flat.shape[0]) % QBLOCK
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    blocks = flat.reshape(-1, QBLOCK)
+    scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return q, scale.float()
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, shape,
+                sqrt_domain: bool = False) -> torch.Tensor:
+    flat = (q.float() * scale).reshape(-1)
+    if sqrt_domain:
+        flat = torch.square(flat)
+    n = 1
+    for s in shape:
+        n *= s
+    return flat[:n].reshape(shape)
+
+
+def init(params, cfg: AdamWConfig) -> Dict[str, Any]:
+    def zeros_like_moment(p):
+        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        if cfg.compress_moments:
+            q, s = _quantize(z)
+            return {"q": q, "s": s}
+        return z
+
+    device = next(leaves(params)).device
+    return {"step": torch.zeros((), dtype=torch.int32, device=device),
+            "m": map_tree(zeros_like_moment, params),
+            "v": map_tree(zeros_like_moment, params)}   # sqrt-domain int8
+
+
+@torch.no_grad()
+def apply(params, grads, state, cfg: AdamWConfig):
+    """One AdamW update: ``(new_params, new_state)``; nothing is updated in
+    place."""
+    step = state["step"] + 1
+    stepf = step.float()
+    b1c = 1.0 - torch.pow(cfg.b1, stepf)
+    b2c = 1.0 - torch.pow(cfg.b2, stepf)
+
+    def upd(p, g, m, v):
+        g = g.float()
+        if cfg.compress_moments:
+            m_f = _dequantize(m["q"], m["s"], p.shape)
+            v_f = _dequantize(v["q"], v["s"], p.shape, sqrt_domain=True)
+        else:
+            m_f, v_f = m, v
+        m_f = cfg.b1 * m_f + (1 - cfg.b1) * g
+        v_f = cfg.b2 * v_f + (1 - cfg.b2) * torch.square(g)
+        mh = m_f / b1c
+        vh = v_f / b2c
+        p32 = p.float()
+        p32 = p32 - cfg.lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                              + cfg.weight_decay * p32)
+        if cfg.compress_moments:
+            qm, sm = _quantize(m_f)
+            qv, sv = _quantize(v_f, sqrt_domain=True)
+            return p32.to(p.dtype), {"q": qm, "s": sm}, {"q": qv, "s": sv}
+        return p32.to(p.dtype), m_f, v_f
+
+    # the parameters' structure leads: a compressed moment's {"q", "s"}
+    # reaches ``upd`` whole, and each leaf of ``out`` is a (p, m, v) tuple
+    out = map_tree(upd, params, grads, state["m"], state["v"])
+    new_p, new_m, new_v = (map_tree(lambda o, i=i: o[i], out)
+                           for i in range(3))
+    return new_p, {"step": step, "m": new_m, "v": new_v}

@@ -770,3 +770,154 @@ def test_runner_restarts_on_the_card(card, tmp_path):
         assert torch.equal(w, saved[step])
     assert cuda_rle.CODEC_LAUNCHES["rle_v2"] - before >= 2
     assert state["w"].device.type == "cuda"
+
+
+# --------------------------------------------------------------------------
+# the per-row epilogue operand, the gradient wire, the model on the card
+# --------------------------------------------------------------------------
+
+
+def _wire_rows(n, chunk, bits, device, seed=0):
+    """A bitpack table of ``n`` rows of ``chunk`` ``bits``-bit values made
+    on ``device`` (``bits`` dividing 32; else packed by the host encoder),
+    with a float32 scale a row (``(n, 1)``) and a zero."""
+    from repro_torch.distributed import collectives
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = torch.randint(0, 1 << bits, (n, chunk), generator=g, device=device,
+                      dtype=torch.int32)
+    if 32 % bits:
+        words = torch.from_numpy(np.stack([
+            enc.pack_bits(r, bits) for r in u.cpu().numpy()])).to(device)
+    else:
+        words = collectives.pack_bits_rows(u, bits)
+    dev = collectives.wire_dev(words, chunk_elems=chunk, bits=bits)
+    dev["s"] = torch.rand((n, 1), generator=g, device=device) * 1e-2
+    dev["z"] = torch.full((), 127.0, device=device)
+    return dev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["row", "one"])
+@pytest.mark.parametrize("rows", [1, 7, 6_400_000])
+def test_per_row_fused_epilogue_equals_plain_then_apply_on_the_card(
+        card, rows, operand):
+    """The gradient wire's decode, ``(u8 - 127) * s`` to float32 with ``s``
+    of shape ``(n, 1)`` or ``(1,)``, is one fused ``bitpack_unpack``
+    launch equal bit for bit to the plain bitpack body followed by
+    ``Epilogue.apply``; 6.4 M rows is a 4-layer full-width qwen3-1.7B
+    step's gradient."""
+    dev = _wire_rows(rows, 128, 8, card)
+    if operand == "one":
+        dev["s"] = dev["s"][:1, 0].contiguous()
+    epi = harness.Epilogue(out_dtype="float32", scale_key="s", zero_key="z")
+    before = (bitpack.LAUNCHES, harness.EPILOGUE_FUSED,
+              harness.EPILOGUE_UNFUSED)
+    got = ops.decode(dev, codec="bitpack", width=1, chunk_elems=128,
+                     backend="cuda", bits=8, epilogue=epi)
+    torch.cuda.synchronize()
+    assert (bitpack.LAUNCHES - before[0], harness.EPILOGUE_FUSED - before[1],
+            harness.EPILOGUE_UNFUSED - before[2]) == (1, 1, 0)
+    want = epi.apply(bitpack.unpack(dev["comp_words"], chunk_elems=128,
+                                    width=1, bits=8), dev)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,bits,width,out", [
+    (100, 8, 1, "float32"),     # rows share a block, a partial last vector
+    (1000, 9, 2, "float32"),    # the tiled path, a row a block
+    (65536, 4, 1, "bfloat16"),  # the weight layout, tiles of one row
+    (8, 1, 1, "float16")])      # one vector a row
+def test_per_row_operands_at_other_geometries_on_the_card(card, chunk, bits,
+                                                          width, out):
+    dev = _wire_rows(37, chunk, bits, card, seed=chunk)
+    epi = harness.Epilogue(out_dtype=out, scale_key="s", zero_key="z")
+    before = bitpack.LAUNCHES
+    got = ops.decode(dev, codec="bitpack", width=width, chunk_elems=chunk,
+                     backend="cuda", bits=bits, epilogue=epi)
+    torch.cuda.synchronize()
+    assert bitpack.LAUNCHES == before + 1
+    want = epi.apply(bitpack.unpack(dev["comp_words"], chunk_elems=chunk,
+                                    width=width, bits=bits), dev)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_row_operand_on_another_kernel_is_unfused_on_the_card(card):
+    """rle_v2 reads no per-row operand: it decodes, then the epilogue runs
+    as torch ops, counted in ``EPILOGUE_UNFUSED``, with the same values."""
+    rng = np.random.default_rng(3)
+    table = enc.compress(rng.integers(0, 6, 20000).astype(np.uint8),
+                         "rle_v2", 1024)
+    dev, bits = ops.table_inputs(table, card)
+    dev["s"] = torch.rand((table.num_chunks, 1), device=card)
+    epi = harness.Epilogue(out_dtype="float32", scale_key="s")
+    before = (harness.EPILOGUE_FUSED, harness.EPILOGUE_UNFUSED)
+    got = ops.decode(dev, codec="rle_v2", width=1,
+                     chunk_elems=table.chunk_elems, backend="cuda", bits=bits,
+                     epilogue=epi)
+    raw = ops.decode(dev, codec="rle_v2", width=1,
+                     chunk_elems=table.chunk_elems, backend="cuda", bits=bits)
+    torch.cuda.synchronize()
+    assert (harness.EPILOGUE_FUSED - before[0],
+            harness.EPILOGUE_UNFUSED - before[1]) == (0, 1)
+    assert torch.equal(got, raw.to(torch.float32) * dev["s"])
+
+
+@pytest.mark.cuda
+def test_wire_compressor_on_the_card(card):
+    """One fused ``bitpack_unpack`` launch a leaf of a block or more,
+    equal bit for bit to ``quantize_grads``; bf16 leaves stay bf16."""
+    from repro_torch.distributed import collectives
+    from repro_torch.optim import grad_compress as gc
+    g = torch.Generator(device=card).manual_seed(1)
+    grads = {"a": torch.randn((3000, 257), generator=g, device=card),
+             "b": {"c": torch.randn((6, 2048), generator=g,
+                                    device=card).to(torch.bfloat16),
+                   "d": torch.randn((100,), generator=g, device=card)}}
+    before = (bitpack.LAUNCHES, harness.EPILOGUE_UNFUSED)
+    got = collectives.make_wire_compressor()(grads)
+    torch.cuda.synchronize()
+    assert (bitpack.LAUNCHES - before[0],
+            harness.EPILOGUE_UNFUSED - before[1]) == (2, 0)
+    want = gc.quantize_grads(grads)
+    assert torch.equal(got["a"], want["a"])
+    assert got["b"]["c"].dtype == torch.bfloat16
+    assert torch.equal(got["b"]["c"], want["b"]["c"])
+    assert got["b"]["d"] is grads["b"]["d"]
+
+
+@pytest.mark.cuda
+def test_model_on_the_card_equals_the_cpu(card):
+    """qwen3-1.7B at full width, 2 layers, float32 with TF32 off: the
+    port's ``forward`` and ``loss_fn`` on the card equal the same on the
+    CPU, on the same weights, within rtol=1e-3, atol=1e-3 (float32 sums in
+    another order; the head sums over 2,048 products)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import map_tree
+    from repro_torch.models import model
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b"), n_layers=2,
+                              dtype="float32")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = model.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+        gpu = map_tree(lambda t: t.to(card), cpu)
+        rng = np.random.default_rng(0)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(
+            np.int32))
+        lab = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(
+            np.int32))
+        with torch.no_grad():
+            want = model.forward(cfg, cpu, tok)
+            got = model.forward(cfg, gpu, tok.to(card))
+            lw = model.loss_fn(cfg, cpu, tok, lab)
+            lg = model.loss_fn(cfg, gpu, tok.to(card), lab.to(card))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(lg.cpu(), lw, rtol=1e-3, atol=1e-3)

@@ -205,7 +205,10 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"tdeflate.py", "bitpack.py", "dbp.py", "cuda_build.py",
             "huffman.py", "lzss.py", "dequant_matmul.py", "batch.py",
             "server.py", "store.py", "tuning.py", "scalar.py",
-            "checkpoint.py", "pipeline.py", "fault.py"} <= names
+            "checkpoint.py", "pipeline.py", "fault.py", "base.py",
+            "qwen3_1b7.py", "layers.py", "attention.py", "model.py",
+            "adamw.py", "grad_compress.py", "sharding.py", "collectives.py",
+            "steps.py", "serve.py", "train.py"} <= names
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
@@ -224,7 +227,13 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.core.batch, repro_torch.core.server, "
         "repro_torch.core.store, repro_torch.core.tuning, "
         "repro_torch.kernels.scalar, repro_torch.checkpoint.checkpoint, "
-        "repro_torch.data.pipeline, repro_torch.distributed.fault\n"
+        "repro_torch.data.pipeline, repro_torch.distributed.fault, "
+        "repro_torch.configs, repro_torch.models.layers, "
+        "repro_torch.models.attention, repro_torch.models.model, "
+        "repro_torch.optim.adamw, repro_torch.optim.grad_compress, "
+        "repro_torch.distributed.sharding, "
+        "repro_torch.distributed.collectives, repro_torch.launch.steps, "
+        "repro_torch.launch.serve, repro_torch.launch.train\n"
         "from repro_torch.core import registry\n"
         "for c in ('rle_v1', 'rle_v2', 'tdeflate', 'bitpack', 'dbp', "
         "'huffman', 'lzss'):\n"

@@ -267,12 +267,20 @@ def test_header_arithmetic_equals_epilogue_apply(out, view):
     (2, 3000, 32, 1),       # fast path, 16 words a vector: one a thread
     (1, 5000, 31, 1),       # tiled path, a tile capped at 32 KiB
     (0, 64, 7, 1),          # no rows
+    (7, 128, 8, 4),         # the int8 gradient wire: rows share a block
+    (70, 128, 8, 4),        # ... 32 rows a block, a partial last block
+    (5, 100, 8, 1),         # short rows with a partial last vector
+    (3, 8, 1, 1),           # one vector a row
 ])
 def test_bitpack_geometry_covers_every_element_once(n, chunk_elems, bits,
                                                     out_size):
     geom = bitpack.launch_geometry(n, chunk_elems, bits, out_size)
     assert geom.vec_elems * out_size == 16 and 1 <= geom.vpt <= 4
-    assert geom.blocks == n * geom.tiles_per_row
+    assert geom.blocks == -(-n // geom.rows_per_block) * geom.tiles_per_row
+    if geom.rows_per_block > 1:   # whole rows share a block's slots
+        assert geom.fast and geom.tiles_per_row == 1
+        assert geom.rows_per_block * -(-chunk_elems // geom.vec_elems) <= \
+            bitpack.THREADS * geom.vpt
     assert geom.fast == (32 % bits == 0 and geom.vec_elems * bits >= 16)
     if not geom.fast:   # the block's words fit the kernel's 48 KiB
         assert 4 * (bitpack.THREADS * geom.vpt * geom.vec_elems * bits // 32

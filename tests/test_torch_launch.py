@@ -1,0 +1,158 @@
+"""The port's launch layer (``launch/{steps,serve,train}.py``) held to the
+JAX package's entry points on the CPU, on the same corpus and weights (the
+reference's ``init_params(cfg, key(0))``, carried across by
+``params_from_numpy``).
+
+Training losses within ``rtol=1e-4`` of the reference's ``run_training`` (float32
+sums in another order); greedy serving tokens equal.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.launch import serve as rserve
+from repro.launch import steps as rsteps
+from repro.launch import train as rtrain
+from repro.models import model as rmodel
+from repro_torch.kernels import harness, ops
+from repro_torch.launch import serve, steps, train
+from repro_torch.models import model
+
+
+def _carried(rcfg):
+    rp = rmodel.init_params(rcfg, jax.random.key(0))
+    return rp, model.params_from_numpy(jax.tree.map(np.asarray, rp), "cpu")
+
+
+def test_training_run_matches_the_reference_run(tmp_path):
+    """Three steps of the ``tiny`` preset with ``--grad-int8
+    --compress-moments``: the same losses; every step's gradient leaves
+    each go through one bitpack wire decode with the dequant epilogue
+    fused, and the loader's shards through the rle_v2 decode."""
+    flags = ["--preset", "tiny", "--steps", "3", "--batch", "2", "--seq",
+             "64", "--grad-int8", "--compress-moments"]
+    rargs = rtrain.build_parser().parse_args(
+        flags + ["--ckpt-dir", str(tmp_path / "ref")])
+    want = rtrain.run_training(rargs)
+    _, params = _carried(rtrain._resolve_cfg(rargs))
+    before = (harness.EPILOGUE_FUSED, harness.EPILOGUE_UNFUSED)
+    args = train.build_parser().parse_args(
+        flags + ["--ckpt-dir", str(tmp_path / "port"), "--device", "cpu"])
+    with ops.count_dispatches() as calls:
+        got = train.run_training(args, params=params)
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
+    assert got["steps_done"] == 3 and got["restarts"] == 0
+    # olmo's non-parametric norms are empty leaves: below one block, they
+    # pass the wire by
+    n_wire = sum(t.numel() >= 128 for t in jax.tree.leaves(params))
+    assert n_wire == 8
+    wire = [c for c in calls if c["codec"] == "bitpack"]
+    assert len(wire) == 3 * n_wire
+    assert all(c["bits"] == 8 and c["chunk_elems"] == 128 for c in wire)
+    assert harness.EPILOGUE_UNFUSED == before[1]
+    assert harness.EPILOGUE_FUSED - before[0] == 3 * n_wire
+    assert any(c["codec"] == "rle_v2" for c in calls)
+
+
+def test_training_restarts_from_a_checkpoint_and_spills(tmp_path):
+    """The reference system test's case on the port: a failure at step 7
+    with checkpoints every 5 steps is one restart, and the loss falls;
+    shards paged through the tiered store (``--spill-dir``)."""
+    args = train.build_parser().parse_args(
+        ["--arch", "qwen3-1.7b", "--preset", "tiny", "--steps", "12",
+         "--batch", "2", "--seq", "64", "--ckpt-dir", str(tmp_path / "ck"),
+         "--ckpt-every", "5", "--fail-at", "7", "--spill-dir",
+         str(tmp_path / "spill"), "--device", "cpu", "--lr", "1e-2"])
+    m = train.run_training(args)
+    assert m["restarts"] == 1 and m["steps_done"] == 12
+    assert len(m["losses"]) == 12 + 2          # steps 5 and 6 ran twice
+    assert np.mean(m["losses"][-2:]) < np.mean(m["losses"][:2])
+    assert (tmp_path / "ck" / "step_10" / "manifest.json").exists()
+    params, opt = m["state"]
+    assert int(opt["step"]) == 12
+    assert all(t.device.type == "cpu" for t in jax.tree.leaves(params))
+
+
+def test_train_main_prints_ok(tmp_path, capsys):
+    train.main(["--preset", "tiny", "--steps", "4", "--batch", "2", "--seq",
+                "32", "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "OK" in out and "compression ratio" in out
+
+
+def test_diloco_and_mesh_steps_raise_naming_the_roadmap_item(tmp_path):
+    args = train.build_parser().parse_args(
+        ["--diloco", "2", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        train.run_training(args)
+    cfg = train._resolve_cfg(args)
+    for call in (lambda: steps.build_pod_inner_step(cfg),
+                 lambda: steps.batch_shardings(cfg, None, None),
+                 lambda: steps.train_shardings(cfg, None, None),
+                 lambda: steps.serve_shardings(cfg, None, None)):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            call()
+
+
+def test_entry_points_need_a_card_by_default(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.run_training(train.build_parser().parse_args(
+            ["--ckpt-dir", str(tmp_path)]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--batch", "1", "--prompt-len", "2", "--gen", "1"])
+
+
+def test_serving_matches_the_reference_loop(capsys):
+    """The ``tiny`` serve run's greedy tokens equal the reference's on
+    the same weights and prompts (the reference's loop: its
+    ``prefill_into_cache``, then argmax decode)."""
+    argv = ["--arch", "qwen3-1.7b", "--preset", "tiny", "--batch", "3",
+            "--prompt-len", "12", "--gen", "10"]
+    args = serve.build_parser().parse_args(argv + ["--device", "cpu"])
+    cfg = serve.resolve_cfg(args)
+    rcfg = rtrain._resolve_cfg(rtrain.build_parser().parse_args(
+        ["--arch", "qwen3-1.7b", "--preset", "tiny"]))
+    rp, params = _carried(rcfg)
+    got = serve.run_serving(args, params=params)
+    prompts = jnp.asarray(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 12)), jnp.int32)
+    logits, cache = rserve.prefill_into_cache(
+        rcfg, rp, rmodel.init_cache(rcfg, 3, 12 + 10 + 8), prompts)
+    cur = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    want = []
+    for _ in range(10):
+        want.append(np.asarray(cur))
+        logits, cache = rmodel.decode_step(rcfg, rp, cache, cur)
+        cur = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    np.testing.assert_array_equal(got["tokens"], np.concatenate(want, 1))
+    np.testing.assert_allclose(got["logits"].numpy(), np.asarray(logits),
+                               rtol=2e-4, atol=2e-4)
+    serve.main(argv + ["--device", "cpu"])
+    assert "OK" in capsys.readouterr().out
+
+
+def test_prefill_and_serve_steps_match_the_reference():
+    rcfg = rtrain._resolve_cfg(rtrain.build_parser().parse_args(
+        ["--arch", "minitron-4b", "--preset", "tiny"]))
+    cfg = train._resolve_cfg(train.build_parser().parse_args(
+        ["--arch", "minitron-4b", "--preset", "tiny"]))
+    rp, params = _carried(rcfg)
+    tok = np.random.default_rng(8).integers(0, cfg.vocab, (2, 9)).astype(
+        np.int32)
+    want = rsteps.build_prefill_step(rcfg)(rp, {"tokens": jnp.asarray(tok)})
+    got = steps.build_prefill_step(cfg)(params,
+                                        {"tokens": torch.from_numpy(tok)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+    cache = model.init_cache(cfg, 2, 4, device="cpu")
+    rcache = rmodel.init_cache(rcfg, 2, 4)
+    lg, cache = steps.build_serve_step(cfg)(
+        params, cache, {"tokens": torch.from_numpy(tok[:, :1])})
+    rlg, _ = rsteps.build_serve_step(rcfg)(rp, rcache,
+                                           {"tokens": jnp.asarray(tok[:, :1])})
+    np.testing.assert_allclose(lg.numpy(), np.asarray(rlg), rtol=2e-4,
+                               atol=2e-4)
+    assert cache["pos"] == 1
