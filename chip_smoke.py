@@ -151,9 +151,13 @@ line):
          restart restored on the card, one fused ``bitpack_unpack`` launch
          a gradient leaf a step (the wire's per-row scale in its stores;
          the first step's each equal to the plain body + ``Epilogue.apply``
-         bit for bit), rle_v2 launches from the loader; step ms beside
-         6 N T FLOP at the bf16 peak, and one step's wire decode, device
-         time, beside its bytes bound;
+         bit for bit), rle_v2 launches from the loader, each equal to
+         the plain rle_v2 body on its inputs bit for bit, and every batch
+         the driver drew equal to the corpus it built; step ms beside
+         ``train_step_bound`` (the matmuls at 6 FLOP a parameter a token,
+         the embedding table gathered, plus causal attention, at the bf16
+         peak), and one step's wire decode, device time, beside its bytes
+         bound;
        - (c) 2 layers at full width in float32, TF32 off: ``forward`` and
          ``loss_fn`` on the card equal the same on the CPU on the same
          weights (rtol = atol = 1e-3);
@@ -2342,6 +2346,27 @@ TRAIN_LR = 1e-5
 MODEL_TOL = 1e-3                   # (c): card against CPU, float32, no TF32
 
 
+def train_step_bound(cfg, batch: int, seq: int, param_bytes: int):
+    """The least time of one training step on this card, in ms, what bounds
+    it, and its FLOP and bytes.  Operations: the matmuls at 6 FLOP a
+    parameter a token (forward and backward; an untied embedding table is
+    gathered, not multiplied) plus causal attention's scores and weighted
+    sum (3 x 2 x B x H x hd x S(S+1) FLOP a layer, forward and backward),
+    at the bf16 peak.  Bytes: every parameter read and written once, with
+    its two int8 moments and their float32 scales (one a block of 128)."""
+    n = cfg.param_count()
+    gathered = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
+    flops = (6 * (n - gathered) * batch * seq
+             + 6 * cfg.n_layers * batch * cfg.n_heads * cfg.hd * seq
+             * (seq + 1))
+    nbytes = 2 * n * (param_bytes + 2 * (1 + 4 / 128))
+    flop_ms = flops / BF16_FLOPS * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    if flop_ms >= byte_ms:
+        return flop_ms, "operations", flops, nbytes
+    return byte_ms, "bytes", flops, nbytes
+
+
 def phase_model(args, engine, counters):
     """Phase 11: qwen3-1.7B served at full width and depth, a 4-layer
     full-width training run through the loader, the int8 gradient wire and
@@ -2350,8 +2375,9 @@ def phase_model(args, engine, counters):
     import gc
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.configs import get_arch, reduced
-    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import plan as plan_mod, registry
     from repro_torch.core.tree import leaves as tree_leaves, map_tree
+    from repro_torch.data import pipeline
     from repro_torch.distributed import collectives
     from repro_torch.kernels import bitpack, harness
     from repro_torch.launch import serve, train
@@ -2434,14 +2460,51 @@ def phase_model(args, engine, counters):
     # moments, 12 steps, checkpoints every 5, a failure at step 7
     (ROOT / "build").mkdir(exist_ok=True)
     wire = {"launches": [], "checked": 0, "err": 0, "first": 0}
+    # the loader's decodes, each against the plain rle_v2 body on its
+    # inputs, and its batches against the corpus the driver built
+    shards = {"seen": [], "checked": 0, "err": 0}
+    fed = {"corpus": None, "batches": 0, "bad": None}
     restored = []
     real_dispatch, real_restore = plan_mod.dispatch, ckpt.restore
+    real_corpus, real_loader = pipeline.synthetic_corpus, train._build_loader
     bp = counters["bitpack_unpack"]
     rle = counters[kernel_of("rle_v2")]
+    rle_spec = registry.get("rle_v2").decode
+
+    def spy_corpus(*a, **kw):
+        fed["corpus"] = real_corpus(*a, **kw)
+        return fed["corpus"]
+
+    def checked_batches(loader, vocab, batch, seq):
+        per = batch * seq
+        ref = torch.from_numpy(fed["corpus"].astype(np.int32)).to(device)
+        ref %= vocab
+        fed["bad"] = torch.zeros((), dtype=torch.int64, device=device)
+        for i, b in enumerate(loader):
+            lo = i * per
+            if lo + per + 1 > ref.numel():
+                raise AssertionError(f"train: batch {i} runs past the corpus")
+            for key, off in (("tokens", 0), ("labels", 1)):
+                t = b[key]
+                if t.device != device or t.dtype != torch.int32:
+                    raise AssertionError(f"train: {key} on {t.device}, "
+                                         f"{t.dtype}")
+                fed["bad"] += (t != ref[lo + off:lo + off + per].view(
+                    batch, seq)).sum()
+            fed["batches"] += 1
+            yield b
+
+    def spy_loader(a, cfg, dev):
+        return checked_batches(real_loader(a, cfg, dev), cfg.vocab, a.batch,
+                               a.seq)
 
     def spy_dispatch(dev, **kw):
         before = bp.read()
         res = real_dispatch(dev, **kw)
+        if kw.get("codec") == "rle_v2":
+            # held to the plain body after the run, so the check takes no
+            # time from the steps
+            shards["seen"].append((dev, kw, res.clone()))
         if kw.get("codec") == "bitpack" and "wire_scale" in dev:
             wire["launches"].append(bp.read() - before)
             if wire["checked"] < wire["first"]:
@@ -2475,6 +2538,7 @@ def phase_model(args, engine, counters):
             reduced(tcfg), torch.Generator(), device="cpu"))))
         unfused = harness.EPILOGUE_UNFUSED
         plan_mod.dispatch, ckpt.restore = spy_dispatch, spy_restore
+        pipeline.synthetic_corpus, train._build_loader = spy_corpus, spy_loader
         try:
             bp.reset()
             rle.reset()
@@ -2483,6 +2547,22 @@ def phase_model(args, engine, counters):
             run_s = time.perf_counter() - t0
         finally:
             plan_mod.dispatch, ckpt.restore = real_dispatch, real_restore
+            pipeline.synthetic_corpus = real_corpus
+            train._build_loader = real_loader
+        for dev, kw, res in shards.pop("seen"):
+            lens = dev["out_lens"]
+            plain = rle_spec.body(
+                rle_spec.chunk_inputs(dev),
+                harness.consts_on(rle_spec, lens.device), lens,
+                chunk_elems=kw["chunk_elems"], width=kw["width"],
+                bits=kw.get("bits", 0))
+            if kw.get("epilogue") is not None:
+                plain = kw["epilogue"].apply(plain, dev)
+            if res.dtype != plain.dtype or res.numel() != plain.numel() or \
+                    not torch.equal(bit_view(res).reshape(-1),
+                                    bit_view(plain).reshape(-1)):
+                shards["err"] += 1
+            shards["checked"] += 1
         train_launches = {"bitpack_unpack": bp.read(),
                           kernel_of("rle_v2"): rle.read()}
         params, opt_state = m["state"]
@@ -2511,11 +2591,21 @@ def phase_model(args, engine, counters):
                         "differ from the plain body + Epilogue.apply")
     if train_launches[kernel_of("rle_v2")] < 1:
         problems.append("the loader launched no rle_v2 decode")
+    if shards["err"] or shards["checked"] != train_launches[kernel_of("rle_v2")]:
+        problems.append(f"{shards['err']} of {shards['checked']} rle_v2 "
+                        "decodes differ from the plain body, or not every "
+                        "launch was checked")
+    drawn = steps_run + m["restarts"]     # a failed step drew its batch
+    if fed["batches"] != drawn or fed["bad"] is None or int(fed["bad"]):
+        problems.append(f"{fed['batches']} batches for {drawn} draws, "
+                        f"{None if fed['bad'] is None else int(fed['bad'])} "
+                        "tokens differ from the corpus")
     if problems:
         raise AssertionError("train: " + "; ".join(problems))
     tokens = targs.batch * targs.seq
     step_s = float(np.median(m["step_seconds"]))
-    flop_ms = 6 * tcfg.param_count() * tokens / BF16_FLOPS * 1e3
+    step_bound, step_by, step_flops, step_bytes = train_step_bound(
+        tcfg, targs.batch, targs.seq, params["embed"].element_size())
     log(f"   (b) train: {tcfg.n_layers} layers at full width "
         f"({tcfg.param_count() / 1e6:.1f} M parameters), batch "
         f"{targs.batch} x seq {targs.seq}, --grad-int8 --compress-moments, "
@@ -2528,11 +2618,20 @@ def phase_model(args, engine, counters):
         f"steps run = {n_wire * steps_run} bitpack_unpack launches, one a "
         f"leaf a step, every one fused (EPILOGUE_UNFUSED unchanged); the "
         f"first step's {wire['checked']} wire decodes == plain bitpack body "
-        f"+ Epilogue.apply bit for bit")
+        f"+ Epilogue.apply bit for bit; the loader's {shards['checked']} "
+        f"rle_v2 decodes == the plain rle_v2 body bit for bit, its "
+        f"{fed['batches']} batches == the corpus")
+    gathered = 0 if tcfg.tie_embeddings else tcfg.vocab * tcfg.d_model
     log(f"   step {step_s * 1e3:.2f} ms (median of {len(m['step_seconds'])}"
         f", host clock, synchronised) = {tokens / step_s:.0f} tokens/s; "
-        f"bound 6 x {tcfg.param_count() / 1e6:.1f} M x {tokens} FLOP at "
-        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s = {flop_ms:.2f} ms")
+        f"bound {step_bound:.2f} ms by {step_by}: "
+        f"{step_flops / 1e12:.2f} TFLOP (6 x ({tcfg.param_count() / 1e6:.1f}"
+        f" M - {gathered / 1e6:.1f} M gathered embedding) x {tokens} + "
+        f"causal attention) at {BF16_FLOPS / 1e12:.0f} TFLOP/s = "
+        f"{step_flops / BF16_FLOPS * 1e3:.2f} ms, {step_bytes / 1e9:.2f} GB "
+        f"(parameters and int8 moments read and written) = "
+        f"{step_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms; the step "
+        f"{step_s * 1e3 / step_bound:.1f}x its bound")
     # the wire decode of one step's leaves, its device time: the final
     # parameters stand in for gradients of the same shapes
     tables = []

@@ -96,6 +96,52 @@ def test_adamw_state_carries_across():
         assert np.asarray(got[k]).dtype == w.dtype
 
 
+def test_int8_moments_blow_up_alike_in_both_packages(tmp_path):
+    """The int8 moments' divergence at the driver's learning rate is the
+    reference's, and this is its cause.  Four steps of ``--preset small``
+    (qwen3, batch 8 x 512, lr 3e-3, ``--grad-int8 --compress-moments``) on
+    the same weights: both packages' losses agree within 1e-4 and both
+    jump at step 4.  Every element that step 4 moves by more than 100 x lr
+    (an Adam update is about lr) had, after step 3, a second moment that
+    dequantizes to 0 (v in the sqrt domain, one scale a block of 128)
+    beside a first moment that does not: its update is ``lr * m / eps``
+    once the int8 wire rounds its gradient to 0."""
+    from repro.launch import train as rtrain
+    from repro.models import model as rmodel
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core.tree import leaves, map_tree
+    from repro_torch.launch import train
+
+    lr = 3e-3
+    flags = ["--arch", "qwen3-1.7b", "--preset", "small", "--steps", "4",
+             "--batch", "8", "--seq", "512", "--lr", str(lr), "--grad-int8",
+             "--compress-moments", "--ckpt-every", "3"]
+    rargs = rtrain.build_parser().parse_args(
+        flags + ["--ckpt-dir", str(tmp_path / "ref")])
+    want = rtrain.run_training(rargs)["losses"]
+    params = model.params_from_numpy(jax.tree.map(np.asarray, (
+        rmodel.init_params(rtrain._resolve_cfg(rargs), jax.random.key(0)))),
+        "cpu")
+    args = train.build_parser().parse_args(
+        flags + ["--ckpt-dir", str(tmp_path / "port"), "--device", "cpu"])
+    m = train.run_training(args, params=params)
+    np.testing.assert_allclose(m["losses"], want, rtol=1e-4)
+    for losses in (want, m["losses"]):
+        assert losses[3] > 10 * losses[2] and losses[2] < losses[0]
+    p4, _ = m["state"]
+    p3, o3 = ckpt.restore(str(tmp_path / "port"), 3, m["state"])
+
+    def jumps(p, q, mo, vo):
+        mf = adamw._dequantize(mo["q"], mo["s"], p.shape)
+        vf = adamw._dequantize(vo["q"], vo["s"], p.shape, sqrt_domain=True)
+        big = (q.float() - p.float()).abs() > 100 * lr
+        assert not (big & ~((vf == 0) & (mf != 0))).any()
+        return int(big.sum())
+
+    jumped = sum(leaves(map_tree(jumps, p3, p4, o3["m"], o3["v"])))
+    assert jumped > 0
+
+
 # --------------------------------------------------------------------------
 # the int8 grid and top-k
 # --------------------------------------------------------------------------
