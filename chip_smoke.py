@@ -9,6 +9,7 @@
                           [--ckpt-layers 4] [--corpus-tokens 16777216]
     python3 chip_smoke.py --stage-only [--src DIR]   # phase 4's build and
                                                      # stage by part, alone
+    python3 chip_smoke.py --families-only            # phases 1, 2 and 12
 
 Phases, each of which must pass (any failure exits non-zero, with no result
 line):
@@ -161,9 +162,28 @@ line):
        - (c) 2 layers at full width in float32, TF32 off: ``forward`` and
          ``loss_fn`` on the card equal the same on the CPU on the same
          weights (rtol = atol = 1e-3);
- 12. a JSON line of the kernels (``consumer_launches``: phase 10's,
-     ``model_launches``: phase 11's), then ``{"ok": true, "device":
-     {...}}`` last.
+ 12. the other families (``models/moe.py``, ``models/ssm.py``), each
+     part's seconds and peak memory printed:
+       - (a)-(c) ``run_serving`` as in 11 (a), at full width: qwen3-moe-
+         235B-A22B cut to 4 layers (``--n-layers``), its check at capacity
+         factor n_experts / top_k (nothing dropped); rwkv6-1.6B (24
+         layers) and zamba2-2.7B (54 Mamba2 layers, the shared block 9
+         times) whole; each step beside ``decode_step_bytes`` (every
+         expert read; the shared block once an application; recurrent
+         states read and written);
+       - (d), (e) ``run_training`` as in 11 (b) without the failure: the
+         MoE at 1 layer (3.73 B parameters, 805 M-element expert leaves on
+         the wire) and zamba2 at 6 layers, 8 x 512, 6 steps at lr 1e-5:
+         the loss falls, every loader decode and batch and the first
+         step's wire decodes (in row slices) held bit for bit, step ms
+         beside ``train_step_bound`` (an MoE token through its top-k
+         experts, the capacity padding's share printed beside it);
+       - (f) float32 on the card against the CPU: rwkv6 (2 layers), zamba2
+         (6 layers, one shared application), qwen3-moe (2 layers, 16
+         experts);
+ 13. a JSON line of the kernels (``consumer_launches``: phase 10's,
+     ``model_launches``: phase 11's, ``family_launches``: phase 12's),
+     then ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  It
 exits non-zero without a card, or without the port's sources beside it.
@@ -2330,7 +2350,7 @@ def phase_consumers(args, engine, counters, server, store_mod):
 
 
 # --------------------------------------------------------------------------
-# phase 11: the model stack on the card
+# phases 11 and 12: the model stack on the card
 # --------------------------------------------------------------------------
 
 # decode-step logits against forward's, bf16 on the card: 8 bf16 ulps at
@@ -2343,57 +2363,124 @@ TRAIN_LAYERS = 4                   # the training run's depth cut (of 28)
 # its gradient to 0), the update is lr * m / eps.  At 3e-5 and above the
 # 12-step run diverges; at this rate its loss falls.
 TRAIN_LR = 1e-5
-MODEL_TOL = 1e-3                   # (c): card against CPU, float32, no TF32
+MODEL_TOL = 1e-3                   # card against CPU, float32, no TF32
+
+# the plain wire decode (the bitpack body, then Epilogue.apply) runs in
+# slices of this many rows of 128: its int64 transients stay ~1 GB on an
+# 805 M-element MoE expert leaf
+WIRE_CHECK_ROWS = 1 << 20
 
 
-def train_step_bound(cfg, batch: int, seq: int, param_bytes: int):
-    """The least time of one training step on this card, in ms, what bounds
-    it, and its FLOP and bytes.  Operations: the matmuls at 6 FLOP a
-    parameter a token (forward and backward; an untied embedding table is
-    gathered, not multiplied) plus causal attention's scores and weighted
-    sum (3 x 2 x B x H x hd x S(S+1) FLOP a layer, forward and backward),
-    at the bf16 peak.  Bytes: every parameter read and written once, with
-    its two int8 moments and their float32 scales (one a block of 128)."""
-    n = cfg.param_count()
-    gathered = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
-    flops = (6 * (n - gathered) * batch * seq
-             + 6 * cfg.n_layers * batch * cfg.n_heads * cfg.hd * seq
-             * (seq + 1))
-    nbytes = 2 * n * (param_bytes + 2 * (1 + 4 / 128))
-    flop_ms = flops / BF16_FLOPS * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    if flop_ms >= byte_ms:
-        return flop_ms, "operations", flops, nbytes
-    return byte_ms, "bytes", flops, nbytes
+def tree_bytes(tree) -> int:
+    from repro_torch.core.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
-def phase_model(args, engine, counters):
-    """Phase 11: qwen3-1.7B served at full width and depth, a 4-layer
-    full-width training run through the loader, the int8 gradient wire and
-    the fault-tolerant runner, and the model on the card against the CPU.
-    Returns the launches by kernel."""
-    import gc
-    from repro_torch.checkpoint import checkpoint as ckpt
-    from repro_torch.configs import get_arch, reduced
-    from repro_torch.core import plan as plan_mod, registry
-    from repro_torch.core.tree import leaves as tree_leaves, map_tree
-    from repro_torch.data import pipeline
-    from repro_torch.distributed import collectives
-    from repro_torch.kernels import bitpack, harness
-    from repro_torch.launch import serve, train
+def shared_apps(cfg) -> int:
+    """Applications of the hybrid's shared block in one pass."""
+    return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+
+
+def decode_step_bytes(cfg, params, cache, batch: int):
+    """The least bytes of one decode step: every block weight and the head
+    read once (an MoE's every expert: each computes its slots; the hybrid's
+    shared block once an application, since its ~210 MB outlive the 50 MB
+    L2), ``batch`` rows of the embedding, the attention caches read whole
+    (every position is scored), the recurrent states read and written.
+    Returns (total, weights, attention caches, recurrent states)."""
+    emb = params["embed"]
+    weights = (tree_bytes(params) - emb.numel() * emb.element_size()
+               + batch * emb.shape[1] * emb.element_size())
+    if shared_apps(cfg):
+        weights += (shared_apps(cfg) - 1) * tree_bytes(params["shared_block"])
+    kv = sum(cache[k].numel() * cache[k].element_size()
+             for k in ("k", "v") if k in cache)
+    state = sum(2 * cache[k].numel() * cache[k].element_size()
+                for k in ("wkv", "x_att", "x_ffn", "ssm", "conv")
+                if k in cache)
+    return weights + kv + state, weights, kv, state
+
+
+class RouteTape:
+    """Records the MoE's top-k routes, or imposes recorded ones, by standing
+    in for ``models.moe.top_k`` (``_dispatch_group`` looks it up at each
+    call).  ``calls``: (router logits, expert ids) a call, in call order:
+    a forward makes one a layer, a decode step one a layer a step."""
+
+    def __init__(self, force=None, n_layers: int = 0):
+        self.force, self.n_layers = force, n_layers
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.real = moe, moe.top_k
+        moe.top_k = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k = self.real
+
+    def __call__(self, logits, k):
+        if self.force is None:
+            vals, ids = self.real(logits, k)
+        else:
+            # decode step i, layer l: the routes forward gave those tokens;
+            # the gates come from this path's own logits at those experts
+            step, layer = divmod(len(self.calls), self.n_layers)
+            ids = self.force[layer][:, step]
+            vals = torch.gather(logits, -1, ids)
+        self.calls.append((logits.detach(), ids))
+        return vals, ids
+
+
+def replay_decode(cfg, params, seq, device, force=None):
+    """``decode_step`` over every position of ``seq`` on a fresh cache:
+    (logits (B, S, V), the routes it took a step a layer).  ``force``:
+    forward's routes by layer, (B, S, K) each, imposed on every step."""
     from repro_torch.models import model
-    from repro_torch.optim import grad_compress as gc_mod
-    log("== 11 the model stack: qwen3-1.7B (hf:Qwen/Qwen3-1.7B) served at "
-        "full width and depth, trained at 4 layers through the int8 "
-        "gradient wire, card against CPU")
-    device = engine.device
-    for c in counters.values():
-        c.reset()
+    B, S = seq.shape
+    cache = model.init_cache(cfg, B, S + 8, device=device)
+    dec = []
+    with RouteTape(force, cfg.n_layers) as tape:
+        for i in range(S):
+            lg, cache = model.decode_step(cfg, params, cache, seq[:, i:i + 1])
+            dec.append(lg)
+    return torch.cat(dec, dim=1), tape.calls
 
-    # (a) serve: 28 layers, bf16, 8 prompts of 64 tokens, 32 greedy tokens
-    sargs = serve.build_parser().parse_args(
-        ["--arch", "qwen3-1.7b", "--preset", "full", "--batch", "8",
-         "--prompt-len", "64", "--gen", "32", "--device", str(device)])
+
+def serve_and_check(label: str, sargs, device, check_cfg=None) -> dict:
+    """``launch.serve.run_serving(sargs)`` timed beside its decode-step
+    bound (``decode_step_bytes``); then ``decode_step`` replayed over every
+    position on a fresh cache against ``forward``'s logits, and the greedy
+    tokens against ``forward``'s argmax wherever its top-2 margin exceeds
+    twice the tolerance (so the two cannot disagree by rounding alone).
+    The tolerance is ``SERVE_TOL`` or, where larger, twice the model's own
+    rounding floor: how far ``forward`` of the first row alone lies from
+    its row of the batched ``forward`` (the same tokens and weights; only
+    the matmuls' shapes, and so their roundings, differ).  Random-weight
+    recurrent stacks amplify bf16 rounding with depth (rwkv6 at 24 layers
+    moves its logits ~0.6 that way), so their bf16 check is this loose;
+    phase 12 (f) holds their decode to ``forward`` in float32.  An MoE
+    keeps ``SERVE_TOL``: its floor holds routes that flip with the batch
+    shape, and its check takes forward's routes (below).  ``check_cfg``: the config of the replay and ``forward`` (an MoE's
+    no-drop capacity), else the served one.
+
+    An MoE's router sees the two paths' bf16 roundings of the same hidden
+    state, so a token whose k-th and (k+1)-th logits nearly tie may take
+    another expert in one path; the change then reaches later layers and,
+    through attention, later positions.  So for an MoE the tolerance holds
+    on a replay that takes forward's routes (every other operation its
+    own), and the free replay's routes are held to the top-k rule: where a
+    (layer, token)'s experts differ from forward's, forward's gap between
+    its k-th and (k+1)-th router logits must be at most twice the largest
+    difference between the two paths' router logits for that token (the
+    most two top-k selections of those logits can differ by).  Returns the
+    run's numbers."""
+    import gc
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     out = serve.run_serving(sargs)
     serve_s = time.perf_counter() - t0
@@ -2401,67 +2488,199 @@ def phase_model(args, engine, counters):
     B, P, G = sargs.batch, sargs.prompt_len, sargs.gen
     n_params = sum(t.numel() for t in tree_leaves(params))
     step_ms = out["decode_s"] / G * 1e3
-    # a decode step reads every block weight and the head, B rows of the
-    # embedding, and the whole cache it scores
-    emb = params["embed"]
-    cache_bytes = sum(out["cache"][k].numel() * out["cache"][k].element_size()
-                      for k in ("k", "v"))
-    step_bytes = (sum(t.numel() * t.element_size()
-                      for t in tree_leaves(params))
-                  - emb.numel() * emb.element_size()
-                  + B * emb.shape[1] * emb.element_size() + cache_bytes)
-    all_bytes = n_params * emb.element_size()
-    log(f"   (a) serve: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads of {cfg.hd}, {cfg.n_kv} KV heads, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab}: {n_params / 1e9:.3f} B parameters "
-        f"in {cfg.dtype}; run_serving {serve_s:.2f} s (init included)")
+    step_bytes, w_bytes, kv_bytes, st_bytes = decode_step_bytes(
+        cfg, params, out["cache"], B)
+    bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"   {label} serve: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.mixer} mixer, vocab {cfg.vocab}: {n_params / 1e9:.3f} B "
+        f"parameters in {cfg.dtype}; run_serving {serve_s:.2f} s (init "
+        f"included)")
     log(f"   prefill (per-token loop) {B}x{P} in {out['prefill_s']:.3f} s; "
         f"decode {B}x{G} in {out['decode_s']:.3f} s = "
         f"{B * G / out['decode_s']:.1f} tok/s, {step_ms:.3f} ms a decode "
-        f"step; weight-read bound {step_bytes / 1e9:.3f} GB a step "
-        f"(blocks, head, {B} embedding rows, the cache) = "
-        f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({all_bytes / 1e9:.2f} "
-        f"GB of all parameters: {all_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
-    # decode-step logits against forward's at every position
+        f"step; bound {step_bytes / 1e9:.3f} GB a step (weights "
+        f"{w_bytes / 1e9:.3f}, attention caches {kv_bytes / 1e9:.3f}, "
+        f"recurrent states read and written {st_bytes / 1e9:.3f}) = "
+        f"{bound:.3f} ms; the step {step_ms / bound:.1f}x its bound")
+    ccfg = check_cfg or cfg
+    t0 = time.perf_counter()
     seq = torch.cat([out["prompts"].to(device),
                      torch.from_numpy(out["tokens"]).to(device)], dim=1)
+    S, L = P + G, ccfg.n_layers
+    notes = ""
     with torch.no_grad():
-        full = model.forward(cfg, params, seq)
-        cache = model.init_cache(cfg, B, P + G + 8, device=device)
-        dec = []
-        for i in range(P + G):
-            lg, cache = model.decode_step(cfg, params, cache, seq[:, i:i + 1])
-            dec.append(lg)
-        dec = torch.cat(dec, dim=1)
+        with RouteTape() as fwd_tape:
+            full = model.forward(ccfg, params, seq)
+        floor = float((model.forward(ccfg, params, seq[:1]).float()
+                       - full[:1].float()).abs().max())
+        # an MoE's floor includes routes that flip between the two batch
+        # shapes; its check replays forward's routes, so it keeps SERVE_TOL
+        tol = SERVE_TOL if ccfg.is_moe else max(SERVE_TOL, 2 * floor)
+        dec, routes = replay_decode(ccfg, params, seq, device)
+        if ccfg.is_moe:
+            K = ccfg.top_k
+            fwd_ids = [ids.view(B, S, K) for _, ids in fwd_tape.calls]
+            free_diff = float((dec.float() - full.float()).abs().max())
+            dec, forced = replay_decode(ccfg, params, seq, device,
+                                        force=fwd_ids)
+            # the router logits of the two paths on the same routes
+            eps = max(float((lg - fwd_tape.calls[i % L][0].view(
+                B, S, -1)[:, i // L]).abs().max())
+                for i, (lg, _) in enumerate(forced))
+            def by_layer(calls, j):       # (L, B, S, ...) from a replay
+                return torch.stack([torch.stack(
+                    [calls[i * L + layer][j] for i in range(S)], dim=1)
+                    for layer in range(L)])
+            got = by_layer(routes, 1)                        # (L, B, S, K)
+            want = torch.stack(fwd_ids)
+            fwd_lg = torch.stack([lg.view(B, S, -1)
+                                  for lg, _ in fwd_tape.calls]).float()
+            # the free replay's router logits against forward's, a token
+            dev_lg = (by_layer(routes, 0).float() - fwd_lg).abs().amax(-1)
+            flipped = (torch.sort(got, -1).values
+                       != torch.sort(want, -1).values).any(-1)
+            top = fwd_lg.topk(K + 1, dim=-1).values
+            gap = top[..., K - 1] - top[..., K]
+            n_flip = int(flipped.sum())
+            share = n_flip / flipped.numel()
+            unexplained = int((flipped & (gap > 2 * dev_lg)).sum())
+            notes = (f"; MoE routes: {n_flip} of {flipped.numel()} "
+                     f"(layer, token) routes differ between the free "
+                     f"replay and forward ({share:.2%}; by layer "
+                     f"{flipped.sum((1, 2)).tolist()}), forward's k-th - "
+                     f"(k+1)-th router-logit gap there median "
+                     f"{float(gap[flipped].median()) if n_flip else 0:.4f}"
+                     f" against the two paths' router-logit difference "
+                     f"there median "
+                     f"{float(dev_lg[flipped].median()) if n_flip else 0:.4f}"
+                     f"; {unexplained} beyond the top-k rule (gap > twice "
+                     f"the difference); the two paths' largest router-logit "
+                     f"difference on the same routes {eps:.4f}; the free "
+                     f"replay's max |diff| {free_diff:.4f}; the tolerance "
+                     f"holds on the replay that takes forward's routes")
+            if unexplained:
+                raise AssertionError(f"{label} serve: {unexplained} MoE "
+                                     f"routes differ from forward's beyond "
+                                     f"the two paths' logit rounding"
+                                     f"{notes}")
         diff = (dec.float() - full.float()).abs()
         top2 = full[:, P - 1:P + G - 1].float().topk(2, dim=-1).values
         margin = top2[..., 0] - top2[..., 1]
         greedy = torch.from_numpy(out["tokens"]).to(device)
         arg = full[:, P - 1:P + G - 1].argmax(-1)
-        sure = margin > 2 * SERVE_TOL
+        sure = margin > 2 * tol
         wrong = int(((arg != greedy) & sure).sum())
         max_d, mean_d = float(diff.max()), float(diff.mean())
+        max_logit = float(full.float().abs().max())
         finite = bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
-    if not finite or max_d > SERVE_TOL or wrong:
-        raise AssertionError(f"serve: finite={finite}, max |decode - forward|"
-                             f" {max_d} (tolerance {SERVE_TOL}), {wrong} "
-                             "greedy tokens differ from forward's argmax")
-    log(f"   decode_step logits == forward's at all {P + G} positions of "
-        f"{B} rows within {SERVE_TOL} (bf16; max |diff| {max_d:.4f}, mean "
-        f"{mean_d:.5f}, max |logit| {float(full.float().abs().max()):.3f}); "
+    check_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    if not finite or max_d > tol or wrong:
+        raise AssertionError(f"{label} serve: finite={finite}, max |decode - "
+                             f"forward| {max_d} (tolerance {tol}: rounding "
+                             f"floor {floor}), {wrong} greedy tokens differ "
+                             f"from forward's argmax{notes}")
+    log(f"   decode_step logits == forward's at all {S} positions of "
+        f"{B} rows within {tol:.4f} ({cfg.dtype}; the rounding floor, row "
+        f"0's forward alone against batched, {floor:.4f}; max |diff| "
+        f"{max_d:.4f}, mean {mean_d:.5f}, max |logit| {max_logit:.3f}); "
         f"greedy tokens == forward's argmax at all {int(sure.sum())} of "
-        f"{B * G} positions whose top-2 margin exceeds {2 * SERVE_TOL} "
-        f"({int((arg == greedy).sum())} of {B * G} equal in all)")
-    del out, params, full, dec, cache, diff, seq
+        f"{B * G} positions whose top-2 margin exceeds {2 * tol:.4f} "
+        f"({int((arg == greedy).sum())} of {B * G} equal in all){notes}; "
+        f"check {check_s:.2f} s; peak memory {peak / 2**30:.2f} GiB")
+    res = {"serve_s": serve_s, "prefill_s": out["prefill_s"],
+           "tok_s": B * G / out["decode_s"], "step_ms": step_ms,
+           "bound_ms": bound, "max_diff": max_d, "floor": floor,
+           "peak_gib": peak / 2**30,
+           "params_b": n_params / 1e9}
+    del out, params, full, dec, diff, seq
     gc.collect()
     torch.cuda.empty_cache()
+    return res
 
-    # (b) train: 4 layers at full width, batch 8 x seq 512, int8 wire and
-    # moments, 12 steps, checkpoints every 5, a failure at step 7
-    (ROOT / "build").mkdir(exist_ok=True)
-    wire = {"launches": [], "checked": 0, "err": 0, "first": 0}
-    # the loader's decodes, each against the plain rle_v2 body on its
-    # inputs, and its batches against the corpus the driver built
+
+def train_step_bound(cfg, params, batch: int, seq: int):
+    """The least time of one training step on this card, in ms, what bounds
+    it, and its FLOP and bytes, from the parameter tree.  Operations: 6
+    FLOP a parameter a token for the matmuls a token passes through
+    (forward and backward; an untied embedding table is gathered, not
+    multiplied; an MoE token through its ``top_k`` experts, not all of
+    them and not the capacity padding; the hybrid's shared block once an
+    application) plus causal attention's scores and weighted sum (3 x 2 x
+    B x H x hd x S(S+1) FLOP an attention layer or application, forward
+    and backward), at the bf16 peak.  Bytes: every parameter read and
+    written once, with its two int8 moments and their float32 scales (one
+    a block of 128), and a recurrent mixer's state read and written once a
+    layer in each of the three passes (forward, the remat recompute,
+    backward)."""
+    from repro_torch.core.tree import leaves
+    n = sum(t.numel() for t in leaves(params))
+    per_token = n - (0 if cfg.tie_embeddings else params["embed"].numel())
+    if cfg.is_moe:
+        moe = params["blocks"]["moe"]
+        experts = sum(moe[k].numel() for k in ("w_up", "w_gate", "w_down"))
+        per_token -= experts - experts * cfg.top_k // cfg.n_experts
+    if shared_apps(cfg):
+        per_token += (shared_apps(cfg) - 1) * sum(
+            t.numel() for t in leaves(params["shared_block"]))
+    attn_layers = (cfg.n_layers if cfg.mixer == "attn"
+                   else shared_apps(cfg))
+    flops = (6 * per_token * batch * seq
+             + 6 * attn_layers * batch * cfg.n_heads * cfg.hd * seq
+             * (seq + 1))
+    param_bytes = params["embed"].element_size()
+    nbytes = 2 * n * (param_bytes + 2 * (1 + 4 / 128))
+    if cfg.mixer == "rwkv6":
+        hd = cfg.d_model // cfg.n_heads
+        nbytes += 3 * 2 * 4 * cfg.n_layers * batch * cfg.n_heads * hd * hd
+    elif cfg.mixer == "mamba2":
+        nbytes += (3 * 2 * 4 * cfg.n_layers * batch
+                   * (2 * cfg.d_model // cfg.hd) * cfg.hd * cfg.ssm_state)
+    flop_ms = flops / BF16_FLOPS * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    if flop_ms >= byte_ms:
+        return flop_ms, "operations", flops, nbytes
+    return byte_ms, "bytes", flops, nbytes
+
+
+def check_wire(dev: dict, kw: dict, res: torch.Tensor) -> bool:
+    """A wire decode (the fused ``bitpack_unpack``) against the plain bitpack
+    body followed by ``Epilogue.apply``, bit for bit, in slices of
+    ``WIRE_CHECK_ROWS`` rows."""
+    from repro_torch.kernels import bitpack
+    words = dev["comp_words"]
+    n = words.shape[0]
+    if res.dtype != torch.float32 or tuple(res.shape) != \
+            (n, kw["chunk_elems"]):
+        return False
+    for s in range(0, n, WIRE_CHECK_ROWS):
+        e = min(s + WIRE_CHECK_ROWS, n)
+        part = {k: v[s:e] if v.dim() and v.shape[0] == n else v
+                for k, v in dev.items()}
+        plain = kw["epilogue"].apply(bitpack.unpack(
+            part["comp_words"], chunk_elems=kw["chunk_elems"], width=1,
+            bits=kw["bits"]), part)
+        if plain.dtype != res.dtype or not torch.equal(res[s:e], plain):
+            return False
+    return True
+
+
+def checked_training(targs, counters, device) -> tuple:
+    """``launch.train.run_training(targs)`` with its kernels held: every
+    rle_v2 decode of the loader against the plain rle_v2 body on its
+    inputs (after the run, so the check takes no time from the steps), every
+    batch against the corpus the driver built, the first step's wire
+    decodes (one a gradient leaf) against the plain bitpack body +
+    ``Epilogue.apply`` (``check_wire``), and each wire decode's launches.
+    Returns (the run's dict, what was checked and launched, the restores),
+    the peak memory of the run in the dict."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import plan as plan_mod, registry
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import harness
+    from repro_torch.launch import train
+    wire = {"launches": [], "checked": 0, "err": 0}
     shards = {"seen": [], "checked": 0, "err": 0}
     fed = {"corpus": None, "batches": 0, "bad": None}
     restored = []
@@ -2502,18 +2721,11 @@ def phase_model(args, engine, counters):
         before = bp.read()
         res = real_dispatch(dev, **kw)
         if kw.get("codec") == "rle_v2":
-            # held to the plain body after the run, so the check takes no
-            # time from the steps
             shards["seen"].append((dev, kw, res.clone()))
         if kw.get("codec") == "bitpack" and "wire_scale" in dev:
             wire["launches"].append(bp.read() - before)
-            if wire["checked"] < wire["first"]:
-                # the first step's wire: kernel == plain body + apply
-                plain = kw["epilogue"].apply(bitpack.unpack(
-                    dev["comp_words"], chunk_elems=kw["chunk_elems"],
-                    width=1, bits=kw["bits"]), dev)
-                if res.dtype != plain.dtype or not torch.equal(res, plain):
-                    wire["err"] += 1
+            if fed["batches"] == 1:        # the first step's decodes
+                wire["err"] += not check_wire(dev, kw, res)
                 wire["checked"] += 1
         return res
 
@@ -2523,75 +2735,67 @@ def phase_model(args, engine, counters):
                          {t.device for t in tree_leaves(res[0])}))
         return res
 
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        targs = train.build_parser().parse_args(
-            ["--arch", "qwen3-1.7b", "--preset", "full", "--n-layers",
-             str(TRAIN_LAYERS), "--batch", "8", "--seq", "512", "--steps",
-             "12", "--lr", str(TRAIN_LR), "--grad-int8",
-             "--compress-moments", "--ckpt-every", "5",
-             "--fail-at", "7", "--ckpt-dir", str(Path(tmp) / "ckpt"),
-             "--device", str(device)])
-        tcfg = train._resolve_cfg(targs)
-        # the first step's wire decodes: one a leaf of the tree (every
-        # qwen3 leaf at full width is a quantization block or more)
-        wire["first"] = len(list(tree_leaves(model.init_params(
-            reduced(tcfg), torch.Generator(), device="cpu"))))
-        unfused = harness.EPILOGUE_UNFUSED
-        plan_mod.dispatch, ckpt.restore = spy_dispatch, spy_restore
-        pipeline.synthetic_corpus, train._build_loader = spy_corpus, spy_loader
-        try:
-            bp.reset()
-            rle.reset()
-            t0 = time.perf_counter()
-            m = train.run_training(targs)
-            run_s = time.perf_counter() - t0
-        finally:
-            plan_mod.dispatch, ckpt.restore = real_dispatch, real_restore
-            pipeline.synthetic_corpus = real_corpus
-            train._build_loader = real_loader
-        for dev, kw, res in shards.pop("seen"):
-            lens = dev["out_lens"]
-            plain = rle_spec.body(
-                rle_spec.chunk_inputs(dev),
-                harness.consts_on(rle_spec, lens.device), lens,
-                chunk_elems=kw["chunk_elems"], width=kw["width"],
-                bits=kw.get("bits", 0))
-            if kw.get("epilogue") is not None:
-                plain = kw["epilogue"].apply(plain, dev)
-            if res.dtype != plain.dtype or res.numel() != plain.numel() or \
-                    not torch.equal(bit_view(res).reshape(-1),
-                                    bit_view(plain).reshape(-1)):
-                shards["err"] += 1
-            shards["checked"] += 1
-        train_launches = {"bitpack_unpack": bp.read(),
-                          kernel_of("rle_v2"): rle.read()}
-        params, opt_state = m["state"]
-    leaves = list(tree_leaves(params))
-    n_wire = sum(t.numel() >= gc_mod.QBLOCK for t in leaves)
+    tcfg = train._resolve_cfg(targs)
+    torch.cuda.reset_peak_memory_stats(device)
+    plan_mod.dispatch, ckpt.restore = spy_dispatch, spy_restore
+    pipeline.synthetic_corpus, train._build_loader = spy_corpus, spy_loader
+    try:
+        bp.reset()
+        rle.reset()
+        t0 = time.perf_counter()
+        m = train.run_training(targs)
+        m["run_s"] = time.perf_counter() - t0
+        m["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    finally:
+        plan_mod.dispatch, ckpt.restore = real_dispatch, real_restore
+        pipeline.synthetic_corpus = real_corpus
+        train._build_loader = real_loader
+    for dev, kw, res in shards.pop("seen"):
+        lens = dev["out_lens"]
+        plain = rle_spec.body(
+            rle_spec.chunk_inputs(dev),
+            harness.consts_on(rle_spec, lens.device), lens,
+            chunk_elems=kw["chunk_elems"], width=kw["width"],
+            bits=kw.get("bits", 0))
+        if kw.get("epilogue") is not None:
+            plain = kw["epilogue"].apply(plain, dev)
+        if res.dtype != plain.dtype or res.numel() != plain.numel() or \
+                not torch.equal(bit_view(res).reshape(-1),
+                                bit_view(plain).reshape(-1)):
+            shards["err"] += 1
+        shards["checked"] += 1
+    launches = {"bitpack_unpack": bp.read(), kernel_of("rle_v2"): rle.read()}
+    return m, {"wire": wire, "shards": shards, "fed": fed,
+               "launches": launches, "cfg": tcfg}, restored
+
+
+def training_problems(m, rec, n_wire: int, unfused: int) -> list:
+    """What failed of ``checked_training``'s checks, for a run of
+    ``n_wire`` wire leaves: one fused wire launch a leaf a step, the first
+    step's decodes equal to the plain version, every loader decode checked
+    and equal, every batch drawn equal to the corpus, and the loss fallen
+    (the mean of the last tenth of the steps below that of the first)."""
+    from repro_torch.kernels import harness
+    wire, shards, fed = rec["wire"], rec["shards"], rec["fed"]
+    launches = rec["launches"]
     steps_run = len(m["losses"])
     losses = m["losses"]
     k = max(1, len(losses) // 10)
-    fell = float(np.mean(losses[-k:])) < float(np.mean(losses[:k]))
     problems = []
-    if not fell:
+    if not float(np.mean(losses[-k:])) < float(np.mean(losses[:k])):
         problems.append(f"loss did not fall: {losses}")
-    if m["restarts"] != 1 or m["steps_done"] != 12:
-        problems.append(f"{m['restarts']} restarts, {m['steps_done']} steps")
-    if [(s, d) for s, d, _ in restored] != [(5, True)] or \
-            restored[0][2] != {device}:
-        problems.append(f"restores {restored}")
     if wire["launches"] != [1] * (n_wire * steps_run) or \
-            train_launches["bitpack_unpack"] != n_wire * steps_run:
-        problems.append(f"wire launches {train_launches['bitpack_unpack']} "
-                        f"for {n_wire} leaves x {steps_run} steps")
+            launches["bitpack_unpack"] != n_wire * steps_run:
+        problems.append(f"wire launches {launches['bitpack_unpack']} for "
+                        f"{n_wire} leaves x {steps_run} steps")
     if harness.EPILOGUE_UNFUSED != unfused:
         problems.append("an unfused wire epilogue")
     if wire["err"] or wire["checked"] != n_wire:
         problems.append(f"{wire['err']} of {wire['checked']} wire decodes "
                         "differ from the plain body + Epilogue.apply")
-    if train_launches[kernel_of("rle_v2")] < 1:
+    if launches[kernel_of("rle_v2")] < 1:
         problems.append("the loader launched no rle_v2 decode")
-    if shards["err"] or shards["checked"] != train_launches[kernel_of("rle_v2")]:
+    if shards["err"] or shards["checked"] != launches[kernel_of("rle_v2")]:
         problems.append(f"{shards['err']} of {shards['checked']} rle_v2 "
                         "decodes differ from the plain body, or not every "
                         "launch was checked")
@@ -2600,40 +2804,112 @@ def phase_model(args, engine, counters):
         problems.append(f"{fed['batches']} batches for {drawn} draws, "
                         f"{None if fed['bad'] is None else int(fed['bad'])} "
                         "tokens differ from the corpus")
-    if problems:
-        raise AssertionError("train: " + "; ".join(problems))
+    return problems
+
+
+def log_training(label: str, m, rec, targs, params) -> None:
+    """Log a ``checked_training`` run: losses, peak memory, the median step
+    beside ``train_step_bound``, launches and what was held."""
+    from repro_torch.core.tree import leaves
+    tcfg = rec["cfg"]
+    losses = m["losses"]
+    k = max(1, len(losses) // 10)
     tokens = targs.batch * targs.seq
     step_s = float(np.median(m["step_seconds"]))
-    step_bound, step_by, step_flops, step_bytes = train_step_bound(
-        tcfg, targs.batch, targs.seq, params["embed"].element_size())
-    log(f"   (b) train: {tcfg.n_layers} layers at full width "
-        f"({tcfg.param_count() / 1e6:.1f} M parameters), batch "
-        f"{targs.batch} x seq {targs.seq}, --grad-int8 --compress-moments, "
-        f"12 steps in {run_s:.2f} s (loader, checkpoints and the restart "
-        f"included); losses {', '.join(f'{x:.4f}' for x in losses)}: "
-        f"first {np.mean(losses[:k]):.4f} -> last {np.mean(losses[-k:]):.4f}")
-    log(f"   restarts {m['restarts']} (failure at step 7), the restore of "
-        f"step {restored[0][0]} on {restored[0][2].pop()} (device_out); "
-        f"launches {train_launches}: {n_wire} wire leaves x {steps_run} "
-        f"steps run = {n_wire * steps_run} bitpack_unpack launches, one a "
-        f"leaf a step, every one fused (EPILOGUE_UNFUSED unchanged); the "
-        f"first step's {wire['checked']} wire decodes == plain bitpack body "
-        f"+ Epilogue.apply bit for bit; the loader's {shards['checked']} "
-        f"rle_v2 decodes == the plain rle_v2 body bit for bit, its "
-        f"{fed['batches']} batches == the corpus")
-    gathered = 0 if tcfg.tie_embeddings else tcfg.vocab * tcfg.d_model
+    bound, by, flops, nbytes = train_step_bound(tcfg, params, targs.batch,
+                                                targs.seq)
+    n = sum(t.numel() for t in leaves(params))
+    log(f"   {label} train: {tcfg.n_layers} layers at full width "
+        f"({n / 1e6:.1f} M parameters), batch {targs.batch} x seq "
+        f"{targs.seq}, --grad-int8 --compress-moments, lr {targs.lr}, "
+        f"{targs.steps} steps in {m['run_s']:.2f} s (loader, init and "
+        f"checkpoints included); losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}: first "
+        f"{np.mean(losses[:k]):.4f} -> last {np.mean(losses[-k:]):.4f}; "
+        f"peak memory {m['peak_gib']:.2f} GiB")
     log(f"   step {step_s * 1e3:.2f} ms (median of {len(m['step_seconds'])}"
         f", host clock, synchronised) = {tokens / step_s:.0f} tokens/s; "
-        f"bound {step_bound:.2f} ms by {step_by}: "
-        f"{step_flops / 1e12:.2f} TFLOP (6 x ({tcfg.param_count() / 1e6:.1f}"
-        f" M - {gathered / 1e6:.1f} M gathered embedding) x {tokens} + "
-        f"causal attention) at {BF16_FLOPS / 1e12:.0f} TFLOP/s = "
-        f"{step_flops / BF16_FLOPS * 1e3:.2f} ms, {step_bytes / 1e9:.2f} GB "
-        f"(parameters and int8 moments read and written) = "
-        f"{step_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms; the step "
-        f"{step_s * 1e3 / step_bound:.1f}x its bound")
-    # the wire decode of one step's leaves, its device time: the final
-    # parameters stand in for gradients of the same shapes
+        f"bound {bound:.2f} ms by {by}: {flops / 1e12:.2f} TFLOP at "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s = {flops / BF16_FLOPS * 1e3:.2f} "
+        f"ms, {nbytes / 1e9:.2f} GB = {nbytes / HBM_BYTES_PER_S * 1e3:.2f} "
+        f"ms (train_step_bound); the step {step_s * 1e3 / bound:.1f}x its "
+        f"bound")
+    wire, shards, fed = rec["wire"], rec["shards"], rec["fed"]
+    log(f"   launches {rec['launches']}: one fused bitpack_unpack a wire "
+        f"leaf a step; the first step's {wire['checked']} wire decodes == "
+        f"plain bitpack body + Epilogue.apply bit for bit (slices of "
+        f"{WIRE_CHECK_ROWS} rows); the loader's {shards['checked']} rle_v2 "
+        f"decodes == the plain rle_v2 body bit for bit, its "
+        f"{fed['batches']} batches == the corpus")
+
+
+def card_vs_cpu(label: str, ccfg, seed: int, device,
+                decode: bool = False) -> float:
+    """``forward`` and ``loss_fn`` of ``ccfg`` (float32) on the card against
+    the same on the CPU on the same weights, TF32 off, within
+    ``MODEL_TOL``; with ``decode``, also ``decode_step`` replayed on the
+    card over the 32 positions against the card's ``forward`` within it.
+    Returns the seconds it took."""
+    import gc
+    from repro_torch.core.tree import map_tree
+    from repro_torch.models import model
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        cpu = model.init_params(ccfg, torch.Generator().manual_seed(seed),
+                                device="cpu")
+        gpu = map_tree(lambda t: t.to(device), cpu)
+        rng = np.random.default_rng(seed)
+        tok = torch.from_numpy(rng.integers(0, ccfg.vocab, (2, 32)).astype(
+            np.int32))
+        lab = torch.from_numpy(rng.integers(0, ccfg.vocab, (2, 32)).astype(
+            np.int32))
+        with torch.no_grad():
+            want = model.forward(ccfg, cpu, tok)
+            got = model.forward(ccfg, gpu, tok.to(device)).cpu()
+            lw = model.loss_fn(ccfg, cpu, tok, lab)
+            lg = model.loss_fn(ccfg, gpu, tok.to(device),
+                               lab.to(device)).cpu()
+            dec_err = 0.0
+            if decode:
+                dec, _ = replay_decode(ccfg, gpu, tok.to(device), device)
+                dec_err = float((dec.cpu() - got).abs().max())
+        took = time.perf_counter() - t0
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, rtol=MODEL_TOL, atol=MODEL_TOL) and \
+        torch.allclose(lg, lw, rtol=MODEL_TOL, atol=MODEL_TOL) and \
+        dec_err <= MODEL_TOL
+    if not ok:
+        raise AssertionError(f"{label} card != CPU: max |logit diff| {err}, "
+                             f"loss {float(lg)} against {float(lw)}, decode "
+                             f"against forward {dec_err}")
+    decoded = (f"; decode_step on the card == its forward within "
+               f"{MODEL_TOL} (max |diff| {dec_err:.2e})" if decode else "")
+    log(f"   {label}: {ccfg.n_layers} layers at full width, float32, TF32 "
+        f"off: forward on {device} == on the CPU within rtol=atol="
+        f"{MODEL_TOL} (max |diff| {err:.2e} over {got.numel()} logits), "
+        f"loss_fn {float(lg):.6f} against {float(lw):.6f}{decoded}; "
+        f"{took:.1f} s")
+    del cpu, gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return took
+
+
+def wire_step_ms(args, engine, leaves) -> None:
+    """One step's wire decode, device time, against its bytes: the given
+    leaves stand in for gradients of the same shapes."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import bitpack, harness
+    from repro_torch.optim import grad_compress as gc_mod
+    device = engine.device
     tables = []
     for t in leaves:
         if t.numel() >= gc_mod.QBLOCK:
@@ -2653,7 +2929,7 @@ def phase_model(args, engine, counters):
                               epilogue=epi)
 
     decode_all()
-    # ~20 ms of device sleep: the 14 launches' host time stays behind it
+    # ~20 ms of device sleep: the launches' host time stays behind it
     wire_ms = device_ms(decode_all, args.reps, sleep_cycles=40_000_000)
     rows = sum(d["comp_words"].shape[0] for d in tables)
     wire_bytes = rows * (4 * 32 + 4 + 4 * gc_mod.QBLOCK)
@@ -2668,52 +2944,206 @@ def phase_model(args, engine, counters):
         f"{wire_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; the plain body + "
         f"apply on the largest leaf ({big['comp_words'].shape[0]} rows) "
         f"{plain_ms:.3f} ms")
-    del m, params, opt_state, leaves, tables
+
+
+def phase_model(args, engine, counters):
+    """Phase 11: qwen3-1.7B served at full width and depth, a 4-layer
+    full-width training run through the loader, the int8 gradient wire and
+    the fault-tolerant runner, and the model on the card against the CPU.
+    Returns the launches by kernel."""
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.kernels import harness
+    from repro_torch.launch import serve, train
+    from repro_torch.optim import grad_compress as gc_mod
+    log("== 11 the model stack: qwen3-1.7B (hf:Qwen/Qwen3-1.7B) served at "
+        "full width and depth, trained at 4 layers through the int8 "
+        "gradient wire, card against CPU")
+    device = engine.device
+    for c in counters.values():
+        c.reset()
+
+    # (a) serve: 28 layers, bf16, 8 prompts of 64 tokens, 32 greedy tokens
+    serve_and_check("(a) qwen3-1.7B", serve.build_parser().parse_args(
+        ["--arch", "qwen3-1.7b", "--preset", "full", "--batch", "8",
+         "--prompt-len", "64", "--gen", "32", "--device", str(device)]),
+        device)
+
+    # (b) train: 4 layers at full width, batch 8 x seq 512, int8 wire and
+    # moments, 12 steps, checkpoints every 5, a failure at step 7
+    (ROOT / "build").mkdir(exist_ok=True)
+    unfused = harness.EPILOGUE_UNFUSED
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        targs = train.build_parser().parse_args(
+            ["--arch", "qwen3-1.7b", "--preset", "full", "--n-layers",
+             str(TRAIN_LAYERS), "--batch", "8", "--seq", "512", "--steps",
+             "12", "--lr", str(TRAIN_LR), "--grad-int8",
+             "--compress-moments", "--ckpt-every", "5",
+             "--fail-at", "7", "--ckpt-dir", str(Path(tmp) / "ckpt"),
+             "--device", str(device)])
+        m, rec, restored = checked_training(targs, counters, device)
+    params, opt_state = m["state"]
+    leaves = list(tree_leaves(params))
+    n_wire = sum(t.numel() >= gc_mod.QBLOCK for t in leaves)
+    problems = training_problems(m, rec, n_wire, unfused)
+    if m["restarts"] != 1 or m["steps_done"] != 12:
+        problems.append(f"{m['restarts']} restarts, {m['steps_done']} steps")
+    if [(s, d) for s, d, _ in restored] != [(5, True)] or \
+            restored[0][2] != {device}:
+        problems.append(f"restores {restored}")
+    if problems:
+        raise AssertionError("train: " + "; ".join(problems))
+    log_training("(b) qwen3-1.7B", m, rec, targs, params)
+    log(f"   restarts {m['restarts']} (failure at step 7), the restore of "
+        f"step {restored[0][0]} on {restored[0][2].pop()} (device_out)")
+    wire_step_ms(args, engine, leaves)
+    train_launches = rec["launches"]
+    del m, params, opt_state, leaves
     gc.collect()
     torch.cuda.empty_cache()
 
     # (c) 2 layers at full width in float32, TF32 off: card == CPU
-    ccfg = dataclasses.replace(get_arch("qwen3-1.7b"), n_layers=2,
-                               dtype="float32")
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        t0 = time.perf_counter()
-        cpu = model.init_params(ccfg, torch.Generator().manual_seed(args.seed),
-                                device="cpu")
-        gpu = map_tree(lambda t: t.to(device), cpu)
-        rng = np.random.default_rng(args.seed)
-        tok = torch.from_numpy(rng.integers(0, ccfg.vocab, (2, 32)).astype(
-            np.int32))
-        lab = torch.from_numpy(rng.integers(0, ccfg.vocab, (2, 32)).astype(
-            np.int32))
-        with torch.no_grad():
-            want = model.forward(ccfg, cpu, tok)
-            got = model.forward(ccfg, gpu, tok.to(device)).cpu()
-            lw = model.loss_fn(ccfg, cpu, tok, lab)
-            lg = model.loss_fn(ccfg, gpu, tok.to(device), lab.to(device)).cpu()
-        c_s = time.perf_counter() - t0
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
-    err = float((got - want).abs().max())
-    ok = torch.allclose(got, want, rtol=MODEL_TOL, atol=MODEL_TOL) and \
-        torch.allclose(lg, lw, rtol=MODEL_TOL, atol=MODEL_TOL)
-    if not ok:
-        raise AssertionError(f"(c) card != CPU: max |logit diff| {err}, loss "
-                             f"{float(lg)} against {float(lw)}")
-    log(f"   (c) 2 layers at full width, float32, TF32 off: forward on "
-        f"{device} == on the CPU within rtol=atol={MODEL_TOL} (max |diff| "
-        f"{err:.2e} over {got.numel()} logits), loss_fn {float(lg):.6f} "
-        f"against {float(lw):.6f}; {c_s:.1f} s")
-    del cpu, gpu
-    gc.collect()
-    torch.cuda.empty_cache()
+    card_vs_cpu("(c) qwen3-1.7B", dataclasses.replace(
+        get_arch("qwen3-1.7b"), n_layers=2, dtype="float32"), args.seed,
+        device)
     log(f"   phase 11 launches: {train_launches}")
     return train_launches
 
+
+# phase 12: the depth cuts of the served MoE, the two training runs and
+# the float32 comparisons (the rwkv6 and zamba2 serves run whole)
+FAMILY_SERVE_MOE_LAYERS = 4        # of 94: 11.2 B parameters, 22.4 GB bf16
+FAMILY_TRAIN_MOE_LAYERS = 1        # 3.73 B parameters
+FAMILY_TRAIN_HYBRID_LAYERS = 6     # the shared block applies once
+FAMILY_TRAIN_STEPS = 6
+FAMILY_CPU_LAYERS = {"rwkv6-1.6b": 2, "zamba2-2.7b": 6,
+                     "qwen3-moe-235b-a22b": 2}
+FAMILY_CPU_EXPERTS = 16            # of 128, so the CPU side stays small
+
+
+def phase_families(args, engine, counters):
+    """Phase 12: qwen3-moe-235B-A22B (4 layers), rwkv6-1.6B and zamba2-2.7B
+    served at full width, the MoE (1 layer) and the hybrid (6 layers)
+    trained through the loader and the int8 gradient wire, and each
+    family on the card against the CPU in float32.  Returns the launches by
+    kernel."""
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.kernels import harness
+    from repro_torch.launch import serve, train
+    from repro_torch.optim import grad_compress as gc_mod
+    log("== 12 the other families: qwen3-moe-235B-A22B "
+        "(hf:Qwen/Qwen3-235B-A22B), rwkv6-1.6B (arXiv:2404.05892) and "
+        "zamba2-2.7B (arXiv:2411.15242) served at full width, the MoE and "
+        "the hybrid trained through the int8 gradient wire, card against "
+        "CPU")
+    device = engine.device
+    for c in counters.values():
+        c.reset()
+    # the MoE training frees and allocates 3.2 GB float32 transients leaf
+    # after leaf; fixed-size segments left ~13 GB of the card fragmented in
+    # such a run (out of memory at 63 GB allocated), so the rest of the
+    # process grows expandable segments (phases 1-11 keep the default)
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    secs = {}
+
+    def serve_args(arch, *extra):
+        return serve.build_parser().parse_args(
+            ["--arch", arch, "--preset", "full", "--batch", "8",
+             "--prompt-len", "64", "--gen", "32", "--device", str(device),
+             *extra])
+
+    # (a)-(c) serve: 8 prompts of 64 tokens, 32 greedy tokens
+    moe = get_arch("qwen3-moe-235b-a22b")
+    t0 = time.perf_counter()
+    sargs = serve_args(moe.name, "--n-layers", str(FAMILY_SERVE_MOE_LAYERS))
+    log(f"   (a) depth cut {moe.n_layers} -> {FAMILY_SERVE_MOE_LAYERS} "
+        f"layers; the check replays decode and runs forward at capacity "
+        f"factor {moe.n_experts / moe.top_k:g} (= n_experts / top_k: C = T, "
+        "no assignment dropped; decode's own C = 8 = T drops none either)")
+    serve_and_check("(a) qwen3-moe-235B-A22B", sargs, device,
+                    dataclasses.replace(
+                        serve.resolve_cfg(sargs),
+                        capacity_factor=moe.n_experts / moe.top_k))
+    secs["(a)"] = time.perf_counter() - t0
+    for label, arch in (("(b) rwkv6-1.6B", "rwkv6-1.6b"),
+                        ("(c) zamba2-2.7B", "zamba2-2.7b")):
+        t0 = time.perf_counter()
+        serve_and_check(label, serve_args(arch), device)
+        secs[label[:3]] = time.perf_counter() - t0
+    log("   (c)'s bound reads the shared block once an application "
+        f"({shared_apps(get_arch('zamba2-2.7b'))} a step)")
+
+    # (d), (e) train: batch 8 x seq 512 from the driver's rle_v2 corpus,
+    # int8 wire and moments, 6 steps, no failure injected
+    (ROOT / "build").mkdir(exist_ok=True)
+    unfused = harness.EPILOGUE_UNFUSED
+    launches = {}
+    for label, arch, layers in (
+            ("(d) qwen3-moe-235B-A22B", moe.name, FAMILY_TRAIN_MOE_LAYERS),
+            ("(e) zamba2-2.7B", "zamba2-2.7b", FAMILY_TRAIN_HYBRID_LAYERS)):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            targs = train.build_parser().parse_args(
+                ["--arch", arch, "--preset", "full", "--n-layers",
+                 str(layers), "--batch", "8", "--seq", "512", "--steps",
+                 str(FAMILY_TRAIN_STEPS), "--lr", str(TRAIN_LR),
+                 "--grad-int8", "--compress-moments", "--ckpt-dir",
+                 str(Path(tmp) / "ckpt"), "--device", str(device)])
+            log(f"   {label[:3]} depth cut {get_arch(arch).n_layers} -> "
+                f"{layers} layers")
+            m, rec, restored = checked_training(targs, counters, device)
+        params = m["state"][0]
+        leaves = list(tree_leaves(params))
+        n_wire = sum(t.numel() >= gc_mod.QBLOCK for t in leaves)
+        problems = training_problems(m, rec, n_wire, unfused)
+        if m["restarts"] or m["steps_done"] != FAMILY_TRAIN_STEPS or \
+                restored:
+            problems.append(f"{m['restarts']} restarts, {m['steps_done']} "
+                            f"steps, restores {restored}")
+        if problems:
+            raise AssertionError(f"{label} train: " + "; ".join(problems))
+        log_training(label, m, rec, targs, params)
+        tcfg = rec["cfg"]
+        if tcfg.is_moe:
+            T = targs.batch * targs.seq
+            C = max(8, min(int(np.ceil(T * tcfg.top_k / tcfg.n_experts
+                                       * tcfg.capacity_factor)), T))
+            slots = tcfg.n_experts * C
+            log(f"   capacity padding: {slots} expert slots a layer for "
+                f"{T * tcfg.top_k} routed assignments (C = {C}): "
+                f"{1 - T * tcfg.top_k / slots:.1%} of the expert work is "
+                "padding, outside the bound")
+            big = max(leaves, key=lambda t: t.numel())
+            log(f"   largest wire leaf {tuple(big.shape)}: {big.numel()} "
+                f"elements, {big.numel() // gc_mod.QBLOCK} rows of "
+                f"{gc_mod.QBLOCK}, {big.numel() * 4 / 1e9:.2f} GB as float32")
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        del m, params, leaves, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[label[:3]] = time.perf_counter() - t0
+
+    # (f) card against CPU, float32
+    t0 = time.perf_counter()
+    for arch, layers in FAMILY_CPU_LAYERS.items():
+        base = get_arch(arch)
+        ccfg = dataclasses.replace(base, n_layers=layers, dtype="float32")
+        cut = f"{base.n_layers} -> {layers} layers"
+        if base.is_moe:
+            ccfg = dataclasses.replace(ccfg, n_experts=FAMILY_CPU_EXPERTS)
+            cut += f", experts {base.n_experts} -> {FAMILY_CPU_EXPERTS}"
+        card_vs_cpu(f"(f) {arch} ({cut})", ccfg, args.seed, device,
+                    decode=not base.is_moe)
+    secs["(f)"] = time.perf_counter() - t0
+    log("   phase 12 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in secs.items()))
+    log(f"   phase 12 launches: {launches}")
+    return launches
 
 
 class Counter:
@@ -2767,6 +3197,9 @@ def main() -> int:
     ap.add_argument("--corpus-tokens", type=int, default=1 << 24,
                     help="tokens of phase 10's rle_v2 corpus (one epoch "
                     "through the loader in each mode)")
+    ap.add_argument("--families-only", action="store_true",
+                    help="run phases 1, 2 and 12 alone (the other model "
+                    "families), with no result line")
     ap.add_argument("--stage-only", action="store_true",
                     help="only time DecodePlan.build and stage by part on "
                     "phase 4's workload (cold, then warm), and stop")
@@ -2823,6 +3256,10 @@ def main() -> int:
     counters["huffman_decode"] = Counter(huffman)
     counters["lzss_decode"] = Counter(lzss)
     counters["dequant_matmul"] = Counter(dq)
+    if args.families_only:
+        launched = phase_families(args, engine, counters)
+        log(f"phase 12 alone, launches: {json.dumps(launched)}")
+        return 0
     phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
                           engine.device, counters)
     phase_dequant_vs_plain(rng, dq, errs, engine.device)
@@ -2843,7 +3280,8 @@ def main() -> int:
     phase_tuning(args, tuning, api, fmt, registry, engine)
     consumer = phase_consumers(args, engine, counters, server, store)
     model_launches = phase_model(args, engine, counters)
-    log("== 12 kernels")
+    family = phase_families(args, engine, counters)
+    log("== 13 kernels")
     kernels = []
     for name in KERNELS:
         source, replaces = SOURCES.get(
@@ -2873,6 +3311,8 @@ def main() -> int:
             kernels[-1]["consumer_launches"] = consumer[name]
         if name in model_launches:  # phase 11's
             kernels[-1]["model_launches"] = model_launches[name]
+        if name in family:          # phase 12's
+            kernels[-1]["family_launches"] = family[name]
         exact = name != "dequant_matmul"    # held to TOL in phases 3 and 6
         if kernels[-1]["launches"] < 1 or (exact and errs[name]):
             raise AssertionError(f"{name}: not launched on the main path, or "

@@ -430,6 +430,19 @@ class DecompressionService:
             if closing:
                 break
 
+    def _count(self, windows: int = 0, blobs: int = 0, dispatches: int = 0,
+               cache_hits: int = 0, cache_misses: int = 0,
+               device: Optional[str] = None) -> None:
+        with self._lock:
+            self._windows += windows
+            self._blobs += blobs
+            self._dispatches += dispatches
+            self._cache_hits += cache_hits
+            self._cache_misses += cache_misses
+            if device is not None:
+                self._device_dispatches[device] = \
+                    self._device_dispatches.get(device, 0) + dispatches
+
     def _resolve(self, req: _Request, value) -> None:
         with self._lock:
             self._latencies.append(time.perf_counter() - req.t_submit)
@@ -460,8 +473,9 @@ class DecompressionService:
         decoding device (``device_out``).  The host matrix is materialized
         at most once a group, and only when a requester or the cache needs
         host bytes."""
-        hits = misses = dispatches = 0
-        device_dispatches: Dict[str, int] = {}
+        # every counter is folded in before the futures it covers resolve,
+        # so a caller that has its result reads stats that include it
+        self._count(windows=1, blobs=len(window))
         staged_hits = []      # (request, tensor) cache hits for the device
         # dedupe identical payloads in the window (by digest with the cache
         # on, by blob identity without), in first-occurrence order
@@ -478,7 +492,7 @@ class DecompressionService:
             cached = (self._cache.get(req.digest)
                       if self._cache is not None else None)
             if cached is not None:
-                hits += 1
+                self._count(cache_hits=1)
                 # the cache keeps host bytes; a device requester gets them
                 # staged on the engine's device, resolved once the copies
                 # have landed
@@ -488,7 +502,7 @@ class DecompressionService:
                 else:
                     self._resolve(req, cached.copy())
                 continue
-            misses += 1
+            self._count(cache_misses=1)
             unique.setdefault(dedupe_key, []).append(req)
         if staged_hits:
             _wait(self.engine.device)   # complete before the futures resolve
@@ -515,10 +529,8 @@ class DecompressionService:
                                                      device=device)
                 table = (transfers.to_host(table_dev) if need_host
                          else None)
-                dispatches += 1
-                if self._devices:
-                    k = str(device)
-                    device_dispatches[k] = device_dispatches.get(k, 0) + 1
+                self._count(dispatches=1,
+                            device=str(device) if self._devices else None)
             except Exception as e:
                 for reqs in group_reqs:
                     for req in reqs:
@@ -560,16 +572,6 @@ class DecompressionService:
                     else:
                         self._resolve(req, out if first_host else out.copy())
                         first_host = False
-
-        with self._lock:
-            self._windows += 1
-            self._blobs += len(window)
-            self._dispatches += dispatches
-            self._cache_hits += hits
-            self._cache_misses += misses
-            for k, v in device_dispatches.items():
-                self._device_dispatches[k] = \
-                    self._device_dispatches.get(k, 0) + v
 
 
 # Process-wide default services, one per device (``api.decompress_many``

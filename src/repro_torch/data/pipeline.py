@@ -18,6 +18,7 @@ mode).  The mesh-sharded token shards (``mesh=``) are not ported yet
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import queue
 import threading
 from typing import Dict, Iterator, List, Optional
@@ -185,22 +186,36 @@ class CompressedTokenStore:
         look = max(1, lookahead)
         futs: "collections.deque" = collections.deque()
         idx = 0
-        self.prefetch_shards(0, look)      # prime the paging pipeline
-        while idx < n and len(futs) < look:
-            self.prefetch_shards(idx + 1, idx + 1 + look)
-            futs.append(service.submit(self.blob(idx),
-                                       device_out=device_out))
-            idx += 1
-        while futs:
-            out = futs.popleft().result()
-            if idx < n:
-                # shard idx pages in (a hit: its fetch was issued a step
-                # ago) while idx+1..idx+look stream in behind it
+        try:
+            self.prefetch_shards(0, look)      # prime the paging pipeline
+            while idx < n and len(futs) < look:
                 self.prefetch_shards(idx + 1, idx + 1 + look)
                 futs.append(service.submit(self.blob(idx),
                                            device_out=device_out))
                 idx += 1
-            yield _int32(out)
+            while futs:
+                out = futs.popleft().result()
+                if idx < n:
+                    # shard idx pages in (a hit: its fetch was issued a
+                    # step ago) while idx+1..idx+look stream in behind it
+                    self.prefetch_shards(idx + 1, idx + 1 + look)
+                    futs.append(service.submit(self.blob(idx),
+                                               device_out=device_out))
+                    idx += 1
+                yield _int32(out)
+        finally:
+            # closed early (or failed): the lookahead requests still in
+            # flight settle before this returns, so the service holds no
+            # work of a consumer that has gone
+            concurrent.futures.wait(futs)
+
+
+class _Failed:
+    """An exception raised in the prefetch thread, on its way to the
+    consumer."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
 
 
 class CompressedLoader:
@@ -258,9 +273,12 @@ class CompressedLoader:
                     shards = self.store.decoded_shards(
                         self.engine, window=self.decode_window,
                         device_out=self.device_out)
-                for s in shards:
-                    yield s if isinstance(s, torch.Tensor) \
-                        else torch.from_numpy(s)
+                try:
+                    for s in shards:
+                        yield s if isinstance(s, torch.Tensor) \
+                            else torch.from_numpy(s)
+                finally:
+                    shards.close()
 
         src = shard_iter()
         t = None
@@ -273,23 +291,33 @@ class CompressedLoader:
                 # drops the iterator, the worker exits within one timeout
                 # instead of blocking on q.put forever holding a decoded
                 # shard.  Stop is also checked before each decode, so
-                # shutdown never waits on another shard's launch.
+                # shutdown never waits on another shard's launch.  A decode
+                # error goes on the queue, and the consumer raises it.
                 while not stop.is_set():
                     try:
                         s = next(src)
                     except StopIteration:
                         return
+                    except BaseException as e:
+                        s = _Failed(e)
                     while not stop.is_set():
                         try:
                             q.put(s, timeout=0.05)
                             break
                         except queue.Full:
                             continue
+                    if isinstance(s, _Failed):
+                        return
 
             t = threading.Thread(target=worker, daemon=True,
                                  name="codag-loader-prefetch")
             t.start()
-            get = q.get
+
+            def get():
+                s = q.get()
+                if isinstance(s, _Failed):
+                    raise s.error
+                return s
         else:
             # service mode: the service worker already decodes ahead of the
             # consumer, so no prefetch thread
@@ -317,3 +345,5 @@ class CompressedLoader:
                 except queue.Empty:
                     pass
                 t.join(timeout=5.0)
+            if t is None or not t.is_alive():
+                src.close()

@@ -1,19 +1,22 @@
 """Serving entry point: sequential per-token prefill + cached greedy decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
-        --preset tiny --batch 8 --prompt-len 64 --gen 32 [--device cpu]
+        --preset tiny --batch 8 --prompt-len 64 --gen 32 [--device cpu] \\
+        [--n-layers N]
 
 The counterpart of ``repro/launch/serve.py``: a batch of requests is
-prefilled into the KV cache one token position a step
+prefilled into the KV / recurrent-state cache one token position a step
 (``prefill_into_cache`` loops ``decode_step`` over the prompt), then
 decoded greedily one token a step.  The reference's flags and presets
 (``tiny``, ``small``, ``full``) plus ``--device`` (default ``cuda``, which
-must exist).  Timings are host clock around work that ends in a device
-synchronise.
+must exist) and ``--n-layers`` (a preset's depth cut, widths unchanged, as
+``launch.train`` takes it).  Timings are host clock around work that ends
+in a device synchronise.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional
 
@@ -39,14 +42,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "default dir when given bare)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu for a CPU run)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the preset's depth to this many layers "
+                         "(widths unchanged)")
     return ap
 
 
 def resolve_cfg(args):
     base = get_arch(args.arch)
-    return {"tiny": reduced(base),
-            "small": reduced(base, n_layers=4, d_model=256, vocab=2048),
-            "full": base}[args.preset]
+    cfg = {"tiny": reduced(base),
+           "small": reduced(base, n_layers=4, d_model=256, vocab=2048),
+           "full": base}[args.preset]
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    return cfg
 
 
 def _sync(device: torch.device) -> None:
@@ -103,7 +112,9 @@ def run_serving(args, params=None) -> dict:
         print(f"compile cache: {path}")
     device = resolve_device(args.device)
     cfg = resolve_cfg(args)
-    print(f"arch={cfg.name} preset={args.preset} device={device}")
+    cut = (f" depth cut {get_arch(args.arch).n_layers} -> {cfg.n_layers}"
+           if args.n_layers else "")
+    print(f"arch={cfg.name} preset={args.preset} device={device}{cut}")
     if params is None:
         gen = torch.Generator(device=device).manual_seed(0)
         params = model.init_params(cfg, gen, device=device)

@@ -1,2 +1,2 @@
-"""Model stack: layers, GQA attention and the decoder LM (dense attention
-families; MoE and the recurrent mixers: ROADMAP.md Queue 1 item 12b)."""
+"""Model stack: layers, GQA attention, the MoE and recurrent mixers, and
+the decoder LM for every registered family."""

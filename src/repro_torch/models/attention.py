@@ -21,7 +21,7 @@ is not used: it would change where the softmax rounds.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,10 +44,10 @@ def _divisor_chunk(n: int, target: int) -> int:
 
 def init_attn(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
               head_dim: int, qk_norm: bool, dtype: torch.dtype, device,
-              n_layers: int) -> Dict[str, torch.Tensor]:
+              n_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """One attention block's parameters, ``n_layers`` stacked on a leading
-    axis."""
-    L = (n_layers,)
+    axis (None: one block, unstacked)."""
+    L = () if n_layers is None else (n_layers,)
     s = float(1.0 / np.sqrt(d))
     p = {
         "wq": layers.normal(gen, L + (d, n_heads * head_dim), dtype, s,

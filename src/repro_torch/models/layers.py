@@ -112,6 +112,15 @@ def normal(gen: torch.Generator, shape, dtype: torch.dtype, scale: float,
     return (z.to(device=device, dtype=dtype) * scale)
 
 
+def uniform(gen: torch.Generator, shape, dtype: torch.dtype,
+            device) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype)``: [0, 1) drawn in float32
+    on the generator's device, cast to ``dtype``, on ``device``."""
+    z = torch.rand(tuple(shape), generator=gen, dtype=torch.float32,
+                   device=gen.device)
+    return z.to(device=device, dtype=dtype)
+
+
 # MLPs -----------------------------------------------------------------------
 
 

@@ -1,20 +1,29 @@
 """Model assembly: params init, full-seq forward, loss, cached decode step.
 
-The counterpart of ``repro/models/model.py`` for the dense attention
-families (``mixer == "attn"`` without experts: qwen3, codeqwen, minitron,
-olmo, musicgen's and paligemma's backbones with their prefix stubs).  MoE
-layers, the recurrent mixers and the hybrid's shared block are not ported
-yet (ROADMAP.md Queue 1 item 12b) and raise.
+The counterpart of ``repro/models/model.py`` for the ten registered
+architectures:
+
+  * dense GQA transformers (qwen3, codeqwen, minitron, olmo, and the
+    backbones of musicgen and paligemma with their prefix stubs);
+  * MoE transformers (qwen3-moe, kimi-k2: token-choice top-k with an
+    optional shared expert, ``models/moe.py``);
+  * RWKV6 (attention-free: the wkv mixer and the token-shift channel mix,
+    ``models/ssm.py``);
+  * the Mamba2 hybrid (zamba2: SSD blocks and ONE shared attention + MLP
+    block applied after every ``attn_every``-th layer, its weights reused).
 
 The parameter tree is the reference's, so a checkpoint written by either
 package has the same leaves: ``embed`` (V, D), ``blocks`` with a leading
-layer axis (``ln1``, ``attn`` {wq, wk, wv, wo[, q_norm, k_norm]}, ``ln2``,
-``mlp`` {w_up, w_down[, w_gate]}), ``ln_f`` and, unless tied, ``lm_head``
-(D, V).  The layer loop indexes the stacked leaves; ``remat=True`` wraps
-each block in ``torch.utils.checkpoint`` where the reference uses
-``jax.checkpoint``.  ``init_params`` draws from an explicit
-``torch.Generator`` (the same shapes, dtypes and scales, not JAX's bits);
-``params_from_numpy`` carries the reference's own parameters across.
+layer axis (``ln1`` and, by family, ``attn`` {wq, wk, wv, wo[, q_norm,
+k_norm]} + ``ln2`` + ``mlp`` or ``moe``; ``rwkv`` + ``ln2`` + ``cmix``;
+``mamba``), ``ln_f``, ``lm_head`` unless tied, and the unstacked
+``shared_block`` of a hybrid.  The layer loop indexes the stacked leaves;
+``remat=True`` wraps each block in ``torch.utils.checkpoint`` where the
+reference uses ``jax.checkpoint``.  The reference's ``unroll=True`` probe
+path has no counterpart: the port's layer and chunk loops are Python loops
+already.  ``init_params`` draws from an explicit ``torch.Generator`` (the
+same shapes, dtypes and scales, not JAX's bits); ``params_from_numpy``
+carries the reference's own parameters across.
 
 Entry points take ``device=`` (default ``"cuda"``) and raise without a
 card; nothing falls back to the CPU.
@@ -32,23 +41,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.core.tree import map_tree
 from repro_torch.distributed import sharding
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe, ssm
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-_LATER = ("is not ported yet (ROADMAP.md Queue 1 item 12b): the port's "
-          "model covers mixer='attn' without experts")
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for a family this model does not cover yet."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"MoE ({cfg.name}) {_LATER}")
-    if cfg.mixer != "attn":
-        raise NotImplementedError(f"mixer {cfg.mixer!r} ({cfg.name}) {_LATER}")
-    if cfg.attn_every:
-        raise NotImplementedError(f"the shared attention block ({cfg.name}) "
-                                  f"{_LATER}")
 
 
 # --------------------------------------------------------------------------
@@ -56,29 +51,56 @@ def check_supported(cfg: ArchConfig) -> None:
 # --------------------------------------------------------------------------
 
 
+def _init_blocks(cfg: ArchConfig, g: torch.Generator, dt, dev
+                 ) -> Dict[str, Any]:
+    """Every block's parameters, stacked on a leading layer axis."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    p: Dict[str, Any] = {"ln1": _stacked_norm(cfg, dt, dev)}
+    if cfg.mixer == "attn":
+        p["attn"] = attention.init_attn(g, d, cfg.n_heads, cfg.n_kv, cfg.hd,
+                                        cfg.qk_norm, dt, dev, L)
+        p["ln2"] = _stacked_norm(cfg, dt, dev)
+        if cfg.is_moe:
+            p["moe"] = moe.init_moe(g, d, f, cfg.n_experts,
+                                    cfg.n_shared_experts, cfg.act, dt, dev,
+                                    n_layers=L)
+        else:
+            p["mlp"] = layers.init_mlp(g, d, f, cfg.act, dt, dev, layers=L)
+    elif cfg.mixer == "rwkv6":
+        p["rwkv"] = ssm.init_rwkv6(g, d, cfg.n_heads, dt, dev, n_layers=L)
+        p["ln2"] = _stacked_norm(cfg, dt, dev)
+        p["cmix"] = ssm.init_rwkv6_channel_mix(g, d, f, dt, dev, n_layers=L)
+    elif cfg.mixer == "mamba2":
+        p["mamba"] = ssm.init_mamba2(g, d, head_dim=cfg.hd,
+                                     ssm_state=cfg.ssm_state, dtype=dt,
+                                     device=dev, n_layers=L)
+    return p
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator, *,
                 device="cuda") -> Dict[str, Any]:
     """Random parameters in the reference's tree, shapes, dtypes and scales,
     drawn from ``generator`` (on its own device) and placed on ``device``."""
-    check_supported(cfg)
     dev = resolve_device(device)
     dt = DTYPES[cfg.dtype]
-    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    d = cfg.d_model
     g = generator
     params: Dict[str, Any] = {
         "embed": layers.init_embed(g, cfg.vocab, d, dt, dev),
-        "blocks": {
-            "ln1": _stacked_norm(cfg, dt, dev),
-            "attn": attention.init_attn(g, d, cfg.n_heads, cfg.n_kv, cfg.hd,
-                                        cfg.qk_norm, dt, dev, L),
-            "ln2": _stacked_norm(cfg, dt, dev),
-            "mlp": layers.init_mlp(g, d, f, cfg.act, dt, dev, layers=L),
-        },
+        "blocks": _init_blocks(cfg, g, dt, dev),
         "ln_f": layers.norm_params(cfg.norm, d, dt, dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.normal(g, (d, cfg.vocab), dt,
                                           float(1.0 / np.sqrt(d)), dev)
+    if cfg.attn_every:      # the hybrid's one shared transformer block
+        params["shared_block"] = {
+            "ln1": layers.norm_params(cfg.norm, d, dt, dev),
+            "attn": attention.init_attn(g, d, cfg.n_heads, cfg.n_kv, cfg.hd,
+                                        cfg.qk_norm, dt, dev),
+            "ln2": layers.norm_params(cfg.norm, d, dt, dev),
+            "mlp": layers.init_mlp(g, d, cfg.d_ff, "swiglu", dt, dev),
+        }
     return params
 
 
@@ -111,14 +133,42 @@ def params_from_numpy(tree, device="cuda"):
 # --------------------------------------------------------------------------
 
 
-def _block_fwd(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
-    h = layers.apply_norm(cfg.norm, x, p["ln1"])
+def _shared_fwd(cfg: ArchConfig, sb, x: torch.Tensor) -> torch.Tensor:
+    """The hybrid's shared attention + SwiGLU block (no qk-norm, as the
+    reference applies it)."""
+    h = layers.apply_norm(cfg.norm, x, sb["ln1"])
     x = x + attention.attention(
-        p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
-        qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
-        block_skip=cfg.block_skip)
-    h = layers.apply_norm(cfg.norm, x, p["ln2"])
-    return x + layers.mlp(p["mlp"], h, cfg.act)
+        sb["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
+        rope_theta=cfg.rope_theta, block_skip=cfg.block_skip)
+    h = layers.apply_norm(cfg.norm, x, sb["ln2"])
+    return x + layers.mlp(sb["mlp"], h, "swiglu")
+
+
+def _block_fwd(cfg: ArchConfig, p, x: torch.Tensor, shared,
+               layer_idx: int) -> torch.Tensor:
+    h = layers.apply_norm(cfg.norm, x, p["ln1"])
+    if cfg.mixer == "attn":
+        x = x + attention.attention(
+            p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+            head_dim=cfg.hd, qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
+            block_skip=cfg.block_skip)
+        h = layers.apply_norm(cfg.norm, x, p["ln2"])
+        if cfg.is_moe:
+            return x + moe.moe_ffn(
+                p["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                capacity_factor=cfg.capacity_factor, act=cfg.act)
+        return x + layers.mlp(p["mlp"], h, cfg.act)
+    if cfg.mixer == "rwkv6":
+        o, _ = ssm.rwkv6_mix(p["rwkv"], h, n_heads=cfg.n_heads)
+        x = x + o
+        h = layers.apply_norm(cfg.norm, x, p["ln2"])
+        return x + ssm.rwkv6_channel_mix(p["cmix"], h)
+    o, _ = ssm.mamba2_mix(p["mamba"], h, head_dim=cfg.hd,
+                          ssm_state=cfg.ssm_state, ssd_chunk=cfg.ssd_chunk)
+    x = x + o
+    if cfg.attn_every and (layer_idx + 1) % cfg.attn_every == 0:
+        x = _shared_fwd(cfg, shared, x)
+    return x
 
 
 def layer_params(blocks, i: int):
@@ -128,14 +178,15 @@ def layer_params(blocks, i: int):
 
 def _layer_stack(cfg: ArchConfig, params, x: torch.Tensor,
                  remat: bool) -> torch.Tensor:
-    check_supported(cfg)
+    shared = params.get("shared_block")
     for i in range(cfg.n_layers):
         p_i = layer_params(params["blocks"], i)
         if remat:
-            x = checkpoint(lambda x, p_i=p_i: _block_fwd(cfg, p_i, x), x,
-                           use_reentrant=False)
+            x = checkpoint(
+                lambda x, p_i=p_i, i=i: _block_fwd(cfg, p_i, x, shared, i),
+                x, use_reentrant=False)
         else:
-            x = _block_fwd(cfg, p_i, x)
+            x = _block_fwd(cfg, p_i, x, shared, i)
         x = sharding.constrain(x, "dp", None, None)
     return x
 
@@ -197,36 +248,98 @@ def loss_fn(cfg: ArchConfig, params, tokens, labels, prefix_emb=None,
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
                device="cuda") -> Dict[str, Any]:
-    """The KV cache: ``k`` and ``v`` of (L, B, max_seq, n_kv, hd) and the
-    next position ``pos`` (a Python int)."""
-    check_supported(cfg)
+    """The decode cache, as the reference builds it, and the next position
+    ``pos`` (a Python int): K/V of (L, B, max_seq, n_kv, hd) for attention;
+    ``wkv`` (L, B, H, hd, hd) float32 and the token-shift rows ``x_att`` /
+    ``x_ffn`` (L, B, D) for RWKV6; ``ssm`` (L, B, H, hd, N) float32 and
+    ``conv`` (L, B, CONV_K - 1, 2D) for Mamba2, plus K/V for each of the
+    shared block's ``n_layers // attn_every`` applications."""
     dev = resolve_device(device)
     dt = DTYPES[cfg.dtype]
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv, cfg.hd)
-    return {"pos": 0,
-            "k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    L, d = cfg.n_layers, cfg.d_model
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def kv(n):
+        return {"k": zeros((n, batch, max_seq, cfg.n_kv, cfg.hd)),
+                "v": zeros((n, batch, max_seq, cfg.n_kv, cfg.hd))}
+
+    cache: Dict[str, Any] = {"pos": 0}
+    if cfg.mixer == "attn":
+        cache.update(kv(L))
+    elif cfg.mixer == "rwkv6":
+        H, hd = cfg.n_heads, d // cfg.n_heads
+        cache["wkv"] = zeros((L, batch, H, hd, hd), torch.float32)
+        cache["x_att"] = zeros((L, batch, d))
+        cache["x_ffn"] = zeros((L, batch, d))
+    elif cfg.mixer == "mamba2":
+        di = 2 * d
+        H = di // cfg.hd
+        cache["ssm"] = zeros((L, batch, H, cfg.hd, cfg.ssm_state),
+                             torch.float32)
+        cache["conv"] = zeros((L, batch, ssm.CONV_K - 1, di))
+        if cfg.attn_every:
+            cache.update(kv(cfg.n_layers // cfg.attn_every))
+    return cache
 
 
 def decode_step(cfg: ArchConfig, params, cache: Dict[str, Any],
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step.  tokens: (B, 1) -> (logits (B, 1, vocab), cache).
-    The cache's K/V rows at ``pos`` are written in place; the returned
-    cache holds the same tensors and ``pos + 1``."""
-    check_supported(cfg)
+    The cache's tensors are written in place (K/V rows at ``pos``, the
+    recurrent states whole); the returned cache holds the same tensors and
+    ``pos + 1``."""
     pos = int(cache["pos"])
     x = F.embedding(tokens, params["embed"])
     x = sharding.constrain(x, "dp", None, None)
+    shared = params.get("shared_block")
     for i in range(cfg.n_layers):
         p = layer_params(params["blocks"], i)
         h = layers.apply_norm(cfg.norm, x, p["ln1"])
-        o, _, _ = attention.decode_attention(
-            p["attn"], h, cache["k"][i], cache["v"][i], pos,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
-            qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
-        x = x + o
-        h = layers.apply_norm(cfg.norm, x, p["ln2"])
-        x = x + layers.mlp(p["mlp"], h, cfg.act)
+        if cfg.mixer == "attn":
+            o, _, _ = attention.decode_attention(
+                p["attn"], h, cache["k"][i], cache["v"][i], pos,
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
+                qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
+            x = x + o
+            h = layers.apply_norm(cfg.norm, x, p["ln2"])
+            if cfg.is_moe:
+                x = x + moe.moe_ffn(
+                    p["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                    capacity_factor=cfg.capacity_factor, act=cfg.act,
+                    decode_global=cfg.moe_decode_global)
+            else:
+                x = x + layers.mlp(p["mlp"], h, cfg.act)
+        elif cfg.mixer == "rwkv6":
+            o, (wkv, xa) = ssm.rwkv6_mix(
+                p["rwkv"], h, n_heads=cfg.n_heads,
+                state=(cache["wkv"][i], cache["x_att"][i]))
+            cache["wkv"][i].copy_(wkv)
+            cache["x_att"][i].copy_(xa)
+            x = x + o
+            h = layers.apply_norm(cfg.norm, x, p["ln2"])
+            o, xf = ssm.rwkv6_channel_mix(p["cmix"], h,
+                                          x_last=cache["x_ffn"][i])
+            cache["x_ffn"][i].copy_(xf)
+            x = x + o
+        else:
+            o, (hst, cst) = ssm.mamba2_mix(
+                p["mamba"], h, head_dim=cfg.hd, ssm_state=cfg.ssm_state,
+                state=(cache["ssm"][i], cache["conv"][i]))
+            cache["ssm"][i].copy_(hst)
+            cache["conv"][i].copy_(cst)
+            x = x + o
+            if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
+                app = i // cfg.attn_every
+                h = layers.apply_norm(cfg.norm, x, shared["ln1"])
+                o, _, _ = attention.decode_attention(
+                    shared["attn"], h, cache["k"][app], cache["v"][app], pos,
+                    n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
+                    rope_theta=cfg.rope_theta)
+                x = x + o
+                h = layers.apply_norm(cfg.norm, x, shared["ln2"])
+                x = x + layers.mlp(shared["mlp"], h, "swiglu")
     x = layers.apply_norm(cfg.norm, x, params["ln_f"])
     logits = x @ head(cfg, params)
     return logits, dict(cache, pos=pos + 1)

@@ -80,6 +80,9 @@ def apply(params, grads, state, cfg: AdamWConfig):
     b2c = 1.0 - torch.pow(cfg.b2, stepf)
 
     def upd(p, g, m, v):
+        # the reference's operations in its order; each float32 transient
+        # is dropped once used, so a leaf's update holds a few leaf-sized
+        # float32 tensors at a time (an MoE expert leaf is 3.2 GB of them)
         g = g.float()
         if cfg.compress_moments:
             m_f = _dequantize(m["q"], m["s"], p.shape)
@@ -88,16 +91,22 @@ def apply(params, grads, state, cfg: AdamWConfig):
             m_f, v_f = m, v
         m_f = cfg.b1 * m_f + (1 - cfg.b1) * g
         v_f = cfg.b2 * v_f + (1 - cfg.b2) * torch.square(g)
-        mh = m_f / b1c
-        vh = v_f / b2c
-        p32 = p.float()
-        p32 = p32 - cfg.lr * (mh / (torch.sqrt(vh) + cfg.eps)
-                              + cfg.weight_decay * p32)
+        del g
         if cfg.compress_moments:
-            qm, sm = _quantize(m_f)
-            qv, sv = _quantize(v_f, sqrt_domain=True)
-            return p32.to(p.dtype), {"q": qm, "s": sm}, {"q": qv, "s": sv}
-        return p32.to(p.dtype), m_f, v_f
+            new_m, new_v = _quantize(m_f), _quantize(v_f, sqrt_domain=True)
+            new_m, new_v = ({"q": new_m[0], "s": new_m[1]},
+                            {"q": new_v[0], "s": new_v[1]})
+        else:
+            new_m, new_v = m_f, v_f
+        mh = m_f / b1c
+        del m_f
+        vh = v_f / b2c
+        del v_f
+        step_dir = mh / (torch.sqrt(vh) + cfg.eps)
+        del mh, vh
+        p32 = p.float()
+        p32 = p32 - cfg.lr * (step_dir + cfg.weight_decay * p32)
+        return p32.to(p.dtype), new_m, new_v
 
     # the parameters' structure leads: a compressed moment's {"q", "s"}
     # reaches ``upd`` whole, and each leaf of ``out`` is a (p, m, v) tuple

@@ -921,3 +921,56 @@ def test_model_on_the_card_equals_the_cpu(card):
          torch.backends.cudnn.allow_tf32) = tf32
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(lg.cpu(), lw, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dyadic", "ties"])
+def test_moe_routing_on_the_card_equals_the_cpu(card, case):
+    """qwen3-moe's routing width (128 experts, top-8) at 256 tokens, with
+    capacity drops (C = 20): ``moe._dispatch_group`` on the card against the
+    CPU on the same float32 inputs, whose logits both compute exactly
+    (dyadic values; small integers for ties at the 8th place in most rows).
+    The token table equal, the gate table within rtol 1e-5 (the two
+    devices' softmax rounds its ``exp`` and sum apart); a tie goes to the
+    lower expert on both, as ``lax.top_k`` sends it."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng({"dyadic": 1, "ties": 2}[case])
+    T, D, E, K, C = 256, 64, 128, 8, 20
+    if case == "ties":
+        xt = rng.integers(-1, 2, (T, 4)).astype(np.float32)
+        router = rng.integers(-1, 2, (4, E)).astype(np.float32)
+        srt = -np.sort(-(xt @ router), axis=1)
+        assert (srt[:, K - 1] == srt[:, K]).mean() > 0.5
+    else:
+        xt = (rng.integers(-64, 65, (T, D)) / 32).astype(np.float32)
+        router = (rng.integers(-64, 65, (D, E)) / 256).astype(np.float32)
+    x, r = torch.from_numpy(xt), torch.from_numpy(router)
+    tc, gc_ = moe._dispatch_group(x, r, E, K, C)
+    tg, gg = moe._dispatch_group(x.to(card), r.to(card), E, K, C)
+    assert torch.equal(tg.cpu(), tc)
+    torch.testing.assert_close(gg.cpu(), gc_, rtol=1e-5, atol=0)
+    assert int((tc < T).sum()) < T * K                   # drops happened
+
+
+@pytest.mark.cuda
+def test_wire_on_an_moe_expert_leaf_on_the_card(card):
+    """A full-width MoE expert leaf, (1, 128, 4096, 1536) float32: 805 M
+    elements, 6,291,456 wire rows of 128 and a 3.2 GB output, past 2^31
+    bytes.  One fused ``bitpack_unpack`` launch; the decode equal bit for
+    bit to ``quantize_grads`` on the same values, taken in slices of 2^20
+    rows (a slice is whole quantization blocks)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.optim import grad_compress as gc
+    g = torch.Generator(device=card).manual_seed(3)
+    leaf = torch.randn((1, 128, 4096, 1536), generator=g, device=card)
+    before = (bitpack.LAUNCHES, harness.EPILOGUE_UNFUSED)
+    got = collectives.make_wire_compressor()({"w": leaf})["w"]
+    torch.cuda.synchronize()
+    assert (bitpack.LAUNCHES - before[0],
+            harness.EPILOGUE_UNFUSED - before[1]) == (1, 0)
+    assert got.shape == leaf.shape and got.dtype == torch.float32
+    flat, out = leaf.reshape(-1), got.reshape(-1)
+    step = (1 << 20) * gc.QBLOCK
+    for s in range(0, flat.numel(), step):
+        want = gc.quantize_grads({"w": flat[s:s + step]})["w"]
+        assert torch.equal(out[s:s + step], want), s

@@ -178,6 +178,97 @@ def test_loader_iterator_dropped_without_leaking_thread():
     assert not leaked, f"prefetch worker leaked: {leaked}"
 
 
+@pytest.mark.parametrize("mode", ["engine", "service"])
+def test_a_decode_error_raises_in_the_consumer(mode):
+    """A shard whose decode raises (an unknown codec on the second of four
+    shards) raises its error in the consumer's thread within 10 s: from the
+    prefetch thread in engine mode, from the service's future in service
+    mode.  No prefetch thread is left behind."""
+    toks = pipeline.synthetic_corpus(1 << 14, vocab=500, seed=21)
+    store = pipeline.CompressedTokenStore.build(
+        toks, 500, shard_tokens=1 << 12, codec=fmt.RLE_V2, chunk_bytes=2048)
+    store.blobs[1] = dataclasses.replace(store.blobs[1],
+                                         codec="no_such_codec")
+    got = {"batches": 0}
+
+    def consume(loader):
+        try:
+            for _ in loader:
+                got["batches"] += 1
+        except Exception as e:           # the error the loader raised
+            got["error"] = e
+
+    with srv.DecompressionService(CPU) as svc:
+        loader = (_loader(store, batch=2, seq=48, decode_window=1)
+                  if mode == "engine" else
+                  pipeline.CompressedLoader(store, batch=2, seq=48,
+                                            service=svc, decode_window=1))
+        th = threading.Thread(target=consume, args=(loader,), daemon=True)
+        th.start()
+        th.join(10.0)
+        assert not th.is_alive(), "the consumer hangs on a decode error"
+    assert isinstance(got.get("error"), ValueError), got
+    assert "no_such_codec" in str(got["error"])
+    assert got["batches"] == (1 << 12) // 97   # shard 0's batches came first
+    gc.collect()
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("codag-loader-prefetch")
+                and t.is_alive()]
+
+
+def test_service_counts_a_window_before_its_futures_resolve(monkeypatch):
+    """A caller holding a result reads stats that include its window: each
+    request's resolve sees its window, blob and dispatch counted."""
+    toks = pipeline.synthetic_corpus(1 << 13, vocab=300, seed=22)
+    store = pipeline.CompressedTokenStore.build(
+        toks, 300, shard_tokens=1 << 11, codec=fmt.RLE_V2, chunk_bytes=2048)
+    seen = []
+    real = srv.DecompressionService._resolve
+
+    def resolve(self, req, value):
+        seen.append(self.stats())
+        real(self, req, value)
+
+    monkeypatch.setattr(srv.DecompressionService, "_resolve", resolve)
+    with srv.DecompressionService(CPU, max_batch_blobs=1,
+                                  cache_bytes=0) as svc:
+        for i, blob in enumerate(store.blobs):
+            svc.submit(blob).result()
+            s = svc.stats()
+            assert (s.windows, s.blobs, s.dispatches) == (i + 1,) * 3
+    assert [(s.windows, s.blobs, s.dispatches) for s in seen] == \
+        [(i + 1,) * 3 for i in range(len(store.blobs))]
+
+
+def test_closing_a_service_loader_settles_its_lookahead(monkeypatch):
+    """A service-mode loader dropped after its first batch returns only
+    once the shard requests it had in flight have been decoded and
+    counted, however slow the service: the stats read after it count all
+    four."""
+    toks = pipeline.synthetic_corpus(1 << 14, vocab=700, seed=23)
+    store = pipeline.CompressedTokenStore.build(
+        toks, 700, shard_tokens=1 << 12, codec=fmt.RLE_V2, chunk_bytes=2048)
+    real = srv.DecompressionService._process_window
+    calls = []
+
+    def slow(self, window):
+        calls.append(len(window))
+        if len(calls) > 1:
+            time.sleep(0.2)              # later windows lag the consumer
+        real(self, window)
+
+    monkeypatch.setattr(srv.DecompressionService, "_process_window", slow)
+    with srv.DecompressionService(CPU, max_batch_blobs=1,
+                                  cache_bytes=0) as svc:
+        it = iter(pipeline.CompressedLoader(store, batch=2, seq=48,
+                                            service=svc))
+        next(it)
+        it.close()
+        stats = svc.stats()
+    assert len(store.blobs) == 4
+    assert (stats.windows, stats.blobs, stats.errors) == (4, 4, 0)
+
+
 def test_token_store_spill_dir_bit_exact(tmp_path):
     toks = pipeline.synthetic_corpus(1 << 14, vocab=700, seed=2)
     in_mem = pipeline.CompressedTokenStore.build(

@@ -207,6 +207,7 @@ def test_port_imports_neither_jax_nor_repro():
             "server.py", "store.py", "tuning.py", "scalar.py",
             "checkpoint.py", "pipeline.py", "fault.py", "base.py",
             "qwen3_1b7.py", "layers.py", "attention.py", "model.py",
+            "moe.py", "ssm.py",
             "adamw.py", "grad_compress.py", "sharding.py", "collectives.py",
             "steps.py", "serve.py", "train.py"} <= names
     assert len(files) > 10
@@ -230,6 +231,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.data.pipeline, repro_torch.distributed.fault, "
         "repro_torch.configs, repro_torch.models.layers, "
         "repro_torch.models.attention, repro_torch.models.model, "
+        "repro_torch.models.moe, repro_torch.models.ssm, "
         "repro_torch.optim.adamw, repro_torch.optim.grad_compress, "
         "repro_torch.distributed.sharding, "
         "repro_torch.distributed.collectives, repro_torch.launch.steps, "

@@ -156,3 +156,58 @@ def test_prefill_and_serve_steps_match_the_reference():
     np.testing.assert_allclose(lg.numpy(), np.asarray(rlg), rtol=2e-4,
                                atol=2e-4)
     assert cache["pos"] == 1
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "rwkv6-1.6b",
+                                  "zamba2-2.7b"])
+def test_family_training_matches_the_reference_run(tmp_path, arch):
+    """The MoE, RWKV6 and hybrid families through the same driver: three
+    ``tiny`` steps with ``--grad-int8 --compress-moments`` give the
+    reference's losses on its weights, one fused wire decode a gradient
+    leaf a step."""
+    flags = ["--arch", arch, "--preset", "tiny", "--steps", "3", "--batch",
+             "2", "--seq", "64", "--grad-int8", "--compress-moments"]
+    rargs = rtrain.build_parser().parse_args(
+        flags + ["--ckpt-dir", str(tmp_path / "ref")])
+    want = rtrain.run_training(rargs)
+    _, params = _carried(rtrain._resolve_cfg(rargs))
+    args = train.build_parser().parse_args(
+        flags + ["--ckpt-dir", str(tmp_path / "port"), "--device", "cpu"])
+    with ops.count_dispatches() as calls:
+        got = train.run_training(args, params=params)
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
+    n_wire = sum(t.numel() >= 128 for t in jax.tree.leaves(params))
+    assert sum(c["codec"] == "bitpack" for c in calls) == 3 * n_wire
+    assert any(c["codec"] == "rle_v2" for c in calls)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "kimi-k2-1t-a32b",
+                                  "rwkv6-1.6b", "zamba2-2.7b"])
+def test_family_serving_matches_the_reference_loop(arch):
+    """The ``tiny`` serve run of each new family: greedy tokens equal the
+    reference's loop on the same weights and prompts, the last logits
+    within 2e-4; ``--n-layers`` cuts the depth (here 2 -> 2, printed)."""
+    argv = ["--arch", arch, "--preset", "tiny", "--batch", "2",
+            "--prompt-len", "8", "--gen", "6"]
+    args = serve.build_parser().parse_args(argv + ["--device", "cpu",
+                                                   "--n-layers", "2"])
+    cfg = serve.resolve_cfg(args)
+    rcfg = rtrain._resolve_cfg(rtrain.build_parser().parse_args(
+        ["--arch", arch, "--preset", "tiny"]))
+    assert cfg.n_layers == rcfg.n_layers == 2
+    rp, params = _carried(rcfg)
+    got = serve.run_serving(args, params=params)
+    prompts = jnp.asarray(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)), jnp.int32)
+    logits, cache = rserve.prefill_into_cache(
+        rcfg, rp, rmodel.init_cache(rcfg, 2, 8 + 6 + 8), prompts)
+    step = jax.jit(lambda c, t: rmodel.decode_step(rcfg, rp, c, t))
+    cur = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    want = []
+    for _ in range(6):
+        want.append(np.asarray(cur))
+        logits, cache = step(cache, cur)
+        cur = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    np.testing.assert_array_equal(got["tokens"], np.concatenate(want, 1))
+    np.testing.assert_allclose(got["logits"].numpy(), np.asarray(logits),
+                               rtol=2e-4, atol=2e-4)

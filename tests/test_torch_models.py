@@ -1,14 +1,25 @@
 """The port's model stack (``repro_torch.configs``, ``models/{layers,
-attention,model}.py``) held to the JAX package on the CPU.
+attention,moe,ssm,model}.py``) held to the JAX package on the CPU, for
+every registered family: dense, MoE (qwen3-moe, kimi-k2 with its shared
+expert), RWKV6 and the Mamba2 hybrid (zamba2, its shared block applied
+after every second layer at ``reduced()``).
 
 Both packages compute on the same weights: the reference's
 ``init_params`` draws them and ``model.params_from_numpy`` carries them
 across; inputs come from numpy with a seed.  Sizes are ``reduced()``
-(2 layers, d_model 128, vocab 512, float32).  Tolerances: forward logits
-``rtol=1e-4, atol=1e-5``; the loss and its gradients ``rtol=1e-4,
-atol=1e-6``; decode against the reference's decode and the port's own
-forward ``2e-4`` (the reference test's); float32 sums run in another order
-in the two frameworks, nothing else differs.
+(2 layers, d_model 128, vocab 512, float32; MoE: 8 experts, top-2,
+dropless capacity).  Tolerances: forward logits ``rtol=1e-4, atol=1e-5``;
+the loss and its gradients ``rtol=1e-4, atol=1e-6``, but for the
+hybrid's gradients an ``atol`` of 1e-4 of each leaf's largest magnitude
+(``GRAD_SCALE_ATOL``); decode against the reference's decode and the
+port's own forward ``2e-4`` (the reference test's); float32 sums run in
+another order in the two frameworks, nothing else differs.  The hybrid's
+floor: torch's CPU float32 matmul (MKL) rounds its ``in_proj`` more
+coarsely than XLA's dot (computing that matmul alone in float64 brings
+the port to the reference's distance from a float64 run), and the Mamba2
+recurrence carries the difference into every gradient upstream of it, a
+few times the reference's own float32 error, beyond ``atol=1e-6`` on
+leaves such as ``A_log`` and ``embed``.
 """
 import dataclasses
 
@@ -27,9 +38,12 @@ from repro_torch import configs as pconfigs
 from repro_torch.configs import base as pbase
 from repro_torch.models import attention, layers, model
 
-# the dense attention families the port covers
 DENSE = ["codeqwen1.5-7b", "minitron-4b", "musicgen-medium", "olmo-1b",
          "paligemma-3b", "qwen3-1.7b"]
+# the MoE, recurrent and hybrid families
+FAMILIES = ["qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "rwkv6-1.6b",
+            "zamba2-2.7b"]
+GRAD_SCALE_ATOL = {"zamba2-2.7b": 1e-4}   # the module docstring says why
 CPU = "cpu"
 
 
@@ -165,7 +179,7 @@ def test_attention_matches_reference(S):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES)
 def test_forward_matches_reference(arch):
     rcfg, pcfg = _cfgs(arch)
     rp, pp = _carried(rcfg)
@@ -189,11 +203,13 @@ def _flat(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmo-1b", "minitron-4b",
-                                  "paligemma-3b"])
+                                  "paligemma-3b"] + FAMILIES)
 def test_loss_and_grads_match_reference(arch):
     """``loss_fn`` (remat, chunked cross entropy over two 16-token chunks)
     and its gradient on every leaf; olmo ties the head to the embedding,
-    paligemma carries a prefix."""
+    paligemma carries a prefix; the MoE's router and experts, the
+    recurrences and the hybrid's shared block take gradients through the
+    remat recompute."""
     rcfg, pcfg = _cfgs(arch)
     rp, pp = _carried(rcfg, seed=7)
     tok, lab = _tokens(rcfg, 2, 32), _tokens(rcfg, 2, 32, seed=2)
@@ -220,26 +236,32 @@ def test_loss_and_grads_match_reference(arch):
     assert sorted(want_flat) == sorted(names)
     for k, g in zip(names, grads):
         g = np.zeros(leaves[k].shape, np.float32) if g is None else g.numpy()
-        np.testing.assert_allclose(g, want_flat[k], rtol=1e-4, atol=1e-6,
+        atol = max(1e-6, GRAD_SCALE_ATOL.get(arch, 0.0)
+                   * float(np.abs(want_flat[k]).max(initial=0.0)))
+        np.testing.assert_allclose(g, want_flat[k], rtol=1e-4, atol=atol,
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmo-1b", "minitron-4b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmo-1b", "minitron-4b"]
+                         + FAMILIES)
 def test_decode_matches_reference_and_forward(arch):
     """Eight cached decode steps: each step's logits equal the reference's
     ``decode_step`` on the same cache and the port's own ``forward`` at the
-    same positions (the reference test's 2e-4)."""
+    same positions (the reference test's 2e-4), and every cache leaf the
+    reference's after them (K/V; the RWKV6 and Mamba2 states, their
+    token-shift and convolution rows; the shared block's K/V)."""
     rcfg, pcfg = _cfgs(arch)
     rp, pp = _carried(rcfg, seed=3)
     tok = _tokens(rcfg, 2, 8, seed=4)
     rcache = rmodel.init_cache(rcfg, 2, 16)
     pcache = model.init_cache(pcfg, 2, 16, device=CPU)
+    assert sorted(pcache) == sorted(rcache)
+    rstep = jax.jit(lambda c, t: rmodel.decode_step(rcfg, rp, c, t))
     outs = []
     with torch.no_grad():
         full = model.forward(pcfg, pp, _t(tok)).numpy()
         for i in range(8):
-            want, rcache = rmodel.decode_step(rcfg, rp, rcache,
-                                              jnp.asarray(tok[:, i:i + 1]))
+            want, rcache = rstep(rcache, jnp.asarray(tok[:, i:i + 1]))
             got, pcache = model.decode_step(pcfg, pp, pcache,
                                             _t(tok[:, i:i + 1]))
             np.testing.assert_allclose(got.numpy(), np.asarray(want),
@@ -248,8 +270,10 @@ def test_decode_matches_reference_and_forward(arch):
     assert pcache["pos"] == 8 == int(rcache["pos"])
     np.testing.assert_allclose(np.concatenate(outs, axis=1), full,
                                rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(pcache["k"].numpy(), np.asarray(rcache["k"]),
-                               rtol=2e-4, atol=2e-4)
+    for k in sorted(set(pcache) - {"pos"}):
+        assert tuple(pcache[k].shape) == rcache[k].shape, k
+        np.testing.assert_allclose(pcache[k].numpy(), np.asarray(rcache[k]),
+                                   rtol=2e-4, atol=2e-4, err_msg=k)
 
 
 # --------------------------------------------------------------------------
@@ -257,7 +281,7 @@ def test_decode_matches_reference_and_forward(arch):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmo-1b"] + FAMILIES)
 def test_init_params_has_the_reference_tree(arch):
     """The same keys, shapes and dtypes, and the scales: each normal leaf's
     spread within 10% of the reference's, the norms ones (or empty)."""
@@ -293,16 +317,6 @@ def test_params_from_numpy_carries_bf16_bits():
         {"q": np.arange(-3, 3, dtype=np.int8), "step": np.int32(7)}, CPU)
     assert other["q"].dtype == torch.int8 and other["step"].dtype == \
         torch.int32 and int(other["step"]) == 7
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "kimi-k2-1t-a32b",
-                                  "rwkv6-1.6b", "zamba2-2.7b"])
-def test_unported_families_raise_naming_the_roadmap_item(arch):
-    _, pcfg = _cfgs(arch)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        model.init_params(pcfg, torch.Generator(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        model.init_cache(pcfg, 1, 4, device=CPU)
 
 
 def test_entry_points_need_a_card_by_default(monkeypatch):
