@@ -170,7 +170,12 @@ line):
          layers) and zamba2-2.7B (54 Mamba2 layers, the shared block 9
          times) whole; each step beside ``decode_step_bytes`` (every
          expert read; the shared block once an application; recurrent
-         states read and written);
+         states read and written), the MoE's also beside the experts its
+         routes reach; decode against ``forward`` in bf16 within fixed
+         limits (the MoE on ``forward``'s routes, each route its own
+         top-k would change a near tie by the rounding on those routes),
+         and the recurrent families' decode, in float32 on the served
+         weights at full depth, within ``SERVE_F32_TOL`` of ``forward``;
        - (d), (e) ``run_training`` as in 11 (b) without the failure: the
          MoE at 1 layer (3.73 B parameters, 805 M-element expert leaves on
          the wire) and zamba2 at 6 layers, 8 x 512, 6 steps at lr 1e-5:
@@ -193,11 +198,17 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+
+# the allocator ``python -m repro_torch.launch.train`` runs with (its
+# ``ALLOC_CONF``: phase 12's MoE training fragments fixed-size segments),
+# set before torch first uses the card, so every phase runs under it
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np
 import torch
@@ -2355,8 +2366,29 @@ def phase_consumers(args, engine, counters, server, store_mod):
 
 # decode-step logits against forward's, bf16 on the card: 8 bf16 ulps at
 # the logits' scale (|logit| in [4, 8): an ulp is 2^-5); the two paths
-# round their matmuls (M = 8 rows against M = 768) and softmaxes apart
+# round their matmuls (M = 8 rows against M = 768) and softmaxes apart.
+# An MoE is held to it on a replay that takes forward's routes.
 SERVE_TOL = 0.25
+# The random-weight recurrent stacks carry a rounding through every layer
+# and do not damp it: the reference's own bf16 forward lies 1.9 (rwkv6, 24
+# layers) and 4.6 (zamba2, 54 layers) from its float32 forward on the same
+# weights, on logits of ~4.5, and its own float32 decode 1.9e-4 and 4.7e-2
+# from its float32 forward (``python tests/test_torch_precision.py
+# --decode``, CPU, width 256).  On this card at full width the served bf16
+# forward lies 1.76 (rwkv6) and 7.03 (zamba2) from a float32 forward of
+# the same weights, and bf16 decode 0.74 and 5.45 from bf16 forward
+# (H100 80GB HBM3, 700 W; PERF.md §5).  So their bf16 limits are twice
+# those decode readings, and what holds their decode to forward is the
+# float32 replay below.
+SERVE_TOL_RECURRENT = {"rwkv6": 1.5, "mamba2": 11.0}
+# float32 on the served weights at full depth, TF32 off: decode against
+# forward, and forward of row 0 alone against the batch.  Readings (same
+# card): rwkv6 2.1e-4 and 2.5e-4; zamba2 0.66 and 0.027.  The limits are
+# ~2-5x the readings; a zamba2 decode whose shared block read another
+# application's K/V lies beyond 1.5 at every position after the first
+# (``tests/test_torch_cuda.py::
+# test_hybrid_float32_decode_at_full_depth_tells_a_shared_kv_apart``).
+SERVE_F32_TOL = {"rwkv6": 1e-3, "mamba2": 1.5}
 TRAIN_LAYERS = 4                   # the training run's depth cut (of 28)
 # The reference's int8 moments keep v in the sqrt domain: where an
 # element's v quantizes to 0 and its m does not (and the int8 wire rounds
@@ -2402,10 +2434,13 @@ def decode_step_bytes(cfg, params, cache, batch: int):
 
 
 class RouteTape:
-    """Records the MoE's top-k routes, or imposes recorded ones, by standing
-    in for ``models.moe.top_k`` (``_dispatch_group`` looks it up at each
-    call).  ``calls``: (router logits, expert ids) a call, in call order:
-    a forward makes one a layer, a decode step one a layer a step."""
+    """Stands in for ``models.moe.top_k`` (``_dispatch_group`` looks it up
+    at each call) and records, a call, the router logits it was given and
+    the experts the program's own ``top_k`` chose: a forward makes one call
+    a layer, a decode step one a layer a step.  With ``force`` (forward's
+    routes by layer, (B, S, K) each), decode step i at layer l then takes
+    forward's routes for those tokens, its gates from its own logits at
+    those experts."""
 
     def __init__(self, force=None, n_layers: int = 0):
         self.force, self.n_layers = force, n_layers
@@ -2421,22 +2456,20 @@ class RouteTape:
         self.moe.top_k = self.real
 
     def __call__(self, logits, k):
-        if self.force is None:
-            vals, ids = self.real(logits, k)
-        else:
-            # decode step i, layer l: the routes forward gave those tokens;
-            # the gates come from this path's own logits at those experts
+        vals, ids = self.real(logits, k)
+        if self.force is not None:
             step, layer = divmod(len(self.calls), self.n_layers)
+            self.calls.append((logits.detach().float(), ids))
             ids = self.force[layer][:, step]
-            vals = torch.gather(logits, -1, ids)
-        self.calls.append((logits.detach(), ids))
+            return torch.gather(logits, -1, ids), ids
+        self.calls.append((logits.detach().float(), ids))
         return vals, ids
 
 
 def replay_decode(cfg, params, seq, device, force=None):
     """``decode_step`` over every position of ``seq`` on a fresh cache:
-    (logits (B, S, V), the routes it took a step a layer).  ``force``:
-    forward's routes by layer, (B, S, K) each, imposed on every step."""
+    (logits (B, S, V), the tape's calls).  ``force``: forward's routes by
+    layer, (B, S, K) each, imposed on every step."""
     from repro_torch.models import model
     B, S = seq.shape
     cache = model.init_cache(cfg, B, S + 8, device=device)
@@ -2448,34 +2481,96 @@ def replay_decode(cfg, params, seq, device, force=None):
     return torch.cat(dec, dim=1), tape.calls
 
 
+def f32_replay(cfg, params, seq, full_bf16, device) -> dict:
+    """The served weights in float32 at the served depth, TF32 off:
+    ``forward``, ``forward`` of row 0 alone and ``decode_step`` replayed
+    over every position of ``seq``.  Returns the largest |decode -
+    forward|, |row 0 alone - batched| and |bf16 forward - float32
+    forward| (the served model's own bf16 rounding)."""
+    from repro_torch.core.tree import map_tree
+    from repro_torch.models import model
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = map_tree(lambda t: t.float() if t.is_floating_point() else t,
+                   params)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        full = model.forward(c32, p32, seq)
+        alone = model.forward(c32, p32, seq[:1])
+        dec, _ = replay_decode(c32, p32, seq, device)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    pos = (dec - full).abs().amax(dim=(0, 2))
+    res = {"decode": float(pos.max()),
+           "by_pos": [float(pos[a:b].max()) for a, b in
+                      ((0, 1), (1, 8), (8, 32), (32, seq.shape[1]))],
+           "alone": float((alone - full[:1]).abs().max()),
+           "bf16": float((full_bf16.float() - full).abs().max()),
+           "finite": bool(torch.isfinite(full).all()
+                          and torch.isfinite(dec).all())}
+    del p32, full, alone, dec
+    return res
+
+
+def moe_routes(cfg, params, seq, fwd_calls, device, first_step: int):
+    """An MoE's decode replayed on forward's routes (``RouteTape``), its
+    logits returned with what its routes say.  Flips: (layer, token)s
+    where the experts decode's own ``top_k`` chose on its own router
+    logits differ from forward's.  On the same routes the two paths'
+    router logits differ by rounding alone, ``eps`` a (layer, token); two
+    top-k selections of logits that lie within ``eps`` of each other can
+    differ only where forward's k-th and (k+1)-th logits lie within 2 *
+    ``eps``, so a flip beyond that (or where the logits are equal) is a
+    fault.  ``distinct``: the experts decode's own routes reach, a layer a
+    step, over the steps from ``first_step`` (the served decode steps)."""
+    B, S = seq.shape
+    L, K = cfg.n_layers, cfg.top_k
+    fwd_lg = torch.stack([lg.view(B, S, -1) for lg, _ in fwd_calls])
+    fwd_ids = torch.stack([ids.view(B, S, K) for _, ids in fwd_calls])
+    dec, calls = replay_decode(cfg, params, seq, device, force=fwd_ids)
+
+    def by_layer(j):                  # (L, B, S, ...) from the replay
+        return torch.stack([torch.stack(
+            [calls[i * L + layer][j] for i in range(S)], dim=1)
+            for layer in range(L)])
+
+    own = by_layer(1)
+    eps = (by_layer(0) - fwd_lg).abs().amax(-1)                 # (L, B, S)
+    flipped = (torch.sort(own, -1).values
+               != torch.sort(fwd_ids, -1).values).any(-1)
+    top = fwd_lg.topk(K + 1, dim=-1).values
+    gap = top[..., K - 1] - top[..., K]
+    faults = int((flipped & ((gap > 2 * eps) | (eps == 0))).sum())
+    distinct = [[own[layer, :, i].unique().numel() for i in
+                 range(first_step, S)] for layer in range(L)]
+    return dec, {"flips": int(flipped.sum()), "routes": flipped.numel(),
+                 "faults": faults, "eps": float(eps.max()),
+                 "distinct": distinct}
+
+
 def serve_and_check(label: str, sargs, device, check_cfg=None) -> dict:
     """``launch.serve.run_serving(sargs)`` timed beside its decode-step
     bound (``decode_step_bytes``); then ``decode_step`` replayed over every
-    position on a fresh cache against ``forward``'s logits, and the greedy
-    tokens against ``forward``'s argmax wherever its top-2 margin exceeds
-    twice the tolerance (so the two cannot disagree by rounding alone).
-    The tolerance is ``SERVE_TOL`` or, where larger, twice the model's own
-    rounding floor: how far ``forward`` of the first row alone lies from
-    its row of the batched ``forward`` (the same tokens and weights; only
-    the matmuls' shapes, and so their roundings, differ).  Random-weight
-    recurrent stacks amplify bf16 rounding with depth (rwkv6 at 24 layers
-    moves its logits ~0.6 that way), so their bf16 check is this loose;
-    phase 12 (f) holds their decode to ``forward`` in float32.  An MoE
-    keeps ``SERVE_TOL``: its floor holds routes that flip with the batch
-    shape, and its check takes forward's routes (below).  ``check_cfg``: the config of the replay and ``forward`` (an MoE's
-    no-drop capacity), else the served one.
+    position on a fresh cache against ``forward``'s logits within a fixed
+    limit, and the greedy tokens against ``forward``'s argmax wherever its
+    top-2 margin exceeds twice the limit (so the two cannot disagree by
+    rounding alone).  ``check_cfg``: the config of the replay and
+    ``forward`` (an MoE's no-drop capacity), else the served one.
 
-    An MoE's router sees the two paths' bf16 roundings of the same hidden
-    state, so a token whose k-th and (k+1)-th logits nearly tie may take
-    another expert in one path; the change then reaches later layers and,
-    through attention, later positions.  So for an MoE the tolerance holds
-    on a replay that takes forward's routes (every other operation its
-    own), and the free replay's routes are held to the top-k rule: where a
-    (layer, token)'s experts differ from forward's, forward's gap between
-    its k-th and (k+1)-th router logits must be at most twice the largest
-    difference between the two paths' router logits for that token (the
-    most two top-k selections of those logits can differ by).  Returns the
-    run's numbers."""
+    The limit is ``SERVE_TOL``; a recurrent family's bf16 limit is
+    ``SERVE_TOL_RECURRENT``, and its decode is held to ``forward`` (and
+    ``forward`` of row 0 alone to the batched one) within
+    ``SERVE_F32_TOL`` on the served weights in float32 at the same depth
+    (``f32_replay``).  An MoE's router sees the two paths' bf16 roundings
+    of the same hidden state, so a token whose k-th and (k+1)-th logits
+    nearly tie may take another expert in one path and carry the change
+    to later layers and positions: its replay takes forward's routes
+    (``moe_routes``), and each route decode's own top-k would change must
+    be a near tie by the rounding on those same routes.  Returns the run's
+    numbers."""
     import gc
     from repro_torch.core.tree import leaves as tree_leaves
     from repro_torch.launch import serve
@@ -2506,63 +2601,46 @@ def serve_and_check(label: str, sargs, device, check_cfg=None) -> dict:
     t0 = time.perf_counter()
     seq = torch.cat([out["prompts"].to(device),
                      torch.from_numpy(out["tokens"]).to(device)], dim=1)
-    S, L = P + G, ccfg.n_layers
-    notes = ""
+    S = P + G
+    tol = SERVE_TOL_RECURRENT.get(ccfg.mixer, SERVE_TOL)
+    notes, problems, f32 = "", [], None
     with torch.no_grad():
         with RouteTape() as fwd_tape:
             full = model.forward(ccfg, params, seq)
-        floor = float((model.forward(ccfg, params, seq[:1]).float()
-                       - full[:1].float()).abs().max())
-        # an MoE's floor includes routes that flip between the two batch
-        # shapes; its check replays forward's routes, so it keeps SERVE_TOL
-        tol = SERVE_TOL if ccfg.is_moe else max(SERVE_TOL, 2 * floor)
-        dec, routes = replay_decode(ccfg, params, seq, device)
         if ccfg.is_moe:
-            K = ccfg.top_k
-            fwd_ids = [ids.view(B, S, K) for _, ids in fwd_tape.calls]
-            free_diff = float((dec.float() - full.float()).abs().max())
-            dec, forced = replay_decode(ccfg, params, seq, device,
-                                        force=fwd_ids)
-            # the router logits of the two paths on the same routes
-            eps = max(float((lg - fwd_tape.calls[i % L][0].view(
-                B, S, -1)[:, i // L]).abs().max())
-                for i, (lg, _) in enumerate(forced))
-            def by_layer(calls, j):       # (L, B, S, ...) from a replay
-                return torch.stack([torch.stack(
-                    [calls[i * L + layer][j] for i in range(S)], dim=1)
-                    for layer in range(L)])
-            got = by_layer(routes, 1)                        # (L, B, S, K)
-            want = torch.stack(fwd_ids)
-            fwd_lg = torch.stack([lg.view(B, S, -1)
-                                  for lg, _ in fwd_tape.calls]).float()
-            # the free replay's router logits against forward's, a token
-            dev_lg = (by_layer(routes, 0).float() - fwd_lg).abs().amax(-1)
-            flipped = (torch.sort(got, -1).values
-                       != torch.sort(want, -1).values).any(-1)
-            top = fwd_lg.topk(K + 1, dim=-1).values
-            gap = top[..., K - 1] - top[..., K]
-            n_flip = int(flipped.sum())
-            share = n_flip / flipped.numel()
-            unexplained = int((flipped & (gap > 2 * dev_lg)).sum())
-            notes = (f"; MoE routes: {n_flip} of {flipped.numel()} "
-                     f"(layer, token) routes differ between the free "
-                     f"replay and forward ({share:.2%}; by layer "
-                     f"{flipped.sum((1, 2)).tolist()}), forward's k-th - "
-                     f"(k+1)-th router-logit gap there median "
-                     f"{float(gap[flipped].median()) if n_flip else 0:.4f}"
-                     f" against the two paths' router-logit difference "
-                     f"there median "
-                     f"{float(dev_lg[flipped].median()) if n_flip else 0:.4f}"
-                     f"; {unexplained} beyond the top-k rule (gap > twice "
-                     f"the difference); the two paths' largest router-logit "
-                     f"difference on the same routes {eps:.4f}; the free "
-                     f"replay's max |diff| {free_diff:.4f}; the tolerance "
-                     f"holds on the replay that takes forward's routes")
-            if unexplained:
-                raise AssertionError(f"{label} serve: {unexplained} MoE "
-                                     f"routes differ from forward's beyond "
-                                     f"the two paths' logit rounding"
-                                     f"{notes}")
+            dec, r = moe_routes(ccfg, params, seq, fwd_tape.calls, device, P)
+            moe = params["blocks"]["moe"]
+            per_expert = sum(moe[k][0, 0].numel() * moe[k].element_size()
+                             for k in ("w_up", "w_gate", "w_down"))
+            unread = np.mean([sum(ccfg.n_experts - d[i] for d in
+                                  r["distinct"]) for i in range(G)])
+            routed = (step_bytes - unread * per_expert) \
+                / HBM_BYTES_PER_S * 1e3
+            share = r["flips"] / r["routes"]
+            notes = (f"; on forward's routes: decode's own top-k differs "
+                     f"at {r['flips']} of {r['routes']} (layer, token)s "
+                     f"({share:.2%}), {r['faults']} of them beyond twice "
+                     f"the two paths' router-logit difference there "
+                     f"(largest {r['eps']:.4f})")
+            if r["faults"]:
+                problems.append(f"{r['faults']} routes differ from "
+                                f"forward's beyond the router logits' "
+                                f"rounding")
+            log(f"   routed bound: {np.mean(r['distinct']):.1f} distinct "
+                f"experts of {ccfg.n_experts} a layer a step (the replay's "
+                f"own routes at the {G} served steps; {B} tokens x top "
+                f"{ccfg.top_k}), {unread * per_expert / 1e9:.3f} GB of "
+                f"experts unread = {routed:.3f} ms; the step "
+                f"{step_ms / routed:.1f}x it (the dense bound above is "
+                f"this implementation's: every expert computes its slots)")
+        else:
+            dec, _ = replay_decode(ccfg, params, seq, device)
+        if ccfg.sub_quadratic:
+            f32 = f32_replay(ccfg, params, seq, full, device)
+            f32_tol = SERVE_F32_TOL[ccfg.mixer]
+            if not f32["finite"] or f32["decode"] > f32_tol or \
+                    f32["alone"] > f32_tol:
+                problems.append(f"float32: {f32}")
         diff = (dec.float() - full.float()).abs()
         top2 = full[:, P - 1:P + G - 1].float().topk(2, dim=-1).values
         margin = top2[..., 0] - top2[..., 1]
@@ -2576,22 +2654,31 @@ def serve_and_check(label: str, sargs, device, check_cfg=None) -> dict:
     check_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device)
     if not finite or max_d > tol or wrong:
-        raise AssertionError(f"{label} serve: finite={finite}, max |decode - "
-                             f"forward| {max_d} (tolerance {tol}: rounding "
-                             f"floor {floor}), {wrong} greedy tokens differ "
-                             f"from forward's argmax{notes}")
+        problems.append(f"finite={finite}, max |decode - forward| {max_d} "
+                        f"(limit {tol}), {wrong} greedy tokens differ from "
+                        f"forward's argmax")
+    if problems:
+        raise AssertionError(f"{label} serve: " + "; ".join(problems)
+                             + notes)
     log(f"   decode_step logits == forward's at all {S} positions of "
-        f"{B} rows within {tol:.4f} ({cfg.dtype}; the rounding floor, row "
-        f"0's forward alone against batched, {floor:.4f}; max |diff| "
-        f"{max_d:.4f}, mean {mean_d:.5f}, max |logit| {max_logit:.3f}); "
-        f"greedy tokens == forward's argmax at all {int(sure.sum())} of "
-        f"{B * G} positions whose top-2 margin exceeds {2 * tol:.4f} "
+        f"{B} rows within {tol:g} ({cfg.dtype}; max |diff| {max_d:.4f}, "
+        f"mean {mean_d:.5f}, max |logit| {max_logit:.3f}); greedy tokens "
+        f"== forward's argmax at all {int(sure.sum())} of {B * G} "
+        f"positions whose top-2 margin exceeds {2 * tol:g} "
         f"({int((arg == greedy).sum())} of {B * G} equal in all){notes}; "
         f"check {check_s:.2f} s; peak memory {peak / 2**30:.2f} GiB")
+    if f32:
+        log(f"   float32 at {ccfg.n_layers} layers, the served weights, "
+            f"TF32 off: decode_step == forward within {f32_tol:g} "
+            f"(max |diff| {f32['decode']:.3e}; by position 0, 1-7, 8-31, "
+            f"32-: {', '.join(f'{x:.2e}' for x in f32['by_pos'])}), row 0's "
+            f"forward alone == "
+            f"batched within it ({f32['alone']:.3e}); the served bf16 "
+            f"forward lies {f32['bf16']:.4f} from this float32 forward "
+            f"(bf16 rounding alone)")
     res = {"serve_s": serve_s, "prefill_s": out["prefill_s"],
            "tok_s": B * G / out["decode_s"], "step_ms": step_ms,
-           "bound_ms": bound, "max_diff": max_d, "floor": floor,
-           "peak_gib": peak / 2**30,
+           "bound_ms": bound, "max_diff": max_d, "peak_gib": peak / 2**30,
            "params_b": n_params / 1e9}
     del out, params, full, dec, diff, seq
     gc.collect()
@@ -3042,12 +3129,6 @@ def phase_families(args, engine, counters):
     device = engine.device
     for c in counters.values():
         c.reset()
-    # the MoE training frees and allocates 3.2 GB float32 transients leaf
-    # after leaf; fixed-size segments left ~13 GB of the card fragmented in
-    # such a run (out of memory at 63 GB allocated), so the rest of the
-    # process grows expandable segments (phases 1-11 keep the default)
-    torch.cuda.empty_cache()
-    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     secs = {}
 
     def serve_args(arch, *extra):

@@ -174,7 +174,17 @@ def run_training(args, params=None) -> dict:
     return _run_single(args, cfg, loader, device, params)
 
 
+# The allocator the driver runs with unless the caller sets its own: an
+# MoE's 805 M-element expert leaves free and allocate 3.2 GB float32
+# transients leaf after leaf (AdamW, the gradient wire), and fixed-size
+# segments fragment under that (qwen3-moe-235B-A22B at 1 layer, 8 x 512,
+# ran out of memory on an H100 with 17.6 GiB reserved but free).  Torch
+# reads it when the process first uses the card.
+ALLOC_CONF = "expandable_segments:True"
+
+
 def main(argv=None) -> None:
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", ALLOC_CONF)
     args = build_parser().parse_args(argv)
     m = run_training(args)
     losses, dt = m["losses"], m["seconds"]

@@ -974,3 +974,48 @@ def test_wire_on_an_moe_expert_leaf_on_the_card(card):
     for s in range(0, flat.numel(), step):
         want = gc.quantize_grads({"w": flat[s:s + step]})["w"]
         assert torch.equal(out[s:s + step], want), s
+
+
+@pytest.mark.cuda
+def test_hybrid_float32_decode_at_full_depth_tells_a_shared_kv_apart(card):
+    """zamba2-2.7B at full width and depth (54 Mamba2 layers, the shared
+    block applied 9 times), float32, TF32 off, 8 x 48 tokens: decode within
+    1.5 of ``forward`` at every position (``chip_smoke.SERVE_F32_TOL``),
+    and a cache whose 9 applications share one K/V store, as a decode that
+    read another application's K/V would, beyond it at every position
+    after the first (at the first each application reads the row it just
+    wrote)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model
+    cfg = dataclasses.replace(get_arch("zamba2-2.7b"), dtype="float32")
+    params = model.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                               device=card)
+    seq = torch.randint(0, cfg.vocab, (8, 48), device=card, dtype=torch.int32,
+                        generator=torch.Generator(device=card).manual_seed(1))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            full = model.forward(cfg, params, seq)
+
+            def replay(shared_kv: bool) -> torch.Tensor:
+                cache = model.init_cache(cfg, 8, 56, device=card)
+                assert cache["k"].shape[0] == 9
+                if shared_kv:
+                    for k in ("k", "v"):
+                        cache[k] = cache[k][:1].expand_as(cache[k])
+                dec = []
+                for i in range(seq.shape[1]):
+                    lg, cache = model.decode_step(cfg, params, cache,
+                                                  seq[:, i:i + 1])
+                    dec.append(lg)
+                return (torch.cat(dec, 1) - full).abs().amax(dim=(0, 2))
+
+            good, bad = replay(False), replay(True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    assert float(good.max()) <= 1.5, good.tolist()
+    assert float(bad[1:].min()) > 1.5, bad.tolist()

@@ -6,6 +6,8 @@ reference's ``init_params(cfg, key(0))``, carried across by
 Training losses within ``rtol=1e-4`` of the reference's ``run_training`` (float32
 sums in another order); greedy serving tokens equal.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -80,6 +82,29 @@ def test_train_main_prints_ok(tmp_path, capsys):
                 "32", "--ckpt-dir", str(tmp_path), "--device", "cpu"])
     out = capsys.readouterr().out
     assert "OK" in out and "compression ratio" in out
+
+
+def test_train_main_sets_the_allocator_unless_the_caller_did(monkeypatch):
+    """``main`` grows expandable segments (``train.ALLOC_CONF``) before the
+    run first uses the card; a caller's own allocator config stands."""
+    seen = []
+
+    class Ran(Exception):
+        pass
+
+    def run_training(args):
+        seen.append(os.environ.get("PYTORCH_CUDA_ALLOC_CONF"))
+        raise Ran
+
+    monkeypatch.setattr(train, "run_training", run_training)
+    monkeypatch.delenv("PYTORCH_CUDA_ALLOC_CONF", raising=False)
+    with pytest.raises(Ran):
+        train.main(["--device", "cpu"])
+    monkeypatch.setenv("PYTORCH_CUDA_ALLOC_CONF", "backend:native")
+    with pytest.raises(Ran):
+        train.main(["--device", "cpu"])
+    assert seen == ["expandable_segments:True", "backend:native"]
+    assert train.ALLOC_CONF == "expandable_segments:True"
 
 
 def test_diloco_and_mesh_steps_raise_naming_the_roadmap_item(tmp_path):

@@ -250,7 +250,22 @@ def test_decode_matches_reference_and_forward(arch):
     same positions (the reference test's 2e-4), and every cache leaf the
     reference's after them (K/V; the RWKV6 and Mamba2 states, their
     token-shift and convolution rows; the shared block's K/V)."""
-    rcfg, pcfg = _cfgs(arch)
+    _check_decode(*_cfgs(arch))
+
+
+@pytest.mark.parametrize("n_layers", [4, 6])
+def test_hybrid_decode_with_the_shared_block_applied_repeatedly(n_layers):
+    """zamba2 with its shared block applied 2 and 3 times (every second
+    layer at ``reduced()``), each application with its own K/V cache: the
+    decode checks above, every application's K/V leaf included."""
+    rcfg, pcfg = _cfgs("zamba2-2.7b", n_layers=n_layers)
+    assert pcfg.n_layers // pcfg.attn_every == n_layers // 2
+    assert model.init_cache(pcfg, 2, 16, device=CPU)["k"].shape[0] == \
+        n_layers // 2
+    _check_decode(rcfg, pcfg)
+
+
+def _check_decode(rcfg, pcfg):
     rp, pp = _carried(rcfg, seed=3)
     tok = _tokens(rcfg, 2, 8, seed=4)
     rcache = rmodel.init_cache(rcfg, 2, 16)
