@@ -10,6 +10,7 @@
     python3 chip_smoke.py --stage-only [--src DIR]   # phase 4's build and
                                                      # stage by part, alone
     python3 chip_smoke.py --families-only            # phases 1, 2 and 12
+    python3 chip_smoke.py --collectives-only         # phases 1, 2 and 13
 
 Phases, each of which must pass (any failure exits non-zero, with no result
 line):
@@ -186,9 +187,36 @@ line):
        - (f) float32 on the card against the CPU: rwkv6 (2 layers), zamba2
          (6 layers, one shared application), qwen3-moe (2 layers, 16
          experts);
- 13. a JSON line of the kernels (``consumer_launches``: phase 10's,
-     ``model_launches``: phase 11's, ``family_launches``: phase 12's),
-     then ``{"ok": true, "device": {...}}`` last.
+ 13. the collective plane (``distributed/collectives.py``,
+     ``distributed/diloco.py``, ``launch/mesh.py``), its members sharing the
+     card:
+       - (a) ``compressed_psum``'s receive path, bitpack's second entry
+         ``codag_bitpack_reduce`` (the dequant and the member mean in its
+         stores), on qwen3-1.7B's embedding leaf (151,936 x 2,048 float32
+         a member, 2.43 M wire rows of 128) at 2 and 4 members: one launch,
+         equal to the plain version (bitpack body, ``Epilogue.apply``, the
+         ``MemberReduce``) bit for bit, ms and device ms beside its bytes
+         bound; then the edge cases (a leaf not a multiple of 128 over 1,
+         2, 3 and 8 members, sum and mean; a ragged gather);
+       - (b) ``compressed_psum``, ``topk_psum`` and ``make_tree_reduce``
+         (int8, top-k, none) on 2- and 4-member meshes on the card against
+         the same on the CPU: within one int8 grid step, the share of
+         elements that differ printed;
+       - (c) ``launch.train.run_training`` with ``--diloco 2``: qwen3-1.7B
+         at full width and 4 layers, 8 x 512 a pod, the rle_v2 loader,
+         ``--grad-int8 --compress-moments``, lr 1e-5, ``--outer-every
+         4``: 12 steps with the int8 outer wire, then 8 with top-k 1%; the
+         loss falls, the pods equal each other after every sync, each int8
+         sync's anchor within the int8 grid bound of a float32 Nesterov
+         step on the plain member mean of the same deltas, one
+         ``codag_bitpack_reduce`` launch a leaf a sync and no unfused
+         epilogue; the overlap stats, ``wire_report``, and one sync's
+         device ms beside its bytes bound;
+ 14. a JSON line of the kernels (``consumer_launches``: phase 10's,
+     ``model_launches``: phase 11's, ``family_launches``: phase 12's,
+     ``diloco_launches``: phase 13's; ``bitpack_reduce``, bitpack's second
+     entry, with phase 13's numbers), then ``{"ok": true, "device":
+     {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  It
 exits non-zero without a card, or without the port's sources beside it.
@@ -805,7 +833,7 @@ t1 = time.perf_counter()
 libs = [cuda_rle.LIB, *cuda_rle.LIB_EPI.values(), bitpack.LIB, tdeflate.LIB,
         huffman.LIB, lzss.LIB, dq.LIB, scalar.LIB]
 for x in libs + [dq.WGMMA, scalar.TDEFLATE, scalar.LZSS, scalar.HUFFMAN,
-                 scalar.BITPACK]:
+                 scalar.BITPACK, bitpack.REDUCE]:
     x.fn()
 print(json.dumps({"import_s": t1 - t0, "bind_s": time.perf_counter() - t1,
                   "nvcc": cuda_build.NVCC_RUNS, "libs": len(libs)}))
@@ -3227,21 +3255,435 @@ def phase_families(args, engine, counters):
     return launches
 
 
-class Counter:
-    """A kernel's launch count on the main path: reset, then read."""
+# phase 13: the collective plane
+PSUM_LEAF = (151936, 2048)          # qwen3-1.7B's embedding: 311 M float32
+PSUM_MEMBERS = (2, 4)
+PSUM_CHECK_ROWS = 1 << 19           # output rows a slice of the plain check
+CVC_SIZE = (1 << 20) + 77           # phase 13 (b)'s leaf, card against CPU
+DILOCO_PODS = 2
+DILOCO_OUTER_EVERY = 4
+DILOCO_STEPS = {"int8": 12, "topk": 8}
+DILOCO_TOPK = 0.01
+BF16_ULP = 2.0 ** -8                # a bf16 anchor's rounding, relative
 
-    def __init__(self, module, codec=None):
-        self.module, self.codec = module, codec
+
+def reduce_plain_err(dev: dict, n: int, epi, out: torch.Tensor):
+    """(max |out - plain|, plain ms) of the member reduce, the plain version
+    (the bitpack body, ``Epilogue.apply`` with the ``MemberReduce``) run in
+    slices of ``PSUM_CHECK_ROWS`` output rows, each slice's rows gathered
+    from every member; ``inf`` where a slice's shape or dtype differs."""
+    from repro_torch.kernels import bitpack
+    words, scale = dev["comp_words"], dev["wire_scale"]
+    nb = words.shape[0] // n
+    err = 0.0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    plain_ms = 0.0
+    for s0 in range(0, nb, PSUM_CHECK_ROWS):
+        e0 = min(s0 + PSUM_CHECK_ROWS, nb)
+        rows = [slice(m * nb + s0, m * nb + e0) for m in range(n)]
+        part = {"comp_words": torch.cat([words[r] for r in rows]),
+                "wire_scale": torch.cat([scale[r] for r in rows]),
+                "wire_zero": dev["wire_zero"]}
+        start.record()
+        plain = epi.apply(bitpack.unpack(part["comp_words"], chunk_elems=128,
+                                         width=1, bits=8), part)
+        end.record()
+        end.synchronize()
+        plain_ms += start.elapsed_time(end)
+        if plain.dtype != out.dtype or plain.shape != out[s0:e0].shape:
+            return float("inf"), plain_ms
+        err = max(err, float((plain - out[s0:e0]).abs().max()))
+    return err, plain_ms
+
+
+def reduce_bound_ms(n: int, nb: int) -> float:
+    """The member reduce's least time: every member's wire rows (128 bytes
+    of 8-bit fields) and float32 scales read once, the (nb, 128) float32
+    output written once, at the card's memory rate."""
+    return (n * nb * (128 + 4) + nb * 128 * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def reduce_edge_cases(device) -> int:
+    """The reduce entry against its plain version at the edges: a leaf not
+    a multiple of 128 over 1, 2, 3 and 8 members, sum and mean, and a
+    ragged gather.  Returns the number of cases (each must be equal)."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import bitpack, harness
+    cases = 0
+    g = torch.Generator(device=device).manual_seed(13)
+    for n in (1, 2, 3, 8):
+        x = torch.randn((n, 37 * 128 + 77), generator=g, device=device)
+        dev = collectives.gathered_wire(x)
+        for mean in (False, True):
+            epi = harness.Epilogue(out_dtype="float32",
+                                   scale_key="wire_scale",
+                                   zero_key="wire_zero",
+                                   fn=harness.MemberReduce(n, mean))
+            before = bitpack.REDUCE_LAUNCHES
+            out = plan_mod.dispatch(dev, config=EngineConfig(
+                device=str(device)), codec="bitpack", width=1,
+                chunk_elems=128, bits=8, epilogue=epi)
+            err, _ = reduce_plain_err(dev, n, epi, out)
+            if err != 0 or bitpack.REDUCE_LAUNCHES != before + 1:
+                raise AssertionError(f"13 (a) reduce at n={n} mean={mean}: "
+                                     f"max |err| {err}")
+            cases += 1
+    vals = torch.arange(2 * 3 * 128, device=device,
+                        dtype=torch.int32).reshape(2, 3, 128) % 251
+    tables = [collectives.wire_dev(collectives.pack_bits_rows(vals[m], 8),
+                                   chunk_elems=128, bits=8) for m in (0, 1)]
+    dev = plan_mod.gather_member_tables(tables, codec="bitpack",
+                                        row_counts=[2, 3])
+    if dev["out_lens"].tolist() != [128, 128, 0, 128, 128, 128]:
+        raise AssertionError(f"13 (a) ragged out_lens {dev['out_lens']}")
+    dev["wire_scale"] = torch.rand((6, 1), generator=g, device=device)
+    dev["wire_zero"] = torch.full((), 127.0, device=device)
+    epi = harness.Epilogue(out_dtype="float32", scale_key="wire_scale",
+                           zero_key="wire_zero",
+                           fn=harness.MemberReduce(2, False))
+    out = plan_mod.dispatch(dev, config=EngineConfig(device=str(device)),
+                            codec="bitpack", width=1, chunk_elems=128,
+                            bits=8, epilogue=epi)
+    err, _ = reduce_plain_err(dev, 2, epi, out)
+    if err != 0:
+        raise AssertionError(f"13 (a) ragged reduce: max |err| {err}")
+    return cases + 1
+
+
+def card_vs_cpu_collectives(device, seed: int) -> None:
+    """13 (b): ``compressed_psum``, ``topk_psum`` and ``make_tree_reduce``
+    (each wire) on 2- and 4-member meshes on the card against the port on
+    the CPU, same inputs: within one int8 grid step (max |x| / 127 of the
+    input each output comes from) elementwise; the share of elements that
+    differ at all is printed."""
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import mesh as mesh_lib
+    rng = np.random.default_rng(seed + 13)
+
+    def run(where: str, n: int, x, tree) -> dict:
+        mesh = mesh_lib.make_test_mesh((n, 1), ("pod", "data"), device=where)
+        cfg = EngineConfig(device=where)
+        x = x.to(where)
+        tree = {k: v.to(where) for k, v in tree.items()}
+        out = {"psum": collectives.compressed_psum(x, mesh=mesh, config=cfg,
+                                                   mean=True)}
+        out["topk"], out["topk_res"] = collectives.topk_psum(
+            x, torch.zeros_like(x), mesh=mesh, frac=DILOCO_TOPK, config=cfg,
+            mean=True)
+        for wire in ("int8", "topk", "none"):
+            res = ({k: torch.zeros_like(v) for k, v in tree.items()}
+                   if wire == "topk" else None)
+            mean, new_res = collectives.make_tree_reduce(
+                mesh, "pod", wire=wire, frac=DILOCO_TOPK, config=cfg)(
+                tree, res)
+            for k in tree:
+                out[f"tree_{wire}_{k}"] = mean[k]
+                if new_res is not None:
+                    out[f"tree_{wire}_res_{k}"] = new_res[k]
+        return {k: v.cpu() for k, v in out.items()}
+
+    for n in (2, 4):
+        x = torch.from_numpy(rng.standard_normal((n, CVC_SIZE)).astype(
+            np.float32))
+        tree = {"w": torch.from_numpy(rng.standard_normal(
+                    (n, 4096, 300)).astype(np.float32)),
+                "b": torch.from_numpy(rng.standard_normal((n, 77)).astype(
+                    np.float32)),
+                "e": torch.from_numpy((0.01 * rng.standard_normal(
+                    (n, 1000, 129))).astype(np.float32))}
+        got, want = run(str(device), n, x, tree), run("cpu", n, x, tree)
+        groups = {}
+        for key, w in want.items():
+            src = x if not key.startswith("tree") else tree[key[-1]]
+            d = (got[key] - w).abs()
+            grid = float(src.abs().max()) / 127
+            label = key.split("_")[0] if not key.startswith("tree") else \
+                f"make_tree_reduce({key.split('_')[1]})"
+            worst, differ, total = groups.get(label, (0.0, 0, 0))
+            groups[label] = (max(worst, float(d.max()) / grid),
+                             differ + int((d != 0).sum()), total + d.numel())
+        bad = {k: v for k, v in groups.items() if v[0] > 1.0}
+        if bad:
+            raise AssertionError(f"13 (b) {n} members, card against CPU "
+                                 f"beyond one grid step: {bad}")
+        log(f"   (b) {n} members, card against CPU (worst, in int8 grid "
+            "steps; elements that differ): " + "; ".join(
+                f"{k} {w:.2e}, {d}/{t}" for k, (w, d, t) in groups.items()))
+
+
+def checked_diloco(targs, counters, device) -> tuple:
+    """``launch.train.run_training(targs)`` (``--diloco``) with its outer
+    syncs held: after each sync every pod equals pod 0 exactly, and (int8
+    wire) the anchor lies within the int8 grid bound of a float32 Nesterov
+    step on the plain member mean of the same deltas: per leaf,
+    lr * (1 + momentum) * max |delta| / 127 plus a bf16 rounding of the
+    anchor.  The checks run on the sync's stream as device tensors and are
+    read after the run.  Returns (the run's dict, the checks, the
+    launches)."""
+    from repro_torch.core.tree import leaves, map_tree
+    from repro_torch.distributed import diloco
+    from repro_torch.kernels import harness
+    from repro_torch.launch import train
+    real_make = diloco.make_outer_sync
+    checks = []
+
+    def make(mesh, cfg, **kw):
+        sync = real_make(mesh, cfg, **kw)
+
+        def held(pod_params, outer):
+            new_pod, new_outer = sync(pod_params, outer)
+            unequal = sum((p[1:] != p[:1]).sum() for p in leaves(new_pod))
+            over = torch.zeros((), device=device)
+            if cfg.wire == "int8":
+                def excess(p, a, m, got):
+                    d = (p - a[None].to(p.dtype)).float()
+                    mean = harness.MemberReduce(d.shape[0], True).fold(d)
+                    mom = cfg.outer_momentum * m + mean
+                    ref = (a.float() + cfg.outer_lr
+                           * (cfg.outer_momentum * mom + mean))
+                    bound = (cfg.outer_lr * (1 + cfg.outer_momentum)
+                             * d.abs().amax() / 127
+                             + BF16_ULP * ref.abs())
+                    return ((got.float() - ref).abs() - bound).amax()
+                for args in zip(leaves(pod_params), leaves(outer["anchor"]),
+                                leaves(outer["outer_mom"]),
+                                leaves(new_outer["anchor"])):
+                    over = torch.maximum(over, excess(*args))
+            checks.append((unequal, over))
+            return new_pod, new_outer
+
+        return held
+
+    from repro_torch.kernels import bitpack
+    launches = {k: counters[k] for k in (kernel_of("rle_v2"),
+                                         "bitpack_unpack")}
+    # the reduce entry's count: phase 13's alone (the earlier phases hold
+    # every counter of ``counters`` to a launch on their paths)
+    launches["bitpack_reduce"] = Counter(bitpack, attr="REDUCE_LAUNCHES")
+    for c in launches.values():
+        c.reset()
+    unfused = harness.EPILOGUE_UNFUSED
+    diloco.make_outer_sync = make
+    try:
+        t0 = time.perf_counter()
+        m = train.run_training(targs)
+        torch.cuda.synchronize(device)
+        m["run_s"] = time.perf_counter() - t0
+    finally:
+        diloco.make_outer_sync = real_make
+    m["unfused"] = harness.EPILOGUE_UNFUSED - unfused
+    held = [(int(u), float(o)) for u, o in checks]
+    return m, held, {k: c.read() for k, c in launches.items()}
+
+
+def sync_bound_ms(pod_params, outer) -> float:
+    """An outer sync's least time: the pod params, the anchor and the
+    float32 momentum read once, the new pods, anchor and momentum written
+    once, at the card's memory rate."""
+    nbytes = 2 * (tree_bytes(pod_params) + tree_bytes(outer["anchor"])
+                  + tree_bytes(outer["outer_mom"]))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_collectives(args, engine, counters):
+    """Phase 13: the member reduce fused into bitpack's stores on
+    qwen3-1.7B's embedding leaf, the collectives on the card against the
+    CPU, and DiLoCo training through ``launch/train.py --diloco``.  Returns
+    (the reduce entry's row of the kernels line, the DiLoCo run's launches
+    by kernel)."""
+    import gc
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.tree import leaves
+    from repro_torch.distributed import collectives, diloco
+    from repro_torch.kernels import bitpack, harness
+    from repro_torch.launch import mesh as mesh_lib, train
+    log("== 13 the collective plane: compressed_psum's dequant -> member "
+        "reduce in bitpack's stores (codag_bitpack_reduce) on qwen3-1.7B's "
+        "embedding leaf, the collectives card against CPU, and qwen3-1.7B "
+        "DiLoCo training (2 pods sharing the card)")
+    device = engine.device
+    secs = {}
+    t0 = time.perf_counter()
+
+    # (a) the reduce entry against its plain version, timed against its
+    # bound, at full size; then the edge cases
+    rows = {}
+    size = PSUM_LEAF[0] * PSUM_LEAF[1]
+    cfg_e = EngineConfig(device=str(device))
+    for n in PSUM_MEMBERS:
+        g = torch.Generator(device=device).manual_seed(args.seed + n)
+        x = torch.randn((n, size), generator=g, device=device)
+        dev = collectives.gathered_wire(x)
+        del x
+        nb = dev["comp_words"].shape[0] // n
+        epi = harness.Epilogue(out_dtype="float32", scale_key="wire_scale",
+                               zero_key="wire_zero",
+                               fn=collectives._member_reduce(n, True))
+
+        def reduce_once():
+            return plan_mod.dispatch(dev, config=cfg_e, codec="bitpack",
+                                     width=1, chunk_elems=128, bits=8,
+                                     epilogue=epi)
+
+        before = (bitpack.REDUCE_LAUNCHES, bitpack.LAUNCHES,
+                  harness.EPILOGUE_UNFUSED)
+        out = reduce_once()
+        torch.cuda.synchronize()
+        if (bitpack.REDUCE_LAUNCHES - before[0], bitpack.LAUNCHES - before[1],
+                harness.EPILOGUE_UNFUSED - before[2]) != (1, 0, 0):
+            raise AssertionError("13 (a): the reduce was not one fused "
+                                 "codag_bitpack_reduce launch")
+        err, plain_ms = reduce_plain_err(dev, n, epi, out)
+        del out
+        ms = ms_of(reduce_once, args.reps)
+        dms = device_ms(reduce_once, args.reps, sleep_cycles=20_000_000)
+        bound = reduce_bound_ms(n, nb)
+        rows[n] = {"max_abs_err": err, "ms": ms, "device_ms": dms,
+                   "plain_ms": plain_ms, "bound_ms": bound}
+        log(f"   (a) {n} members x {nb} rows of 128 ({PSUM_LEAF[0]} x "
+            f"{PSUM_LEAF[1]} float32 a member), mean: one "
+            f"codag_bitpack_reduce launch, max |err| against the plain "
+            f"version {err} (slices of {PSUM_CHECK_ROWS} rows); ms "
+            f"{ms:.3f}, device {dms:.3f} (median of {args.reps}); bound "
+            f"{bound:.3f} ms (bytes: {n} x {nb} x 132 B read, {nb} x 512 B "
+            f"written, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+            f"{bound / dms:.1%} of it; plain version {plain_ms:.3f} ms")
+        if err != 0:
+            raise AssertionError(f"13 (a) reduce at {n} members differs from "
+                                 f"its plain version by {err}")
+        del dev
+        gc.collect()
+        torch.cuda.empty_cache()
+    cases = reduce_edge_cases(device)
+    log(f"   (a) edge cases: {cases} (a leaf of 37 x 128 + 77 over 1, 2, 3 "
+        "and 8 members, sum and mean; a ragged gather), each == the plain "
+        "version bit for bit")
+    secs["(a)"] = time.perf_counter() - t0
+
+    # (b) card against CPU
+    t0 = time.perf_counter()
+    card_vs_cpu_collectives(device, args.seed)
+    secs["(b)"] = time.perf_counter() - t0
+
+    # (c) DiLoCo training through the driver, int8 then top-k outer wire
+    (ROOT / "build").mkdir(exist_ok=True)
+    launches = {}
+    for wire, steps in DILOCO_STEPS.items():
+        t0 = time.perf_counter()
+        extra = (["--outer-wire", "int8"] if wire == "int8"
+                 else ["--topk", str(DILOCO_TOPK)])
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            targs = train.build_parser().parse_args(
+                ["--arch", "qwen3-1.7b", "--preset", "full", "--n-layers",
+                 str(TRAIN_LAYERS), "--batch", "8", "--seq", "512",
+                 "--steps", str(steps), "--lr", str(TRAIN_LR),
+                 "--grad-int8", "--compress-moments", "--diloco",
+                 str(DILOCO_PODS), "--outer-every", str(DILOCO_OUTER_EVERY),
+                 "--ckpt-dir", str(Path(tmp) / "ckpt"), "--device",
+                 str(device), *extra])
+            m, held, run_launches = checked_diloco(targs, counters, device)
+        losses = m["losses"]
+        k = max(1, len(losses) // 10)
+        pod_params, _, outer = m["state"]
+        n_wire = sum(t[0].numel() >= 128 for t in leaves(pod_params))
+        syncs = m["overlap"]["syncs"]
+        problems = []
+        if not float(np.mean(losses[-k:])) < float(np.mean(losses[:k])):
+            problems.append(f"loss did not fall: {losses}")
+        # a sync launched every DILOCO_OUTER_EVERY steps after the first,
+        # each finished by the next or after the last step
+        if syncs != len(held) or \
+                syncs != (steps - 1) // DILOCO_OUTER_EVERY:
+            problems.append(f"{syncs} syncs, {len(held)} checked")
+        if any(u for u, _ in held):
+            problems.append(f"pods differ after a sync: {held}")
+        if wire == "int8" and any(o > 0 for _, o in held):
+            problems.append(f"anchor beyond the int8 grid bound: {held}")
+        if wire == "int8" and (run_launches["bitpack_reduce"]
+                               != n_wire * syncs or m["unfused"]):
+            problems.append(f"{run_launches['bitpack_reduce']} reduce "
+                            f"launches for {n_wire} leaves x {syncs} syncs,"
+                            f" {m['unfused']} unfused epilogues")
+        if run_launches[kernel_of("rle_v2")] < 1 or \
+                run_launches["bitpack_unpack"] < DILOCO_PODS * n_wire * steps:
+            problems.append(f"launches {run_launches}")
+        if problems:
+            raise AssertionError(f"13 (c) {wire}: " + "; ".join(problems))
+        step_s = float(np.median(m["step_seconds"]))
+        ov, wrep = m["overlap"], m["wire"]
+        log(f"   (c) {wire} outer wire: qwen3-1.7B at {TRAIN_LAYERS} layers, "
+            f"{DILOCO_PODS} pods x batch {targs.batch} x seq {targs.seq}, "
+            f"--grad-int8 --compress-moments, lr {targs.lr}, outer every "
+            f"{DILOCO_OUTER_EVERY}, {steps} steps in {m['run_s']:.2f} s; "
+            f"losses {', '.join(f'{v:.4f}' for v in losses)}: first "
+            f"{np.mean(losses[:k]):.4f} -> last {np.mean(losses[-k:]):.4f}; "
+            f"step {step_s * 1e3:.2f} ms (median, host clock, both pods)")
+        log(f"   syncs {syncs}: pods equal after each; "
+            + ("anchor within the int8 grid bound of a float32 Nesterov step "
+               f"on the plain member mean (worst excess "
+               f"{max(o for _, o in held):.3e} <= 0); "
+               if wire == "int8" else "")
+            + f"overlap {json.dumps(ov)}; wire_report {json.dumps(wrep)} "
+            f"({wrep['ratio']:.2f}x)")
+        sync = diloco.make_outer_sync(
+            mesh_lib.make_test_mesh((DILOCO_PODS, 1), ("pod", "data"),
+                                    device=str(device)),
+            diloco.DiLoCoConfig(wire=wire, topk_frac=DILOCO_TOPK),
+            config=cfg_e)
+        sync_ms = device_ms(lambda: sync(pod_params, outer), 3,
+                            sleep_cycles=40_000_000)
+        sbound = sync_bound_ms(pod_params, outer)
+        log(f"   one {wire} sync alone: device {sync_ms:.3f} ms (median of "
+            f"3); bound {sbound:.3f} ms (pods, anchor and float32 momentum "
+            f"read and written once), the sync {sync_ms / sbound:.1f}x it; "
+            f"launches in the run {run_launches}")
+        for name, v in run_launches.items():
+            launches[name] = launches.get(name, 0) + v
+        del m, pod_params, outer, sync
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[f"(c) {wire}"] = time.perf_counter() - t0
+    log("   phase 13 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in secs.items()))
+    log(f"   phase 13 launches: {launches}")
+    row = rows[PSUM_MEMBERS[0]]
+    return {
+        "name": "bitpack_reduce",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/bitpack_unpack.cu",
+        "replaces": "src/repro/kernels/bitpack.py:55",
+        "launches": launches["bitpack_reduce"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "ms": row["ms"], "device_ms": row["device_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "members": PSUM_MEMBERS[0],
+        "by_members": {str(n): r for n, r in rows.items()},
+        "diloco_launches": launches["bitpack_reduce"],
+    }, launches
+
+
+class Counter:
+    """A kernel's launch count on the main path: reset, then read (a
+    module's ``attr``, or its ``CODEC_LAUNCHES[codec]``)."""
+
+    def __init__(self, module, codec=None, attr="LAUNCHES"):
+        self.module, self.codec, self.attr = module, codec, attr
 
     def reset(self) -> None:
         if self.codec is None:
-            self.module.LAUNCHES = 0
+            setattr(self.module, self.attr, 0)
         else:
             self.module.CODEC_LAUNCHES[self.codec] = 0
 
     def read(self) -> int:
         if self.codec is None:
-            return self.module.LAUNCHES
+            return getattr(self.module, self.attr)
         return self.module.CODEC_LAUNCHES[self.codec]
 
 
@@ -3281,6 +3723,9 @@ def main() -> int:
     ap.add_argument("--families-only", action="store_true",
                     help="run phases 1, 2 and 12 alone (the other model "
                     "families), with no result line")
+    ap.add_argument("--collectives-only", action="store_true",
+                    help="run phases 1, 2 and 13 alone (the collective "
+                    "plane and DiLoCo), with no result line")
     ap.add_argument("--stage-only", action="store_true",
                     help="only time DecodePlan.build and stage by part on "
                     "phase 4's workload (cold, then warm), and stop")
@@ -3328,7 +3773,7 @@ def main() -> int:
                 [cuda_rle.LIB, *cuda_rle.LIB_EPI.values(), bitpack.LIB,
                  tdeflate.LIB, huffman.LIB, lzss.LIB, dq.LIB, scalar.LIB],
                 [dq.WGMMA, scalar.TDEFLATE, scalar.LZSS, scalar.HUFFMAN,
-                 scalar.BITPACK], src)
+                 scalar.BITPACK, bitpack.REDUCE], src)
     engine = CodagEngine()
     errs = {k: 0 for k in KERNELS}
     counters = {kernel_of(c): Counter(cuda_rle, c) for c in cuda_rle.CODEC_IDS}
@@ -3340,6 +3785,10 @@ def main() -> int:
     if args.families_only:
         launched = phase_families(args, engine, counters)
         log(f"phase 12 alone, launches: {json.dumps(launched)}")
+        return 0
+    if args.collectives_only:
+        reduce_row, launched = phase_collectives(args, engine, counters)
+        log(f"phase 13 alone: {json.dumps(reduce_row)}")
         return 0
     phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
                           engine.device, counters)
@@ -3362,7 +3811,8 @@ def main() -> int:
     consumer = phase_consumers(args, engine, counters, server, store)
     model_launches = phase_model(args, engine, counters)
     family = phase_families(args, engine, counters)
-    log("== 13 kernels")
+    reduce_row, dil = phase_collectives(args, engine, counters)
+    log("== 14 kernels")
     kernels = []
     for name in KERNELS:
         source, replaces = SOURCES.get(
@@ -3394,10 +3844,19 @@ def main() -> int:
             kernels[-1]["model_launches"] = model_launches[name]
         if name in family:          # phase 12's
             kernels[-1]["family_launches"] = family[name]
+        if name in dil:             # phase 13's
+            kernels[-1]["diloco_launches"] = dil[name]
         exact = name != "dequant_matmul"    # held to TOL in phases 3 and 6
         if kernels[-1]["launches"] < 1 or (exact and errs[name]):
             raise AssertionError(f"{name}: not launched on the main path, or "
                                  "differs from its plain version")
+    kernels.append(reduce_row)      # bitpack's second entry, phase 13's
+    for name in (kernel_of("rle_v2"), "bitpack_unpack", "bitpack_reduce"):
+        if dil.get(name, 0) < 1:
+            raise AssertionError(f"{name}: not launched by phase 13's "
+                                 "DiLoCo run")
+    if reduce_row["max_abs_err"] != 0:
+        raise AssertionError("bitpack_reduce differs from its plain version")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

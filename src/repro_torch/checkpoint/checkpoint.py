@@ -31,7 +31,7 @@ leaf is rebuilt from its bytes with ``format.device_view``.
 Blob files are read through ``core.store.BlobUnpickler``, which admits the
 compressed-blob classes (the reference package's names map onto the
 port's) and numpy arrays only.  The mesh-sharded and elastic restore
-(``shardings=``) is not ported yet (ROADMAP.md Queue 1 item 11).
+(``shardings=``) is not ported yet (ROADMAP.md Queue 1 item 11b).
 """
 from __future__ import annotations
 
@@ -263,12 +263,12 @@ def restore(ckpt_dir: str, step: int, like, *, shardings=None,
     on this path).
 
     ``shardings`` (the elastic, mesh-sharded restore) raises
-    ``NotImplementedError``: ROADMAP.md Queue 1 item 11.
+    ``NotImplementedError``: ROADMAP.md Queue 1 item 11b.
     """
     if shardings is not None:
         raise NotImplementedError(
             "restore(shardings=) is not ported yet (ROADMAP.md Queue 1 "
-            "item 11)")
+            "item 11b)")
     if engine is not None and service is not None:
         raise ValueError("pass engine= OR service=, not both: the service "
                          "decodes on its own engine")

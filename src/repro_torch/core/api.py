@@ -165,7 +165,7 @@ def decompress_many(cas: Sequence[CompressedArray],
     if mesh is not None or mesh_axis is not None or out_shardings is not None:
         raise NotImplementedError(
             "mesh=/mesh_axis=/out_shardings= are not ported yet (ROADMAP.md "
-            "Queue 1 item 11)")
+            "Queue 1 item 11b)")
     engine = _engine(engine, device)
     if not cas:
         return []

@@ -22,8 +22,9 @@ The counterpart of ``repro/core/plan.py`` (single-device executors):
 ``DecodePlan.build(bucket=True)`` pads each merged table to pow2 row and
 column buckets (the service's window loop builds its plans so), and
 :meth:`DecodePlan.decode_group_device` stages and decodes one group on a
-chosen device.  The sharded executor is not ported yet (ROADMAP.md Queue 1
-item 11).
+chosen device.  :func:`gather_member_tables` fuses the wire tables of a
+mesh's members into one table for one dispatch (the collective plane).  The
+sharded executor is not ported yet (ROADMAP.md Queue 1 item 11b).
 """
 from __future__ import annotations
 
@@ -115,6 +116,10 @@ def dispatch(dev: Dict[str, Any], *, config, codec: str, width: int,
         batches = [(0, n_chunks)]
     elif config.unit == "block":
         nu = max(1, min(config.n_units, n_chunks))
+        if nu < n_chunks and epilogue is not None and \
+                getattr(epilogue.fn, "n_members", None):
+            raise ValueError("a member-reducing epilogue needs the whole "
+                             "gathered table in one launch (unit='warp')")
         batches = [(s, min(s + nu, n_chunks)) for s in range(0, n_chunks, nu)]
     else:
         raise ValueError(f"unknown unit {config.unit!r}")
@@ -128,6 +133,68 @@ def dispatch(dev: Dict[str, Any], *, config, codec: str, width: int,
                                chunk_elems=chunk_elems, backend=backend,
                                bits=bits, epilogue=epilogue, tune=tune))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def gather_member_tables(devs: Sequence[Dict[str, Any]], *,
+                         codec: Optional[str] = None,
+                         shared: Sequence[str] = (),
+                         row_counts=None) -> Dict[str, Any]:
+    """Collective-plane stage: the members' chunk tables as ONE fused
+    table, which one :func:`dispatch` decodes.
+
+    ``devs``: member m's device-built wire table (the dict a
+    :func:`dispatch` call consumes), each of the same height.  Every
+    per-chunk entry is laid member after member, member m's rows at
+    ``[m * n_chunks, (m + 1) * n_chunks)``: what the reference's all-gather
+    over the member axis gives.  The members share one device here, so the
+    gather is a ``torch.cat`` and nothing crosses a link.  Shared tables
+    (the codec's ``shared_extras``, e.g. ``bitpack_bits``) and scalar
+    operands are kept once, member 0's: they are the same for every member
+    by the wire format's construction.
+
+    ``row_counts``: each member's count of valid chunk rows, for ragged
+    members that padded their tables to a common height: the padding rows'
+    ``out_lens`` and ``comp_lens`` are zeroed, so length-honouring bodies
+    treat them as absent.  Members on distinct devices raise (ROADMAP.md
+    Queue 1 item 11b).
+    """
+    if not devs:
+        raise ValueError("no member tables to gather")
+    shared = set(shared)
+    if codec is not None:
+        from repro_torch.core import registry
+        shared |= set(registry.get(codec).shared_extras)
+    n_chunks = devs[0]["out_lens"].shape[0]
+    devices = {v.device for d in devs for v in d.values()
+               if isinstance(v, torch.Tensor)}
+    if len(devices) > 1:
+        raise NotImplementedError(
+            f"member tables on {sorted(map(str, devices))}: gathering across "
+            "distinct devices is not ported yet (ROADMAP.md Queue 1 item "
+            "11b); the members must share one device")
+    if any(d["out_lens"].shape[0] != n_chunks for d in devs):
+        raise ValueError("member tables of different heights: pad them to "
+                         "one height and pass row_counts")
+    out = {}
+    for k, v in devs[0].items():
+        if (k in shared or not isinstance(v, torch.Tensor) or v.dim() < 1
+                or v.shape[0] != n_chunks):
+            out[k] = v
+            continue
+        out[k] = torch.cat([d[k] for d in devs])
+    if row_counts is not None:
+        lens = out["out_lens"]
+        counts = torch.as_tensor(row_counts, dtype=torch.int64,
+                                 device=lens.device).reshape(-1)
+        if counts.shape[0] != len(devs):
+            raise ValueError(f"{counts.shape[0]} row counts for "
+                             f"{len(devs)} members")
+        flat = torch.arange(len(devs) * n_chunks, device=lens.device)
+        valid = (flat % n_chunks) < counts[flat // n_chunks]
+        out["out_lens"] = torch.where(valid, lens, 0).to(lens.dtype)
+        out["comp_lens"] = torch.where(valid, out["comp_lens"],
+                                       0).to(out["comp_lens"].dtype)
+    return out
 
 
 def _operand_cache_key(operands: Dict[str, Any]) -> tuple:

@@ -47,6 +47,10 @@
 //     not a multiple of 16, or its partial last vector, takes per-element
 //     stores, and a word row whose stride is not 16-byte aligned takes
 //     4-byte loads.
+// A second entry, `codag_bitpack_reduce`, decodes a gathered table of
+// several members' rows and folds the member axis in its stores (the
+// collective plane's dequant -> member sum or mean; `reduce_members`
+// below).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -281,6 +285,129 @@ int launch(const void* words, int64_t n, int64_t nw, int chunk_elems,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The member reduce of the collective plane (`codag_bitpack_reduce`): the
+// receive path of a compressed all-reduce.  The table holds `members`
+// members' rows one member after another (member m's row r at m * nb + r,
+// `plan.gather_member_tables`); out is (nb, chunk_elems) float32:
+//   out[r, c] = sum over m = 0 .. members-1 of epi(field(m * nb + r, c)),
+//   divided by `members` when `mean`,
+// where epi is the launch's epilogue (`epilogue.cuh`: for the int8 wire,
+// (u8 - 127) * s[m * nb + r], a float32 subtract then a float32 multiply,
+// each rounded).  The members add in order, each add rounded
+// (`__fadd_rn`, never contracted into an FMA with the multiply), from
+// member 0's value; the mean is a true division (`__fdiv_rn`).  This is
+// the reference's `Epilogue(fn=_member_reduce(n, mean))` (src/repro/
+// distributed/collectives.py:144-156) applied in the stores, and the
+// port's plain version `harness.MemberReduce` adds in the same order, so
+// the two agree bit for bit; the per-member dequantized rows never exist.
+// Like `unpack_fast`, the kernel reads no out_lens: a row whose out_lens
+// a ragged gather zeroed (a member's padding row) contributes the
+// dequantized values of the words it holds, as the reference's unpack and
+// the plain version do (rows of zero words on the int8 wire each add
+// (0 - 127) * s).
+// Geometry: a thread takes 16 consecutive outputs of a row (four 16-byte
+// float32 vectors), so for 8-bit fields it reads one 16-byte load of each
+// member's words and 8 threads cover a 128-element row; a block is 256
+// threads in row order.  BITS divides 32, so the fields lie in whole words
+// at static shifts.  A thread loads up to 4 members' words (16 words in
+// all) before it converts and adds them.  Bound: bytes (each member's
+// words and operands read once, the float32 output written once).
+template <int BITS>
+__global__ void __launch_bounds__(kThreads)
+reduce_members(const uint32_t* __restrict__ words, int64_t nb, int members,
+               int64_t nw, int chunk_elems, bool mean, bool small,
+               float* __restrict__ out, epi::Args ea) {
+  constexpr int kT = 16;                         // outputs a thread
+  constexpr int kSpan = kT * BITS;               // bits a thread
+  constexpr int kWords = kSpan >= 32 ? kSpan / 32 : 1;
+  constexpr int kPer = 32 / BITS;                // fields a word
+  constexpr uint32_t kMask = BITS >= 32 ? 0xFFFFFFFFu : (1u << BITS) - 1u;
+  constexpr int kBatch = kWords >= 16 ? 1 : kWords >= 8 ? 2 : 4;
+  static_assert(32 % BITS == 0, "fields in whole words");
+  const uint32_t tpr = (chunk_elems + kT - 1) / kT;      // threads a row
+  int64_t r;
+  uint32_t t;
+  if (small) {             // fewer than 2^32 threads: 32-bit division
+    const uint32_t g = blockIdx.x * kThreads + threadIdx.x;
+    if (g >= static_cast<uint64_t>(nb) * tpr) return;
+    r = g / tpr;
+    t = g - static_cast<uint32_t>(r) * tpr;
+  } else {
+    const uint64_t g = static_cast<uint64_t>(blockIdx.x) * kThreads +
+                       threadIdx.x;
+    if (g >= static_cast<uint64_t>(nb) * tpr) return;
+    r = static_cast<int64_t>(g / tpr);
+    t = static_cast<uint32_t>(g - static_cast<uint64_t>(r) * tpr);
+  }
+  const uint32_t e0 = t * kT;
+  const uint64_t bit0 = static_cast<uint64_t>(e0) * BITS;
+  const int64_t w0 = static_cast<int64_t>(bit0 >> 5);
+  // 16-byte (or 8-byte) loads where the thread's words are whole and
+  // aligned; else one clipped load a word
+  const bool direct = w0 + kWords <= nw && (nw & 3) == 0 &&
+                      (reinterpret_cast<uintptr_t>(words) & 15) == 0;
+  epi::Store<float> st(ea, r);
+  float acc[kT];
+  for (int m0 = 0; m0 < members; m0 += kBatch) {
+    uint32_t w[kBatch][kWords];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (m0 + j >= members) break;
+      const uint32_t* rw =
+          words + (static_cast<int64_t>(m0 + j) * nb + r) * nw;
+      if constexpr (kWords >= 4) {
+        if (direct) {
+#pragma unroll
+          for (int q = 0; q < kWords; q += 4) {
+            const uint4 v =
+                __ldg(reinterpret_cast<const uint4*>(rw + w0 + q));
+            w[j][q] = v.x; w[j][q + 1] = v.y; w[j][q + 2] = v.z;
+            w[j][q + 3] = v.w;
+          }
+          continue;
+        }
+      } else if constexpr (kWords == 2) {
+        if (direct) {
+          const uint2 v = __ldg(reinterpret_cast<const uint2*>(rw + w0));
+          w[j][0] = v.x; w[j][1] = v.y;
+          continue;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kWords; ++q)
+        w[j][q] = __ldg(rw + (w0 + q < nw ? w0 + q : nw - 1));
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int m = m0 + j;
+      if (m >= members) break;
+      if (kSpan < 32) w[j][0] >>= (bit0 & 31);   // the thread's part word
+      st.set_row(ea, static_cast<int64_t>(m) * nb + r);
+#pragma unroll
+      for (int k = 0; k < kT; ++k) {
+        const float x = __uint_as_float(
+            st((w[j][k / kPer] >> ((k % kPer) * BITS)) & kMask));
+        acc[k] = m == 0 ? x : __fadd_rn(acc[k], x);
+      }
+    }
+  }
+  float* orow = out + r * chunk_elems;
+  const bool aligned = (chunk_elems & 3) == 0;
+#pragma unroll
+  for (int v = 0; v < kT / 4; ++v) {
+    const int e = static_cast<int>(e0) + 4 * v;
+    if (e >= chunk_elems) break;
+    uint32_t pk[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float a = acc[4 * v + k];
+      pk[k] = __float_as_uint(
+          mean ? __fdiv_rn(a, static_cast<float>(members)) : a);
+    }
+    epi::store<4>(orow + e, pk, min(4, chunk_elems - e), aligned);
+  }
+}
+
 }  // namespace
 
 // Unpack n rows of `words` ((n, nw) uint32, row stride nw) into `out`
@@ -319,4 +446,53 @@ extern "C" int codag_bitpack_unpack(int width, const void* words, int64_t n,
                       static_cast<int>(tiles_per_row), vpt, rows_per_block,
                       static_cast<unsigned>(blocks), out, ea,
                       static_cast<cudaStream_t>(stream));
+}
+
+// Fold the member axis of a gathered table in the stores: `words` holds
+// members * nb rows ((members * nb, nw) uint32, member m's row r at
+// m * nb + r); `out` gets (nb, chunk_elems) float32, each element the sum
+// over the members, in member order, of its field's epilogue value, over
+// `members` when `mean` is nonzero (`reduce_members` above).  `bits` must
+// divide 32; `src_code`, `zero`, `zero_code`, `scale`, `scale_code`,
+// `zero_stride`, `scale_stride` are the float32 epilogue as for
+// `codag_bitpack_unpack` (a stride of 1 reads one operand a gathered row).
+// Returns the CUDA error of the launch (0 on success).  Allocates nothing
+// and does not synchronise.
+extern "C" int codag_bitpack_reduce(const void* words, int64_t nb,
+                                    int members, int64_t nw,
+                                    int64_t chunk_elems, int bits, int mean,
+                                    void* out, int src_code,
+                                    const void* zero, int zero_code,
+                                    const void* scale, int scale_code,
+                                    int64_t zero_stride, int64_t scale_stride,
+                                    void* stream) {
+  if (nb <= 0 || chunk_elems <= 0) return 0;
+  if (members < 1 || nw <= 0 || chunk_elems > 0x3FFFFFFF ||
+      zero_stride < 0 || scale_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t threads = nb * ((chunk_elems + 15) / 16);
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  epi::Args ea{src_code, zero, zero_code, scale, scale_code};
+  ea.zero_stride = zero_stride;
+  ea.scale_stride = scale_stride;
+  const auto* w = static_cast<const uint32_t*>(words);
+  auto* o = static_cast<float*>(out);
+  const bool small = blocks * kThreads <= int64_t{0xFFFFFFFF};
+  const auto s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  const int ce = static_cast<int>(chunk_elems);
+  switch (bits) {
+#define CODAG_REDUCE(B)                                                      \
+  case B:                                                                    \
+    reduce_members<B><<<grid, kThreads, 0, s>>>(w, nb, members, nw, ce,      \
+                                                mean != 0, small, o, ea);    \
+    break;
+    CODAG_REDUCE(1) CODAG_REDUCE(2) CODAG_REDUCE(4) CODAG_REDUCE(8)
+    CODAG_REDUCE(16) CODAG_REDUCE(32)
+#undef CODAG_REDUCE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,7 @@ slicing and ``% vocab`` run on the shard's device.  The loader overlaps the
 decode of the next shards with the consumer through a prefetch thread
 (engine mode) or a ``DecompressionService``'s in-flight requests (service
 mode).  The mesh-sharded token shards (``mesh=``) are not ported yet
-(ROADMAP.md Queue 1 item 11).
+(ROADMAP.md Queue 1 item 11b).
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ from repro_torch.core import store as blobstore
 from repro_torch.core.engine import CodagEngine
 from repro_torch.core.server import DecompressionService
 
-_MESH = ("mesh= is not ported yet (ROADMAP.md Queue 1 item 11): token "
+_MESH = ("mesh= is not ported yet (ROADMAP.md Queue 1 item 11b): token "
          "shards decode on one device")
 
 

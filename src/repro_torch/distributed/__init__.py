@@ -1,2 +1,3 @@
-# Distribution layer: fault tolerance, the mesh-free sharding context and the
-# single-device gradient wire (meshes and collectives: ROADMAP.md Queue 1 item 11).
+# Distribution layer: fault tolerance, the sharding context, the compressed
+# collectives and DiLoCo over a mesh whose members share one device (meshes
+# over distinct devices: ROADMAP.md Queue 1 item 11b).

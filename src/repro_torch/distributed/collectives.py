@@ -1,29 +1,40 @@
-"""The int8 gradient wire on one device: the bitpack wire built on the
-card and decoded back through the ``DecodePlan`` dispatch.
+"""Compressed collectives: the gradient wire and the compressed all-reduces
+over a mesh axis, lowered through the ``DecodePlan`` dispatch.
 
-The counterpart of the single-device half of
-``repro/distributed/collectives.py``:
+The counterpart of ``repro/distributed/collectives.py``:
 
-  encode (device)   each leaf is quantized onto the int8 per-block-128 grid
-                    (``optim.grad_compress.quantize_leaf``), biased to
-                    [0, 254] and packed into the bitpack codec's EXACT wire
-                    layout (:func:`pack_bits_rows` mirrors
+  encode (device)   each member quantizes its leaf onto the int8
+                    per-block-128 grid (``optim.grad_compress.quantize_leaf``),
+                    biased to [0, 254] and packed into the bitpack codec's
+                    EXACT wire layout (:func:`pack_bits_rows` mirrors
                     ``encoders.pack_bits`` row by row; :func:`wire_dev`
                     mirrors ``format.to_device``, its 128-byte lane padding
-                    included), so the wire is a registry blob;
+                    included), so the wire is a registry blob; or keeps
+                    exactly k values (f16) and a 1-bit index bitmap (top-k);
+  gather            ``plan.gather_member_tables`` lays every member's rows
+                    into one table (member m's at ``[m*nb, (m+1)*nb)``);
   decode (plan)     one ``plan.dispatch`` a leaf, ``plan.dispatch`` staying
                     the port's only ``ops.decode`` call site;
   epilogue (fused)  ``(u8 - 127) * s_row`` to float32 in the bitpack
-                    kernel's stores: the scale is one float32 a chunk row
-                    (``(nb, 1)``), which ``harness.fused_epilogue`` fuses for
-                    bitpack (``DecodeSpec.row_operands``), so a leaf's wire
-                    decode is one launch.
+                    kernel's stores, one scale a chunk row
+                    (``DecodeSpec.row_operands``); for ``compressed_psum``
+                    the member sum (or mean) too (:func:`_member_reduce`,
+                    ``DecodeSpec.reduce_bits``): one launch of
+                    ``codag_bitpack_reduce`` a leaf on a card writes the
+                    reduced leaf, and the per-member dequantized rows never
+                    exist.  The top-k wire's scatter needs a prefix sum over
+                    a member's whole bitmap, so it runs as torch ops after
+                    the bitmap's decode, as the reference's runs in XLA
+                    after its Pallas call.
+
+One controller, as the reference: a leaf "sharded over ``pod``" is one
+tensor whose leading axis is the member, on the device every member of the
+mesh (``launch.mesh.Mesh``) shares, and the all-gather is a ``torch.cat``.
+A mesh over distinct devices raises (ROADMAP.md Queue 1 item 11b).
 
 :func:`make_wire_compressor` is the ``grad_compressor`` hook of
-``launch.steps.build_train_step`` (``--grad-int8``).  The collectives that
-move the wire between members (``compressed_psum``, ``topk_psum``,
-``make_tree_reduce``) need a mesh and are not ported yet (ROADMAP.md Queue
-1 item 11): they raise.
+``launch.steps.build_train_step`` (``--grad-int8``); :func:`make_tree_reduce`
+is the DiLoCo outer sync's reduce (``distributed/diloco.py``).
 """
 from __future__ import annotations
 
@@ -35,8 +46,8 @@ import torch
 
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.engine import EngineConfig, resolve_device
-from repro_torch.core.tree import leaves, map_tree
-from repro_torch.kernels.harness import Epilogue
+from repro_torch.core.tree import leaves, map_tree, rebuild
+from repro_torch.kernels.harness import Epilogue, MemberReduce
 from repro_torch.optim import grad_compress as gc
 
 WIRE_CODEC = "bitpack"
@@ -44,8 +55,6 @@ WIRE_BITS = 8          # int8 deltas, biased to [0, 254]
 WIRE_ZERO = 127.0
 MASK_CHUNK = 2048      # top-k bitmap elements per wire chunk (256 B rows)
 
-_MESH = ("{} moves the wire between mesh members, not ported yet "
-         "(ROADMAP.md Queue 1 item 11): the port runs on one device")
 
 
 # --------------------------------------------------------------------------
@@ -110,20 +119,203 @@ def quantized_wire(x: torch.Tensor):
 
 
 # --------------------------------------------------------------------------
-# the collectives (need a mesh)
+# epilogues of the receive path
 # --------------------------------------------------------------------------
 
 
-def compressed_psum(x, axis_name: str, **_):
-    raise NotImplementedError(_MESH.format("compressed_psum"))
+@functools.lru_cache(maxsize=None)
+def _member_reduce(n_members: int, mean: bool) -> MemberReduce:
+    """Epilogue fn: fold the gathered member axis in the dispatch; a kernel
+    that reduces members (bitpack's) applies it in its stores."""
+    return MemberReduce(n_members, mean)
 
 
-def topk_psum(x, residual, axis_name: str, **_):
-    raise NotImplementedError(_MESH.format("topk_psum"))
+@functools.lru_cache(maxsize=None)
+def _mask_scatter_reduce(n_members: int, mean: bool):
+    """Epilogue fn of the top-k wire: decoded 1-bit masks -> dense deltas.
+
+    ``out`` is the ``(n * nc, MASK_CHUNK)`` decoded bitmap; each member's
+    surviving values ride the table under ``topk_vals`` ``(n, k)`` in index
+    order.  A mask position's value is found by a prefix sum over the
+    member's whole bitmap, then gathered into place and the members summed
+    in order.  Cached, so the same fn keys the same epilogue."""
+
+    def fn(out, dev):
+        vals = dev["topk_vals"].float()                       # (n, k)
+        m = out.reshape(n_members, -1).to(torch.int64)        # (n, size_pad)
+        cum = (m.cumsum(1) - 1).clamp(0, vals.shape[1] - 1)
+        return MemberReduce(n_members, mean).fold(
+            torch.gather(vals, 1, cum) * m)
+
+    return fn
 
 
-def make_tree_reduce(mesh, axis: str = "pod", **_):
-    raise NotImplementedError(_MESH.format("make_tree_reduce"))
+# --------------------------------------------------------------------------
+# the collectives: member-stacked leaves on one device
+# --------------------------------------------------------------------------
+
+
+def _resolve(config: Optional[EngineConfig], tune, x: torch.Tensor,
+             mesh, axis_name: str):
+    """(config, device, tune) of a collective over ``x``'s ``x.shape[0]``
+    members, ``x`` checked to lie on the engine's device (and on the mesh's,
+    given one)."""
+    config = config or EngineConfig()
+    device = resolve_device(config.device)
+    if mesh is not None:
+        mesh.members(axis_name, x.shape[0])
+        if mesh.shared_device != device:
+            raise ValueError(f"the mesh's members hold {mesh.shared_device}; "
+                             f"this engine decodes on {device}")
+    if x.device != device:
+        raise ValueError(f"a leaf on {x.device}; this engine decodes on "
+                         f"{device}")
+    if tune is None:
+        from repro_torch.core import tuning
+        tune = tuning.kernel_tune(WIRE_CODEC, 1, config.tune)
+    return config, device, tune
+
+
+def gathered_wire(x: torch.Tensor) -> Dict[str, Any]:
+    """The gathered int8 wire of a member-stacked leaf ``x`` ``(n, ...)``:
+    each member's :func:`quantized_wire`, laid member after member by
+    ``plan.gather_member_tables``, with the gathered scales
+    (``wire_scale``, ``(n * nb, 1)``) and the zero point (``wire_zero``)."""
+    wires = [quantized_wire(x[m]) for m in range(x.shape[0])]
+    dev = plan_mod.gather_member_tables([w for w, _ in wires],
+                                        codec=WIRE_CODEC)
+    dev["wire_scale"] = torch.cat([s for _, s in wires]).reshape(-1, 1)
+    dev["wire_zero"] = torch.full((), WIRE_ZERO, dtype=torch.float32,
+                                  device=x.device)
+    return dev
+
+
+def compressed_psum(x: torch.Tensor, axis_name: str = "pod", *, mesh=None,
+                    config: Optional[EngineConfig] = None, tune=None,
+                    mean: bool = False) -> torch.Tensor:
+    """int8-wire all-reduce of a member-stacked leaf ``x`` ``(n, ...)``:
+    the sum (or ``mean``) over its members, of shape ``x.shape[1:]``, what
+    every member receives.
+
+    Each member's leaf is encoded into the bitpack wire
+    (:func:`quantized_wire`), the members' tables and scales are gathered
+    (``plan.gather_member_tables``), and ONE ``plan.dispatch`` decodes the
+    gathered table with the dequant -> member-reduce epilogue
+    (:func:`_member_reduce`), fused into the bitpack kernel's stores on a
+    card: the reduced float32 leaf is the decode's output.  ``mesh``
+    (optional) is checked: ``axis_name`` has ``n`` members sharing the
+    engine's device.  ``tune``: ``tuning.kernel_tune(WIRE_CODEC, 1,
+    config.tune)``, resolved here when None."""
+    config, device, tune = _resolve(config, tune, x, mesh, axis_name)
+    n = x.shape[0]
+    dev = gathered_wire(x)
+    epi = Epilogue(out_dtype="float32", scale_key="wire_scale",
+                   zero_key="wire_zero", fn=_member_reduce(n, mean))
+    summed = plan_mod.dispatch(dev, config=config, codec=WIRE_CODEC,
+                               width=1, chunk_elems=gc.QBLOCK,
+                               bits=WIRE_BITS, epilogue=epi, tune=tune)
+    size = x[0].numel()
+    return summed.reshape(-1)[:size].reshape(x.shape[1:])
+
+
+def topk_psum(x: torch.Tensor, residual: torch.Tensor,
+              axis_name: str = "pod", *, mesh=None, frac: float = 0.01,
+              config: Optional[EngineConfig] = None, tune=None,
+              mean: bool = False):
+    """Top-k + error-feedback all-reduce of a member-stacked leaf ``x``
+    ``(n, ...)`` with each member's residual ``(n, ...)``: ``(reduced
+    (x.shape[1:]), new residuals (n, ...))``.
+
+    Each member keeps exactly k = max(1, int(size * frac)) entries of
+    ``x + residual`` by magnitude (its new residual keeps the rest); its
+    wire is the k values as f16, in index order, and a 1-bit index bitmap
+    packed through the bitpack codec.  The gathered bitmaps decode through
+    ONE ``plan.dispatch`` (a ``bitpack_unpack`` launch on a card); the
+    epilogue (:func:`_mask_scatter_reduce`) scatters each member's values
+    into place and reduces, as torch ops after the decode."""
+    config, device, tune = _resolve(config, tune, x, mesh, axis_name)
+    n = x.shape[0]
+    acc = x.float() + residual
+    flat = acc.reshape(n, -1)
+    size = flat.shape[1]
+    k = max(1, int(size * frac))
+    pad = (-size) % MASK_CHUNK
+    tables, vals, new_res = [], [], []
+    for m in range(n):
+        order = gc.topk_order(flat[m], k)
+        mask = torch.zeros(size, dtype=torch.bool, device=device)
+        mask[order] = True
+        kept = torch.where(mask, flat[m], torch.zeros((), device=device))
+        new_res.append(flat[m] - kept)
+        idx = torch.sort(order)[0]                  # ascending: index order
+        vals.append(flat[m][idx].to(torch.float16))  # the f16 wire grid
+        maskp = torch.nn.functional.pad(mask.to(torch.int32),
+                                        (0, pad)).reshape(-1, MASK_CHUNK)
+        tables.append(wire_dev(pack_bits_rows(maskp, 1),
+                               chunk_elems=MASK_CHUNK, bits=1))
+    dev = plan_mod.gather_member_tables(tables, codec=WIRE_CODEC)
+    dev["topk_vals"] = torch.stack(vals)
+    epi = Epilogue(fn=_mask_scatter_reduce(n, mean))
+    dense = plan_mod.dispatch(dev, config=config, codec=WIRE_CODEC, width=1,
+                              chunk_elems=MASK_CHUNK, bits=1, epilogue=epi,
+                              tune=tune)
+    return (dense[:size].reshape(x.shape[1:]),
+            torch.stack(new_res).reshape(x.shape))
+
+
+def make_tree_reduce(mesh, axis: str = "pod", *, wire: str = "int8",
+                     frac: float = 0.01,
+                     config: Optional[EngineConfig] = None):
+    """Tree-wise compressed mean-all-reduce over one mesh axis.
+
+    Input leaves carry a leading member axis of ``mesh.shape[axis]`` (the
+    DiLoCo pods' deltas).  Returns ``reduce(tree, residuals=None) ->
+    (mean_tree, new_residuals)``: each leaf's member mean (without the
+    member axis), through the wire ``wire`` selects:
+
+      "int8"  - :func:`compressed_psum` (a leaf smaller than one quant
+                block takes the plain float32 member sum over ``n``)
+      "topk"  - :func:`topk_psum` with per-member error-feedback residuals
+                (``residuals`` required: the same tree, each leaf with the
+                member axis; returned updated)
+      "none"  - the plain float32 member sum over ``n`` (the baseline)
+
+    The mesh's members must share the engine's device (ROADMAP.md Queue 1
+    item 11b for distinct ones).  Kernel knobs are resolved here, once.
+    """
+    if wire not in ("int8", "topk", "none"):
+        raise ValueError(f"unknown wire {wire!r}")
+    config = config or EngineConfig()
+    n = mesh.members(axis)
+    from repro_torch.core import tuning
+    tune = tuning.kernel_tune(WIRE_CODEC, 1, config.tune)
+
+    def reduce_fn(tree, residuals=None):
+        if wire == "topk" and residuals is None:
+            raise ValueError("wire='topk' needs error-feedback residuals")
+        flat = list(leaves(tree))
+        res_flat = (list(leaves(residuals)) if residuals is not None
+                    else [None] * len(flat))
+        outs, res_out = [], []
+        for x, r in zip(flat, res_flat):
+            if x.shape[0] != n:
+                raise ValueError(f"a leaf of {x.shape[0]} members for mesh "
+                                 f"axis {axis!r} of {n}")
+            if wire == "none" or x[0].numel() < gc.QBLOCK:
+                red = MemberReduce(n, True).fold(x.float())
+            elif wire == "topk":
+                red, r = topk_psum(x, r, axis, mesh=mesh, frac=frac,
+                                   config=config, tune=tune, mean=True)
+            else:
+                red = compressed_psum(x, axis, mesh=mesh, config=config,
+                                      tune=tune, mean=True)
+            outs.append(red)
+            res_out.append(r)
+        new_res = (rebuild(residuals, res_out) if residuals is not None
+                   else None)
+        return rebuild(tree, outs), new_res
+
+    return reduce_fn
 
 
 # --------------------------------------------------------------------------

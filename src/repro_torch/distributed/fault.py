@@ -8,8 +8,9 @@ host Python.
 * ``FaultTolerantRunner`` drives a train loop: periodic async checkpoints,
   failure capture (a worker exception == lost node), restore-and-continue,
   and an optional ``reshard_fn`` applied to the restored state (the
-  reference's elastic restart onto a new mesh; meshes are not ported yet,
-  ROADMAP.md Queue 1 item 11).
+  reference's elastic restart onto a new mesh, which needs
+  ``restore(shardings=)``: ROADMAP.md Queue 1 item 11b), and an optional
+  ``sync_pipeline`` (``diloco.OuterSyncPipeline``) drained on a failure.
 * ``FailureInjector`` deterministically raises at chosen steps (tests).
 
 One adaptation to torch.  The reference restores to host arrays and lets

@@ -1,18 +1,24 @@
-"""Sharding context: the mesh-free half of ``repro/distributed/sharding.py``.
+"""Sharding context: the mesh-free half of ``repro/distributed/sharding.py``
+and its member half.
 
 Model code annotates activations with logical axes through ``constrain``,
 a no-op without a mesh (``sharding.py:83-89`` of the reference), so one
-device runs the exact code a mesh would.  Installing a mesh, and the
+device runs the exact code a mesh would.  The collective plane's helpers
+(``dp_axes``, ``decode_axis``, ``member_sharding``) read a
+``launch.mesh.Mesh``.  Installing a mesh for the model's steps, and the
 parameter / optimizer / batch / cache specs derived from one, are not
-ported yet (ROADMAP.md Queue 1 item 11): ``use_mesh`` with a mesh raises.
+ported yet (ROADMAP.md Queue 1 item 11b): ``use_mesh`` with a mesh raises.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional
+import dataclasses
+from typing import Iterator, Optional, Tuple
 
-_MESH = ("meshes are not ported yet (ROADMAP.md Queue 1 item 11): the port "
-         "runs on one device")
+import torch
+
+_MESH = ("a mesh for the model's steps is not ported yet (ROADMAP.md Queue "
+         "1 item 11b): the port trains and serves on one device")
 
 _CTX: dict = {"mesh": None, "policy": "tp"}
 
@@ -46,3 +52,49 @@ def dp_groups(batch: int) -> int:
 def constrain(x, *axes):
     """A sharding constraint on logical axes: a no-op without a mesh."""
     return x
+
+
+# --------------------------------------------------------------------------
+# the member half: what the collective plane reads of a mesh
+# --------------------------------------------------------------------------
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    """The mesh's data-parallel axes: ``pod`` and ``data`` where present,
+    and ``model`` too under the ``dp`` policy."""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    if _CTX["policy"] == "dp" and "model" in mesh.axis_names:
+        axes = axes + ("model",)
+    return axes
+
+
+def decode_axis(mesh) -> str:
+    """The mesh axis decompression work partitions over: ``data`` where
+    present, then ``pod``, else the mesh's first axis."""
+    for a in ("data", "pod"):
+        if a in mesh.axis_names:
+            return a
+    return mesh.axis_names[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """Where a member-stacked tree lies: ``spec`` names the mesh axis of
+    each leaf dimension (None: not split).  On a mesh whose members share
+    one device a leaf so placed is one tensor on that device, its member
+    axis leading."""
+
+    mesh: object
+    spec: Tuple[Optional[str], ...]
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.member_device()
+
+
+def member_sharding(mesh, axis: str = "pod",
+                    ndim: int = 1) -> NamedSharding:
+    """The placement of per-member trees on the collective plane: the
+    leading member axis over ``axis``, the trailing dimensions whole (DiLoCo
+    pod replicas, error-feedback residuals, gathered wire tables)."""
+    return NamedSharding(mesh, (axis,) + (None,) * (ndim - 1))

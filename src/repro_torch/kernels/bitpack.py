@@ -19,7 +19,11 @@ width type):
     it applies a fused epilogue (``harness.FusedEpilogue``) in the kernel's
     stores, or after :func:`unpack` on the CPU; its zero and scale may be
     one value a chunk row (``(n, 1)``: the int8 gradient wire's per-block
-    scale, ``DecodeSpec.row_operands``).
+    scale, ``DecodeSpec.row_operands``); an epilogue that also folds a
+    gathered table's member axis (``harness.MemberReduce``, the collective
+    plane's receive path) launches the source's second entry,
+    ``codag_bitpack_reduce``, which writes the members' sum (or mean)
+    alone (``DecodeSpec.reduce_bits``).
 
 As in the reference, lanes at or past ``out_len`` are not zeroed: they
 unpack whatever bits lie there, which are the row's zero padding.
@@ -45,10 +49,20 @@ from repro_torch.kernels import cuda_build, harness, scalar
 LIB = cuda_build.KernelLibrary(
     "bitpack_unpack.cu", "codag_bitpack_unpack", "ipllliliipiipipillp")
 
+# (words, nb, members, nw, chunk_elems, bits, mean, out, src_code, zero,
+#  zero_code, scale, scale_code, zero_stride, scale_stride, stream)
+REDUCE = LIB.entry_point("codag_bitpack_reduce", "plilliipipipillp")
+
 THREADS = 256          # a block: 256 threads of 16-byte output vectors
 
-# Kernel launches (one per call that reached the card).
+# Field widths at which the kernel folds a gathered table's member axis in
+# its stores (``codag_bitpack_reduce``): those that divide 32.
+REDUCE_BITS = (1, 2, 4, 8, 16, 32)
+
+# Kernel launches (one per call that reached the card): the unpack entry's,
+# and the member reduce's.
 LAUNCHES = 0
+REDUCE_LAUNCHES = 0
 
 
 def _check_bits(bits: int) -> None:
@@ -203,6 +217,9 @@ def decode(words: torch.Tensor, *, chunk_elems: int, width: int, bits: int,
         return out if epilogue is None else epilogue.apply_plain(out)
     if words.device.type != "cuda":
         raise ValueError(f"no kernel for device {words.device}")
+    if epilogue is not None and epilogue.reduce is not None:
+        return _reduce(words, chunk_elems=chunk_elems, bits=bits,
+                       epilogue=epilogue)
     n = words.shape[0]
     fused, dtype, epi = harness.launch_store(epilogue,
                                              harness.DEV_DTYPE[width])
@@ -217,6 +234,33 @@ def decode(words: torch.Tensor, *, chunk_elems: int, width: int, bits: int,
                          out.data_ptr(), *epi, *strides)
     LAUNCHES += 1
     return harness.finish_store(out, epilogue)
+
+
+def _reduce(words: torch.Tensor, *, chunk_elems: int, bits: int,
+            epilogue: "harness.FusedEpilogue") -> torch.Tensor:
+    """The member reduce on the card: one launch of
+    ``codag_bitpack_reduce`` over the gathered table, ``(n / members,
+    chunk_elems)`` float32 out."""
+    global REDUCE_LAUNCHES
+    red = epilogue.reduce
+    n = words.shape[0]
+    if bits not in REDUCE_BITS or epilogue.dtype != torch.float32 or \
+            n % red.n_members:
+        raise ValueError(f"no member reduce for {n} rows of {bits}-bit "
+                         f"fields into {epilogue.dtype} over "
+                         f"{red.n_members} members")
+    nb = n // red.n_members
+    out = torch.empty((nb, chunk_elems), dtype=torch.float32,
+                      device=words.device)
+    if nb == 0:
+        return out
+    _, *epi = epilogue.kernel_args()      # the output is float32
+    cuda_build.launch_on(words.device, REDUCE, words.data_ptr(), nb,
+                         red.n_members, words.shape[1], chunk_elems, bits,
+                         int(red.mean), out.data_ptr(), *epi,
+                         *epilogue.row_strides())
+    REDUCE_LAUNCHES += 1
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -261,7 +305,8 @@ CODEC = registry.register(registry.Codec(
         body=_body, body_scalar=_body_scalar, body_oracle=_body_oracle,
         cuda=_kernel, scalar=_scalar_kernel,
         chunk_inputs=harness.words_inputs,
-        fuses_epilogue=True, row_operands=True, tunables=(VPT,)),
+        fuses_epilogue=True, row_operands=True, reduce_bits=REDUCE_BITS,
+        tunables=(VPT,)),
     needs_words=True,
     shared_extras=("bitpack_bits",),
     static_bits=lambda blob: int(blob.extras["bitpack_bits"][0]),

@@ -234,6 +234,40 @@ class Epilogue:
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class MemberReduce:
+    """Epilogue ``fn`` of the collective plane: fold a gathered table's
+    member axis.  The table's rows are ``n_members`` members' rows laid one
+    member after another (``plan.gather_member_tables``); the result is
+    ``sum_m out[m * nb + r]``, divided by ``n_members`` when ``mean``: an
+    ``(nb, chunk_elems)`` matrix.  Hashable and compared by value, so an
+    epilogue that carries it keys a cache like any other.
+
+    Calling it is the plain version: torch ops that add the members in
+    order, one at a time, from member 0's rows, then a true division (by a
+    tensor, so that the card divides rather than multiplying by a
+    reciprocal).  A kernel that declares ``DecodeSpec.reduce_bits`` applies
+    the same in its stores (``csrc/bitpack_unpack.cu``,
+    ``codag_bitpack_reduce``), with the same roundings."""
+
+    n_members: int
+    mean: bool = False
+
+    def __call__(self, out: torch.Tensor, dev=None) -> torch.Tensor:
+        return self.fold(out.reshape((self.n_members, -1)
+                                     + tuple(out.shape[1:])))
+
+    def fold(self, parts: torch.Tensor) -> torch.Tensor:
+        """The sum (or mean) over ``parts``' leading member axis."""
+        acc = parts[0].clone()
+        for m in range(1, self.n_members):
+            acc = acc + parts[m]
+        if self.mean:
+            acc = acc / torch.full((), self.n_members, dtype=acc.dtype,
+                                   device=acc.device)
+        return acc
+
+
 # Epilogues applied as torch ops after a decode (:func:`run`), and decodes
 # whose kernel applied the epilogue in its stores.
 EPILOGUE_UNFUSED = 0
@@ -259,13 +293,18 @@ class FusedEpilogue:
     """An epilogue a kernel applies in its stores (``csrc/epilogue.cuh``):
     ``src`` is the dtype the decoded value is read as, ``dtype`` the output
     dtype, ``zero`` / ``scale`` the operands (or None): single-element, or
-    ``(n_chunks, 1)``, one a chunk row, for a spec with ``row_operands``."""
+    ``(n_chunks, 1)``, one a chunk row, for a spec with ``row_operands``;
+    ``reduce`` the member reduce of a spec with ``reduce_bits`` (its output
+    has ``n_chunks / reduce.n_members`` rows)."""
 
     epilogue: Epilogue
     src: torch.dtype
     dtype: torch.dtype
     zero: Optional[torch.Tensor]
     scale: Optional[torch.Tensor]
+    # the member reduce the kernel applies after the affine (the
+    # epilogue's ``fn``), or None
+    reduce: Optional[MemberReduce] = None
 
     def kernel_args(self) -> tuple:
         """``(out_code, src_code, zero, zero_code, scale, scale_code)`` of
@@ -295,6 +334,7 @@ class FusedEpilogue:
         stores as it does without an epilogue, and the wrapper views its
         output as :attr:`dtype`."""
         return (self.zero is None and self.scale is None
+                and self.reduce is None
                 and self.dtype.itemsize == self.src.itemsize
                 and (self.dtype == self.src
                      or not (self.dtype in _FLOATS or self.src in _FLOATS)))
@@ -327,7 +367,8 @@ def _fused_dtypes(epilogue: Epilogue, width: int):
     """(source, output) dtypes of an epilogue a kernel can apply, or None:
     the part of :func:`fused_epilogue` that depends on the epilogue alone
     (a serving step decides it once a projection, so it is kept)."""
-    if epilogue.fn is not None:
+    if epilogue.fn is not None and not isinstance(epilogue.fn,
+                                                  MemberReduce):
         return None
     src = DEV_DTYPE[width]
     if epilogue.view_dtype is not None:
@@ -344,7 +385,8 @@ def _fused_dtypes(epilogue: Epilogue, width: int):
 
 
 def fused_epilogue(epilogue: Epilogue, dev: Dict[str, Any], width: int,
-                   row_operands: bool = False) -> Optional[FusedEpilogue]:
+                   row_operands: bool = False, reduce_bits=(),
+                   bits: int = 0) -> Optional[FusedEpilogue]:
     """The epilogue as a kernel applies it in its stores, or None where it
     must run as torch ops after the decode.  It fuses when it has no ``fn``;
     ``view_dtype`` keeps the itemsize; the output dtype is one of
@@ -353,14 +395,22 @@ def fused_epilogue(epilogue: Epilogue, dev: Dict[str, Any], width: int,
     (at most 2-d, so they broadcast to the chunk matrix without growing it)
     or, where the kernel reads one a row (``row_operands``, the spec's
     :attr:`DecodeSpec.row_operands`), contiguous ``(n_chunks, 1)``: one value
-    a chunk row, as :meth:`Epilogue.apply` broadcasts it.  The choice
-    depends on the epilogue and its operands alone."""
+    a chunk row, as :meth:`Epilogue.apply` broadcasts it.  An ``fn`` fuses
+    only where it is a :class:`MemberReduce`, the kernel reduces members at
+    these ``bits`` (the spec's :attr:`DecodeSpec.reduce_bits`), the output
+    is float32 and the table's rows are whole members.  The choice depends
+    on the epilogue, its operands and the table's shape alone."""
     dtypes = _fused_dtypes(epilogue, width)
     if dtypes is None:
         return None
     src, out = dtypes
     device = dev["out_lens"].device
     rows = tuple(dev["out_lens"].shape[:1]) + (1,)
+    reduce = epilogue.fn
+    if reduce is not None and (bits not in reduce_bits
+                               or out != torch.float32
+                               or rows[0] % reduce.n_members):
+        return None
     operands = []
     for key in (epilogue.zero_key, epilogue.scale_key):
         t = None if key is None else dev[key]
@@ -373,7 +423,7 @@ def fused_epilogue(epilogue: Epilogue, dev: Dict[str, Any], width: int,
                 and (out in _FLOATS or t.dtype not in _FLOATS)):
             return None
         operands.append(t)
-    return FusedEpilogue(epilogue, src, out, *operands)
+    return FusedEpilogue(epilogue, src, out, *operands, reduce=reduce)
 
 
 # --------------------------------------------------------------------------
@@ -427,7 +477,8 @@ class DecodeSpec:
     on a card and by :meth:`FusedEpilogue.apply_plain` on the CPU.  The
     ``cuda`` wrapper also takes each of ``tunables`` by name.  A spec with
     ``row_operands`` also fuses a zero or scale of one value a chunk row
-    (``(n_chunks, 1)``; :func:`fused_epilogue`).  ``scalar``
+    (``(n_chunks, 1)``; :func:`fused_epilogue`), and one with
+    ``reduce_bits`` a :class:`MemberReduce` at those field widths.  ``scalar``
     is the single-thread kernel's wrapper: it launches
     ``csrc/scalar_decode.cu`` on a card and runs ``body_scalar`` on the CPU.
     """
@@ -445,6 +496,9 @@ class DecodeSpec:
     fuses_epilogue: bool = False
     # the kernel also reads a zero / scale of one value a chunk row
     row_operands: bool = False
+    # field widths at which the kernel also folds a gathered table's member
+    # axis in its stores (an epilogue ``fn`` that is a :class:`MemberReduce`)
+    reduce_bits: Tuple[int, ...] = ()
     scalar: Optional[BodyFn] = None  # the single-thread kernel's wrapper
     tunables: Tuple[Tunable, ...] = ()
 
@@ -532,7 +586,8 @@ def run(spec: DecodeSpec, dev: Dict[str, Any], *, width: int,
         kw.update(knobs)
     fused = None
     if epilogue is not None and backend == "cuda" and spec.fuses_epilogue:
-        fused = fused_epilogue(epilogue, dev, width, spec.row_operands)
+        fused = fused_epilogue(epilogue, dev, width, spec.row_operands,
+                               spec.reduce_bits, bits)
     if fused is not None:
         EPILOGUE_FUSED += 1
         kw["epilogue"] = fused

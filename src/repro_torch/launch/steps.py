@@ -2,10 +2,11 @@
 
 The counterpart of ``repro/launch/steps.py`` on one device.  PyTorch runs
 eagerly, so ``build_*`` returns the step itself (the reference's are jitted
-by their callers).  The mesh and sharding functions (``batch_shardings``,
-``train_shardings``, ``serve_shardings``) and the DiLoCo inner step
-(``build_pod_inner_step``) need a mesh, not ported yet (ROADMAP.md Queue 1
-item 11): they raise.
+by their callers).  The DiLoCo inner step (``build_pod_inner_step``) runs
+the train step once a pod, the pods sharing one device.  The step
+shardings (``batch_shardings``, ``train_shardings``, ``serve_shardings``)
+need a mesh for the model's steps, not ported yet (ROADMAP.md Queue 1 item
+11b): they raise.
 """
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ from repro_torch.core.tree import leaves, rebuild
 from repro_torch.models import layers, model
 from repro_torch.optim import adamw
 
-_MESH = ("{} needs a mesh, not ported yet (ROADMAP.md Queue 1 item 11): "
-         "the port runs on one device")
+_MESH = ("{} needs a mesh for the model's steps, not ported yet (ROADMAP.md "
+         "Queue 1 item 11b): the port trains and serves on one device")
 
 
 def build_train_step(cfg: ArchConfig,
@@ -51,8 +52,20 @@ def build_train_step(cfg: ArchConfig,
     return train_step
 
 
-def build_pod_inner_step(cfg: ArchConfig, *_, **__):
-    raise NotImplementedError(_MESH.format("the DiLoCo inner step"))
+def build_pod_inner_step(cfg: ArchConfig,
+                         opt_cfg: Optional[adamw.AdamWConfig] = None,
+                         remat: bool = True, grad_compressor=None):
+    """DiLoCo inner step: the train step run once a pod over trees whose
+    leaves carry a leading ``(n_pods,)`` member axis (params, optimizer
+    state and batch), so each pod trains on its own with no cross-pod
+    collective a step; pods reconcile only through the compressed outer
+    sync (``distributed.diloco.make_outer_sync``).  ``grad_compressor``
+    composes: ``distributed.collectives.make_wire_compressor()`` pushes
+    every pod's gradients through the int8 bitpack wire and its decode."""
+    from repro_torch.distributed import diloco
+    return diloco.make_inner_step(
+        build_train_step(cfg, opt_cfg, remat=remat,
+                         grad_compressor=grad_compressor))
 
 
 def batch_shardings(cfg: ArchConfig, shape, mesh):

@@ -1,10 +1,14 @@
-"""Training entry point on one device: the compressed data pipeline and the
-fault-tolerant loop.
+"""Training entry point on one device: the compressed data pipeline, the
+fault-tolerant loop, and DiLoCo pods sharing the device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
         --preset tiny --steps 50 --batch 4 --seq 128 [--device cpu] \\
         [--grad-int8] [--compress-moments] [--spill-dir DIR] \\
         [--fail-at 12 --ckpt-every 5] [--n-layers N]
+
+    # compressed multi-pod training: 2 pods, int8 outer wire, overlapped sync
+    PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
+        --steps 32 --diloco 2 --outer-every 8 --grad-int8 [--device cpu]
 
 The counterpart of ``repro/launch/train.py``'s single-device path: token
 shards compressed with a registry codec (rle_v2 by default) and decoded on
@@ -15,8 +19,15 @@ injects failures), and ``--grad-int8``: every gradient leaf through the
 int8 bitpack wire and back through ``plan.dispatch``, one fused bitpack
 launch a leaf on a card (``distributed/collectives.py``).  ``--device``
 defaults to ``cuda``, which must exist; ``--n-layers`` cuts a preset's depth
-(widths unchanged).  ``--diloco`` (multi-pod training)
-needs a mesh and raises (ROADMAP.md Queue 1 item 11).
+(widths unchanged).  ``--diloco N`` trains N pods DiLoCo-style
+(``distributed/diloco.py``): the pods are members of a ``(pod, data)`` mesh
+of N x 1 that share the one device the run was asked for; each pod's inner
+steps run through the loader and (``--grad-int8``) the int8 gradient wire,
+and every ``--outer-every`` steps an outer sync moves the pods' deltas
+through the compressed wire (``--outer-wire``: int8, whose dequant and
+member mean are fused into the bitpack kernel's stores; ``--topk FRAC``:
+top-k values + 1-bit bitmap with error feedback; ``none``), overlapped with
+the next window's inner steps (``--link-rtt`` injects a link round trip).
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ import torch
 
 from repro_torch.configs import get_arch, reduced
 from repro_torch.core.engine import CodagEngine, EngineConfig, resolve_device
+from repro_torch.core.tree import map_tree
 from repro_torch.data import pipeline
 from repro_torch.distributed import fault
 from repro_torch.launch import steps as steps_lib
@@ -60,9 +72,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "DecodePlan decode (collectives.make_wire_compressor)")
     ap.add_argument("--compress-moments", action="store_true")
     ap.add_argument("--diloco", type=int, default=0, metavar="N_PODS",
-                    help="DiLoCo multi-pod training (needs a mesh: not "
-                         "ported yet, so its outer-sync flags are not "
-                         "taken either)")
+                    help="train N pods DiLoCo-style (the pods share the "
+                         "run's device); outer syncs move compressed bytes")
+    ap.add_argument("--outer-every", type=int, default=16,
+                    help="inner steps per DiLoCo outer sync window (H)")
+    ap.add_argument("--outer-wire", choices=("int8", "topk", "none"),
+                    default="int8",
+                    help="DiLoCo outer-sync wire format ('none' = "
+                         "uncompressed f32 member mean baseline)")
+    ap.add_argument("--topk", type=float, default=0.0, metavar="FRAC",
+                    help="outer-sync wire: top-FRAC values + 1-bit bitmap "
+                         "with error feedback (implies --outer-wire topk)")
+    ap.add_argument("--link-rtt", type=float, default=0.0,
+                    help="injected inter-pod link RTT seconds, for "
+                         "measuring sync/compute overlap")
     ap.add_argument("--compile-cache", nargs="?", const=True, default=None,
                     metavar="DIR",
                     help="persistent kernel-library cache (optional dir; "
@@ -110,6 +133,73 @@ def _build_loader(args, cfg, device: torch.device):
                                      engine=engine, device_out=True)
 
 
+def _stack_batches(it, n_pods: int):
+    """The next ``n_pods`` batches, stacked on a leading pod axis."""
+    bs = [next(it) for _ in range(n_pods)]
+    return map_tree(lambda *xs: torch.stack(xs), *bs)
+
+
+def _run_diloco(args, cfg, loader, device: torch.device,
+                params=None) -> dict:
+    """N-pod DiLoCo loop: each pod's inner steps, compressed outer syncs
+    overlapped with the next window (``OuterSyncPipeline``)."""
+    from repro_torch.distributed import collectives, diloco
+    from repro_torch.launch import mesh as mesh_lib
+
+    n_pods = args.diloco
+    mesh = mesh_lib.make_test_mesh((n_pods, 1), ("pod", "data"),
+                                   device=str(device))
+    wire = "topk" if args.topk > 0 else args.outer_wire
+    dcfg = diloco.DiLoCoConfig(inner_steps=args.outer_every, wire=wire,
+                               compress=(wire != "none"),
+                               topk_frac=args.topk or 0.01)
+    opt_cfg = adamw.AdamWConfig(lr=args.lr,
+                                compress_moments=args.compress_moments)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = model.init_params(cfg, gen, device=device)
+    opt_state = adamw.init(params, opt_cfg)
+    econfig = EngineConfig(device=str(device))
+    compressor = (collectives.make_wire_compressor(econfig)
+                  if args.grad_int8 else None)
+    inner = steps_lib.build_pod_inner_step(cfg, opt_cfg,
+                                           grad_compressor=compressor)
+
+    pod_params = diloco.replicate_for_pods(params, n_pods, mesh)
+    pod_opt = diloco.replicate_for_pods(opt_state, n_pods, mesh)
+    outer = diloco.init_outer_state(params, mesh=mesh, cfg=dcfg)
+    sync = diloco.make_outer_sync(mesh, dcfg, config=econfig)
+    pipe = diloco.OuterSyncPipeline(sync, link_rtt_s=args.link_rtt)
+
+    it = iter(loader)
+    losses, step_seconds = [], []
+    t0 = time.time()
+    for step in range(args.steps):
+        s0 = time.perf_counter()
+        if step and step % dcfg.inner_steps == 0:
+            # finish the PREVIOUS window's sync (it ran under this window's
+            # inner steps), then launch the next one
+            if pipe.in_flight:
+                pod_params, outer = pipe.finish(pod_params)
+            pipe.launch(pod_params, outer)
+        batch = _stack_batches(it, n_pods)
+        pod_params, pod_opt, loss = inner(pod_params, pod_opt, batch)
+        losses.append(float(loss.mean()))
+        step_seconds.append(time.perf_counter() - s0)
+    if pipe.in_flight:
+        pod_params, outer = pipe.finish(pod_params)
+    dt = time.time() - t0
+
+    wire_rep = collectives.wire_report(params, n_pods, wire=wire,
+                                       frac=dcfg.topk_frac)
+    return {"losses": losses, "seconds": dt, "steps_done": args.steps,
+            "restarts": 0, "stragglers": 0,
+            "tokens_per_step": n_pods * args.batch * args.seq,
+            "overlap": pipe.stats(), "wire": wire_rep, "n_pods": n_pods,
+            "step_seconds": step_seconds,
+            "state": (pod_params, pod_opt, outer)}
+
+
 def _run_single(args, cfg, loader, device: torch.device,
                 params=None) -> dict:
     opt_cfg = adamw.AdamWConfig(lr=args.lr,
@@ -154,13 +244,9 @@ def _run_single(args, cfg, loader, device: torch.device,
 
 def run_training(args, params=None) -> dict:
     """Drive one training run; returns a metrics dict (losses, timings,
-    the final state).  ``params`` (the model's tree on the device)
-    replaces the random init, e.g. weights carried across from the JAX
-    package."""
-    if args.diloco:
-        raise NotImplementedError(
-            "--diloco trains pods over a mesh, not ported yet (ROADMAP.md "
-            "Queue 1 item 11)")
+    the final state; the wire and overlap stats of a DiLoCo run).
+    ``params`` (the model's tree on the device) replaces the random init,
+    e.g. weights carried across from the JAX package."""
     if args.compile_cache:
         from repro_torch.core import tuning
         path = tuning.enable_compile_cache(
@@ -171,6 +257,8 @@ def run_training(args, params=None) -> dict:
     print(f"arch={cfg.name} preset={args.preset} device={device} "
           f"params~{cfg.param_count()/1e6:.1f}M")
     loader = _build_loader(args, cfg, device)
+    if args.diloco:
+        return _run_diloco(args, cfg, loader, device, params)
     return _run_single(args, cfg, loader, device, params)
 
 
@@ -191,6 +279,13 @@ def main(argv=None) -> None:
     print(f"done: {m['steps_done']} steps in {dt:.1f}s "
           f"({m['tokens_per_step'] * len(losses) / dt:.0f} tok/s), "
           f"restarts={m['restarts']} stragglers={m['stragglers']}")
+    if "wire" in m:
+        w, o = m["wire"], m["overlap"]
+        print(f"outer wire: {w['wire_bytes']:.0f}B vs f32 ring "
+              f"{w['f32_ring_bytes']:.0f}B ({w['ratio']:.1f}x); "
+              f"overlap: {o['syncs']} syncs, "
+              f"hidden {o['overlap_frac']*100:.0f}% of "
+              f"{o['collective_s']:.2f}s collective")
     k = max(1, len(losses) // 10)
     print(f"loss: first10={np.mean(losses[:k]):.4f} "
           f"last10={np.mean(losses[-k:]):.4f}")

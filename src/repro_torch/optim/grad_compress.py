@@ -10,9 +10,12 @@ The counterpart of ``repro/optim/grad_compress.py``:
 3. ``topk_select`` / ``topk_sparsify``: exactly-k magnitude selection with
    ties broken by index, and its error-feedback residual.
 
-``compressed_psum`` and ``make_compressed_psum_fn`` reduce over a mesh axis
-and are not ported yet (ROADMAP.md Queue 1 item 11).  Rounding is
-``torch.round`` (half to even, as ``jnp.round``).
+``compressed_psum`` and ``make_compressed_psum_fn`` are the seed-era int8
+all-gather (dequantize, then sum over members, outside the plan IR), the
+reference the compressed wire of ``distributed/collectives.py`` is held
+against.  They take member-stacked leaves: a leaf "sharded over ``pod``" is
+one tensor whose leading axis is the member, on the device every member
+shares.  Rounding is ``torch.round`` (half to even, as ``jnp.round``).
 """
 from __future__ import annotations
 
@@ -21,11 +24,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.tree import map_tree
+from repro_torch.kernels.harness import MemberReduce
 
 QBLOCK = 128
-
-_MESH = ("{} needs a mesh, not ported yet (ROADMAP.md Queue 1 item 11): "
-         "the port runs on one device")
 
 
 def quantize_leaf(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -36,7 +37,10 @@ def quantize_leaf(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
     blocks = flat.reshape(-1, QBLOCK)
-    scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / 127.0 + 1e-12
+    # a true division, as on the CPU: the card multiplies by the reciprocal
+    # of a Python number, one ulp apart from the reference's scale at times
+    scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / \
+        torch.full((), 127.0, device=blocks.device) + 1e-12
     q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -60,12 +64,37 @@ def quantize_grads(grads):
     return map_tree(qdq, grads)
 
 
-def compressed_psum(x, axis_name: str):
-    raise NotImplementedError(_MESH.format("compressed_psum"))
+def compressed_psum(x: torch.Tensor, axis_name: str = "pod", *,
+                    mesh=None) -> torch.Tensor:
+    """int8 all-gather, then the dequantized members summed: ``x`` is
+    member-stacked ``(n, ...)``; returns the sum, of shape ``x.shape[1:]``
+    (what every member receives), the members added in order.  ``mesh``
+    (optional) is checked: its ``axis_name`` has ``n`` members on one
+    device."""
+    if mesh is not None:
+        mesh.members(axis_name, x.shape[0])
+    qs = [quantize_leaf(x[m]) for m in range(x.shape[0])]
+    qg = torch.stack([q for q, _ in qs])       # (n, nb, B) int8 on the wire
+    sg = torch.stack([s for _, s in qs])
+    summed = MemberReduce(x.shape[0]).fold(qg.float() * sg)
+    n = x[0].numel()
+    return summed.reshape(-1)[:n].reshape(x.shape[1:])
 
 
 def make_compressed_psum_fn(mesh, axis: str = "pod"):
-    raise NotImplementedError(_MESH.format("make_compressed_psum_fn"))
+    """Tree-wise :func:`compressed_psum` over one mesh axis: leaves carry a
+    leading member axis of ``mesh.shape[axis]``; each member's slice of
+    the result is the int8-wire sum (one tensor, every member's row the
+    same values)."""
+    n = mesh.members(axis)
+
+    def tree_psum(tree):
+        def one(leaf):
+            s = compressed_psum(leaf, axis, mesh=mesh)
+            return s.unsqueeze(0).expand((n,) + tuple(s.shape))
+        return map_tree(one, tree)
+
+    return tree_psum
 
 
 def wire_bytes_f32_allreduce(nbytes: int, n: int) -> float:
@@ -84,12 +113,18 @@ def wire_bytes_compressed(nbytes: int, n: int) -> float:
 # ---------------------------------------------------------------------------
 
 
+def topk_order(flat: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices of the k largest magnitudes, largest first, equal
+    magnitudes in index order (a stable descending sort)."""
+    return torch.sort(torch.abs(flat), descending=True, stable=True)[1][:k]
+
+
 def topk_select(flat: torch.Tensor, k: int):
     """Exactly-k magnitude selection over a flat vector: ``(mask, kept)``,
     ``mask`` with exactly k True entries, ``kept = where(mask, flat, 0)``.
     Equal magnitudes keep the lower index, as ``lax.top_k`` does (a stable
     descending sort)."""
-    idx = torch.sort(torch.abs(flat), descending=True, stable=True)[1][:k]
+    idx = topk_order(flat, k)
     mask = torch.zeros(flat.shape, dtype=torch.bool, device=flat.device)
     mask[idx] = True
     return mask, torch.where(mask, flat, torch.zeros((), dtype=flat.dtype,

@@ -783,8 +783,8 @@ def _wire_rows(n, chunk, bits, device, seed=0):
     with a float32 scale a row (``(n, 1)``) and a zero."""
     from repro_torch.distributed import collectives
     g = torch.Generator(device=device).manual_seed(seed)
-    u = torch.randint(0, 1 << bits, (n, chunk), generator=g, device=device,
-                      dtype=torch.int32)
+    u = torch.randint(0, 1 << min(bits, 31), (n, chunk), generator=g,
+                      device=device, dtype=torch.int32)
     if 32 % bits:
         words = torch.from_numpy(np.stack([
             enc.pack_bits(r, bits) for r in u.cpu().numpy()])).to(device)
@@ -1019,3 +1019,174 @@ def test_hybrid_float32_decode_at_full_depth_tells_a_shared_kv_apart(card):
          torch.backends.cudnn.allow_tf32) = tf32
     assert float(good.max()) <= 1.5, good.tolist()
     assert float(bad[1:].min()) > 1.5, bad.tolist()
+
+
+# --------------------------------------------------------------------------
+# the collective plane: the member reduce in bitpack's stores, DiLoCo
+# --------------------------------------------------------------------------
+
+
+def _gathered(n, nb, chunk, bits, device, seed=0):
+    """A gathered table of ``n`` members' ``nb`` rows each, a scale a row and
+    a zero (``_wire_rows`` of n * nb rows)."""
+    return _wire_rows(n * nb, chunk, bits, device, seed=seed)
+
+
+def _reduce_plain(dev, epi, chunk, width, bits):
+    """The plain version: the bitpack body, the affine, then the member
+    reduce (``harness.MemberReduce.__call__``)."""
+    return epi.apply(bitpack.unpack(dev["comp_words"], chunk_elems=chunk,
+                                    width=width, bits=bits), dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+def test_member_reduce_equals_plain_version_on_the_card(card, n, mean):
+    """``compressed_psum`` of a leaf that is not a multiple of 128 (37 rows
+    and a 77-element tail) over 1, 2, 3 and 8 members: one
+    ``codag_bitpack_reduce`` launch, no unfused epilogue, and the result
+    equal bit for bit to the plain version on the same gathered table and
+    to the seed path's dequantize-then-sum (the same adds in the same
+    order)."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.optim import grad_compress as gc
+    size = 37 * 128 + 77
+    x = torch.randn((n, size), device=card,
+                    generator=torch.Generator(device=card).manual_seed(n))
+    seen = []
+    real = plan_mod.dispatch
+
+    def spy(dev, **kw):
+        out = real(dev, **kw)
+        seen.append((dev, kw, out))
+        return out
+
+    before = (bitpack.REDUCE_LAUNCHES, bitpack.LAUNCHES,
+              harness.EPILOGUE_UNFUSED)
+    plan_mod.dispatch = spy
+    try:
+        got = collectives.compressed_psum(x, config=EngineConfig(), mean=mean)
+    finally:
+        plan_mod.dispatch = real
+    torch.cuda.synchronize()
+    assert (bitpack.REDUCE_LAUNCHES - before[0], bitpack.LAUNCHES - before[1],
+            harness.EPILOGUE_UNFUSED - before[2]) == (1, 0, 0)
+    (dev, kw, out), = seen
+    want = _reduce_plain(dev, kw["epilogue"], 128, 1, 8)
+    assert out.shape == (38, 128) and torch.equal(out, want)
+    seed = gc.compressed_psum(x)
+    if mean:
+        seed = seed / torch.full((), n, dtype=torch.float32, device=card)
+    assert got.shape == (size,) and torch.equal(got, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,bits,width", [
+    (128, 8, 1), (100, 8, 1), (2048, 1, 1), (300, 2, 2), (64, 4, 1),
+    (130, 16, 2), (6, 32, 4)])
+@pytest.mark.parametrize("operand", ["row", "one"])
+def test_member_reduce_at_other_geometries_on_the_card(card, chunk, bits,
+                                                       width, operand):
+    """The reduce entry at every field width it takes (a partial last
+    vector, rows of 6 elements, a scale a row or one for all), 3 members:
+    equal to the plain version bit for bit."""
+    dev = _gathered(3, 11, chunk, bits, card, seed=bits)
+    if operand == "one":
+        dev["s"] = dev["s"][:1, 0].contiguous()
+    epi = harness.Epilogue(out_dtype="float32", scale_key="s", zero_key="z",
+                           fn=harness.MemberReduce(3, True))
+    before = bitpack.REDUCE_LAUNCHES
+    got = ops.decode(dev, codec="bitpack", width=width, chunk_elems=chunk,
+                     backend="cuda", bits=bits, epilogue=epi)
+    torch.cuda.synchronize()
+    assert bitpack.REDUCE_LAUNCHES == before + 1
+    want = _reduce_plain(dev, epi, chunk, width, bits)
+    assert got.shape == (11, chunk) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_member_reduce_of_a_ragged_gather_on_the_card(card):
+    """Ragged members (2 and 3 real rows, padded to 3): the padding row's
+    lens are zeroed by the gather and, as in the plain version and the
+    reference, it adds its words' dequantized values; the reduce entry
+    equals the plain version bit for bit, and a member reduce at a width
+    the entry does not take runs unfused."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.distributed import collectives
+    vals = torch.arange(2 * 3 * 128, device=card, dtype=torch.int32) \
+        .reshape(2, 3, 128) % 251
+    tables = [collectives.wire_dev(collectives.pack_bits_rows(vals[m], 8),
+                                   chunk_elems=128, bits=8) for m in (0, 1)]
+    g = plan_mod.gather_member_tables(tables, codec="bitpack",
+                                      row_counts=[2, 3])
+    assert g["out_lens"].tolist() == [128, 128, 0, 128, 128, 128]
+    g["s"] = torch.rand((6, 1), device=card)
+    g["z"] = torch.full((), 127.0, device=card)
+    epi = harness.Epilogue(out_dtype="float32", scale_key="s", zero_key="z",
+                           fn=harness.MemberReduce(2, False))
+    got = ops.decode(g, codec="bitpack", width=1, chunk_elems=128,
+                     backend="cuda", bits=8, epilogue=epi)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _reduce_plain(g, epi, 128, 1, 8))
+    dev = _gathered(2, 4, 50, 7, card)
+    before = harness.EPILOGUE_UNFUSED
+    got = ops.decode(dev, codec="bitpack", width=1, chunk_elems=50,
+                     backend="cuda", bits=7, epilogue=epi)
+    assert harness.EPILOGUE_UNFUSED == before + 1
+    assert torch.equal(got, _reduce_plain(dev, epi, 50, 1, 7))
+
+
+@pytest.mark.cuda
+def test_outer_sync_on_a_side_stream_on_the_card(card):
+    """An outer sync launched on the pipeline's side stream while the
+    caller's stream keeps working gives what the sync gives run alone, bit
+    for bit (int8 and top-k wires); every pod rebased alike."""
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.distributed import diloco
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_test_mesh((2, 1), ("pod", "data"))
+    g = torch.Generator(device=card).manual_seed(4)
+    params = {"w": torch.randn((1000, 129), generator=g, device=card),
+              "b": torch.randn((7,), generator=g, device=card)}
+    for wire in ("int8", "topk"):
+        cfgd = diloco.DiLoCoConfig(wire=wire)
+        sync = diloco.make_outer_sync(mesh, cfgd, config=EngineConfig())
+        outer = diloco.init_outer_state(params, mesh=mesh, cfg=cfgd)
+        pod = diloco.replicate_for_pods(params, 2, mesh)
+        pod = {k: v + 1e-2 * torch.randn(v.shape, generator=g, device=card)
+               for k, v in pod.items()}
+        want_pod, want_outer = sync(pod, outer)
+        pipe = diloco.OuterSyncPipeline(sync)
+        pipe.launch(pod, outer)
+        busy = torch.randn((4096, 4096), generator=g, device=card)
+        for _ in range(4):
+            busy = busy @ busy / 64.0
+        got_pod, got_outer = pipe.finish()
+        torch.cuda.synchronize()
+        for k in params:
+            assert torch.equal(got_pod[k], want_pod[k])
+            assert torch.equal(got_pod[k][0], got_pod[k][1])
+            assert torch.equal(got_outer["anchor"][k], want_outer["anchor"][k])
+
+
+@pytest.mark.cuda
+def test_diloco_training_on_the_card(card, tmp_path):
+    """``train --diloco 2`` on the card at the ``tiny`` preset: the loss
+    falls, each outer sync's int8 reduce is one ``codag_bitpack_reduce``
+    launch a leaf of a block or more, nothing runs unfused."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(
+        ["--preset", "tiny", "--steps", "9", "--batch", "2", "--seq", "64",
+         "--diloco", "2", "--outer-every", "3", "--grad-int8",
+         "--ckpt-dir", str(tmp_path)])
+    before = (bitpack.REDUCE_LAUNCHES, harness.EPILOGUE_UNFUSED)
+    m = train.run_training(args)
+    n_wire = sum(t[0].numel() >= 128 for t in leaves(m["state"][0]))
+    assert m["overlap"]["syncs"] == 2
+    assert bitpack.REDUCE_LAUNCHES - before[0] == 2 * n_wire > 0
+    assert harness.EPILOGUE_UNFUSED == before[1]
+    assert m["losses"][-1] < m["losses"][0]

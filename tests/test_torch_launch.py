@@ -108,16 +108,33 @@ def test_train_main_sets_the_allocator_unless_the_caller_did(monkeypatch):
 
 
 def test_diloco_and_mesh_steps_raise_naming_the_roadmap_item(tmp_path):
+    """``--diloco`` and the pod inner step run now
+    (``tests/test_torch_diloco.py``); what still raises, naming ROADMAP
+    item 11b: the step shardings, the mesh-sharded decode, the sharded
+    restore and the loader's ``mesh=``."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import api
+    from repro_torch.core.engine import CodagEngine, EngineConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch import mesh as mesh_lib
     args = train.build_parser().parse_args(
         ["--diloco", "2", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train.run_training(args)
     cfg = train._resolve_cfg(args)
-    for call in (lambda: steps.build_pod_inner_step(cfg),
-                 lambda: steps.batch_shardings(cfg, None, None),
-                 lambda: steps.train_shardings(cfg, None, None),
-                 lambda: steps.serve_shardings(cfg, None, None)):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    assert callable(steps.build_pod_inner_step(cfg))
+    mesh = mesh_lib.make_decode_mesh(device="cpu")
+    engine = CodagEngine(EngineConfig(device="cpu"))
+    ca = api.compress(np.arange(1000, dtype=np.uint32), "rle_v2")
+    store = pipeline.CompressedTokenStore.build(
+        pipeline.synthetic_corpus(4096, 64), 64)
+    for call in (lambda: steps.batch_shardings(cfg, None, mesh),
+                 lambda: steps.train_shardings(cfg, None, mesh),
+                 lambda: steps.serve_shardings(cfg, None, mesh),
+                 lambda: api.decompress_many([ca], engine=engine, mesh=mesh),
+                 lambda: ckpt.restore(str(tmp_path), 0, {"w": 0},
+                                      shardings={"w": None}),
+                 lambda: pipeline.CompressedLoader(store, 2, 16,
+                                                   mesh=mesh)):
+        with pytest.raises(NotImplementedError, match="item 11b"):
             call()
 
 

@@ -271,17 +271,28 @@ def test_wire_bytes_accounting_matches_reference():
 
 
 def test_mesh_functions_raise_naming_the_roadmap_item():
-    x = torch.zeros(256)
-    for call in (lambda: collectives.compressed_psum(x, "pod"),
-                 lambda: collectives.topk_psum(x, x, "pod"),
-                 lambda: collectives.make_tree_reduce(object()),
-                 lambda: gc.compressed_psum(x, "pod"),
-                 lambda: gc.make_compressed_psum_fn(object())):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    """What still raises on the collective plane, naming ROADMAP item 11b:
+    a mesh for the model's steps (``use_mesh``), and the collectives over a
+    mesh whose members hold distinct devices; the mesh-free sharding
+    context stays a no-op."""
+    from repro_torch.launch import mesh as mesh_lib
+    x = torch.zeros(2, 256)
+    spread = mesh_lib.Mesh([torch.device("cpu"), torch.device("meta")],
+                           ("pod",))
+    for call in (lambda: collectives.compressed_psum(x, "pod", mesh=spread,
+                                                     config=CPU_ENGINE),
+                 lambda: collectives.topk_psum(x, x, "pod", mesh=spread,
+                                               config=CPU_ENGINE),
+                 lambda: collectives.make_tree_reduce(spread),
+                 lambda: gc.compressed_psum(x, "pod", mesh=spread),
+                 lambda: gc.make_compressed_psum_fn(spread)):
+        with pytest.raises(NotImplementedError, match="item 11b"):
             call()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        with sharding.use_mesh(object()):
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        with sharding.use_mesh(mesh_lib.make_test_mesh(
+                (2,), ("data",), device="cpu")):
             pass
+    x = torch.zeros(256)
     with sharding.use_mesh(None, policy="dp"):
         assert sharding.current_mesh() is None
         assert sharding.current_policy() == "dp"
