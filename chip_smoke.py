@@ -3668,6 +3668,65 @@ def phase_collectives(args, engine, counters):
     }, launches
 
 
+# --------------------------------------------------------------------------
+# phase 14: mesh placement on one card
+# --------------------------------------------------------------------------
+
+
+def moments_card_vs_cpu(seed: int, device) -> dict:
+    """(d) ``optim/adamw.py``'s int8 quantizer on the card against the same
+    on the CPU, on float32 moments of the shapes of phase 11 (b)'s block
+    parameters (qwen3-1.7B at full width, ``TRAIN_LAYERS`` layers; the
+    embedding and head left out for time): m linear, v in the sqrt domain.
+    Returns the elements of ``q`` and ``s`` that differ, and how many there
+    are."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import leaves
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b"), n_layers=TRAIN_LAYERS)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    res = {"q": 0, "q_of": 0, "s": 0, "s_of": 0, "leaves": 0}
+    for p in leaves(model.abstract_params(cfg)["blocks"]):
+        g = torch.randn(p.shape, generator=gen, device=device)
+        # the moments of one step of gradients of 1e-3: (1 - b1) g and
+        # (1 - b2) g^2
+        for x, sqrt_domain in ((1e-4 * g, False), (5e-8 * g * g, True)):
+            q, s = adamw._quantize(x, sqrt_domain)
+            qc, sc = adamw._quantize(x.cpu(), sqrt_domain)
+            res["q"] += int((q.cpu() != qc).sum())
+            res["s"] += int((s.cpu() != sc).sum())
+            res["q_of"] += qc.numel()
+            res["s_of"] += sc.numel()
+            res["leaves"] += 1
+            del q, s, qc, sc, x
+        del g
+    return res
+
+
+def phase_sharded(args, engine, counters) -> dict:
+    """Phase 14: mesh placement on meshes whose members share the card.
+    Returns the launches by kernel."""
+    log("== 14 mesh placement: the sharded decode executor, restore("
+        "shardings=), the loader's mesh=, members sharing the card")
+    device = engine.device
+    t0 = time.perf_counter()
+    launched: dict = {}
+    # (d) the int8 moments' quantizer, card against CPU
+    t1 = time.perf_counter()
+    res = moments_card_vs_cpu(args.seed, device)
+    log(f"   (d) optim/adamw.py's int8 quantizer on {res['leaves']} moment "
+        f"leaves (qwen3-1.7B's blocks, {TRAIN_LAYERS} layers), card against "
+        "CPU: "
+        f"{res['q']} of {res['q_of']} q elements and {res['s']} of "
+        f"{res['s_of']} scales differ ({time.perf_counter() - t1:.1f} s)")
+    if res["q"] or res["s"]:
+        raise AssertionError("(d) the int8 moments differ between the card "
+                             "and the CPU")
+    log(f"   phase 14: {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
 class Counter:
     """A kernel's launch count on the main path: reset, then read (a
     module's ``attr``, or its ``CODEC_LAUNCHES[codec]``)."""
@@ -3726,6 +3785,9 @@ def main() -> int:
     ap.add_argument("--collectives-only", action="store_true",
                     help="run phases 1, 2 and 13 alone (the collective "
                     "plane and DiLoCo), with no result line")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="run phases 1, 2 and 14 alone (mesh placement), "
+                    "with no result line")
     ap.add_argument("--stage-only", action="store_true",
                     help="only time DecodePlan.build and stage by part on "
                     "phase 4's workload (cold, then warm), and stop")
@@ -3789,6 +3851,10 @@ def main() -> int:
     if args.collectives_only:
         reduce_row, launched = phase_collectives(args, engine, counters)
         log(f"phase 13 alone: {json.dumps(reduce_row)}")
+        return 0
+    if args.sharded_only:
+        launched = phase_sharded(args, engine, counters)
+        log(f"phase 14 alone, launches: {json.dumps(launched)}")
         return 0
     phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
                           engine.device, counters)

@@ -104,6 +104,17 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
     return params
 
 
+def abstract_params(cfg: ArchConfig) -> Dict[str, Any]:
+    """The parameter tree's shapes and dtypes as ``meta`` tensors, with
+    nothing allocated or drawn (the reference's ``jax.eval_shape`` of
+    ``init_params``): what the sharding specs read of a full-width model."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake = init_params(cfg, torch.Generator(), device="cpu")
+    return map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), fake)
+
+
 def _stacked_norm(cfg: ArchConfig, dt, dev) -> torch.Tensor:
     p = layers.norm_params(cfg.norm, cfg.d_model, dt, dev)
     return p.expand(cfg.n_layers, *p.shape).contiguous()

@@ -40,7 +40,10 @@ def _quantize(x: torch.Tensor, sqrt_domain: bool = False):
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
     blocks = flat.reshape(-1, QBLOCK)
-    scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / 127.0 + 1e-12
+    # a true division, as on the CPU: the card multiplies by the reciprocal
+    # of a Python number, one ulp apart from the reference's scale at times
+    scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / \
+        torch.full((), 127.0, device=blocks.device) + 1e-12
     q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
     return q, scale.float()
 

@@ -865,6 +865,29 @@ def test_row_operand_on_another_kernel_is_unfused_on_the_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sqrt_domain", [False, True])
+def test_int8_moments_on_the_card_equal_the_cpu(card, sqrt_domain):
+    """``optim/adamw.py``'s quantizer on the card and on the CPU: q and s
+    equal bit for bit, on planted ties at the grid's half points and on
+    2^20 random values of the size of AdamW moments (the card divides by a
+    tensor, as the CPU does, not by the reciprocal of 127)."""
+    from repro_torch.optim import adamw
+    rng = np.random.default_rng(31)
+    e = rng.integers(3, 16, (64, 1))
+    ties = (rng.integers(-127, 127, (64, adamw.QBLOCK)) + 0.5) * np.exp2(-e)
+    ties[:, 0] = 127.0 * np.exp2(-e[:, 0])
+    x = np.concatenate([ties.reshape(-1), 1e-4 * rng.standard_normal(
+        1 << 20)]).astype(np.float32)
+    if sqrt_domain:
+        x = np.square(x)
+    x = torch.from_numpy(x)
+    q, s = adamw._quantize(x.to(card), sqrt_domain)
+    qc, sc = adamw._quantize(x, sqrt_domain)
+    assert torch.equal(q.cpu(), qc)
+    assert torch.equal(s.cpu().view(torch.int32), sc.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_wire_compressor_on_the_card(card):
     """One fused ``bitpack_unpack`` launch a leaf of a block or more,
     equal bit for bit to ``quantize_grads``; bf16 leaves stay bf16."""

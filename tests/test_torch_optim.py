@@ -84,6 +84,47 @@ def test_adamw_matches_reference(compress):
                                            err_msg=k)
 
 
+def _planted_ties(rng, n_blocks: int) -> np.ndarray:
+    """Blocks of 128 whose largest magnitude is 127 * 2^-e, so the scale is
+    2^-e exactly (the 1e-12 is below its ulp), and whose other values sit
+    on the grid's half points (k + 0.5) * 2^-e: every quotient a tie that
+    rounds half to even."""
+    e = rng.integers(3, 16, (n_blocks, 1))
+    k = rng.integers(-127, 127, (n_blocks, adamw.QBLOCK))
+    x = (k + 0.5) * np.exp2(-e)
+    x[:, 0] = rng.choice([-127.0, 127.0], n_blocks) * np.exp2(-e[:, 0])
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("sqrt_domain", [False, True])
+def test_int8_quantizer_matches_reference_on_planted_ties(sqrt_domain):
+    """``adamw._quantize`` on values at exact half points of the int8 grid
+    (and in the sqrt domain, their squares, whose square roots are exact)
+    and on random blocks: q and s equal the reference's bit for bit."""
+    rng = np.random.default_rng(23)
+    ties = _planted_ties(rng, 64)
+    x = np.concatenate([ties.reshape(-1),
+                        rng.standard_normal(1000).astype(np.float32)])
+    if sqrt_domain:
+        x = np.square(x)
+    # one CPU thread: in a process that has run XLA, a worker of torch's
+    # CPU pool has been seen to return square roots ~12 bits exact on some
+    # hosts, a chunk of the tensor at a time and not every run
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        q, s = adamw._quantize(torch.from_numpy(x), sqrt_domain)
+    finally:
+        torch.set_num_threads(threads)
+    rq, rs = radamw._quantize(jnp.asarray(x), sqrt_domain)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+    np.testing.assert_array_equal(s.numpy().view(np.uint32),
+                                  np.asarray(rs).view(np.uint32))
+    # the ties round half to even: both directions occur
+    half = np.abs(q.numpy()[:64, 1:].astype(np.int64))
+    assert np.all(half % 2 == 0) and len(np.unique(half)) > 10
+
+
 def test_adamw_state_carries_across():
     """A reference AdamW state (int8 moments) crosses through
     ``params_from_numpy`` with its leaves' dtypes and bits."""
@@ -271,7 +312,7 @@ def test_wire_bytes_accounting_matches_reference():
 
 
 def test_mesh_functions_raise_naming_the_roadmap_item():
-    """What still raises on the collective plane, naming ROADMAP item 11b:
+    """What still raises on the collective plane, naming ROADMAP item 11c:
     a mesh for the model's steps (``use_mesh``), and the collectives over a
     mesh whose members hold distinct devices; the mesh-free sharding
     context stays a no-op."""
@@ -286,9 +327,9 @@ def test_mesh_functions_raise_naming_the_roadmap_item():
                  lambda: collectives.make_tree_reduce(spread),
                  lambda: gc.compressed_psum(x, "pod", mesh=spread),
                  lambda: gc.make_compressed_psum_fn(spread)):
-        with pytest.raises(NotImplementedError, match="item 11b"):
+        with pytest.raises(NotImplementedError, match="item 11c"):
             call()
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(NotImplementedError, match="item 11c"):
         with sharding.use_mesh(mesh_lib.make_test_mesh(
                 (2,), ("data",), device="cpu")):
             pass
