@@ -31,11 +31,21 @@ class AdamWConfig:
     compress_moments: bool = False   # int8 + per-block scale
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, as XLA and the card's
+    ``sqrtf`` give it.  The CPU's vectorised float32 square root (MKL's
+    VML) is an ulp low on ~0.7% of inputs, so on the CPU it is taken in
+    float64 and rounded once, which is exact for a float32 input."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def _quantize(x: torch.Tensor, sqrt_domain: bool = False):
     """int8 block quantization; the second moment in the sqrt domain."""
     flat = x.reshape(-1)
     if sqrt_domain:
-        flat = torch.sqrt(torch.clamp(flat, min=0.0))
+        flat = _sqrt(torch.clamp(flat, min=0.0))
     pad = (-flat.shape[0]) % QBLOCK
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
