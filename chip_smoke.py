@@ -11,6 +11,7 @@
                                                      # stage by part, alone
     python3 chip_smoke.py --families-only            # phases 1, 2 and 12
     python3 chip_smoke.py --collectives-only         # phases 1, 2 and 13
+    python3 chip_smoke.py --sharded-only             # phases 1, 2 and 14
 
 Phases, each of which must pass (any failure exits non-zero, with no result
 line):
@@ -212,11 +213,34 @@ line):
          ``codag_bitpack_reduce`` launch a leaf a sync and no unfused
          epilogue; the overlap stats, ``wire_report``, and one sync's
          device ms beside its bytes bound;
- 14. a JSON line of the kernels (``consumer_launches``: phase 10's,
+ 14. mesh placement (``DecodePlan.execute_sharded``, ``restore(
+     shardings=)``, ``CompressedLoader(mesh=)``, ``distributed/
+     sharding.py``), on ``make_test_mesh`` meshes whose members share the
+     card:
+       - (a) phase 4's table scan through ``decompress_many(mesh=,
+         out_shardings=decode_out_sharding(mesh))`` on 4 ``data``
+         members, then on the least count (at least 3) that pads every
+         group with zero-length rows: one launch a group, every member's
+         shard equal to phase 4's ``execute_device`` output bit for bit;
+         build, staging, decode and placement apart, the staged plan
+         beside ``execute_device`` with no host transfer; the padded plan
+         through ``all_thread=False`` (``scalar_decode.cu``);
+       - (b) phase 10's checkpoints restored with ``shardings=``
+         (``opt_shardings`` for the moments, ``param_shardings`` for the
+         K/V weights) onto (data=2, model=2), then elastically onto
+         (data=4, model=1) and (data=1, model=4), through the engine and
+         through a store, ``device_out``: every shard equal to the
+         unsharded restore's block, no device->host transfer;
+       - (c) phase 10's corpus through ``CompressedLoader(mesh=)`` on 2
+         members: every batch's ``full()`` equal to engine mode's;
+         tokens/s;
+       - (d) ``optim/adamw.py``'s int8 quantizer on the card against the
+         CPU on the moments of phase 11 (b)'s blocks: 0 elements differ;
+ 15. a JSON line of the kernels (``consumer_launches``: phase 10's,
      ``model_launches``: phase 11's, ``family_launches``: phase 12's,
-     ``diloco_launches``: phase 13's; ``bitpack_reduce``, bitpack's second
-     entry, with phase 13's numbers), then ``{"ok": true, "device":
-     {...}}`` last.
+     ``diloco_launches``: phase 13's, ``sharded_launches``: phase 14's;
+     ``bitpack_reduce``, bitpack's second entry, with phase 13's numbers),
+     then ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  It
 exits non-zero without a card, or without the port's sources beside it.
@@ -2235,10 +2259,13 @@ def loader_epoch(label, loader, ref: torch.Tensor, n_batches: int, device,
     return launched
 
 
-def phase_consumers(args, engine, counters, server, store_mod):
+def phase_consumers(args, engine, counters, server, store_mod,
+                    keep: Path):
     """Phase 10: a compressed checkpoint of qwen3-1.7B train state restored
     three ways, the compressed token loader over one epoch in engine and
-    service modes, and the fault-tolerant runner on the card."""
+    service modes, and the fault-tolerant runner on the card.  The two
+    checkpoints and the spilled corpus are left under ``keep`` (``moments``,
+    ``weights``, ``shards``) for phase 14."""
     import gc
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.data import pipeline
@@ -2261,7 +2288,7 @@ def phase_consumers(args, engine, counters, server, store_mod):
         state = moment_state(gen, args.ckpt_layers, device)
         count(checkpoint_case(
             f"(a) bitpack, AdamW int8 moments of {args.ckpt_layers} "
-            "qwen3-1.7B layers", ckpt, store_mod, tmp / "moments", state,
+            "qwen3-1.7B layers", ckpt, store_mod, keep / "moments", state,
             "bitpack", 8, engine, counters)["launches"])
         del state
         # (b) one layer's K and V projections, bf16, through tdeflate
@@ -2270,7 +2297,7 @@ def phase_consumers(args, engine, counters, server, store_mod):
             if name in ("k", "v")}
         count(checkpoint_case(
             "(b) tdeflate, bf16 K and V weights of one layer", ckpt,
-            store_mod, tmp / "weights", state, "tdeflate", 1, engine,
+            store_mod, keep / "weights", state, "tdeflate", 1, engine,
             counters)["launches"])
         del state
         gc.collect()
@@ -2282,11 +2309,11 @@ def phase_consumers(args, engine, counters, server, store_mod):
         corpus_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         store = pipeline.CompressedTokenStore.build(
-            toks, VOCAB, spill_dir=str(tmp / "shards"))
+            toks, VOCAB, spill_dir=str(keep / "shards"))
         build_s = time.perf_counter() - t0
         # half the payload bytes the store holds (nothing admitted yet)
         sizes = [p.stat().st_size
-                 for p in sorted((tmp / "shards").glob("shard_*.blob"))]
+                 for p in sorted((keep / "shards").glob("shard_*.blob"))]
         budget = sum(sizes) // 2
         store.store.host_budget_bytes = budget
         # 64 KiB chunks of u32 tokens: PERF.md §2's bound of one epoch
@@ -3704,27 +3731,427 @@ def moments_card_vs_cpu(seed: int, device) -> dict:
     return res
 
 
-def phase_sharded(args, engine, counters) -> dict:
-    """Phase 14: mesh placement on meshes whose members share the card.
-    Returns the launches by kernel."""
+SHARDED_MEMBERS = 4                # (a): then the least count >= 3 that
+                                   # pads every group
+ELASTIC_MESHES = (((2, 2), "data=2, model=2"), ((4, 1), "data=4, model=1"),
+                  ((1, 4), "data=1, model=4"))
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes, dtypes and bits (torch compares no uint32 on a card)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    return torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                       b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def shard_problems(got, want: torch.Tensor, sh, sharding) -> list:
+    """``got`` placed as ``sh`` places ``want``: each member's shard the
+    matching block of ``want``, bit for bit, on the member's device, in a
+    storage of its own; or, where ``want``'s shape cannot be placed, a
+    tensor equal to it."""
+    if not isinstance(got, sharding.ShardedTensor):
+        return [] if not sharding.placeable(want.shape, sh) and \
+            bits_equal(got, want) else ["not placed, or differs"]
+    bad = []
+    if got.sharding is not sh or tuple(got.shape) != tuple(want.shape):
+        bad.append(f"placed as {got.sharding}, {tuple(got.shape)}")
+    ptrs = {s.data_ptr() for s in got.shards if s.numel()}
+    if len(ptrs) != sum(1 for s in got.shards if s.numel()):
+        bad.append("members share a storage")
+    for m, (idx, shard, dev) in enumerate(zip(
+            sh.member_indices(want.shape), got.shards,
+            sh.mesh.devices.flat)):
+        if shard.device != dev or not bits_equal(shard, want[idx]):
+            bad.append(f"member {m}")
+    return bad
+
+
+def sharded_scan(args, data, engine, counters, plan_mod, transfers,
+                 sharding, mesh_lib) -> dict:
+    """(a) phase 4's table scan through ``decompress_many(mesh=,
+    out_shardings=decode_out_sharding)`` on ``SHARDED_MEMBERS`` members
+    sharing the card, then on the least count that pads every group with
+    zero-length rows; every shard against phase 4's ``execute_device``
+    output; the staged plan's device time beside ``execute_device``'s; and
+    the padded plan through ``all_thread=False``.  Returns the launches of
+    the counted calls."""
+    from repro_torch.core import api
+    from repro_torch.core.engine import CodagEngine
+    from repro_torch.kernels import scalar
+    device = engine.device
+    cas = data["cas"]
+    flat = [b for ca in cas for b in ca.blobs]
+    refs = api.decompress_many(cas, engine, device_out=True)
+    sync(device)
+    launched: dict = {}
+    rows = [g.num_chunks for g in plan_mod.DecodePlan.build(flat).groups]
+    padding = next(n for n in range(3, 64) if all(r % n for r in rows))
+    for n in (SHARDED_MEMBERS, padding):
+        mesh = mesh_lib.make_test_mesh((n,), ("data",), device=str(device))
+        shs = [sharding.decode_out_sharding(mesh, a.ndim)
+               for a in data["arrays"]]
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        outs = api.decompress_many(cas, engine, mesh=mesh, out_shardings=shs)
+        sync(device)
+        first_s = time.perf_counter() - t0
+        got = {k: c.read() for k, c in counters.items() if c.read()}
+        for k, v in got.items():
+            launched[k] = launched.get(k, 0) + v
+        plan = plan_mod.DecodePlan.build(flat)
+        if sum(got.values()) != plan.num_dispatches:
+            raise AssertionError(f"(a) {n} members: {sum(got.values())} "
+                                 f"launches for {plan.num_dispatches} groups")
+        bad, placed = [], 0
+        for i, (o, r, sh) in enumerate(zip(outs, refs, shs)):
+            placed += isinstance(o, sharding.ShardedTensor)
+            bad += [(i, p) for p in shard_problems(o, r, sh, sharding)]
+        if bad:
+            raise AssertionError(f"(a) {n} members: {bad[:5]}")
+        pads = [-(-g.num_chunks // n) * n - g.num_chunks
+                for g in plan.groups]
+        del outs
+        # the same plan staged: build, staging, decode and placement apart
+        t0 = time.perf_counter()
+        plan = plan_mod.DecodePlan.build(flat)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        with transfers.count_host_transfers() as h2d:
+            plan.stage_sharded(mesh, "data")
+        sync(device)
+        stage_ms = (time.perf_counter() - t0) * 1e3
+        blob_sh = [None] * len(flat)
+        pos = 0
+        for ca, sh in zip(cas, shs):
+            if len(ca.blobs) == 1:
+                blob_sh[pos] = sh
+            pos += len(ca.blobs)
+        plan.execute_sharded(mesh, engine=engine, out_shardings=blob_sh)
+        plan.stage(device)
+        plan.execute_device(engine)
+        sync(device)
+
+        def guarded(fn):
+            def run():
+                with transfers.no_host_transfers():
+                    fn()
+            return run
+
+        dec_ms = ms_of(guarded(lambda: plan.execute_sharded(
+            mesh, engine=engine)), args.reps)
+        placed_ms = ms_of(guarded(lambda: plan.execute_sharded(
+            mesh, engine=engine, out_shardings=blob_sh)), args.reps)
+        dev_ms = ms_of(guarded(lambda: plan.execute_device(engine)),
+                       args.reps)
+        e2e = []
+        for _ in range(args.reps):
+            t0 = time.perf_counter()
+            o = api.decompress_many(cas, engine, mesh=mesh,
+                                    out_shardings=shs)
+            sync(device)
+            e2e.append(time.perf_counter() - t0)
+            del o
+        with transfers.count_host_transfers() as c:
+            with transfers.no_host_transfers():
+                plan.execute_sharded(mesh, engine=engine,
+                                     out_shardings=blob_sh)
+            sync(device)
+        if c["d2h"] or c["h2d"]:
+            raise AssertionError(f"(a) {n} members: the staged plan moved "
+                                 f"{c} across the host link")
+        log(f"   (a) {n} members: decompress_many(mesh=, out_shardings="
+            f"decode_out_sharding): {sum(got.values())} launches for "
+            f"{plan.num_dispatches} groups {got}; padding rows a group "
+            f"{pads}; {placed} of {len(cas)} arrays placed, every "
+            f"shard equal to phase 4's execute_device output bit for bit "
+            f"(the rest not placeable, equal whole); first call "
+            f"{first_s * 1e3:.1f} ms")
+        log(f"       end to end median {np.median(e2e) * 1e3:.2f} ms over "
+            f"{args.reps}; of one call DecodePlan.build {build_ms:.2f} ms, "
+            f"stage_sharded {stage_ms:.2f} ms ({h2d['h2d']} uploads, "
+            f"{h2d['h2d_bytes'] / 2**20:.1f} MiB); staged, no host transfer "
+            f"(0 d2h, 0 h2d): execute_sharded {dec_ms:.3f} ms without "
+            f"placement, {placed_ms:.3f} ms placed (placement "
+            f"{placed_ms - dec_ms:.3f} ms), execute_device {dev_ms:.3f} ms "
+            "in the same call")
+        if n == padding:
+            # the single-thread kernel through the padded groups
+            seng = CodagEngine(dataclasses.replace(engine.config,
+                                                   all_thread=False))
+            scalar.LAUNCHES = 0
+            t0 = time.perf_counter()
+            outs = plan.execute_sharded(mesh, engine=seng,
+                                        out_shardings=blob_sh)
+            sync(device)
+            s_ms = (time.perf_counter() - t0) * 1e3
+            launched["scalar_decode"] = scalar.LAUNCHES
+            bad = []
+            for i, (o, r, sh) in enumerate(zip(
+                    outs, plan.execute_device(engine), blob_sh)):
+                if sh is None:
+                    bad += [] if bits_equal(o, r) else [(i, "differs")]
+                else:
+                    bad += [(i, p) for p in shard_problems(o, r, sh,
+                                                           sharding)]
+            if bad or scalar.LAUNCHES != plan.num_dispatches:
+                raise AssertionError(f"(a) all_thread=False: {bad[:5]}, "
+                                     f"{scalar.LAUNCHES} launches")
+            log(f"       all_thread=False (scalar_decode.cu) through the "
+                f"{n}-member padded groups: {scalar.LAUNCHES} launches, "
+                f"{s_ms:.1f} ms, every shard equal bit for bit")
+            del outs
+        del plan
+        torch.cuda.empty_cache()
+    del refs
+    return launched
+def moment_like(layers: int):
+    """(the structure of phase 10 (a)'s state, the AdamW state's and the
+    parameters' shapes as ``meta`` tensors) for ``opt_shardings``."""
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    params = {f"layer{i:02d}": {
+        name: meta(n) for name, n in
+        [(nm, k * m) for nm, k, m in QWEN3_PROJECTIONS]
+        + [(nm, D_MODEL) for nm in QWEN3_NORMS]} for i in range(layers)}
+
+    def moment(p):
+        return {"q": meta(p.shape[0] // QBLOCK, QBLOCK),
+                "s": meta(p.shape[0] // QBLOCK, 1)}
+
+    opt = {"step": meta(), "m": {}, "v": {}}
+    for which in ("m", "v"):
+        opt[which] = {lk: {nm: moment(p) for nm, p in lp.items()}
+                      for lk, lp in params.items()}
+    return opt, params
+
+
+def kv_like(sharding, mesh):
+    """Phase 10 (b)'s state (one layer's K and V projections, bf16) and its
+    parameter shardings, by the reference's rule names (``attn/wk``,
+    ``attn/wv``: the output dimension over ``model``)."""
+    meta = {name: torch.empty((k, n), dtype=torch.bfloat16, device="meta")
+            for name, k, n in QWEN3_PROJECTIONS if name in ("k", "v")}
+    sh = sharding.param_shardings({"attn": {"wk": meta["k"],
+                                            "wv": meta["v"]}}, mesh)
+    return meta, {"k": sh["attn"]["wk"], "v": sh["attn"]["wv"]}
+
+
+def sharded_restores(args, keep: Path, engine, counters, sharding, mesh_lib,
+                     ckpt, transfers, store_mod) -> dict:
+    """(b) phase 10's two checkpoints restored with ``shardings=`` onto
+    (data=2, model=2), then elastically onto (data=4, model=1) and (data=1,
+    model=4), each through the engine path and through a store, with
+    ``device_out``: every shard against the unsharded restore's block, no
+    device->host transfer.  Returns the launches."""
+    device = engine.device
+    launched: dict = {}
+    cases = (("moments", "bitpack AdamW int8 moments"),
+             ("weights", "tdeflate bf16 K and V"))
+    for dirname, label in cases:
+        root = keep / dirname
+        sync(device)
+        t0 = time.perf_counter()
+        if dirname == "moments":
+            opt_meta, params_meta = moment_like(args.ckpt_layers)
+            like = opt_meta
+        else:
+            like = kv_like(sharding, mesh_lib.make_test_mesh(
+                (1, 1), ("data", "model"), device=str(device)))[0]
+        plain = ckpt._flatten(ckpt.restore(str(root), 1, like, engine=engine,
+                                           device_out=True))
+        sync(device)
+        plain_s = time.perf_counter() - t0
+        times = []
+        for shape, mname in ELASTIC_MESHES:
+            mesh = mesh_lib.make_test_mesh(shape, ("data", "model"),
+                                           device=str(device))
+            if dirname == "moments":
+                shs = sharding.opt_shardings(opt_meta, params_meta, mesh)
+            else:
+                shs = kv_like(sharding, mesh)[1]
+            flat_sh = ckpt._flatten(shs)
+            for way in ("engine", "store"):
+                for c in counters.values():
+                    c.reset()
+                sync(device)
+                t0 = time.perf_counter()
+                with transfers.count_host_transfers() as moved:
+                    if way == "store":
+                        with store_mod.filesystem_store(root) as st:
+                            out = ckpt.restore(str(root), 1, like,
+                                               shardings=shs, engine=engine,
+                                               device_out=True, store=st)
+                            sync(device)
+                    else:
+                        out = ckpt.restore(str(root), 1, like, shardings=shs,
+                                           engine=engine, device_out=True)
+                    sync(device)
+                dt = time.perf_counter() - t0
+                got = {k: c.read() for k, c in counters.items() if c.read()}
+                for k, v in got.items():
+                    launched[k] = launched.get(k, 0) + v
+                flat_out = ckpt._flatten(out)
+                bad = [(k, p) for k in plain for p in shard_problems(
+                    flat_out[k], plain[k], flat_sh[k], sharding)]
+                if bad or moved["d2h"]:
+                    raise AssertionError(f"(b) {label} onto {mname} ({way}): "
+                                         f"{bad[:5]}, {moved['d2h']} d2h")
+                placed = sum(isinstance(v, sharding.ShardedTensor)
+                             for v in flat_out.values())
+                times.append(dt)
+                log(f"   (b) {label} onto ({mname}), {way}: {dt:.3f} s, "
+                    f"{placed} of {len(plain)} leaves placed, every shard "
+                    f"equal to the unsharded restore's block, "
+                    f"{moved['d2h']} d2h; launches {got}")
+                del out, flat_out
+        log(f"   (b) {label}: unsharded device_out restore {plain_s:.3f} s "
+            f"(phase 10's 0.386 s was the moments' at 4 layers, PR 19); "
+            f"sharded restores {min(times):.3f}-{max(times):.3f} s")
+        del plain
+    return launched
+
+
+def sharded_loader(args, keep: Path, engine, counters, sharding, mesh_lib,
+                   pipeline, store_mod) -> dict:
+    """(c) one epoch of phase 10's spilled corpus through
+    ``CompressedLoader(mesh=)`` on a 2-member ``data`` mesh, every batch's
+    ``full()`` against engine mode's; tokens/s.  Returns the launches."""
+    device = engine.device
+    shards = keep / "shards"
+    keys = sorted(p.name for p in shards.glob("shard_*.blob"))
+    st = store_mod.filesystem_store(shards)
+    store = pipeline.CompressedTokenStore([], VOCAB, store=st, keys=keys)
+    mesh = mesh_lib.make_test_mesh((2,), ("data",), device=str(device))
+    bsh = sharding.decode_out_sharding(mesh, 2)
+    per = LOADER_BATCH * LOADER_SEQ
+    n_batches = (args.corpus_tokens - 1) // per
+    for c in counters.values():
+        c.reset()
+    it = iter(pipeline.CompressedLoader(store, LOADER_BATCH, LOADER_SEQ,
+                                        engine=engine, decode_window=4,
+                                        mesh=mesh))
+    sync(device)
+    t0 = time.perf_counter()
+    got = [next(it) for _ in range(n_batches)]
+    sync(device)
+    dt = time.perf_counter() - t0
+    it.close()
+    launched = {k: c.read() for k, c in counters.items() if c.read()}
+    it = iter(pipeline.CompressedLoader(store, LOADER_BATCH, LOADER_SEQ,
+                                        engine=engine, decode_window=4,
+                                        device_out=True))
+    bad = 0
+    for b in got:
+        want = next(it)
+        for k in ("tokens", "labels"):
+            if not isinstance(b[k], sharding.ShardedTensor) or \
+                    b[k].sharding != bsh or \
+                    not bits_equal(b[k].full(), want[k]):
+                bad += 1
+    it.close()
+    st.close()
+    if bad:
+        raise AssertionError(f"(c) {bad} mesh loader batches differ from "
+                             "engine mode's")
+    log(f"   (c) CompressedLoader(mesh=) on 2 members: {n_batches} batches "
+        f"of {LOADER_BATCH} x {LOADER_SEQ} in {dt:.3f} s = "
+        f"{n_batches * per / dt:.0f} tokens/s, each placed over its batch "
+        f"dimension and its full() equal to engine mode's bit for bit; "
+        f"launches {launched}")
+    return launched
+
+
+def phase_sharded(args, engine, counters, data=None, keep=None) -> dict:
+    """Phase 14: mesh placement on meshes whose members share the card:
+    (a) phase 4's table scan through the sharded executor, (b) phase 10's
+    checkpoints restored with ``shardings=``, (c) the loader's ``mesh=``,
+    (d) the int8 moments' quantizer card against CPU.  ``data`` and
+    ``keep`` are phase 4's workload and phase 10's files; without them
+    (``--sharded-only``) both are made here.  Returns the launches by
+    kernel of (a)-(c)."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import api, plan as plan_mod, transfers
+    from repro_torch.core import store as store_mod
+    from repro_torch.data import pipeline
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
     log("== 14 mesh placement: the sharded decode executor, restore("
         "shardings=), the loader's mesh=, members sharing the card")
     device = engine.device
     t0 = time.perf_counter()
     launched: dict = {}
+
+    def count(got):
+        for k, v in got.items():
+            launched[k] = launched.get(k, 0) + v
+
+    made = None
+    if data is None:
+        data = main_data(args, np.random.default_rng(args.seed), api)
+    if keep is None:
+        (ROOT / "build").mkdir(exist_ok=True)
+        made = tempfile.TemporaryDirectory(dir=ROOT / "build")
+        keep = Path(made.name)
+        save_phase10_files(args, keep, device, ckpt, pipeline)
+    try:
+        t1 = time.perf_counter()
+        count(sharded_scan(args, data, engine, counters, plan_mod, transfers,
+                           sharding, mesh_lib))
+        secs = {"a": time.perf_counter() - t1}
+        t1 = time.perf_counter()
+        count(sharded_restores(args, keep, engine, counters, sharding,
+                               mesh_lib, ckpt, transfers, store_mod))
+        secs["b"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        count(sharded_loader(args, keep, engine, counters, sharding,
+                             mesh_lib, pipeline, store_mod))
+        secs["c"] = time.perf_counter() - t1
+    finally:
+        if made is not None:
+            made.cleanup()
     # (d) the int8 moments' quantizer, card against CPU
     t1 = time.perf_counter()
     res = moments_card_vs_cpu(args.seed, device)
+    secs["d"] = time.perf_counter() - t1
     log(f"   (d) optim/adamw.py's int8 quantizer on {res['leaves']} moment "
         f"leaves (qwen3-1.7B's blocks, {TRAIN_LAYERS} layers), card against "
         "CPU: "
         f"{res['q']} of {res['q_of']} q elements and {res['s']} of "
-        f"{res['s_of']} scales differ ({time.perf_counter() - t1:.1f} s)")
+        f"{res['s_of']} scales differ")
     if res["q"] or res["s"]:
         raise AssertionError("(d) the int8 moments differ between the card "
                              "and the CPU")
-    log(f"   phase 14: {time.perf_counter() - t0:.1f} s")
+    missing = [k for k in ("two_phase_rle<rle_v1>", "two_phase_rle<rle_v2>",
+                           "two_phase_rle<dbp>", "bitpack_unpack",
+                           "tdeflate_decode", "huffman_decode", "lzss_decode",
+                           "scalar_decode") if launched.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"phase 14 launched no {missing}")
+    log(f"   phase 14: {time.perf_counter() - t0:.1f} s ((a) {secs['a']:.1f},"
+        f" (b) {secs['b']:.1f}, (c) {secs['c']:.1f}, (d) {secs['d']:.1f}); "
+        f"launches {launched}")
     return launched
+
+
+def save_phase10_files(args, keep: Path, device, ckpt, pipeline) -> None:
+    """Phase 10's two checkpoints and spilled corpus, for ``--sharded-only``
+    (the full run keeps phase 10's own)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    t0 = time.perf_counter()
+    ckpt.save(str(keep / "moments"), 1,
+              moment_state(gen, args.ckpt_layers, device), codec="bitpack")
+    state = {name: torch.randn(k, n, generator=gen, device=device).to(
+        torch.bfloat16) * 0.02 for name, k, n in QWEN3_PROJECTIONS
+        if name in ("k", "v")}
+    ckpt.save(str(keep / "weights"), 1, state, codec="tdeflate")
+    toks = pipeline.synthetic_corpus(args.corpus_tokens, VOCAB,
+                                     seed=args.seed)
+    pipeline.CompressedTokenStore.build(toks, VOCAB,
+                                        spill_dir=str(keep / "shards"))
+    log(f"   phase 10's checkpoints and corpus made in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 class Counter:
@@ -3872,13 +4299,19 @@ def main() -> int:
                   counters)
     launches["scalar_decode"] = phase_ablation(
         args, data, engine, scalar, registry, harness, transfers, errs, per)
-    del data
+    del data["plan"]              # its staged tables; phase 14 stages anew
+    torch.cuda.empty_cache()
     phase_tuning(args, tuning, api, fmt, registry, engine)
-    consumer = phase_consumers(args, engine, counters, server, store)
-    model_launches = phase_model(args, engine, counters)
-    family = phase_families(args, engine, counters)
-    reduce_row, dil = phase_collectives(args, engine, counters)
-    log("== 14 kernels")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as keep:
+        consumer = phase_consumers(args, engine, counters, server, store,
+                                   Path(keep))
+        model_launches = phase_model(args, engine, counters)
+        family = phase_families(args, engine, counters)
+        reduce_row, dil = phase_collectives(args, engine, counters)
+        placed = phase_sharded(args, engine, counters, data, Path(keep))
+    del data
+    log("== 15 kernels")
     kernels = []
     for name in KERNELS:
         source, replaces = SOURCES.get(
@@ -3912,6 +4345,8 @@ def main() -> int:
             kernels[-1]["family_launches"] = family[name]
         if name in dil:             # phase 13's
             kernels[-1]["diloco_launches"] = dil[name]
+        if name in placed:          # phase 14's
+            kernels[-1]["sharded_launches"] = placed[name]
         exact = name != "dequant_matmul"    # held to TOL in phases 3 and 6
         if kernels[-1]["launches"] < 1 or (exact and errs[name]):
             raise AssertionError(f"{name}: not launched on the main path, or "

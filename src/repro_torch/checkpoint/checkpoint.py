@@ -30,8 +30,10 @@ leaf is rebuilt from its bytes with ``format.device_view``.
 
 Blob files are read through ``core.store.BlobUnpickler``, which admits the
 compressed-blob classes (the reference package's names map onto the
-port's) and numpy arrays only.  The mesh-sharded and elastic restore
-(``shardings=``) is not ported yet (ROADMAP.md Queue 1 item 11b).
+port's) and numpy arrays only.  ``restore(shardings=)`` is the elastic,
+mesh-sharded restore: each leaf comes back as a
+``distributed.sharding.ShardedTensor`` on the shardings' mesh, whatever
+mesh saved it.
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ from repro_torch.core import api as codec_api
 from repro_torch.core import format as fmt
 from repro_torch.core import registry, transfers
 from repro_torch.core import store as blobstore
-from repro_torch.core.engine import CodagEngine
+from repro_torch.core.engine import CodagEngine, EngineConfig
+from repro_torch.distributed.sharding import NamedSharding, ShardedTensor
 
 MANIFEST = "manifest.json"
 _STEP_RE = re.compile(r"step_(\d+)")
@@ -262,13 +265,16 @@ def restore(ckpt_dir: str, step: int, like, *, shardings=None,
     windows of compressed bytes resident (``decode_window`` defaults to 8
     on this path).
 
-    ``shardings`` (the elastic, mesh-sharded restore) raises
-    ``NotImplementedError``: ROADMAP.md Queue 1 item 11b.
+    ``shardings``: a tree like ``like`` of ``sharding.NamedSharding`` s
+    (None: a leaf not placed), the ELASTIC restore: state saved on one mesh
+    comes back laid out on the mesh of the restarted job, each leaf a
+    ``sharding.ShardedTensor``.  With ``device_out`` and no service the
+    compressed leaves decode through ``DecodePlan.execute_sharded`` on the
+    shardings' mesh (each member decoding its block of every group's rows;
+    with no ``engine``, on the mesh's device), with no device->host
+    transfer; otherwise the restored leaves are placed.  A leaf whose
+    shape cannot be placed under its sharding raises.
     """
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=) is not ported yet (ROADMAP.md Queue 1 "
-            "item 11b)")
     if engine is not None and service is not None:
         raise ValueError("pass engine= OR service=, not both: the service "
                          "decodes on its own engine")
@@ -278,6 +284,16 @@ def restore(ckpt_dir: str, step: int, like, *, shardings=None,
     manifest = json.loads((root / MANIFEST).read_text())
     keys = list(_flatten(like).keys())
     entries = [manifest["leaves"][key] for key in keys]
+    places = {}
+    mesh = None
+    if shardings is not None:
+        places = _flatten(shardings)
+        if device_out and service is None:
+            mesh = next((s.mesh for s in places.values()
+                         if isinstance(s, NamedSharding)), None)
+        if mesh is not None and engine is None:
+            engine = CodagEngine(EngineConfig(
+                device=str(mesh.member_device())))
 
     # uncompressed leaves load now; compressed ones window by window below
     leaves: List[Any] = [None] * len(keys)
@@ -318,7 +334,8 @@ def restore(ckpt_dir: str, step: int, like, *, shardings=None,
             decoded = service.decode_arrays(cas, device_out=device_out)
         else:
             decoded = codec_api.decompress_many(cas, engine,
-                                                device_out=device_out)
+                                                device_out=device_out,
+                                                mesh=mesh)
         for i, arr in zip(idxs, decoded):
             leaves[i] = arr.reshape(-1) if device_out else _bytes_tensor(arr)
     out = {}
@@ -327,4 +344,7 @@ def restore(ckpt_dir: str, step: int, like, *, shardings=None,
             leaf = transfers.to_device(leaf.numpy(), device)
         out[key] = fmt.device_view(leaf, entry["dtype"],
                                    tuple(entry["shape"]))
+        sh = places.get(key)
+        if sh is not None:
+            out[key] = ShardedTensor.place(out[key], sh)
     return _rebuild(like, out)

@@ -8,6 +8,9 @@
     outs = api.decompress_many(cas, device_out=True)  # ONE launch per group
     outs = api.decompress_many(cas)                 # host arrays, through
                                                     # server.default_service()
+    mesh = launch.mesh.make_test_mesh((4,), ("data",))
+    shds = api.decompress_many(cas, mesh=mesh,      # one ShardedTensor an
+        out_shardings=sharding.decode_out_sharding(mesh))   # array
 
 Decoding runs on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"`` or an engine configured for the CPU.  8-byte dtypes are
@@ -27,6 +30,7 @@ from repro_torch.core import format as fmt
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import registry
 from repro_torch.core.engine import CodagEngine, EngineConfig, resolve_device
+from repro_torch.distributed.sharding import ShardedTensor
 
 
 @dataclasses.dataclass
@@ -138,15 +142,28 @@ def decompress_many(cas: Sequence[CompressedArray],
     ``device_out=True`` returns tensors on the engine's device: decode,
     per-blob scatter, 64-bit plane recombination and the optional
     ``epilogue`` (a ``kernels.harness.Epilogue``, plan path only) all run
-    there.  The mesh executor (``mesh=``, ``out_shardings=``) is not ported
-    yet.  Outputs follow input order.
+    there.
+
+    ``mesh`` (implies device out; a ``launch.mesh.Mesh`` whose members
+    share one device) splits every group's chunk rows over the mesh's
+    ``mesh_axis`` (default ``sharding.decode_axis``) through
+    ``DecodePlan.execute_sharded``; with no ``engine`` the decode runs on
+    the mesh's device.  ``out_shardings`` (one ``NamedSharding``, or one an
+    array with None holes; device paths only) places each output as a
+    ``sharding.ShardedTensor``: a single-blob array inside the plan, a
+    plane-decomposed one after its planes are joined; a shape that cannot
+    be placed stays a tensor.  Outputs follow input order.
     """
     if engine is not None and service is not None:
         raise ValueError("pass engine= OR service=, not both: the service "
                          "decodes on its own engine")
+    device_out = device_out or mesh is not None
     if epilogue is not None and not device_out:
         raise ValueError("epilogue requires device_out=True: a fused "
                          "epilogue's output has no host reassembly path")
+    if out_shardings is not None and not device_out:
+        raise ValueError("out_shardings requires device_out=True (or "
+                         "mesh=): host arrays have no device placement")
     if service is not None or (engine is None and not device_out):
         if epilogue is not None:
             raise ValueError("epilogue is not supported on the service "
@@ -162,10 +179,8 @@ def decompress_many(cas: Sequence[CompressedArray],
         if not cas:
             return []
         return service.decode_arrays(cas, device_out=device_out)
-    if mesh is not None or mesh_axis is not None or out_shardings is not None:
-        raise NotImplementedError(
-            "mesh=/mesh_axis=/out_shardings= are not ported yet (ROADMAP.md "
-            "Queue 1 item 11b)")
+    if mesh is not None and engine is None and device is None:
+        device = mesh.member_device()
     engine = _engine(engine, device)
     if not cas:
         return []
@@ -176,9 +191,29 @@ def decompress_many(cas: Sequence[CompressedArray],
         flat.extend(ca.blobs)
     plan = plan_mod.DecodePlan.build(flat)
     if device_out:
-        outs = plan.execute_device(engine, epilogue=epilogue,
-                                   epilogue_operands=epilogue_operands)
-        return [_combine_device(ca, outs[s:s + n], epilogue is not None)
-                for ca, (s, n) in zip(cas, spans)]
+        per_array = (plan_mod.as_shard_list(out_shardings, len(cas),
+                                            what="arrays")
+                     or [None] * len(cas))
+        # single-blob arrays are placed inside the plan; plane-decomposed
+        # arrays after their planes are joined
+        blob_sh: List = [None] * len(flat)
+        for (s, n), sh in zip(spans, per_array):
+            if sh is not None and n == 1:
+                blob_sh[s] = sh
+        if mesh is not None:
+            outs = plan.execute_sharded(
+                mesh, axis=mesh_axis, engine=engine, epilogue=epilogue,
+                epilogue_operands=epilogue_operands, out_shardings=blob_sh)
+        else:
+            outs = plan.execute_device(
+                engine, epilogue=epilogue,
+                epilogue_operands=epilogue_operands, out_shardings=blob_sh)
+        results = []
+        for ca, (s, n), sh in zip(cas, spans, per_array):
+            out = _combine_device(ca, outs[s:s + n], epilogue is not None)
+            if sh is not None and n > 1 and plan_mod.placeable(out.shape, sh):
+                out = ShardedTensor.place(out, sh)
+            results.append(out)
+        return results
     outs = plan.execute(engine)
     return [_combine(ca, outs[s:s + n]) for ca, (s, n) in zip(cas, spans)]

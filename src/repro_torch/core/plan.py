@@ -1,6 +1,6 @@
 """DecodePlan — the decode-pipeline IR every entry path lowers to.
 
-The counterpart of ``repro/core/plan.py`` (single-device executors):
+The counterpart of ``repro/core/plan.py``:
 
     parse/group  — partition blobs by ``(codec, width, chunk_elems, bits)``
                    and fuse each group's chunk tables into one flat stream
@@ -14,17 +14,28 @@ The counterpart of ``repro/core/plan.py`` (single-device executors):
     reassemble   — per-blob row-range scatter on the device
                    (``format.reassemble_rows_device``).
     epilogue     — optional consumer transform (``harness.Epilogue``).
+    place        — each output under its requested ``NamedSharding``
+                   (``distributed.sharding.ShardedTensor``: one tensor a
+                   member); a shape that cannot be placed stays as it is.
 
     plan = DecodePlan.build(blobs)
     outs = plan.execute(engine)                     # host ndarrays
     devs = plan.execute_device(engine)              # tensors on engine.device
+    shds = plan.execute_sharded(mesh, out_shardings=decode_out_sharding(mesh))
 
 ``DecodePlan.build(bucket=True)`` pads each merged table to pow2 row and
 column buckets (the service's window loop builds its plans so), and
 :meth:`DecodePlan.decode_group_device` stages and decodes one group on a
 chosen device.  :func:`gather_member_tables` fuses the wire tables of a
-mesh's members into one table for one dispatch (the collective plane).  The
-sharded executor is not ported yet (ROADMAP.md Queue 1 item 11b).
+mesh's members into one table for one dispatch (the collective plane).
+
+:meth:`DecodePlan.execute_sharded` is the mesh executor: each group's table
+is padded with zero-length rows to a multiple of the mesh axis, so every
+member owns an equal block of rows, member after member, which is
+:func:`gather_member_tables`' layout.  The members share one device, so
+one dispatch decodes every member's rows (one launch a group), and the
+outputs are scattered and placed into member shards.  A mesh over
+distinct devices raises (ROADMAP.md Queue 1 item 11c).
 """
 from __future__ import annotations
 
@@ -40,6 +51,8 @@ import torch
 
 from repro_torch.core import format as fmt
 from repro_torch.core import transfers
+from repro_torch.distributed.sharding import (ShardedTensor, decode_axis,
+                                              placeable)
 from repro_torch.kernels import ops
 
 # Bounded content-keyed LRU slots for staged epilogue operands.
@@ -156,7 +169,7 @@ def gather_member_tables(devs: Sequence[Dict[str, Any]], *,
     members that padded their tables to a common height: the padding rows'
     ``out_lens`` and ``comp_lens`` are zeroed, so length-honouring bodies
     treat them as absent.  Members on distinct devices raise (ROADMAP.md
-    Queue 1 item 11b).
+    Queue 1 item 11c).
     """
     if not devs:
         raise ValueError("no member tables to gather")
@@ -171,7 +184,7 @@ def gather_member_tables(devs: Sequence[Dict[str, Any]], *,
         raise NotImplementedError(
             f"member tables on {sorted(map(str, devices))}: gathering across "
             "distinct devices is not ported yet (ROADMAP.md Queue 1 item "
-            "11b); the members must share one device")
+            "11c); the members must share one device")
     if any(d["out_lens"].shape[0] != n_chunks for d in devs):
         raise ValueError("member tables of different heights: pad them to "
                          "one height and pass row_counts")
@@ -195,6 +208,36 @@ def gather_member_tables(devs: Sequence[Dict[str, Any]], *,
         out["comp_lens"] = torch.where(valid, out["comp_lens"],
                                        0).to(out["comp_lens"].dtype)
     return out
+
+
+def as_shard_list(out_shardings, n: int, what: str = "items"):
+    """An ``out_shardings`` argument (None, one sharding, or one per item
+    with None holes) as a list of ``n``, or None."""
+    if out_shardings is None:
+        return None
+    if isinstance(out_shardings, (list, tuple)):
+        if len(out_shardings) != n:
+            raise ValueError(
+                f"{len(out_shardings)} out_shardings for {n} {what}")
+        return list(out_shardings)
+    return [out_shardings] * n
+
+
+def _scatter_place(table: torch.Tensor, scatter, meta) -> List[Any]:
+    """Reassemble every blob of one decoded group table from its rows,
+    then place it under its requested sharding (if any, and if its shape
+    can be placed)."""
+    outs = []
+    for (row0, nc, total, odt, oshape, transformed, place), idx in zip(
+            meta, scatter):
+        out = fmt.reassemble_rows_device(
+            table, row0=row0, num_chunks=nc, total_elems=total,
+            orig_dtype=odt, orig_shape=oshape, indices=idx,
+            transformed=transformed)
+        if place is not None and placeable(out.shape, place):
+            out = ShardedTensor.place(out, place)
+        outs.append(out)
+    return outs
 
 
 def _operand_cache_key(operands: Dict[str, Any]) -> tuple:
@@ -329,6 +372,29 @@ class DecodePlan:
                     for s in g.scatter)
         return self
 
+    def stage_sharded(self, mesh, axis: str) -> "DecodePlan":
+        """Stage for the mesh executor on the device the members share:
+        each group's table padded with zero-length rows
+        (``format.pad_table_rows``' rows, written as it is copied) to a
+        multiple of ``mesh.shape[axis]``, so member m owns rows ``[m * r,
+        (m + 1) * r)``; shared tables and scatter indices once."""
+        device = mesh.member_device()
+        key = (mesh, axis)
+        staged = self._staged.setdefault(key, {})
+        scat = self._staged_scatter.setdefault(key, {})
+        ndev = int(mesh.shape[axis])
+        for gi, g in enumerate(self.groups):
+            if gi in staged:
+                continue
+            rows = -(-g.num_chunks // ndev) * ndev
+            staged[gi] = ops.table_inputs(
+                g.merged, device, rows=rows,
+                pad_comp_to=g.bucket[1] if g.bucket else None)[0]
+            scat[gi] = tuple(
+                None if s is None else transfers.to_device(s, device)
+                for s in g.scatter)
+        return self
+
     def _stage_operands(self, operands: Optional[Dict[str, Any]],
                         device) -> Dict[str, Any]:
         """Bounded content-keyed staging cache for epilogue operands."""
@@ -381,50 +447,105 @@ class DecodePlan:
                 outs[bid] = fmt.reassemble(blob, rows)
         return outs  # type: ignore[return-value]
 
-    def execute_device(self, engine=None, *, epilogue=None,
-                       epilogue_operands: Optional[Dict[str, Any]] = None
-                       ) -> List[torch.Tensor]:
-        """Device executor: one dispatch per group, then per-blob scatter
-        and the optional ``epilogue`` on ``engine.device``.  Returns tensors
-        in input order; a blob whose rows are contiguous gets a view of its
-        group's decoded table (no copy).  With the plan staged (and the
-        operands seen before) there are no host transfers.
-        """
-        engine = _default_engine(engine)
-        device = engine.device
-        self.stage(device)
-        ops_extra = self._stage_operands(epilogue_operands, device)
+    def _blob_meta(self, g: PlanGroup, transformed: bool,
+                   places: Optional[List]) -> tuple:
+        return tuple(
+            (row0, self.blobs[bid].num_chunks, self.blobs[bid].total_elems,
+             self.blobs[bid].orig_dtype, tuple(self.blobs[bid].orig_shape),
+             transformed, None if places is None else places[bid])
+            for bid, row0 in zip(g.blob_ids, g.row_offsets))
+
+    def _run(self, key, engine, epilogue, ops_extra, places) -> List[Any]:
+        """One dispatch a group of the tables staged under ``key``, then
+        every blob's scatter and placement."""
         outs: List[Any] = [None] * len(self.blobs)
         for gi, g in enumerate(self.groups):
-            dev = self._staged[device][gi]
+            dev = self._staged[key][gi]
             if ops_extra:
                 dev = {**dev, **ops_extra}
             codec, width, chunk_elems, bits = g.key
             table = dispatch(dev, config=engine.config, codec=codec,
                              width=width, chunk_elems=chunk_elems, bits=bits,
                              epilogue=epilogue)
-            for bid, row0, idx in zip(g.blob_ids, g.row_offsets,
-                                      self._staged_scatter[device][gi]):
-                blob = self.blobs[bid]
-                outs[bid] = fmt.reassemble_rows_device(
-                    table, row0=row0, num_chunks=blob.num_chunks,
-                    total_elems=blob.total_elems, orig_dtype=blob.orig_dtype,
-                    orig_shape=tuple(blob.orig_shape), indices=idx,
-                    transformed=epilogue is not None)
+            group_outs = _scatter_place(
+                table, self._staged_scatter[key][gi],
+                self._blob_meta(g, epilogue is not None, places))
+            for bid, out in zip(g.blob_ids, group_outs):
+                outs[bid] = out
         return outs
+
+    def execute_device(self, engine=None, *, epilogue=None,
+                       epilogue_operands: Optional[Dict[str, Any]] = None,
+                       out_shardings=None) -> List[Any]:
+        """Device executor: one dispatch per group, then per-blob scatter,
+        the optional ``epilogue`` and placement on ``engine.device``.
+        Returns tensors in input order; a blob whose rows are contiguous
+        gets a view of its group's decoded table (no copy).  With the plan
+        staged (and the operands seen before) there are no host transfers.
+
+        ``out_shardings``: one ``NamedSharding`` (or one a blob, None
+        allowed) each output is placed under, as a ``ShardedTensor``.
+        """
+        engine = _default_engine(engine)
+        device = engine.device
+        self.stage(device)
+        return self._run(device, engine, epilogue,
+                         self._stage_operands(epilogue_operands, device),
+                         as_shard_list(out_shardings, len(self.blobs),
+                                       what="blobs"))
+
+    def execute_sharded(self, mesh, *, axis: Optional[str] = None,
+                        engine=None, epilogue=None,
+                        epilogue_operands: Optional[Dict[str, Any]] = None,
+                        out_shardings=None) -> List[Any]:
+        """Mesh executor: every group's rows split evenly over ``mesh``'s
+        ``axis`` (default ``sharding.decode_axis``), each member owning a
+        block (:meth:`stage_sharded`); the members share one device, so
+        one dispatch a group decodes every member's block, and each blob's
+        output is placed under its requested ``NamedSharding``.  Equal to
+        :meth:`execute_device` bit for bit; a staged plan re-executes with
+        no host transfer.  ``engine``: its device must be the mesh's
+        (default an engine there); epilogue operands are staged once, for
+        every member.  A mesh over distinct devices raises (ROADMAP.md
+        Queue 1 item 11c).
+        """
+        device = mesh.member_device()
+        if engine is None:
+            from repro_torch.core.engine import CodagEngine, EngineConfig
+            engine = CodagEngine(EngineConfig(device=str(device)))
+        if engine.device != device:
+            raise ValueError(f"the engine decodes on {engine.device}, the "
+                             f"mesh's members on {device}")
+        axis = decode_axis(mesh) if axis is None else axis
+        if axis not in mesh.axis_names:
+            raise ValueError(f"{axis!r} is not an axis of {mesh}")
+        self.stage_sharded(mesh, axis)
+        return self._run((mesh, axis), engine, epilogue,
+                         self._stage_operands(epilogue_operands, device),
+                         as_shard_list(out_shardings, len(self.blobs),
+                                       what="blobs"))
 
 
 def decompress_blobs(blobs: Sequence[fmt.CompressedBlob], engine=None,
-                     device_out: bool = False, epilogue=None) -> List:
+                     device_out: bool = False, epilogue=None, *,
+                     mesh=None, axis: Optional[str] = None,
+                     out_shardings=None) -> List:
     """Batched decompress over many blobs through one :class:`DecodePlan`:
     one dispatch per (codec, width, chunk_elems, bits) group, outputs in
     input order.  ``device_out=True`` keeps every output on the engine's
-    device."""
+    device; ``mesh`` splits each group's rows over the mesh's ``axis``
+    (:meth:`DecodePlan.execute_sharded`); ``out_shardings`` places the
+    outputs (device paths only)."""
     if not blobs:
         return []
     plan = DecodePlan.build(blobs)
+    if mesh is not None:
+        return plan.execute_sharded(mesh, axis=axis, engine=engine,
+                                    epilogue=epilogue,
+                                    out_shardings=out_shardings)
     if device_out:
-        return plan.execute_device(engine, epilogue=epilogue)
+        return plan.execute_device(engine, epilogue=epilogue,
+                                   out_shardings=out_shardings)
     if epilogue is not None:
         raise ValueError("epilogue requires device_out=True: a fused "
                          "epilogue's output has no host reassembly path")

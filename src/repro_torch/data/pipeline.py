@@ -12,8 +12,10 @@ device with ``device_out``.  The loader's batches are tensors, and its
 slicing and ``% vocab`` run on the shard's device.  The loader overlaps the
 decode of the next shards with the consumer through a prefetch thread
 (engine mode) or a ``DecompressionService``'s in-flight requests (service
-mode).  The mesh-sharded token shards (``mesh=``) are not ported yet
-(ROADMAP.md Queue 1 item 11b).
+mode).  With ``mesh=`` (engine mode) every shard's chunk rows split over
+the mesh's decode axis and token shards are born placed under
+``sharding.decode_out_sharding(mesh)`` (``sharding.ShardedTensor``), and
+the loader's batches too, over their batch dimension.
 """
 from __future__ import annotations
 
@@ -30,11 +32,9 @@ from repro_torch.core import encoders as enc
 from repro_torch.core import format as fmt
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import store as blobstore
-from repro_torch.core.engine import CodagEngine
+from repro_torch.core.engine import CodagEngine, EngineConfig
 from repro_torch.core.server import DecompressionService
-
-_MESH = ("mesh= is not ported yet (ROADMAP.md Queue 1 item 11b): token "
-         "shards decode on one device")
+from repro_torch.distributed import sharding as shd
 
 
 def synthetic_corpus(n_tokens: int, vocab: int, seed: int = 0,
@@ -57,6 +57,8 @@ def synthetic_corpus(n_tokens: int, vocab: int, seed: int = 0,
 def _int32(shard):
     """A decoded shard as int32: uint32 tokens keep their bits, as the
     reference's ``astype`` does."""
+    if isinstance(shard, shd.ShardedTensor):
+        return shard.map(_int32)
     if isinstance(shard, torch.Tensor):
         return shard.view(torch.int32) if shard.dtype == torch.uint32 \
             else shard.to(torch.int32)
@@ -165,12 +167,17 @@ class CompressedTokenStore:
         one batched launch per codec group (CODAG provisioning) while
         bounding peak host memory to ~window uncompressed shards.
         ``device_out=True`` yields int32 tensors on the engine's device:
-        decode, reassembly and the int32 view never visit the host."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
+        decode, reassembly and the int32 view never visit the host.
+        ``mesh`` (implies device out; the engine's device must be the
+        mesh's) splits each window's chunk rows over the mesh's decode axis
+        and yields token shards born under ``decode_out_sharding(mesh)``
+        (``sharding.ShardedTensor``); a ragged tail shard that cannot be
+        placed is yielded as a tensor."""
+        out_sh = None if mesh is None else shd.decode_out_sharding(mesh)
         for blobs in self._blob_windows(max(1, window)):
-            for out in plan_mod.decompress_blobs(blobs, engine,
-                                                 device_out=device_out):
+            for out in plan_mod.decompress_blobs(
+                    blobs, engine, device_out=device_out or mesh is not None,
+                    mesh=mesh, out_shardings=out_sh):
                 yield _int32(out)
 
     def decoded_shards_async(self, service: DecompressionService,
@@ -239,6 +246,13 @@ class CompressedLoader:
     slicing and vocab clamp run there, so token data crosses host->device
     once (the compressed upload) and never comes back.  Without it the
     batches are CPU tensors.
+
+    ``mesh`` (engine mode; implies ``device_out``): shards decode across
+    the mesh's decode axis (``decoded_shards(mesh=)``), on the mesh's
+    device unless ``engine`` says otherwise, and each batch's ``tokens``
+    and ``labels`` are placed under ``decode_out_sharding(mesh, 2)`` (the
+    batch dimension over the decode axis) where it divides, else left
+    whole.
     """
 
     def __init__(self, store: CompressedTokenStore, batch: int, seq: int,
@@ -246,19 +260,29 @@ class CompressedLoader:
                  decode_window: int = 4,
                  service: Optional[DecompressionService] = None,
                  device_out: bool = False, mesh=None):
+        if service is not None and mesh is not None:
+            raise ValueError("mesh= is not supported with service=: the "
+                             "service decodes on its own single-engine "
+                             "worker; use the engine path for sharded "
+                             "token shards")
         if mesh is not None:
-            raise NotImplementedError(_MESH)
+            mesh.member_device()     # a mesh over distinct devices raises
         self.store = store
         self.batch = batch
         self.seq = seq
-        self.engine = engine if engine is not None or service is not None \
-            else CodagEngine()
+        if engine is None and service is None:
+            engine = CodagEngine() if mesh is None else CodagEngine(
+                EngineConfig(device=str(mesh.member_device())))
+        self.engine = engine
         self.prefetch = prefetch
         # shards fused into one batched decode launch (engine mode) or
         # kept in flight on the service (service mode)
         self.decode_window = decode_window
         self.service = service
-        self.device_out = device_out
+        # mesh: every shard's rows split over the mesh's decode axis; the
+        # batches are placed over their batch dimension
+        self.mesh = mesh
+        self.device_out = device_out or mesh is not None
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         need = self.batch * self.seq + 1
@@ -272,9 +296,11 @@ class CompressedLoader:
                 else:
                     shards = self.store.decoded_shards(
                         self.engine, window=self.decode_window,
-                        device_out=self.device_out)
+                        device_out=self.device_out, mesh=self.mesh)
                 try:
                     for s in shards:
+                        if isinstance(s, shd.ShardedTensor):
+                            s = s.full()
                         yield s if isinstance(s, torch.Tensor) \
                             else torch.from_numpy(s)
                 finally:
@@ -323,6 +349,11 @@ class CompressedLoader:
             # consumer, so no prefetch thread
             get = lambda: next(src)
 
+        place = lambda t: t
+        if self.mesh is not None:
+            batch_sh = shd.decode_out_sharding(self.mesh, 2)
+            if shd.placeable((self.batch, self.seq), batch_sh):
+                place = lambda t: shd.ShardedTensor.place(t, batch_sh)
         try:
             buf = get()
             while True:
@@ -330,10 +361,10 @@ class CompressedLoader:
                     buf = torch.cat([buf, get()])
                 flat = buf[:need]
                 buf = buf[need - 1:]
-                yield {"tokens": flat[:-1].reshape(self.batch, self.seq)
-                       % self.store.vocab,
-                       "labels": flat[1:].reshape(self.batch, self.seq)
-                       % self.store.vocab}
+                yield {"tokens": place(flat[:-1].reshape(self.batch, self.seq)
+                                       % self.store.vocab),
+                       "labels": place(flat[1:].reshape(self.batch, self.seq)
+                                       % self.store.vocab)}
         finally:
             # runs on generator close/GC as well as break/throw: shut the
             # prefetch worker down so no thread outlives its iterator

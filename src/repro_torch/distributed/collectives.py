@@ -30,7 +30,7 @@ The counterpart of ``repro/distributed/collectives.py``:
 One controller, as the reference: a leaf "sharded over ``pod``" is one
 tensor whose leading axis is the member, on the device every member of the
 mesh (``launch.mesh.Mesh``) shares, and the all-gather is a ``torch.cat``.
-A mesh over distinct devices raises (ROADMAP.md Queue 1 item 11b).
+A mesh over distinct devices raises (ROADMAP.md Queue 1 item 11c).
 
 :func:`make_wire_compressor` is the ``grad_compressor`` hook of
 ``launch.steps.build_train_step`` (``--grad-int8``); :func:`make_tree_reduce`
@@ -281,7 +281,7 @@ def make_tree_reduce(mesh, axis: str = "pod", *, wire: str = "int8",
       "none"  - the plain float32 member sum over ``n`` (the baseline)
 
     The mesh's members must share the engine's device (ROADMAP.md Queue 1
-    item 11b for distinct ones).  Kernel knobs are resolved here, once.
+    item 11c for distinct ones).  Kernel knobs are resolved here, once.
     """
     if wire not in ("int8", "topk", "none"):
         raise ValueError(f"unknown wire {wire!r}")

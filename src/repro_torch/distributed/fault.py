@@ -7,10 +7,12 @@ host Python.
   straggler flagging (> k x rolling median), failure counting.
 * ``FaultTolerantRunner`` drives a train loop: periodic async checkpoints,
   failure capture (a worker exception == lost node), restore-and-continue,
-  and an optional ``reshard_fn`` applied to the restored state (the
-  reference's elastic restart onto a new mesh, which needs
-  ``restore(shardings=)``: ROADMAP.md Queue 1 item 11b), and an optional
-  ``sync_pipeline`` (``diloco.OuterSyncPipeline``) drained on a failure.
+  an optional ``reshard_fn`` applied to the restored state, and an
+  optional ``sync_pipeline`` (``diloco.OuterSyncPipeline``) drained on a
+  failure.  The reference's elastic restart re-lays the state onto a new
+  mesh (``restore(shardings=)``, ported); a step run on a state so placed
+  needs a mesh for the model's steps (ROADMAP.md Queue 1 item 11c), so a
+  ``reshard_fn`` that returns ``sharding.ShardedTensor`` leaves raises.
 * ``FailureInjector`` deterministically raises at chosen steps (tests).
 
 One adaptation to torch.  The reference restores to host arrays and lets
@@ -34,6 +36,7 @@ import torch
 
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core.engine import CodagEngine, EngineConfig
+from repro_torch.distributed.sharding import ShardedTensor
 
 
 class WorkerFailure(RuntimeError):
@@ -206,6 +209,12 @@ class FaultTolerantRunner:
                 state = self._restore(latest, state)
                 if self.reshard_fn is not None:
                     state = self.reshard_fn(state)
+                    if any(isinstance(leaf, ShardedTensor)
+                           for leaf in ckpt._flatten(state).values()):
+                        raise NotImplementedError(
+                            "an elastic restart onto a mesh runs the step "
+                            "under that mesh, not ported yet (ROADMAP.md "
+                            "Queue 1 item 11c)")
                 if th is not None:
                     th.join()
                 step = latest

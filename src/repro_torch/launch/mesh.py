@@ -7,8 +7,10 @@ its size, as JAX's does.  Several members may hold the same device: the
 collective plane (``distributed/collectives.py``) and DiLoCo
 (``distributed/diloco.py``) run on a mesh whose members share one device,
 a leaf "sharded over ``pod``" being one tensor with a leading member axis
-on that device.  A mesh over distinct devices can be built and named, but
-nothing moves tensors across one yet (ROADMAP.md Queue 1 item 11b).
+on that device; the sharded decode executor and its consumers place their
+outputs as one tensor a member (``distributed.sharding.ShardedTensor``).
+A mesh over distinct devices can be built and named, but nothing moves
+tensors across one yet (ROADMAP.md Queue 1 item 11c).
 
 Functions, not module constants: importing this module touches no device.
 """
@@ -54,13 +56,13 @@ class Mesh:
     def member_device(self) -> torch.device:
         """The device the members share; a mesh over distinct devices
         raises (the port moves nothing across devices yet, ROADMAP.md
-        Queue 1 item 11b)."""
+        Queue 1 item 11c)."""
         dev = self.shared_device
         if dev is None:
             raise NotImplementedError(
-                f"{self} spans distinct devices: collectives across devices "
-                "are not ported yet (ROADMAP.md Queue 1 item 11b); the "
-                "members must share one device")
+                f"{self} spans distinct devices: collectives and placement "
+                "across devices are not ported yet (ROADMAP.md Queue 1 item "
+                "11c); the members must share one device")
         return dev
 
     def members(self, axis: str, n: Optional[int] = None) -> int:

@@ -5,22 +5,82 @@ eagerly, so ``build_*`` returns the step itself (the reference's are jitted
 by their callers).  The DiLoCo inner step (``build_pod_inner_step``) runs
 the train step once a pod, the pods sharing one device.  The step
 shardings (``batch_shardings``, ``train_shardings``, ``serve_shardings``)
-need a mesh for the model's steps, not ported yet (ROADMAP.md Queue 1 item
-11b): they raise.
+give the reference's placements of every input, parameter, optimizer and
+cache leaf on a mesh, from shapes alone (``input_specs``,
+``abstract_train_state``: ``meta`` tensors); running the steps under
+them needs a mesh for the model's steps (ROADMAP.md Queue 1 item 11c).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.tree import leaves, rebuild
+from repro_torch.distributed import sharding
 from repro_torch.models import layers, model
 from repro_torch.optim import adamw
 
-_MESH = ("{} needs a mesh for the model's steps, not ported yet (ROADMAP.md "
-         "Queue 1 item 11b): the port trains and serves on one device")
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """Every model input of ``shape`` as a ``meta`` tensor (no
+    allocation): ``tokens`` (and ``labels`` to train) and a prefix model's
+    ``prefix_emb``; one token a row to decode."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": meta(B, 1)}
+    specs = {"tokens": meta(B, S)}
+    if shape.kind == "train":
+        specs["labels"] = meta(B, S)
+    if cfg.n_prefix:
+        specs["prefix_emb"] = meta(B, cfg.n_prefix, cfg.d_model,
+                                   dtype=model.DTYPES[cfg.dtype])
+    return specs
+
+
+def batch_shardings(cfg: ArchConfig, shape: ShapeSpec, mesh):
+    """Each input's leading (batch) dimension over ``sharding.batch_spec``'s
+    axes."""
+    spec = sharding.batch_spec(mesh, shape.global_batch)
+    bax = spec[0] if len(spec) else None
+    return {k: sharding.NamedSharding(
+                mesh, sharding.P(bax, *([None] * (v.dim() - 1))))
+            for k, v in input_specs(cfg, shape).items()}
+
+
+def abstract_train_state(cfg: ArchConfig,
+                         opt_cfg: Optional[adamw.AdamWConfig] = None):
+    """(params, AdamW state) as ``meta`` tensors."""
+    params = model.abstract_params(cfg)
+    return params, adamw.init(params, opt_cfg or adamw.AdamWConfig())
+
+
+def train_shardings(cfg: ArchConfig, shape: ShapeSpec, mesh,
+                    opt_cfg: Optional[adamw.AdamWConfig] = None):
+    """((params, optimizer state, batch), (params, optimizer state, loss))
+    shardings of a train step on ``mesh``."""
+    params, opt_state = abstract_train_state(cfg, opt_cfg)
+    p_sh = sharding.param_shardings(params, mesh)
+    o_sh = sharding.opt_shardings(opt_state, params, mesh)
+    b_sh = batch_shardings(cfg, shape, mesh)
+    return (p_sh, o_sh, b_sh), (p_sh, o_sh,
+                                sharding.NamedSharding(mesh, sharding.P()))
+
+
+def serve_shardings(cfg: ArchConfig, shape: ShapeSpec, mesh):
+    """((params, cache, batch), (logits, cache)) shardings of a decode step
+    on ``mesh``."""
+    p_sh = sharding.param_shardings(model.abstract_params(cfg), mesh)
+    c_sh = {k: sharding.NamedSharding(mesh, v) for k, v in
+            sharding.cache_spec(mesh, cfg, shape.global_batch).items()}
+    b_sh = batch_shardings(cfg, shape, mesh)
+    return (p_sh, c_sh, b_sh), (sharding.NamedSharding(mesh, sharding.P()),
+                                c_sh)
 
 
 def build_train_step(cfg: ArchConfig,
@@ -66,18 +126,6 @@ def build_pod_inner_step(cfg: ArchConfig,
     return diloco.make_inner_step(
         build_train_step(cfg, opt_cfg, remat=remat,
                          grad_compressor=grad_compressor))
-
-
-def batch_shardings(cfg: ArchConfig, shape, mesh):
-    raise NotImplementedError(_MESH.format("batch_shardings"))
-
-
-def train_shardings(cfg: ArchConfig, shape, mesh, opt_cfg=None):
-    raise NotImplementedError(_MESH.format("train_shardings"))
-
-
-def serve_shardings(cfg: ArchConfig, shape, mesh):
-    raise NotImplementedError(_MESH.format("serve_shardings"))
 
 
 def build_prefill_step(cfg: ArchConfig):

@@ -175,13 +175,21 @@ def test_retention(tmp_path):
 
 
 def test_elastic_restore_names_its_roadmap_item(tmp_path):
-    """The mesh-sharded, elastic restore (``shardings=``) is not ported:
-    it raises and names the item it waits for."""
+    """The elastic restore (``shardings=``) runs on a mesh whose members
+    share one device (``tests/test_torch_sharded.py``); onto a mesh over
+    distinct devices it raises and names the item it waits for, on the
+    decode path and on the placement path."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
     s = _state()
-    ckpt.save(str(tmp_path), 3, s)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ckpt.restore(str(tmp_path), 3, s,
-                     shardings={k: object() for k in s})
+    ckpt.save(str(tmp_path), 3, s, codec="rle_v2")
+    spread = mesh_lib.Mesh([torch.device("cpu"), torch.device("meta")],
+                           ("data",))
+    shs = {k: sharding.NamedSharding(spread, sharding.P()) for k in s}
+    for device_out in (False, True):
+        with pytest.raises(NotImplementedError, match="item 11c"):
+            ckpt.restore(str(tmp_path), 3, s, shardings=shs, engine=CPU,
+                         device_out=device_out)
 
 
 # --------------------------------------------------------------------------

@@ -320,12 +320,12 @@ def test_a_mesh_over_distinct_devices_raises_naming_item_11b():
                  lambda: gc.make_compressed_psum_fn(spread),
                  lambda: gc.compressed_psum(x, mesh=spread),
                  lambda: sharding.member_sharding(spread).device):
-        with pytest.raises(NotImplementedError, match="item 11b"):
+        with pytest.raises(NotImplementedError, match="item 11c"):
             call()
     w = collectives.pack_bits_rows(torch.zeros(1, 128, dtype=torch.int32), 8)
     tables = [collectives.wire_dev(w, chunk_elems=128, bits=8),
               collectives.wire_dev(w.to("meta"), chunk_elems=128, bits=8)]
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(NotImplementedError, match="item 11c"):
         plan_mod.gather_member_tables(tables, codec="bitpack")
 
 

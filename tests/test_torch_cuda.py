@@ -865,21 +865,75 @@ def test_row_operand_on_another_kernel_is_unfused_on_the_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("codec,width", [
+    ("rle_v1", 1), ("rle_v2", 4), ("dbp", 2), ("bitpack", 2),
+    ("tdeflate", 1), ("huffman", 1), ("lzss", 1), ("lzss", 4)])
+def test_padding_rows_through_every_kernel_on_the_card(card, codec, width):
+    """The sharded executor's zero-length padding rows (each group padded
+    to a multiple of a mesh axis whose members share the card) through the
+    kernel, its fused epilogue and the single-thread kernel: every
+    member's shard equal to the CPU's, one launch a group."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.engine import CodagEngine, EngineConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.kernels import scalar
+    table = _table(codec, width)
+    n = next(k for k in (3, 4, 5, 7) if table.num_chunks % k)
+    out = {}
+    for where in ("cpu", card):
+        mesh = mesh_lib.make_test_mesh((n,), ("data",), device=str(where))
+        sh = sharding.NamedSharding(mesh, sharding.P("data"))
+        plan = plan_mod.DecodePlan.build([table])
+        got = []
+        for config in (EngineConfig(device=str(where)),
+                       EngineConfig(device=str(where), all_thread=False)):
+            before = (_launches(codec), scalar.LAUNCHES)
+            [o] = plan.execute_sharded(mesh, engine=CodagEngine(config),
+                                       out_shardings=sh)
+            if where == card:
+                grew = (_launches(codec) - before[0],
+                        scalar.LAUNCHES - before[1])
+                assert grew == ((1, 0) if config.all_thread else (0, 1))
+            got.append(o)
+        if codec not in ("tdeflate", "huffman"):
+            epi = harness.Epilogue(out_dtype="float32", scale_key="s",
+                                   zero_key="z")
+            [o] = plan.execute_sharded(
+                mesh, engine=CodagEngine(EngineConfig(device=str(where))),
+                epilogue=epi, epilogue_operands={"s": np.float32(0.5),
+                                                 "z": np.float32(3.0)},
+                out_shardings=sh)
+            got.append(o)
+        assert plan._staged[(mesh, "data")][0]["comp"].shape[0] % n == 0
+        out[str(where)] = got
+    for c, g in zip(out["cpu"], out[str(card)]):
+        pairs = zip(c.shards, g.shards) if isinstance(
+            c, sharding.ShardedTensor) else [(c, g)]
+        for a, b in pairs:
+            assert b.device.type == "cuda"
+            assert torch.equal(a.reshape(-1).view(torch.uint8),
+                               b.cpu().reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("sqrt_domain", [False, True])
 def test_int8_moments_on_the_card_equal_the_cpu(card, sqrt_domain):
     """``optim/adamw.py``'s quantizer on the card and on the CPU: q and s
     equal bit for bit, on planted ties at the grid's half points and on
     2^20 random values of the size of AdamW moments (the card divides by a
-    tensor, as the CPU does, not by the reciprocal of 127)."""
+    tensor, as the CPU does, not by the reciprocal of 127; the CPU takes
+    its square roots in float64, correctly rounded as the card's are)."""
     from repro_torch.optim import adamw
     rng = np.random.default_rng(31)
     e = rng.integers(3, 16, (64, 1))
     ties = (rng.integers(-127, 127, (64, adamw.QBLOCK)) + 0.5) * np.exp2(-e)
     ties[:, 0] = 127.0 * np.exp2(-e[:, 0])
-    x = np.concatenate([ties.reshape(-1), 1e-4 * rng.standard_normal(
-        1 << 20)]).astype(np.float32)
-    if sqrt_domain:
-        x = np.square(x)
+    g = rng.standard_normal(1 << 20).astype(np.float32)
+    x = np.concatenate([ties.reshape(-1), 1e-4 * g]).astype(np.float32)
+    if sqrt_domain:     # not squares of floats: their roots round
+        x = np.concatenate([np.square(ties.reshape(-1)),
+                            np.float32(5e-8) * g * g]).astype(np.float32)
     x = torch.from_numpy(x)
     q, s = adamw._quantize(x.to(card), sqrt_domain)
     qc, sc = adamw._quantize(x, sqrt_domain)

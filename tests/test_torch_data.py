@@ -308,13 +308,19 @@ def test_pipeline_device_shards():
 
 
 def test_mesh_names_its_roadmap_item():
+    """``mesh=`` runs on a mesh whose members share one device
+    (``tests/test_torch_sharded.py``); a mesh over distinct devices raises,
+    naming the item it waits for."""
+    from repro_torch.launch import mesh as mesh_lib
+    spread = mesh_lib.Mesh([torch.device("cpu"), torch.device("meta")],
+                           ("data",))
     toks = pipeline.synthetic_corpus(4096, 500)
     store = pipeline.CompressedTokenStore.build(toks, 500, chunk_bytes=2048)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11c"):
         pipeline.CompressedLoader(store, batch=2, seq=8, engine=CPU,
-                                  mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        next(store.decoded_shards(CPU, mesh=object()))
+                                  mesh=spread)
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        next(store.decoded_shards(CPU, mesh=spread))
 
 
 # --------------------------------------------------------------------------

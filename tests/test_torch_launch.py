@@ -108,10 +108,12 @@ def test_train_main_sets_the_allocator_unless_the_caller_did(monkeypatch):
 
 
 def test_diloco_and_mesh_steps_raise_naming_the_roadmap_item(tmp_path):
-    """``--diloco`` and the pod inner step run now
-    (``tests/test_torch_diloco.py``); what still raises, naming ROADMAP
-    item 11b: the step shardings, the mesh-sharded decode, the sharded
-    restore and the loader's ``mesh=``."""
+    """``--diloco`` and the pod inner step run, and so do the step
+    shardings, the mesh-sharded decode, the sharded restore and the
+    loader's ``mesh=`` on a mesh whose members share one device
+    (``tests/test_torch_sharded.py``); what still raises, naming ROADMAP
+    item 11c: a mesh for the model's steps, the same paths over a mesh of
+    distinct devices, and the runner's elastic restart onto a mesh."""
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.core import api
     from repro_torch.core.engine import CodagEngine, EngineConfig
@@ -121,20 +123,43 @@ def test_diloco_and_mesh_steps_raise_naming_the_roadmap_item(tmp_path):
         ["--diloco", "2", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
     cfg = train._resolve_cfg(args)
     assert callable(steps.build_pod_inner_step(cfg))
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed import fault, sharding
     mesh = mesh_lib.make_decode_mesh(device="cpu")
     engine = CodagEngine(EngineConfig(device="cpu"))
     ca = api.compress(np.arange(1000, dtype=np.uint32), "rle_v2")
+    shape = ShapeSpec("t", 16, 2, "train")
+    (p_sh, o_sh, b_sh), _ = steps.train_shardings(cfg, shape, mesh)
+    assert b_sh["tokens"].spec == sharding.P("data", None)
+    assert steps.batch_shardings(cfg, shape, mesh) == b_sh
+    assert steps.serve_shardings(cfg, shape, mesh)[0][1]["pos"].spec == ()
+    [out] = api.decompress_many([ca], engine=engine, mesh=mesh)
+    assert torch.equal(out, torch.from_numpy(np.arange(1000, dtype=np.uint32)))
+    spread = mesh_lib.Mesh([torch.device("cpu"), torch.device("meta")],
+                           ("data",))
+    ckpt.save(str(tmp_path / "c"), 0, {"w": torch.zeros(4)})
     store = pipeline.CompressedTokenStore.build(
         pipeline.synthetic_corpus(4096, 64), 64)
-    for call in (lambda: steps.batch_shardings(cfg, None, mesh),
-                 lambda: steps.train_shardings(cfg, None, mesh),
-                 lambda: steps.serve_shardings(cfg, None, mesh),
-                 lambda: api.decompress_many([ca], engine=engine, mesh=mesh),
-                 lambda: ckpt.restore(str(tmp_path), 0, {"w": 0},
-                                      shardings={"w": None}),
+
+    def placing(state):
+        return {"w": sharding.ShardedTensor.place(
+            state["w"], sharding.NamedSharding(mesh, sharding.P()))}
+
+    runner = fault.FaultTolerantRunner(
+        lambda st, b: (st, 0.0), str(tmp_path / "c"), ckpt_every=100,
+        injector=fault.FailureInjector(fail_at_steps=[1]),
+        reshard_fn=placing, async_ckpt=False, engine=engine)
+    for call in (lambda: sharding.use_mesh(mesh).__enter__(),
+                 lambda: api.decompress_many([ca], engine=engine,
+                                             mesh=spread),
+                 lambda: ckpt.restore(str(tmp_path / "c"), 0, {"w": 0},
+                                      shardings={"w": sharding.NamedSharding(
+                                          spread, sharding.P())}),
                  lambda: pipeline.CompressedLoader(store, 2, 16,
-                                                   mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="item 11b"):
+                                                   mesh=spread),
+                 lambda: runner.run({"w": torch.zeros(4)}, iter(range(9)),
+                                    3)):
+        with pytest.raises(NotImplementedError, match="item 11c"):
             call()
 
 
