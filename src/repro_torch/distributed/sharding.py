@@ -33,6 +33,7 @@ import contextlib
 import re
 from typing import Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.tree import map_tree
@@ -192,7 +193,7 @@ class NamedSharding:
         block = self.shard_shape(global_shape)
         names = list(self.mesh.axis_names)
         out = []
-        for pos in _mesh_positions(self.mesh):
+        for pos in np.ndindex(*self.mesh.devices.shape):
             idx = []
             for d, size in enumerate(block):
                 part = self.spec[d] if d < len(self.spec) else None
@@ -203,12 +204,6 @@ class NamedSharding:
             out.append(tuple(idx))
         return out
 
-    def is_equivalent_to(self, other, ndim: int) -> bool:
-        """The same mesh and the same blocks for an ``ndim``-d tensor."""
-        return (isinstance(other, NamedSharding) and other.mesh is self.mesh
-                and len(self.spec) <= ndim and len(other.spec) <= ndim
-                and self.spec == other.spec)
-
     def __eq__(self, other) -> bool:
         return (isinstance(other, NamedSharding) and other.mesh is self.mesh
                 and other.spec == self.spec)
@@ -218,11 +213,6 @@ class NamedSharding:
 
     def __repr__(self) -> str:
         return f"NamedSharding({self.mesh}, {self.spec})"
-
-
-def _mesh_positions(mesh) -> List[Tuple[int, ...]]:
-    import numpy as np
-    return list(np.ndindex(*mesh.devices.shape))
 
 
 def placeable(shape, sharding) -> bool:
@@ -276,10 +266,6 @@ class ShardedTensor:
             shards.append(torch.empty(block.shape, dtype=x.dtype,
                                       device=dev).copy_(block))
         return cls(shards, sharding, x.shape, x.dtype)
-
-    @property
-    def ndim(self) -> int:
-        return len(self.shape)
 
     @property
     def device(self) -> torch.device:
