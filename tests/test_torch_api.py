@@ -205,23 +205,20 @@ def test_engine_and_device_must_agree():
         api.decompress_many([ca], CPU, device="meta")
 
 
-def _spread_kw(name: str) -> dict:
-    from repro_torch.distributed import sharding
-    from repro_torch.launch import mesh as mesh_lib
-    spread = mesh_lib.Mesh([torch.device("cpu"), torch.device("meta")],
-                           ("data",))
-    return {"mesh": spread} if name == "mesh" else \
-        {"out_shardings": sharding.NamedSharding(spread, sharding.P())}
-
-
-@pytest.mark.parametrize("kw", ["mesh", "out_shardings"])
+@pytest.mark.parametrize("kw", [{"mesh": None}, {"out_shardings": None}])
 def test_unported_paths_raise(kw):
     """``mesh=`` and ``out_shardings=`` run on a mesh whose members share
     one device (``tests/test_torch_sharded.py``); over distinct devices
     they raise, naming the ROADMAP item they wait for (11c)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    spread = mesh_lib.Mesh([torch.device("cpu"), torch.device("meta")],
+                           ("data",))
+    kw = {"mesh": spread} if "mesh" in kw else \
+        {"out_shardings": sharding.NamedSharding(spread, sharding.P())}
     ca = api.compress(np.arange(1000, dtype=np.uint32), "rle_v2", CHUNK)
     with pytest.raises(NotImplementedError, match="ROADMAP.* item 11c"):
-        api.decompress_many([ca], CPU, device_out=True, **_spread_kw(kw))
+        api.decompress_many([ca], CPU, device_out=True, **kw)
 
 
 def test_unported_codec_names_its_roadmap_item():
