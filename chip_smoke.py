@@ -5,13 +5,14 @@
                           [--text-mib 8] [--td-chunks 2048]
                           [--td-plain-rows 256] [--ent-chunks 1024]
                           [--lz-plain-rows 64] [--q-layers 4]
-                          [--scalar-plain-elems 8192] [--scalar-reps 5]
+                          [--scalar-plain-elems 2048] [--scalar-reps 5]
                           [--ckpt-layers 4] [--corpus-tokens 16777216]
     python3 chip_smoke.py --stage-only [--src DIR]   # phase 4's build and
                                                      # stage by part, alone
     python3 chip_smoke.py --families-only            # phases 1, 2 and 12
     python3 chip_smoke.py --collectives-only         # phases 1, 2 and 13
     python3 chip_smoke.py --sharded-only             # phases 1, 2 and 14
+    python3 chip_smoke.py --mesh-only                # phases 1, 2 and 15
 
 Phases, each of which must pass (any failure exits non-zero, with no result
 line):
@@ -80,7 +81,9 @@ line):
   5. epilogues in the kernels' stores against their plain torch versions:
      an rle_v2 column, a bitpack column, the log text through huffman and
      tdeflate, the lzss token shard; then the fused decode timed against
-     the kernel followed by ``Epilogue.apply`` (rle_v2, tdeflate, lzss);
+     the kernel followed by ``Epilogue.apply`` (rle_v2, tdeflate, lzss),
+     and tdeflate's on phase 4's staged 2,048-chunk group by device time
+     (the three interleaved, median of ``--reps``), equal bit for bit;
   6. the quantized-weight path: ``decompress_dequant_matmul`` over the seven
      projections of ``--q-layers`` layers of qwen3-1.7B (W4A16: 4-bit
      bitpacked int8 weights, bf16 activations) at M = 128 and M = 2048,
@@ -236,11 +239,32 @@ line):
          tokens/s;
        - (d) ``optim/adamw.py``'s int8 quantizer on the card against the
          CPU on the moments of phase 11 (b)'s blocks: 0 elements differ;
- 15. a JSON line of the kernels (``consumer_launches``: phase 10's,
+ 15. the model's steps under a mesh of the card (``sharding.use_mesh``,
+     ``launch.steps.sharded_step``, the drivers' ``--mesh``, the runner's
+     ``reshard_fn``), every number beside the card's name and power limit:
+       - (a) phase 11 (b)'s training run (4 full-width qwen3-1.7B layers,
+         8 x 512, ``--grad-int8 --compress-moments``, lr 1e-5) for 6 steps
+         on a (pod 2, data 2, model 2) mesh under both policies and without
+         a mesh: every loss, parameter and moment equal bit for bit, the
+         loader and wire held as in 11 (b); step ms beside
+         ``train_step_bound``, wire launches a step, peak memory;
+       - (b) phase 11 (a)'s serve on the same mesh (``serve_shardings``)
+         and without one: every token and every cache leaf (assembled)
+         equal; tok/s, and the device ms of a step's parameter gather;
+       - (c) qwen3-moe-235B-A22B at full width and 1 layer, a prefill of 8
+         x 128 on the mesh (``dp_groups`` 4): the logits against each DP
+         block run alone through the unsharded prefill step within
+         ``SERVE_TOL``;
+       - (d) phase 11 (b)'s run (12 steps, checkpoints every 5, a failure
+         at step 7) on a 4x2 (data, model) mesh, restarted onto a 2x2 mesh
+         (``--restart-mesh``): its losses and final state equal an
+         uninterrupted unsharded run over the batches its steps drew;
+ 16. a JSON line of the kernels (``consumer_launches``: phase 10's,
      ``model_launches``: phase 11's, ``family_launches``: phase 12's,
-     ``diloco_launches``: phase 13's, ``sharded_launches``: phase 14's;
-     ``bitpack_reduce``, bitpack's second entry, with phase 13's numbers),
-     then ``{"ok": true, "device": {...}}`` last.
+     ``diloco_launches``: phase 13's, ``sharded_launches``: phase 14's,
+     ``mesh_launches``: phase 15's; ``bitpack_reduce``, bitpack's second
+     entry, with phase 13's numbers), then ``{"ok": true, "device":
+     {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  It
 exits non-zero without a card, or without the port's sources beside it.
@@ -831,6 +855,9 @@ def lzss_edge_blobs(rng, enc, fmt, width: int):
 # --------------------------------------------------------------------------
 
 
+CARD = {"label": ""}                # nvidia-smi's name and power limit
+
+
 def phase_env() -> None:
     log(f"== 1 environment: python {sys.version.split()[0]}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
@@ -839,7 +866,8 @@ def phase_env() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    CARD["label"] = smi.stdout.strip().splitlines()[0]
+    log(CARD["label"])
 
 
 # A second interpreter on phase 2's compile cache: binds every library
@@ -1528,6 +1556,56 @@ def phase_epilogue(args, api, fmt, registry, harness, engine, data) -> None:
     timed("rle_v2 flags_u8 column, f32 affine", distinct[idx], f32, rle_ops)
     timed("tdeflate log text, bf16 affine", data["text_ca"], bf16, text_ops)
     timed("lzss token shard, f32 affine", data["lz_ca"], f32, tok_ops)
+    plan = data["plan"]
+    [gi] = [i for i, g in enumerate(plan.groups) if g.key[0] == "tdeflate"]
+    fused_at_scale(args, plan, gi, engine, registry, harness,
+                   text_ops, bf16, operands_on)
+
+
+def fused_at_scale(args, plan, gi, engine, registry, harness, operands, epi,
+                   operands_on) -> None:
+    """tdeflate's fused epilogue against the kernel followed by
+    ``Epilogue.apply`` on phase 4's staged tdeflate group (2,048 chunks at
+    the default size): equal bit for bit, then each one's device time
+    (``device_ms``), the two interleaved, median of ``--reps``."""
+    g = plan.groups[gi]
+    codec, width, chunk_elems, bits = g.key
+    dev = {**plan._staged[engine.device][gi], **operands_on(operands)}
+    spec = registry.get(codec).decode
+    kw = dict(width=width, chunk_elems=chunk_elems, bits=bits)
+    inputs, lens = spec.chunk_inputs(dev), dev["out_lens"]
+    consts = harness.consts_on(spec, lens.device)
+
+    def fused():
+        return harness.run(spec, dev, backend="cuda", epilogue=epi, **kw)
+
+    def unfused():
+        return epi.apply(spec.cuda(inputs, consts, lens, **kw), dev)
+
+    def kernel():
+        return spec.cuda(inputs, consts, lens, **kw)
+
+    if not torch.equal(bit_view(fused()), bit_view(unfused())):
+        raise AssertionError(f"tdeflate group of {g.num_chunks} chunks: "
+                             "fused != kernel + Epilogue.apply")
+    kernel()                      # each output's blocks cached once
+    times = {"fused": [], "kernel + apply": [], "kernel": []}
+    for _ in range(args.reps):
+        for name, fn in (("fused", fused), ("kernel + apply", unfused),
+                         ("kernel", kernel)):
+            times[name].append(device_ms(fn, 1))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    out_mib = g.num_chunks * chunk_elems * width / 2**20
+    log(f"   tdeflate group of phase 4, bf16 affine: {g.num_chunks} chunks "
+        f"({out_mib:.1f} MiB raw), device time, median of {args.reps} "
+        f"interleaved: fused {med['fused']:.3f} ms vs kernel + "
+        f"Epilogue.apply {med['kernel + apply']:.3f} ms "
+        f"({med['kernel + apply'] / med['fused']:.3f}x; the kernel alone "
+        f"{med['kernel']:.3f} ms); fused == kernel + Epilogue.apply bit for "
+        f"bit; runs fused {', '.join(f'{t:.3f}' for t in times['fused'])}, "
+        f"unfused {', '.join(f'{t:.3f}' for t in times['kernel + apply'])}, "
+        f"kernel {', '.join(f'{t:.3f}' for t in times['kernel'])} "
+        f"[{CARD['label']}]")
 
 
 def phase_quantized(args, rng, dq, harness, transfers, counters, engine, errs,
@@ -2807,7 +2885,7 @@ def check_wire(dev: dict, kw: dict, res: torch.Tensor) -> bool:
     return True
 
 
-def checked_training(targs, counters, device) -> tuple:
+def checked_training(targs, counters, device, drawn=None) -> tuple:
     """``launch.train.run_training(targs)`` with its kernels held: every
     rle_v2 decode of the loader against the plain rle_v2 body on its
     inputs (after the run, so the check takes no time from the steps), every
@@ -2815,7 +2893,8 @@ def checked_training(targs, counters, device) -> tuple:
     decodes (one a gradient leaf) against the plain bitpack body +
     ``Epilogue.apply`` (``check_wire``), and each wire decode's launches.
     Returns (the run's dict, what was checked and launched, the restores),
-    the peak memory of the run in the dict."""
+    the peak memory of the run in the dict.  ``drawn``: a list that gets a
+    copy of every batch the run drew."""
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.core import plan as plan_mod, registry
     from repro_torch.core.tree import leaves as tree_leaves
@@ -2853,6 +2932,8 @@ def checked_training(targs, counters, device) -> tuple:
                 fed["bad"] += (t != ref[lo + off:lo + off + per].view(
                     batch, seq)).sum()
             fed["batches"] += 1
+            if drawn is not None:
+                drawn.append({k: v.clone() for k, v in b.items()})
             yield b
 
     def spy_loader(a, cfg, dev):
@@ -4134,6 +4215,351 @@ def phase_sharded(args, engine, counters, data=None, keep=None) -> dict:
     return launched
 
 
+# phase 15: the model's steps under a mesh of the card
+MESH = "2x2x2"                     # (pod 2, data 2, model 2), shared card
+MESH_TRAIN_STEPS = 6
+MESH_MOE_BATCH, MESH_MOE_SEQ = 8, 128
+ELASTIC_FROM, ELASTIC_TO = "4x2", "2x2"
+
+
+def trees_equal(a, b) -> list:
+    """The keys where two trees (``ShardedTensor`` leaves gathered)
+    differ in shape, dtype or bits."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.distributed import sharding
+    fa = ckpt._flatten(sharding.gather(a))
+    fb = ckpt._flatten(sharding.gather(b))
+    if sorted(fa) != sorted(fb):
+        return ["(the keys)"]
+    return [k for k in fa if not (
+        fa[k].dtype == fb[k].dtype and fa[k].shape == fb[k].shape
+        and torch.equal(bit_view(fa[k]), bit_view(fb[k])))]
+
+
+def mesh_training(counters, device, train, extra, tmp: Path, drawn=None):
+    """``checked_training`` of phase 11 (b)'s run (4 full-width qwen3-1.7B
+    layers, 8 x 512, ``--grad-int8 --compress-moments``) with ``extra``
+    flags, its checks held; returns (the run's dict, its record)."""
+    from repro_torch.core.tree import leaves as tree_leaves
+    from repro_torch.kernels import harness
+    from repro_torch.optim import grad_compress as gc_mod
+    targs = train.build_parser().parse_args(
+        ["--arch", "qwen3-1.7b", "--preset", "full", "--n-layers",
+         str(TRAIN_LAYERS), "--batch", "8", "--seq", "512", "--lr",
+         str(TRAIN_LR), "--grad-int8", "--compress-moments", "--ckpt-dir",
+         str(tmp), "--device", str(device), *extra])
+    unfused = harness.EPILOGUE_UNFUSED
+    m, rec, restored = checked_training(targs, counters, device, drawn)
+    n_wire = sum(int(np.prod(t.shape)) >= gc_mod.QBLOCK
+                 for t in tree_leaves(m["state"][0]))
+    problems = training_problems(m, rec, n_wire, unfused)
+    if problems:
+        raise AssertionError(f"train {extra}: " + "; ".join(problems))
+    m["targs"], m["n_wire"], m["restored"] = targs, n_wire, restored
+    return m, rec
+
+
+def mesh_step_parts(tcfg, base_state, device, policy: str,
+                    reps: int = 3) -> dict:
+    """One sharded train step on ``MESH`` cut into its parts, from phase
+    15 (a)'s unsharded state on random tokens: the milliseconds (host
+    clock between device synchronisations, median of the last
+    ``reps - 1`` steps) of placing the inputs and the outputs, the
+    all-gathers, the batched forward and backward with the wire, and the
+    members' AdamW updates."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.launch import mesh as mesh_lib, steps
+    from repro_torch.optim import adamw
+    oc = adamw.AdamWConfig(lr=TRAIN_LR, compress_moments=True)
+    step = steps.build_train_step(tcfg, oc, grad_compressor=collectives
+                                  .make_wire_compressor(
+                                      EngineConfig(device=str(device))))
+    parts: dict = {}
+    depth = [0]
+
+    def timed(name, fn):
+        def run(*a, **kw):           # the outermost call of a recursion
+            if depth[0]:
+                return fn(*a, **kw)
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+            finally:
+                depth[0] -= 1
+            parts.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return run
+
+    real = (sharding.gather, sharding.place, steps._zero1_apply)
+    step.loss_and_grads = timed("forward + backward + wire",
+                                step.loss_and_grads)
+    mesh = mesh_lib.parse_mesh(MESH, device=str(device))
+    with sharding.use_mesh(mesh, policy):
+        ins, outs = steps.train_shardings(
+            tcfg, ShapeSpec("train", 512, 8, "train"), mesh, oc)
+        fn = steps.sharded_step(step, ins, outs)
+    gen = torch.Generator(device=device).manual_seed(1)
+    batch = {k: torch.randint(0, tcfg.vocab, (8, 512), generator=gen,
+                              device=device, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    state = sharding.place(base_state, ins[:2])
+    sharding.gather, sharding.place = (timed("all-gather", real[0]),
+                                       timed("placement", real[1]))
+    steps._zero1_apply = timed("members' AdamW", real[2])
+    per_step = []
+    try:
+        for _ in range(reps):
+            parts.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, _ = fn(*state, batch)
+            torch.cuda.synchronize()
+            state = (p, o)
+            per_step.append((time.perf_counter() - t0,
+                             {k: sum(v) for k, v in parts.items()}))
+    finally:
+        sharding.gather, sharding.place, steps._zero1_apply = real
+    kept = per_step[1:]
+    out = {k: float(np.median([d[k] for _, d in kept])) * 1e3
+           for k in kept[0][1]}
+    out["step"] = float(np.median([t for t, _ in kept])) * 1e3
+    return out
+
+
+def phase_mesh(args, engine, counters) -> dict:
+    """Phase 15: the model's train, prefill and serve steps under a mesh of
+    the card (``launch.steps.sharded_step``), each against the same work
+    without a mesh, and the runner's elastic restart onto a smaller mesh.
+    Returns the launches by kernel."""
+    import gc
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.launch import mesh as mesh_lib, serve, steps, train
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    log("== 15 the model's steps under a mesh of the card: qwen3-1.7B "
+        f"trained and served on a ({MESH}) pod x data x model mesh, "
+        "qwen3-moe-235B-A22B prefilled per DP group, the elastic restart "
+        f"{ELASTIC_FROM} -> {ELASTIC_TO} [{CARD['label']}]")
+    device = engine.device
+    for c in counters.values():
+        c.reset()
+    launched: dict = {}
+    secs = {}
+
+    def add(rec):
+        for k, v in rec["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+
+    # (a) train 6 steps on the mesh under both policies, against the same
+    # 6 steps without a mesh
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        flags = ["--steps", str(MESH_TRAIN_STEPS), "--ckpt-every", "100"]
+        base, rec = mesh_training(counters, device, train, flags,
+                                  Path(tmp) / "base")
+        add(rec)
+        base_params = base["state"][0]
+        log_training("(a) without a mesh", base, rec, base["targs"],
+                     base_params)
+        for policy in ("tp", "dp"):
+            m, rec = mesh_training(
+                counters, device, train,
+                flags + ["--mesh", MESH, "--policy", policy],
+                Path(tmp) / policy)
+            add(rec)
+            bad = trees_equal(m["state"], base["state"])
+            if m["losses"] != base["losses"] or bad:
+                raise AssertionError(
+                    f"(a) {policy}: the sharded run differs from the "
+                    f"unsharded one: losses {m['losses']} vs "
+                    f"{base['losses']}; leaves {bad[:5]}")
+            wq = m["state"][0]["blocks"]["attn"]["wq"]
+            log_training(f"(a) on {MESH}, policy {policy}", m, rec,
+                         m["targs"], base_params)
+            log(f"   (a) {policy}: {rec['launches']['bitpack_unpack'] // MESH_TRAIN_STEPS}"
+                f" wire launches a step ({m['n_wire']} leaves); every loss, "
+                "parameter and moment == the unsharded run's bit for bit; "
+                f"a parameter block {tuple(wq.shards[0].shape)} of "
+                f"{tuple(wq.shape)} a member under {wq.sharding.spec} "
+                f"[{CARD['label']}]")
+            del m
+            gc.collect()
+            torch.cuda.empty_cache()
+            parts = mesh_step_parts(rec["cfg"], base["state"], device,
+                                    policy)
+            log(f"   (a) {policy}: one step's parts (ms, host clock between "
+                "synchronisations, median of 2): " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in parts.items())
+                + f" [{CARD['label']}]")
+            gc.collect()
+            torch.cuda.empty_cache()
+        del base, base_params
+        gc.collect()
+        torch.cuda.empty_cache()
+    secs["(a)"] = time.perf_counter() - t0
+
+    # (b) serve qwen3-1.7B at full width and depth on the mesh against the
+    # same serve without one: every token and every cache leaf equal
+    t0 = time.perf_counter()
+    sflags = ["--arch", "qwen3-1.7b", "--preset", "full", "--batch", "8",
+              "--prompt-len", "64", "--gen", "32", "--device", str(device)]
+    plain = serve.run_serving(serve.build_parser().parse_args(sflags))
+    plain_cache = {k: v for k, v in plain["cache"].items()}
+    plain_tokens, plain_tok_s = plain["tokens"], 8 * 32 / plain["decode_s"]
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    out = serve.run_serving(serve.build_parser().parse_args(
+        sflags + ["--mesh", MESH]))
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    bad = [k for k in plain_cache if k != "pos" and not torch.equal(
+        out["cache"][k].full(), plain_cache[k])]
+    if not np.array_equal(out["tokens"], plain_tokens) or bad or \
+            out["cache"]["pos"] != plain_cache["pos"]:
+        raise AssertionError(f"(b) the sharded serve differs: tokens equal "
+                             f"{np.array_equal(out['tokens'], plain_tokens)}"
+                             f", cache leaves {bad}")
+    cfg = out["cfg"]
+    mesh = mesh_lib.parse_mesh(MESH, device=str(device))
+    with sharding.use_mesh(mesh):
+        (p_sh, _, _), _ = steps.serve_shardings(
+            cfg, ShapeSpec("d", 64 + 32 + 8, 8, "decode"), mesh)
+    placed = sharding.place(out["params"], p_sh)
+    gather_ms = device_ms(lambda: sharding.gather(placed), args.reps)
+    gather_host = ms_of(lambda: sharding.gather(placed), args.reps)
+    pbytes = sum(t.numel() * t.element_size()
+                 for t in leaves_of(out["params"]))
+    tok_s = 8 * 32 / out["decode_s"]
+    log(f"   (b) qwen3-1.7B served on {MESH} (serve_shardings, tp): "
+        f"{tok_s:.1f} tok/s ({out['decode_s'] / 32 * 1e3:.3f} ms a decode "
+        f"step) against {plain_tok_s:.1f} tok/s without a mesh in this run "
+        f"(phase 11's 210-230); prefill {out['prefill_s']:.3f} s; every "
+        f"token and every cache leaf (assembled) == the unsharded serve's; "
+        f"each step gathers the parameters anew: {gather_ms:.3f} ms device "
+        f"({gather_host:.3f} ms with its host time, median of {args.reps}) "
+        f"for {pbytes / 1e9:.3f} GB, bound {2 * pbytes / HBM_BYTES_PER_S * 1e3:.3f}"
+        f" ms (read and written once); peak memory {peak:.2f} GiB "
+        f"[{CARD['label']}]")
+    del out, placed, plain_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["(b)"] = time.perf_counter() - t0
+
+    # (c) the MoE at full width and 1 layer: a prefill step of 8 x 128 on
+    # the mesh (G = 4 DP groups) against each DP block alone
+    t0 = time.perf_counter()
+    mcfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b"),
+                               n_layers=FAMILY_TRAIN_MOE_LAYERS)
+    params = model.init_params(
+        mcfg, torch.Generator(device=device).manual_seed(args.seed),
+        device=device)
+    tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, mcfg.vocab, (MESH_MOE_BATCH, MESH_MOE_SEQ)).astype(np.int32)).to(
+        device)
+    prefill = steps.build_prefill_step(mcfg)
+    with sharding.use_mesh(mesh):
+        G = sharding.dp_groups(MESH_MOE_BATCH)
+        p_sh = sharding.param_shardings(params, mesh)
+        b_sh = steps.batch_shardings(mcfg, ShapeSpec(
+            "p", MESH_MOE_SEQ, MESH_MOE_BATCH, "prefill"), mesh)
+    fn = steps.sharded_step(prefill, (p_sh, {"tokens": b_sh["tokens"]}))
+    placed = sharding.place(params, p_sh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits = fn(placed, {"tokens": tokens})
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t1
+    del placed
+    per = MESH_MOE_BATCH // G
+    alone = torch.cat([prefill(params, {"tokens": tokens[g * per:
+                                                        (g + 1) * per]})
+                       for g in range(G)])
+    err = float((logits.float() - alone.float()).abs().max())
+    whole = prefill(params, {"tokens": tokens})
+    err_whole = float((logits.float() - whole.float()).abs().max())
+    if G != 4 or not torch.isfinite(logits.float()).all() or \
+            err > SERVE_TOL:
+        raise AssertionError(f"(c) G {G}, max |mesh - each DP block alone| "
+                             f"{err} (limit {SERVE_TOL})")
+    log(f"   (c) qwen3-moe-235B-A22B, {FAMILY_TRAIN_MOE_LAYERS} layer at "
+        f"full width ({sum(t.numel() for t in leaves_of(params)) / 1e9:.2f}"
+        f" B parameters), prefill {MESH_MOE_BATCH} x {MESH_MOE_SEQ} on "
+        f"{MESH}: dp_groups {G}, {mesh_s:.3f} s; max |logits - each of the "
+        f"{G} DP blocks alone (unsharded prefill)| {err:.4g} (limit "
+        f"{SERVE_TOL}, phase 12's); against the unsharded prefill of the "
+        f"whole batch in one group {err_whole:.4g} [{CARD['label']}]")
+    del params, logits, alone, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["(c)"] = time.perf_counter() - t0
+
+    # (d) phase 11 (b)'s run under a 4x2 mesh with a failure at step 7,
+    # restarted onto a 2x2 mesh, against an uninterrupted run over the
+    # batches its steps drew
+    t0 = time.perf_counter()
+    drawn = []
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        m, rec = mesh_training(
+            counters, device, train,
+            ["--steps", "12", "--ckpt-every", "5", "--fail-at", "7",
+             "--mesh", ELASTIC_FROM, "--restart-mesh", ELASTIC_TO],
+            Path(tmp) / "elastic", drawn)
+    add(rec)
+    meshes = {str(leaf.sharding.mesh) for leaf in leaves_of(m["state"][0])}
+    if m["restarts"] != 1 or m["steps_done"] != 12 or len(drawn) != 15 or \
+            [(s, d) for s, d, _ in m["restored"]] != [(5, True)] or \
+            len(meshes) != 1 or "data=2, model=2" not in meshes.pop():
+        raise AssertionError(f"(d) {m['restarts']} restarts, "
+                             f"{len(drawn)} batches, restores "
+                             f"{m['restored']}")
+    tcfg = rec["cfg"]
+    oc = adamw.AdamWConfig(lr=TRAIN_LR, compress_moments=True)
+    step = steps.build_train_step(tcfg, oc, grad_compressor=collectives
+                                  .make_wire_compressor(
+                                      EngineConfig(device=str(device))))
+    p = model.init_params(tcfg, torch.Generator(device=device).manual_seed(0),
+                          device=device)
+    o, replay = adamw.init(p, oc), []
+    for b in drawn[:5] + drawn[8:15]:
+        p, o, loss = step(p, o, b)
+        replay.append(float(loss))
+    got = m["losses"]
+    bad = trees_equal(m["state"], (p, o))
+    if got[:5] != replay[:5] or got[7:] != replay[5:] or bad:
+        raise AssertionError(f"(d) losses {got} vs the uninterrupted "
+                             f"{replay}; leaves {bad[:5]}")
+    log(f"   (d) {ELASTIC_FROM} -> {ELASTIC_TO}: the failure at step 7, "
+        f"step 5 restored straight onto the {ELASTIC_TO} mesh "
+        "(restore(shardings=), device_out); the 14 losses "
+        f"{', '.join(f'{x:.4f}' for x in got)} == an uninterrupted "
+        "unsharded run over the batches the steps drew (0-4, 8-14), and "
+        "the final state too, bit for bit; step "
+        f"{float(np.median(m['step_seconds'])) * 1e3:.2f} ms (median) "
+        f"[{CARD['label']}]")
+    del m, p, o, drawn
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["(d)"] = time.perf_counter() - t0
+    log("   phase 15 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in secs.items()))
+    log(f"   phase 15 launches: {launched}")
+    return launched
+
+
+def leaves_of(tree):
+    from repro_torch.core.tree import leaves
+    return list(leaves(tree))
+
+
 def save_phase10_files(args, keep: Path, device, ckpt, pipeline) -> None:
     """Phase 10's two checkpoints and spilled corpus, for ``--sharded-only``
     (the full run keeps phase 10's own)."""
@@ -4194,7 +4620,7 @@ def main() -> int:
                     "(its token parse syncs once per token step)")
     ap.add_argument("--q-layers", type=int, default=4,
                     help="qwen3-1.7B layers of the quantized-weight path")
-    ap.add_argument("--scalar-plain-elems", type=int, default=8192,
+    ap.add_argument("--scalar-plain-elems", type=int, default=2048,
                     help="elements of each row the plain scalar bodies "
                     "decode in phase 8 (one step of torch ops an element)")
     ap.add_argument("--scalar-reps", type=int, default=None,
@@ -4215,6 +4641,9 @@ def main() -> int:
     ap.add_argument("--sharded-only", action="store_true",
                     help="run phases 1, 2 and 14 alone (mesh placement), "
                     "with no result line")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run phases 1, 2 and 15 alone (the model's steps "
+                    "under a mesh), with no result line")
     ap.add_argument("--stage-only", action="store_true",
                     help="only time DecodePlan.build and stage by part on "
                     "phase 4's workload (cold, then warm), and stop")
@@ -4283,6 +4712,10 @@ def main() -> int:
         launched = phase_sharded(args, engine, counters)
         log(f"phase 14 alone, launches: {json.dumps(launched)}")
         return 0
+    if args.mesh_only:
+        launched = phase_mesh(args, engine, counters)
+        log(f"phase 15 alone, launches: {json.dumps(launched)}")
+        return 0
     phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
                           engine.device, counters)
     phase_dequant_vs_plain(rng, dq, errs, engine.device)
@@ -4311,7 +4744,8 @@ def main() -> int:
         reduce_row, dil = phase_collectives(args, engine, counters)
         placed = phase_sharded(args, engine, counters, data, Path(keep))
     del data
-    log("== 15 kernels")
+    meshed = phase_mesh(args, engine, counters)
+    log("== 16 kernels")
     kernels = []
     for name in KERNELS:
         source, replaces = SOURCES.get(
@@ -4347,6 +4781,8 @@ def main() -> int:
             kernels[-1]["diloco_launches"] = dil[name]
         if name in placed:          # phase 14's
             kernels[-1]["sharded_launches"] = placed[name]
+        if name in meshed:          # phase 15's
+            kernels[-1]["mesh_launches"] = meshed[name]
         exact = name != "dequant_matmul"    # held to TOL in phases 3 and 6
         if kernels[-1]["launches"] < 1 or (exact and errs[name]):
             raise AssertionError(f"{name}: not launched on the main path, or "
@@ -4356,6 +4792,10 @@ def main() -> int:
         if dil.get(name, 0) < 1:
             raise AssertionError(f"{name}: not launched by phase 13's "
                                  "DiLoCo run")
+    for name in (kernel_of("rle_v2"), "bitpack_unpack"):
+        if meshed.get(name, 0) < 1:
+            raise AssertionError(f"{name}: not launched by phase 15's "
+                                 "steps under a mesh")
     if reduce_row["max_abs_err"] != 0:
         raise AssertionError("bitpack_reduce differs from its plain version")
     print(json.dumps({"kernels": kernels}))

@@ -99,7 +99,11 @@ def _rebuild(like, leaves: Dict[str, Any], path: Tuple[str, ...] = ()):
 
 def _snapshot(leaf) -> Tuple[np.ndarray, str]:
     """A host copy of ``leaf`` and its manifest dtype; a bf16 leaf becomes
-    its uint16 bit patterns."""
+    its uint16 bit patterns, and a ``ShardedTensor`` its global tensor
+    (what the reference's save reads of a sharded array), so a state saved
+    under a mesh is the same directory as the same state saved whole."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.full()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:

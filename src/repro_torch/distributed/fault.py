@@ -9,10 +9,14 @@ host Python.
   failure capture (a worker exception == lost node), restore-and-continue,
   an optional ``reshard_fn`` applied to the restored state, and an
   optional ``sync_pipeline`` (``diloco.OuterSyncPipeline``) drained on a
-  failure.  The reference's elastic restart re-lays the state onto a new
-  mesh (``restore(shardings=)``, ported); a step run on a state so placed
-  needs a mesh for the model's steps (ROADMAP.md Queue 1 item 11c), so a
-  ``reshard_fn`` that returns ``sharding.ShardedTensor`` leaves raises.
+  failure.  The elastic restart: a state of ``sharding.ShardedTensor``
+  leaves (placed on a mesh whose members share one device) is restored
+  onto a mesh through ``checkpoint.restore(shardings=)``: onto
+  ``reshard_fn.shardings`` where the ``reshard_fn`` carries them
+  (:func:`onto`: another mesh's shardings), else onto the shardings the
+  state had; the ``reshard_fn`` then lays the restored state out as it
+  likes, and the loop goes on with the step on that state (a step that
+  runs under a mesh, ``launch.steps.sharded_step``, takes it from there).
 * ``FailureInjector`` deterministically raises at chosen steps (tests).
 
 One adaptation to torch.  The reference restores to host arrays and lets
@@ -36,6 +40,7 @@ import torch
 
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core.engine import CodagEngine, EngineConfig
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import ShardedTensor
 
 
@@ -97,11 +102,36 @@ class RunReport:
 
 
 def _state_device(state) -> Optional[torch.device]:
-    """The device of the state's first tensor leaf, or None."""
+    """The device of the state's first tensor leaf (a sharded leaf's
+    members' device), or None."""
     for leaf in ckpt._flatten(state).values():
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, (torch.Tensor, ShardedTensor)):
             return leaf.device
     return None
+
+
+def _shardings_of(state):
+    """The tree of the state's placements (None where a leaf is not a
+    ``ShardedTensor``), or None where no leaf is placed."""
+    flat = ckpt._flatten(state)
+    if not any(isinstance(v, ShardedTensor) for v in flat.values()):
+        return None
+    return ckpt._rebuild(state, {k: v.sharding if isinstance(
+        v, ShardedTensor) else None for k, v in flat.items()})
+
+
+def onto(shardings) -> Callable:
+    """A ``reshard_fn`` for the elastic restart onto a mesh: the runner
+    restores the checkpoint straight onto ``shardings`` (a tree like the
+    state of ``sharding.NamedSharding`` s, e.g. another mesh's
+    ``launch.steps.train_shardings``) with ``checkpoint.restore(
+    shardings=)``; called on a state, it places it there
+    (``sharding.place``)."""
+    def reshard(state):
+        return sharding.place(state, shardings)
+
+    reshard.shardings = shardings
+    return reshard
 
 
 class FaultTolerantRunner:
@@ -145,17 +175,23 @@ class FaultTolerantRunner:
         self.sync_pipeline = sync_pipeline
         self.engine = engine
 
-    def _restore(self, step: int, state):
+    def _restore(self, step: int, state, *, resharding: bool = False):
         """``checkpoint.restore`` of ``step`` onto the device of ``state``'s
-        tensors (module docstring)."""
+        tensors, and onto a mesh where the state is placed on one or
+        ``resharding`` with a ``reshard_fn`` that carries its shardings
+        (module docstring)."""
         dev = _state_device(state)
+        shardings = getattr(self.reshard_fn, "shardings", None) \
+            if resharding else None
+        if shardings is None:
+            shardings = _shardings_of(state)
         engine = self.engine
         if engine is None and dev is not None and dev.type == "cuda":
             engine = CodagEngine(EngineConfig(device=str(dev)))
         device_out = dev is not None and engine is not None \
             and engine.device == dev
         return ckpt.restore(self.ckpt_dir, step, state, engine=engine,
-                            device_out=device_out)
+                            device_out=device_out, shardings=shardings)
 
     def run(self, state, batches, total_steps: int) -> tuple:
         restarts = 0
@@ -206,15 +242,9 @@ class FaultTolerantRunner:
                         th.join()
                     step = 0  # no checkpoint yet: restart from scratch
                     continue
-                state = self._restore(latest, state)
+                state = self._restore(latest, state, resharding=True)
                 if self.reshard_fn is not None:
                     state = self.reshard_fn(state)
-                    if any(isinstance(leaf, ShardedTensor)
-                           for leaf in ckpt._flatten(state).values()):
-                        raise NotImplementedError(
-                            "an elastic restart onto a mesh runs the step "
-                            "under that mesh, not ported yet (ROADMAP.md "
-                            "Queue 1 item 11c)")
                 if th is not None:
                     th.join()
                 step = latest

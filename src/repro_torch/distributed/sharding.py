@@ -2,12 +2,16 @@
 parameter, optimizer, batch and cache specs.
 
 The counterpart of ``repro/distributed/sharding.py``.  Model code
-annotates activations with logical axes through ``constrain``, a no-op
-without a mesh (``sharding.py:83-89`` of the reference), so one device
-runs the exact code a mesh would.  Installing a mesh for the model's
-steps is not ported yet (ROADMAP.md Queue 1 item 11c): ``use_mesh`` with a
-mesh raises, and ``use_mesh(None, policy=...)`` sets the policy the specs
-read.
+annotates activations with logical axes through ``constrain``, so one
+device runs the exact code a mesh would.  ``use_mesh(mesh, policy)``
+installs a mesh whose members share one device (``launch.mesh.Mesh``; a
+mesh over distinct devices raises through ``Mesh.member_device``, ROADMAP.md
+Queue 1 item 11c) and the policy the specs read; ``use_mesh(None,
+policy=...)`` sets the policy alone.  Under a mesh, ``constrain`` resolves
+its logical axes against it and leaves the values as they are (what
+``with_sharding_constraint`` does to values), and ``dp_groups`` counts the
+data-parallel groups the MoE routes in, as the reference does.  The steps
+run under the mesh through ``launch.steps.sharded_step``.
 
 Placement has JAX's names, kept small:
 
@@ -38,22 +42,21 @@ import torch
 
 from repro_torch.core.tree import map_tree
 
-_STEPS = ("a mesh for the model's steps is not ported yet (ROADMAP.md Queue "
-          "1 item 11c): the port trains and serves on one device")
-
 _CTX: dict = {"mesh": None, "policy": "tp"}
 
 
 @contextlib.contextmanager
 def use_mesh(mesh, policy: str = "tp") -> Iterator[None]:
-    """The reference's context manager; only ``mesh=None`` (one device).
-    ``policy``: "tp" (the model axis splits heads, hidden and experts) or
-    "dp" (the model axis joins data parallelism, weights replicated), read
-    by the specs below."""
+    """The reference's context manager.  ``mesh``: a ``launch.mesh.Mesh``
+    whose members share one device, or None.  ``policy``: "tp" (the model
+    axis splits heads, hidden and experts) or "dp" (the model axis joins
+    data parallelism, weights replicated), read by the specs below."""
+    if policy not in ("tp", "dp"):
+        raise ValueError(f"policy {policy!r}: 'tp' or 'dp'")
     if mesh is not None:
-        raise NotImplementedError(_STEPS)
+        mesh.member_device()
     prev = (_CTX["mesh"], _CTX["policy"])
-    _CTX["mesh"], _CTX["policy"] = None, policy
+    _CTX["mesh"], _CTX["policy"] = mesh, policy
     try:
         yield
     finally:
@@ -68,16 +71,6 @@ def current_policy() -> str:
     return _CTX["policy"]
 
 
-def dp_groups(batch: int) -> int:
-    """Number of DP shards dividing ``batch``: 1 without a mesh."""
-    return 1
-
-
-def constrain(x, *axes):
-    """A sharding constraint on logical axes: a no-op without a mesh."""
-    return x
-
-
 def dp_axes(mesh) -> Tuple[str, ...]:
     """The mesh's data-parallel axes: ``pod`` and ``data`` where present,
     and ``model`` too under the ``dp`` policy."""
@@ -85,6 +78,47 @@ def dp_axes(mesh) -> Tuple[str, ...]:
     if _CTX["policy"] == "dp" and "model" in mesh.axis_names:
         axes = axes + ("model",)
     return axes
+
+
+def _resolve(mesh, axis):
+    """A logical axis on ``mesh``: "dp" is every data-parallel axis (one
+    name, a tuple, or None where the mesh has none); another name stays
+    where the mesh has it, else None."""
+    if axis is None:
+        return None
+    if axis == "dp":
+        ax = dp_axes(mesh)
+        return ax if len(ax) > 1 else (ax[0] if ax else None)
+    return axis if axis in mesh.axis_names else None
+
+
+def dp_groups(batch: int) -> int:
+    """The data-parallel groups dividing ``batch`` (1 without a mesh): the
+    product of the DP axes :func:`batch_spec` splits ``batch`` over.  The
+    MoE dispatches each group on its own."""
+    mesh = _CTX["mesh"]
+    if mesh is None:
+        return 1
+    g = 1
+    for a in dp_axes(mesh):
+        if batch % (g * mesh.shape[a]) == 0:
+            g *= mesh.shape[a]
+    return g
+
+
+def constrain(x, *axes):
+    """A sharding constraint on logical axes: without a mesh a no-op;
+    under one, the axes resolve against it (a spec naming a mesh axis
+    twice, or longer than ``x`` has dimensions, raises) and ``x`` is
+    returned as it is: the values a constraint leaves, on the members'
+    one device."""
+    mesh = _CTX["mesh"]
+    if mesh is None:
+        return x
+    if len(axes) > x.dim():
+        raise ValueError(f"{len(axes)} axes for a {x.dim()}-d tensor")
+    NamedSharding(mesh, P(*(_resolve(mesh, a) for a in axes)))
+    return x
 
 
 def decode_axis(mesh) -> str:
@@ -293,6 +327,40 @@ class ShardedTensor:
     def __repr__(self) -> str:
         return (f"ShardedTensor({tuple(self.shape)}, {self.dtype}, "
                 f"{self.sharding})")
+
+
+def place(tree, shardings):
+    """``tree`` laid out under ``shardings`` (a tree like it of
+    ``NamedSharding`` s; a None sharding leaves its subtree as it is): a
+    tensor is placed (``ShardedTensor.place``; a shape it cannot split
+    raises), a ``ShardedTensor`` under an equal sharding stays, one under
+    another is gathered and placed anew; other leaves (the cache's ``pos``)
+    stay."""
+    if shardings is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place(v, s) for v, s in zip(tree, shardings))
+    if isinstance(tree, ShardedTensor):
+        if tree.sharding == shardings:
+            return tree
+        tree = tree.full()
+    if isinstance(tree, torch.Tensor):
+        return ShardedTensor.place(tree, shardings)
+    return tree
+
+
+def gather(tree):
+    """Each ``ShardedTensor`` leaf's global tensor (the members' blocks
+    all-gathered, ``ShardedTensor.full``); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: gather(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather(v) for v in tree)
+    if isinstance(tree, ShardedTensor):
+        return tree.full()
+    return tree
 
 
 def member_sharding(mesh, axis: str = "pod",

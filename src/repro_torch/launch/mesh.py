@@ -108,6 +108,18 @@ def make_test_mesh(shape=(2, 2), axes=("data", "model"), *,
                            dtype=object).reshape(shape), axes)
 
 
+MESH_AXES = {1: ("data",), 2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
+def parse_mesh(text: str, *, device: str = "cuda") -> Mesh:
+    """``make_test_mesh`` of a shape written ``"4x2"``: one size an axis,
+    the axes ``data``; ``data, model``; or ``pod, data, model``."""
+    shape = tuple(int(n) for n in text.lower().split("x"))
+    if len(shape) not in MESH_AXES or min(shape) < 1:
+        raise ValueError(f"mesh {text!r}: 1 to 3 positive sizes, as 4x2")
+    return make_test_mesh(shape, MESH_AXES[len(shape)], device=device)
+
+
 def make_decode_mesh(ndev: Optional[int] = None, axis: str = "data", *,
                      device: str = "cuda") -> Mesh:
     """1-D mesh over the first ``ndev`` distinct devices of ``device``'s

@@ -10,21 +10,28 @@ prefilled into the KV / recurrent-state cache one token position a step
 decoded greedily one token a step.  The reference's flags and presets
 (``tiny``, ``small``, ``full``) plus ``--device`` (default ``cuda``, which
 must exist) and ``--n-layers`` (a preset's depth cut, widths unchanged, as
-``launch.train`` takes it).  Timings are host clock around work that ends
-in a device synchronise.
+``launch.train`` takes it).  ``--mesh 2x2x2`` serves under a mesh whose
+members share the device: the parameters and the cache placed by
+``steps.serve_shardings``, every step ``steps.sharded_step`` of the serve
+step.  Timings are host clock around
+work that ends in a device synchronise.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch, reduced
+from repro_torch.configs import ShapeSpec, get_arch, reduced
 from repro_torch.core.engine import resolve_device
+from repro_torch.distributed import sharding
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import steps
 from repro_torch.models import model
 
 
@@ -45,6 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the preset's depth to this many layers "
                          "(widths unchanged)")
+    ap.add_argument("--mesh", default=None, metavar="SHAPE",
+                    help="serve under a mesh of this shape whose members "
+                         "share the device, e.g. 2x2x2 (pod, data, model)")
     return ap
 
 
@@ -64,27 +74,56 @@ def _sync(device: torch.device) -> None:
 
 
 @torch.no_grad()
-def prefill_into_cache(cfg, params, cache, tokens: torch.Tensor):
-    """Sequential prefill via decode steps (the cache-filling path)."""
+def prefill_into_cache(cfg, params, cache, tokens: torch.Tensor,
+                       decode: Optional[Callable] = None):
+    """Sequential prefill via decode steps (the cache-filling path).
+    ``decode(params, cache, tokens) -> (logits, cache)``: the step
+    (default ``model.decode_step``)."""
+    decode = decode or functools.partial(model.decode_step, cfg)
     logits = None
     for i in range(tokens.shape[1]):
-        logits, cache = model.decode_step(cfg, params, cache,
-                                          tokens[:, i:i + 1])
+        logits, cache = decode(params, cache, tokens[:, i:i + 1])
     return logits, cache
+
+
+def mesh_decode(cfg, mesh, batch: int, max_seq: int):
+    """``(decode, (param shardings, cache shardings))``: the serve step
+    under ``mesh`` and the current sharding policy (``steps.sharded_step``
+    on ``steps.serve_shardings``), as ``prefill_into_cache`` takes a step;
+    its logits come back whole, its cache placed."""
+    shape = ShapeSpec("decode", max_seq, batch, "decode")
+    with sharding.use_mesh(mesh, sharding.current_policy()):
+        ins, outs = steps.serve_shardings(cfg, shape, mesh)
+        step = steps.sharded_step(steps.build_serve_step(cfg), ins, outs)
+
+    def decode(params, cache, tokens):
+        logits, cache = step(params, cache, {"tokens": tokens})
+        return logits.full(), cache
+
+    return decode, ins[:2]
 
 
 @torch.no_grad()
 def generate(cfg, params, prompts: torch.Tensor, gen: int,
-             max_seq: Optional[int] = None) -> dict:
+             max_seq: Optional[int] = None, *, mesh=None) -> dict:
     """Prefill ``prompts`` (B, P) into a fresh cache, then ``gen`` greedy
     tokens.  Returns the tokens ``(B, gen)`` (numpy), the last logits, the
-    cache, and the prefill and decode seconds."""
+    cache, and the prefill and decode seconds.  ``mesh``: every step under
+    it (:func:`mesh_decode`); the parameters and the cache are placed
+    first, and the cache comes back placed."""
     device = prompts.device
     B, P = prompts.shape
-    cache = model.init_cache(cfg, B, max_seq or P + gen + 8, device=device)
+    max_seq = max_seq or P + gen + 8
+    cache = model.init_cache(cfg, B, max_seq, device=device)
+    decode = None
+    if mesh is not None:
+        decode, (p_sh, c_sh) = mesh_decode(cfg, mesh, B, max_seq)
+        params, cache = sharding.place(params, p_sh), \
+            sharding.place(cache, c_sh)
+    decode = decode or functools.partial(model.decode_step, cfg)
     _sync(device)
     t0 = time.time()
-    logits, cache = prefill_into_cache(cfg, params, cache, prompts)
+    logits, cache = prefill_into_cache(cfg, params, cache, prompts, decode)
     _sync(device)
     t_prefill = time.time() - t0
     out = []
@@ -92,7 +131,7 @@ def generate(cfg, params, prompts: torch.Tensor, gen: int,
     t0 = time.time()
     for _ in range(gen):
         out.append(cur)
-        logits, cache = model.decode_step(cfg, params, cache, cur)
+        logits, cache = decode(params, cache, cur)
         cur = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     _sync(device)
     t_decode = time.time() - t0
@@ -121,7 +160,9 @@ def run_serving(args, params=None) -> dict:
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32))
-    out = generate(cfg, params, prompts.to(device), args.gen)
+    mesh = (mesh_lib.parse_mesh(args.mesh, device=str(device))
+            if args.mesh else None)
+    out = generate(cfg, params, prompts.to(device), args.gen, mesh=mesh)
     out.update(cfg=cfg, params=params, prompts=prompts)
     return out
 

@@ -1,23 +1,63 @@
-"""Step functions: train, prefill, serve.
+"""Step functions: train, prefill, serve, and the same steps under a mesh.
 
-The counterpart of ``repro/launch/steps.py`` on one device.  PyTorch runs
-eagerly, so ``build_*`` returns the step itself (the reference's are jitted
-by their callers).  The DiLoCo inner step (``build_pod_inner_step``) runs
-the train step once a pod, the pods sharing one device.  The step
-shardings (``batch_shardings``, ``train_shardings``, ``serve_shardings``)
-give the reference's placements of every input, parameter, optimizer and
-cache leaf on a mesh, from shapes alone (``input_specs``,
-``abstract_train_state``: ``meta`` tensors); running the steps under
-them needs a mesh for the model's steps (ROADMAP.md Queue 1 item 11c).
+The counterpart of ``repro/launch/steps.py``.  PyTorch runs eagerly, so
+``build_*`` returns the step itself (the reference's are jitted by their
+callers).  The DiLoCo inner step (``build_pod_inner_step``) runs the train
+step once a pod, the pods sharing one device.  The step shardings
+(``batch_shardings``, ``train_shardings``, ``serve_shardings``) give the
+reference's placements of every input, parameter, optimizer and cache
+leaf on a mesh, from shapes alone (``input_specs``,
+``abstract_train_state``: ``meta`` tensors).
+
+:func:`sharded_step` is the reference's ``jax.jit(step, in_shardings=...,
+out_shardings=...)`` under ``sharding.use_mesh(mesh, policy)``, on a
+``launch.mesh.Mesh`` whose members share one device:
+
+* Storage stays partitioned.  Between steps each member keeps only its own
+  blocks (``sharding.ShardedTensor``): the parameters split over ``model``
+  by ``param_specs``, the moments over ``model`` and ``data`` by
+  ``opt_specs`` (ZeRO-1), the batch and the decode cache over the DP axes
+  by ``batch_spec`` and ``cache_spec``.  Plain tensors given to the step
+  are placed first; a shape the placement cannot split raises.
+* The collectives are explicit.  At the step's start the members' blocks
+  are all-gathered (``ShardedTensor.full``: one ``torch.cat``-like copy in
+  member order, as ``plan.gather_member_tables`` lays tables).  Forward and
+  backward run as one batched pass over the DP members' batch blocks,
+  concatenated in member order: on a shared device that is every DP
+  member's work in one launch, what the reference's program computes, and
+  the MoE's per-group routing sees every member's tokens in its
+  ``(G, T, D)`` layout, G from ``sharding.dp_groups``.  The loss is the
+  mean over the global batch.
+* The gradient goes through the optional ``grad_compressor`` whole, leaf by
+  leaf, as the reference applies it inside its global program, and is then
+  reduce-scattered: the batched pass has already summed it over the DP
+  members, so each member takes the region of its ZeRO-1 optimizer block.
+* AdamW runs member by member on each member's own ZeRO-1 block
+  (``adamw.update_leaf``): a region of the parameter's index space, or,
+  for an int8 moment (``{"q": (nb, 128), "s": (nb, 1)}`` split over
+  ``data`` on ``nb``), a flat range of whole blocks of the parameter, the
+  last one ending at its end.  Replicas over ``pod`` compute their copy, as
+  the reference's devices do.  The updated regions are all-gathered over
+  ``data`` back to the ``param_specs`` layout.
+* Outputs are placed by ``out_shardings`` (None: returned whole); the
+  decode cache is gathered and placed afresh each call, and the parameters
+  are gathered each call: no gathered copy is kept between calls.
+
+On a shared device the step's values are the unsharded step's, bit for
+bit, except where the mesh changes the computation itself (the MoE's G).
+Splitting the compute over ``model`` (column and row tensor parallelism,
+vocab-parallel cross entropy) and a device for each DP member change no
+result on one device and wait for meshes over distinct devices (ROADMAP.md
+Queue 1 item 11c).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
-from repro_torch.core.tree import leaves, rebuild
+from repro_torch.core.tree import leaves, map_tree, rebuild
 from repro_torch.distributed import sharding
 from repro_torch.models import layers, model
 from repro_torch.optim import adamw
@@ -90,10 +130,12 @@ def build_train_step(cfg: ArchConfig,
     the loss and its gradients (``remat``: each block recomputed in the
     backward pass), the optional ``grad_compressor`` on the gradient tree,
     then AdamW.  The step returns new parameter tensors and leaves its
-    inputs as they were."""
+    inputs as they were.  Its parts, ``train_step.loss_and_grads(params,
+    batch) -> (loss, grads)`` and ``train_step.opt_cfg``, are what
+    :func:`sharded_step` runs under a mesh."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
 
-    def train_step(params, opt_state, batch):
+    def loss_and_grads(params, batch):
         flat = list(leaves(params))
         live = [p.detach().requires_grad_() for p in flat]
         loss = model.loss_fn(cfg, rebuild(params, live), batch["tokens"],
@@ -106,9 +148,15 @@ def build_train_step(cfg: ArchConfig,
                                  for p, g in zip(flat, got)])
         if grad_compressor is not None:
             grads = grad_compressor(grads)
-        params, opt_state = adamw.apply(params, grads, opt_state, opt_cfg)
-        return params, opt_state, loss.detach()
+        return loss.detach(), grads
 
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(params, batch)
+        params, opt_state = adamw.apply(params, grads, opt_state, opt_cfg)
+        return params, opt_state, loss
+
+    train_step.loss_and_grads = loss_and_grads
+    train_step.opt_cfg = opt_cfg
     return train_step
 
 
@@ -151,3 +199,138 @@ def build_serve_step(cfg: ArchConfig):
         return model.decode_step(cfg, params, cache, batch["tokens"])
 
     return serve_step
+
+
+# --------------------------------------------------------------------------
+# the steps under a mesh
+# --------------------------------------------------------------------------
+
+
+def _first_sharding(tree):
+    if isinstance(tree, sharding.NamedSharding):
+        return tree
+    if isinstance(tree, (dict, list, tuple)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            found = _first_sharding(v)
+            if found is not None:
+                return found
+    return None
+
+
+def _member_updates(p: torch.Tensor, g: torch.Tensor, m, v, corrections,
+                    opt_cfg: adamw.AdamWConfig):
+    """ZeRO-1: each member's AdamW update of its own optimizer block of one
+    parameter leaf (module docstring).  ``p`` and ``g`` are the gathered
+    parameter and the whole gradient; ``m`` and ``v`` the leaf's moments
+    (a ``ShardedTensor``, or ``{"q", "s"}`` of them); ``corrections`` each
+    member's bias corrections, from its own step counter.  Returns the updated
+    parameter, whole (each region written once, by its first member), and
+    the members' new moment shards."""
+    new_p = torch.empty_like(p)
+    int8 = isinstance(m, dict)
+    ref = m["q"] if int8 else m
+    regions = ref.sharding.member_indices(ref.shape)
+    n = p.numel()
+    seen = set()
+    new_m, new_v = [], []
+    for k, idx in enumerate(regions):
+        if int8:
+            rows = idx[0]
+            lo = rows.start * adamw.QBLOCK
+            hi = min(rows.stop * adamw.QBLOCK, n)
+            region = (slice(lo, hi),)
+            p_k, g_k = p.reshape(-1)[lo:hi], g.reshape(-1)[lo:hi]
+            m_k = {key: m[key].shards[k] for key in ("q", "s")}
+            v_k = {key: v[key].shards[k] for key in ("q", "s")}
+        else:
+            region = idx
+            p_k, g_k = p[idx], g[idx]
+            m_k, v_k = m.shards[k], v.shards[k]
+        out_p, out_m, out_v = adamw.update_leaf(p_k, g_k, m_k, v_k,
+                                                *corrections[k], opt_cfg)
+        key = tuple((s.start, s.stop) for s in region)
+        if key not in seen:
+            seen.add(key)
+            if int8:
+                new_p.view(-1)[region[0]] = out_p
+            else:
+                new_p[region] = out_p
+        new_m.append(out_m)
+        new_v.append(out_v)
+    return new_p, new_m, new_v
+
+
+def _moment(shards: list, like):
+    """Members' new moment shards as the tree ``like`` has them."""
+    if isinstance(like, dict):
+        return {key: sharding.ShardedTensor(
+                    [s[key] for s in shards], like[key].sharding,
+                    like[key].shape, shards[0][key].dtype)
+                for key in like}
+    return sharding.ShardedTensor(shards, like.sharding, like.shape,
+                                  shards[0].dtype)
+
+
+def _zero1_apply(params, grads, opt_state, opt_cfg: adamw.AdamWConfig):
+    """AdamW member by member on the ZeRO-1 blocks of ``opt_state`` (placed
+    under ``opt_shardings``): ``(params whole, new opt_state placed)``."""
+    counter = opt_state["step"]
+    steps, corrections = [], []
+    for shard in counter.shards:            # each member its own copy
+        st, b1c, b2c = adamw.bias_corrections(shard, opt_cfg)
+        steps.append(st)
+        corrections.append((b1c, b2c))
+
+    def update(p, g, m, v):
+        whole, ms, vs = _member_updates(p, g, m, v, corrections, opt_cfg)
+        return whole, _moment(ms, m), _moment(vs, v)
+
+    # the parameters' structure leads: an int8 moment's {"q", "s"} reaches
+    # ``update`` whole, as in ``adamw.apply``
+    out = map_tree(update, params, grads, opt_state["m"], opt_state["v"])
+    new_p, new_m, new_v = (map_tree(lambda o, i=i: o[i], out)
+                           for i in range(3))
+    step = sharding.ShardedTensor(steps, counter.sharding, counter.shape,
+                                  counter.dtype)
+    return new_p, {"step": step, "m": new_m, "v": new_v}
+
+
+def sharded_step(step: Callable, in_shardings,
+                 out_shardings=None) -> Callable:
+    """``step`` run under the mesh of ``in_shardings`` (module docstring):
+    the counterpart of ``jax.jit(step, in_shardings=in_shardings,
+    out_shardings=out_shardings)`` traced under ``sharding.use_mesh(mesh,
+    policy)``.  ``in_shardings``: a tuple, one tree of ``NamedSharding`` s
+    an argument of ``step`` (None: that argument as it is);
+    ``out_shardings``: a tree like the step's outputs (None: the outputs
+    whole, on the mesh's device).  The step runs under the sharding
+    policy current when this is called, as a jitted step keeps the one it
+    was traced under.  A train step of :func:`build_train_step` runs its
+    optimizer member by member on the ZeRO-1 blocks, so its ``opt_state``
+    must be placed by ``opt_shardings``; any other step runs whole on the
+    gathered inputs."""
+    mesh = _first_sharding(in_shardings).mesh
+    mesh.member_device()
+    policy = sharding.current_policy()
+    train = getattr(step, "loss_and_grads", None)
+
+    def run(*args):
+        if len(args) != len(in_shardings):
+            raise TypeError(f"{len(args)} arguments for "
+                            f"{len(in_shardings)} in_shardings")
+        placed = [sharding.place(a, s) for a, s in zip(args, in_shardings)]
+        with sharding.use_mesh(mesh, policy):
+            if train is None:
+                out = step(*sharding.gather(placed))
+            else:
+                params, opt_state, batch = placed
+                full = sharding.gather(params)
+                loss, grads = train(full, sharding.gather(batch))
+                new_p, new_o = _zero1_apply(full, grads, opt_state,
+                                            step.opt_cfg)
+                del full, grads
+                out = (new_p, new_o, loss)
+        return sharding.gather(out) if out_shardings is None \
+            else sharding.place(out, out_shardings)
+
+    return run

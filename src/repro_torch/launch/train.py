@@ -28,6 +28,16 @@ through the compressed wire (``--outer-wire``: int8, whose dequant and
 member mean are fused into the bitpack kernel's stores; ``--topk FRAC``:
 top-k values + 1-bit bitmap with error feedback; ``none``), overlapped with
 the next window's inner steps (``--link-rtt`` injects a link round trip).
+``--mesh 2x2x2`` runs every step under a mesh whose members share the
+device (``launch.mesh.parse_mesh``: ``data``, ``data x model`` or ``pod x
+data x model``; ``--policy`` tp or dp): the state is placed by
+``steps.train_shardings`` and each step is ``steps.sharded_step``; with
+``--restart-mesh 2x2`` a restart after a failure restores the checkpoint
+onto that mesh (``fault.onto``) and the loop goes on there.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
+        --steps 12 --mesh 4x2 --restart-mesh 2x2 --fail-at 7 \\
+        --ckpt-every 5 [--device cpu]
 """
 from __future__ import annotations
 
@@ -40,11 +50,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch, reduced
+from repro_torch.configs import ShapeSpec, get_arch, reduced
 from repro_torch.core.engine import CodagEngine, EngineConfig, resolve_device
-from repro_torch.core.tree import map_tree
+from repro_torch.core.tree import leaves, map_tree
 from repro_torch.data import pipeline
-from repro_torch.distributed import fault
+from repro_torch.distributed import fault, sharding
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import model
 from repro_torch.optim import adamw
@@ -95,6 +106,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the preset's depth to this many layers "
                          "(widths unchanged)")
+    ap.add_argument("--mesh", default=None, metavar="SHAPE",
+                    help="run the steps under a mesh of this shape whose "
+                         "members share the device, e.g. 2x2x2 (pod, data, "
+                         "model) or 4x2 (data, model)")
+    ap.add_argument("--policy", choices=("tp", "dp"), default="tp",
+                    help="with --mesh: the sharding policy")
+    ap.add_argument("--restart-mesh", default=None, metavar="SHAPE",
+                    help="with --mesh: restart after a failure onto a mesh "
+                         "of this shape (the elastic restart)")
     return ap
 
 
@@ -144,7 +164,6 @@ def _run_diloco(args, cfg, loader, device: torch.device,
     """N-pod DiLoCo loop: each pod's inner steps, compressed outer syncs
     overlapped with the next window (``OuterSyncPipeline``)."""
     from repro_torch.distributed import collectives, diloco
-    from repro_torch.launch import mesh as mesh_lib
 
     n_pods = args.diloco
     mesh = mesh_lib.make_test_mesh((n_pods, 1), ("pod", "data"),
@@ -200,6 +219,44 @@ def _run_diloco(args, cfg, loader, device: torch.device,
             "state": (pod_params, pod_opt, outer)}
 
 
+class _MeshSteps:
+    """The train step under each mesh a run meets (``--mesh``, then
+    ``--restart-mesh`` after a restart): ``steps.sharded_step`` on that
+    mesh's ``train_shardings``, chosen by the mesh the parameters lie on;
+    the loss comes back whole."""
+
+    def __init__(self, args, cfg, opt_cfg, train_step, device):
+        self.args, self.cfg, self.opt_cfg = args, cfg, opt_cfg
+        self.train_step, self.device = train_step, device
+        self.meshes = {}                 # shape text -> mesh
+        self.steps = {}                  # id(mesh) -> (shardings, step)
+
+    def _built(self, mesh):
+        if id(mesh) not in self.steps:
+            shape = ShapeSpec("train", self.args.seq, self.args.batch,
+                              "train")
+            with sharding.use_mesh(mesh, self.args.policy):
+                ins, outs = steps_lib.train_shardings(self.cfg, shape, mesh,
+                                                      self.opt_cfg)
+                self.steps[id(mesh)] = (ins, steps_lib.sharded_step(
+                    self.train_step, ins, outs))
+        return self.steps[id(mesh)]
+
+    def shardings(self, text: str):
+        """(params, optimizer state) shardings on the mesh ``text``."""
+        if text not in self.meshes:
+            self.meshes[text] = mesh_lib.parse_mesh(text,
+                                                    device=str(self.device))
+        return self._built(self.meshes[text])[0][:2]
+
+    def __call__(self, params, opt_state, batch):
+        mesh = next(leaf.sharding.mesh for leaf in leaves(params)
+                    if isinstance(leaf, sharding.ShardedTensor))
+        params, opt_state, loss = self._built(mesh)[1](params, opt_state,
+                                                       batch)
+        return params, opt_state, loss.full()
+
+
 def _run_single(args, cfg, loader, device: torch.device,
                 params=None) -> dict:
     opt_cfg = adamw.AdamWConfig(lr=args.lr,
@@ -216,10 +273,22 @@ def _run_single(args, cfg, loader, device: torch.device,
         compressor = None
     train_step = steps_lib.build_train_step(cfg, opt_cfg,
                                             grad_compressor=compressor)
+    reshard_fn = None
+    if args.mesh:
+        mesh_step = _MeshSteps(args, cfg, opt_cfg, train_step, device)
+        params, opt_state = sharding.place(
+            (params, opt_state), mesh_step.shardings(args.mesh))
+        if args.restart_mesh:
+            reshard_fn = fault.onto(mesh_step.shardings(args.restart_mesh))
+    elif args.restart_mesh:
+        raise ValueError("--restart-mesh needs --mesh")
 
     def step_fn(state, batch):
         params, opt_state = state
-        params, opt_state, loss = train_step(params, opt_state, batch)
+        if args.mesh:
+            params, opt_state, loss = mesh_step(params, opt_state, batch)
+        else:
+            params, opt_state, loss = train_step(params, opt_state, batch)
         if device.type == "cuda":     # the monitor times the whole step
             torch.cuda.synchronize(device)
         return (params, opt_state), loss
@@ -228,11 +297,15 @@ def _run_single(args, cfg, loader, device: torch.device,
     monitor = fault.StepMonitor()
     runner = fault.FaultTolerantRunner(
         step_fn, args.ckpt_dir, ckpt_every=args.ckpt_every, monitor=monitor,
-        injector=injector)
+        injector=injector, reshard_fn=reshard_fn)
 
+    # the runner holds the only reference to the first state, so it is
+    # freed after the first step (a placed state is 8 copies at 2x2x2)
+    first = [(params, opt_state)]
+    del params, opt_state
     t0 = time.time()
     (params, opt_state), report = runner.run(
-        (params, opt_state), iter(loader), args.steps)
+        first.pop(), iter(loader), args.steps)
     dt = time.time() - t0
     return {"losses": report.losses, "seconds": dt,
             "steps_done": report.steps_done, "restarts": report.restarts,

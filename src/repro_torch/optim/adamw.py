@@ -34,7 +34,9 @@ class AdamWConfig:
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded float32 square root, as XLA and the card's
     ``sqrtf`` give it.  The CPU's vectorised float32 square root (MKL's
-    VML) is an ulp low on ~0.7% of inputs, so on the CPU it is taken in
+    VML) is an ulp low on some inputs, and which ones depends on where an
+    element falls in the vector loop (a slice of a tensor can get other
+    bits than the same elements of the whole), so on the CPU it is taken in
     float64 and rounded once, which is exact for a float32 input."""
     if x.device.type == "cpu":
         return torch.sqrt(x.double()).float()
@@ -83,47 +85,63 @@ def init(params, cfg: AdamWConfig) -> Dict[str, Any]:
             "v": map_tree(zeros_like_moment, params)}   # sqrt-domain int8
 
 
+def bias_corrections(step: torch.Tensor, cfg: AdamWConfig):
+    """``(step + 1, 1 - b1^(step+1), 1 - b2^(step+1))`` of the state's
+    step counter, on its device."""
+    step = step + 1
+    stepf = step.float()
+    return (step, 1.0 - torch.pow(cfg.b1, stepf),
+            1.0 - torch.pow(cfg.b2, stepf))
+
+
+@torch.no_grad()
+def update_leaf(p, g, m, v, b1c, b2c, cfg: AdamWConfig):
+    """One leaf's update: ``(new p, new m, new v)``.  ``p`` and ``g`` may be
+    a block of a parameter (a ZeRO-1 member's: a region of its index space,
+    or a flat range of whole ``QBLOCK`` blocks for an int8 moment, the last
+    one ending at the parameter's end), ``m`` and ``v`` that block's
+    moments: every operation is elementwise or a block's own, so a block's
+    update equals the same elements of the whole leaf's, bit for bit."""
+    # the reference's operations in its order; each float32 transient is
+    # dropped once used, so a leaf's update holds a few leaf-sized float32
+    # tensors at a time (an MoE expert leaf is 3.2 GB of them)
+    g = g.float()
+    if cfg.compress_moments:
+        m_f = _dequantize(m["q"], m["s"], p.shape)
+        v_f = _dequantize(v["q"], v["s"], p.shape, sqrt_domain=True)
+    else:
+        m_f, v_f = m, v
+    m_f = cfg.b1 * m_f + (1 - cfg.b1) * g
+    v_f = cfg.b2 * v_f + (1 - cfg.b2) * torch.square(g)
+    del g
+    if cfg.compress_moments:
+        new_m, new_v = _quantize(m_f), _quantize(v_f, sqrt_domain=True)
+        new_m, new_v = ({"q": new_m[0], "s": new_m[1]},
+                        {"q": new_v[0], "s": new_v[1]})
+    else:
+        new_m, new_v = m_f, v_f
+    mh = m_f / b1c
+    del m_f
+    vh = v_f / b2c
+    del v_f
+    step_dir = mh / (_sqrt(vh) + cfg.eps)
+    del mh, vh
+    p32 = p.float()
+    p32 = p32 - cfg.lr * (step_dir + cfg.weight_decay * p32)
+    return p32.to(p.dtype), new_m, new_v
+
+
 @torch.no_grad()
 def apply(params, grads, state, cfg: AdamWConfig):
     """One AdamW update: ``(new_params, new_state)``; nothing is updated in
     place."""
-    step = state["step"] + 1
-    stepf = step.float()
-    b1c = 1.0 - torch.pow(cfg.b1, stepf)
-    b2c = 1.0 - torch.pow(cfg.b2, stepf)
-
-    def upd(p, g, m, v):
-        # the reference's operations in its order; each float32 transient
-        # is dropped once used, so a leaf's update holds a few leaf-sized
-        # float32 tensors at a time (an MoE expert leaf is 3.2 GB of them)
-        g = g.float()
-        if cfg.compress_moments:
-            m_f = _dequantize(m["q"], m["s"], p.shape)
-            v_f = _dequantize(v["q"], v["s"], p.shape, sqrt_domain=True)
-        else:
-            m_f, v_f = m, v
-        m_f = cfg.b1 * m_f + (1 - cfg.b1) * g
-        v_f = cfg.b2 * v_f + (1 - cfg.b2) * torch.square(g)
-        del g
-        if cfg.compress_moments:
-            new_m, new_v = _quantize(m_f), _quantize(v_f, sqrt_domain=True)
-            new_m, new_v = ({"q": new_m[0], "s": new_m[1]},
-                            {"q": new_v[0], "s": new_v[1]})
-        else:
-            new_m, new_v = m_f, v_f
-        mh = m_f / b1c
-        del m_f
-        vh = v_f / b2c
-        del v_f
-        step_dir = mh / (torch.sqrt(vh) + cfg.eps)
-        del mh, vh
-        p32 = p.float()
-        p32 = p32 - cfg.lr * (step_dir + cfg.weight_decay * p32)
-        return p32.to(p.dtype), new_m, new_v
+    step, b1c, b2c = bias_corrections(state["step"], cfg)
 
     # the parameters' structure leads: a compressed moment's {"q", "s"}
-    # reaches ``upd`` whole, and each leaf of ``out`` is a (p, m, v) tuple
-    out = map_tree(upd, params, grads, state["m"], state["v"])
+    # reaches ``update_leaf`` whole, and each leaf of ``out`` is a (p, m,
+    # v) tuple
+    out = map_tree(lambda p, g, m, v: update_leaf(p, g, m, v, b1c, b2c, cfg),
+                   params, grads, state["m"], state["v"])
     new_p, new_m, new_v = (map_tree(lambda o, i=i: o[i], out)
                            for i in range(3))
     return new_p, {"step": step, "m": new_m, "v": new_v}

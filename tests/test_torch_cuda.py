@@ -1267,3 +1267,51 @@ def test_diloco_training_on_the_card(card, tmp_path):
     assert bitpack.REDUCE_LAUNCHES - before[0] == 2 * n_wire > 0
     assert harness.EPILOGUE_UNFUSED == before[1]
     assert m["losses"][-1] < m["losses"][0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["tp", "dp"])
+def test_sharded_train_step_on_the_card_equals_the_unsharded(card, policy):
+    """Reduced qwen3-1.7b on the card, one step through the int8 gradient
+    wire with int8 moments: ``steps.sharded_step`` on a (pod 2, data 2,
+    model 2) mesh of the card equals the unsharded step on the card bit for
+    bit (loss, every parameter, every moment), each member keeping its own
+    blocks; the wire is one fused bitpack launch a gradient leaf."""
+    from repro_torch.configs import ShapeSpec, get_arch, reduced
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.tree import leaves
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.launch import mesh as mesh_lib, steps
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    cfg = reduced(get_arch("qwen3-1.7b"))
+    params = model.init_params(cfg, torch.Generator(card).manual_seed(0),
+                               device=card)
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 32))
+                                 .astype(np.int32)).to(card)
+             for k in ("tokens", "labels")}
+    oc = adamw.AdamWConfig(lr=1e-4, compress_moments=True)
+    step = steps.build_train_step(
+        cfg, oc, grad_compressor=collectives.make_wire_compressor(
+            EngineConfig(device="cuda")))
+    opt = adamw.init(params, oc)
+    whole = step(params, opt, batch)
+    mesh = mesh_lib.make_test_mesh((2, 2, 2), ("pod", "data", "model"))
+    with sharding.use_mesh(mesh, policy):
+        ins, outs = steps.train_shardings(cfg, ShapeSpec("t", 32, 4, "train"),
+                                          mesh, oc)
+        fn = steps.sharded_step(step, ins, outs)
+    before = bitpack.LAUNCHES
+    p2, o2, loss = fn(params, opt, batch)
+    assert bitpack.LAUNCHES - before == sum(
+        p.numel() >= 128 for p in leaves(params))
+    assert torch.equal(whole[2], loss.full())
+    for got, want in ((p2, whole[0]), (o2, whole[1])):
+        got = list(leaves(sharding.gather(got)))
+        want = list(leaves(want))
+        assert len(got) == len(want)
+        assert all(g.device.type == "cuda" and torch.equal(g, w)
+                   for g, w in zip(got, want))
+    wq = p2["blocks"]["attn"]["wq"]
+    assert len({s.data_ptr() for s in wq.shards}) == mesh.size

@@ -111,9 +111,10 @@ def test_diloco_and_mesh_steps_raise_naming_the_roadmap_item(tmp_path):
     """``--diloco`` and the pod inner step run, and so do the step
     shardings, the mesh-sharded decode, the sharded restore and the
     loader's ``mesh=`` on a mesh whose members share one device
-    (``tests/test_torch_sharded.py``); what still raises, naming ROADMAP
-    item 11c: a mesh for the model's steps, the same paths over a mesh of
-    distinct devices, and the runner's elastic restart onto a mesh."""
+    (``tests/test_torch_sharded.py``), and so do a mesh for the model's
+    steps and the runner's restart onto such a mesh
+    (``tests/test_torch_mesh_steps.py``); what still raises, naming ROADMAP
+    item 11c: the same paths over a mesh of distinct devices."""
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.core import api
     from repro_torch.core.engine import CodagEngine, EngineConfig
@@ -141,15 +142,26 @@ def test_diloco_and_mesh_steps_raise_naming_the_roadmap_item(tmp_path):
     store = pipeline.CompressedTokenStore.build(
         pipeline.synthetic_corpus(4096, 64), 64)
 
-    def placing(state):
-        return {"w": sharding.ShardedTensor.place(
-            state["w"], sharding.NamedSharding(mesh, sharding.P()))}
+    def placing_on(m):
+        def placing(state):
+            return {"w": sharding.ShardedTensor.place(
+                state["w"], sharding.NamedSharding(m, sharding.P()))}
+        return placing
 
-    runner = fault.FaultTolerantRunner(
-        lambda st, b: (st, 0.0), str(tmp_path / "c"), ckpt_every=100,
-        injector=fault.FailureInjector(fail_at_steps=[1]),
-        reshard_fn=placing, async_ckpt=False, engine=engine)
-    for call in (lambda: sharding.use_mesh(mesh).__enter__(),
+    def runner(m):
+        return fault.FaultTolerantRunner(
+            lambda st, b: (st, 0.0), str(tmp_path / "c"), ckpt_every=100,
+            injector=fault.FailureInjector(fail_at_steps=[1]),
+            reshard_fn=placing_on(m), async_ckpt=False, engine=engine)
+
+    # on a mesh whose members share the device: a step under the mesh, and
+    # a restart onto it that goes on
+    with sharding.use_mesh(mesh):
+        assert sharding.current_mesh() is mesh
+    out, rep = runner(mesh).run({"w": torch.zeros(4)}, iter(range(9)), 3)
+    assert rep.restarts == 1 and rep.steps_done == 3
+    assert isinstance(out["w"], sharding.ShardedTensor)
+    for call in (lambda: sharding.use_mesh(spread).__enter__(),
                  lambda: api.decompress_many([ca], engine=engine,
                                              mesh=spread),
                  lambda: ckpt.restore(str(tmp_path / "c"), 0, {"w": 0},
@@ -157,8 +169,8 @@ def test_diloco_and_mesh_steps_raise_naming_the_roadmap_item(tmp_path):
                                           spread, sharding.P())}),
                  lambda: pipeline.CompressedLoader(store, 2, 16,
                                                    mesh=spread),
-                 lambda: runner.run({"w": torch.zeros(4)}, iter(range(9)),
-                                    3)):
+                 lambda: runner(spread).run({"w": torch.zeros(4)},
+                                            iter(range(9)), 3)):
         with pytest.raises(NotImplementedError, match="item 11c"):
             call()
 

@@ -316,9 +316,9 @@ def test_wire_bytes_accounting_matches_reference():
 
 def test_mesh_functions_raise_naming_the_roadmap_item():
     """What still raises on the collective plane, naming ROADMAP item 11c:
-    a mesh for the model's steps (``use_mesh``), and the collectives over a
-    mesh whose members hold distinct devices; the mesh-free sharding
-    context stays a no-op."""
+    the collectives and ``use_mesh`` over a mesh whose members hold
+    distinct devices; ``use_mesh`` installs a mesh whose members share one,
+    and the mesh-free sharding context stays a no-op."""
     from repro_torch.launch import mesh as mesh_lib
     x = torch.zeros(2, 256)
     spread = mesh_lib.Mesh([torch.device("cpu"), torch.device("meta")],
@@ -333,9 +333,13 @@ def test_mesh_functions_raise_naming_the_roadmap_item():
         with pytest.raises(NotImplementedError, match="item 11c"):
             call()
     with pytest.raises(NotImplementedError, match="item 11c"):
-        with sharding.use_mesh(mesh_lib.make_test_mesh(
-                (2,), ("data",), device="cpu")):
+        with sharding.use_mesh(spread):
             pass
+    shared = mesh_lib.make_test_mesh((2,), ("data",), device="cpu")
+    with sharding.use_mesh(shared):
+        assert sharding.current_mesh() is shared
+        assert sharding.dp_groups(8) == 2 and sharding.dp_groups(3) == 1
+    assert sharding.current_mesh() is None
     x = torch.zeros(256)
     with sharding.use_mesh(None, policy="dp"):
         assert sharding.current_mesh() is None
