@@ -13,6 +13,7 @@
     python3 chip_smoke.py --collectives-only         # phases 1, 2 and 13
     python3 chip_smoke.py --sharded-only             # phases 1, 2 and 14
     python3 chip_smoke.py --mesh-only                # phases 1, 2 and 15
+    python3 chip_smoke.py --roofline-only            # phases 1, 2 and 16
 
 Phases, each of which must pass (any failure exits non-zero, with no result
 line):
@@ -259,7 +260,23 @@ line):
          at step 7) on a 4x2 (data, model) mesh, restarted onto a 2x2 mesh
          (``--restart-mesh``): its losses and final state equal an
          uninterrupted unsharded run over the batches its steps drew;
- 16. a JSON line of the kernels (``consumer_launches``: phase 10's,
+ 16. the roofline on the card (``roofline/count.py``,
+     ``roofline/analysis.py``, ``launch/dryrun.py``), every number beside
+     the card's name and power limit:
+       - (a) phase 11 (a)'s decode step (28 layers, batch 8, a 104-position
+         cache) and phase 11 (b)'s train step without the wire (4 layers,
+         8 x 512, int8 moments), each counted under ``count_costs`` on the
+         card and on ``meta``: FLOPs, bytes, collective bytes and ops
+         equal, temp peaks within ``COUNT_PEAK_TOL``;
+       - (b) each step's measured ms (median of ``ROOFLINE_REPS``) beside
+         its counted roofline (``t_compute``, ``t_memory``, ``dominant``,
+         ``t_bound``) and the ratio, and its analytic bound;
+       - (c) the train step's arguments plus the counted temp bytes
+         against ``torch.cuda.max_memory_allocated`` over one step, within
+         ``MEMORY_TOL``;
+       - (d) ``python -m repro_torch.launch.dryrun --arch qwen3-1.7b
+         --shape decode_32k`` in a subprocess: its record, ``ok``;
+ 17. a JSON line of the kernels (``consumer_launches``: phase 10's,
      ``model_launches``: phase 11's, ``family_launches``: phase 12's,
      ``diloco_launches``: phase 13's, ``sharded_launches``: phase 14's,
      ``mesh_launches``: phase 15's; ``bitpack_reduce``, bitpack's second
@@ -290,8 +307,6 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate (data sheet)
-BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 CHUNK_BYTES = 128 * 1024           # the paper's chunk size
 TD_EDGE_CHUNK = 32 * 1024          # tdeflate edge rows (plain body: a step
                                    # per token, so keep the rows short)
@@ -343,34 +358,6 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.numel() == 0:
         return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-
-
-# LUT bytes a chunk: tdeflate's i16 + i8 pairs for litlen and distance,
-# huffman's one pair
-LUT_BYTES = {"tdeflate": 2 * (2 + 1) * 4096, "huffman": (2 + 1) * 4096}
-
-
-def bound_ms(codec: str, comp_bytes: int, n: int, chunk_elems: int,
-             width: int) -> float:
-    """Least time for one decode of n rows, at the card's memory rate: each
-    input read once (the compressed bytes; out_lens, except for bitpack,
-    which does not read them; the per-chunk LUTs of tdeflate and huffman),
-    the (n, chunk_elems) output written once."""
-    read = comp_bytes + (0 if codec == "bitpack" else 4 * n)
-    read += LUT_BYTES.get(codec, 0) * n
-    return (read + n * chunk_elems * width) / HBM_BYTES_PER_S * 1e3
-
-
-def matmul_bound(m: int, n: int, k: int, x_bytes: int):
-    """(least ms, what bounds it) of one y = x @ (q * s): the larger of x,
-    q (one byte a weight) and s read once and y written once over the
-    memory rate, and 2*m*n*k operations over the dense bf16 tensor-core
-    peak."""
-    moved = m * k * x_bytes + k * n + 4 * n + m * n * x_bytes
-    by_bytes = moved / HBM_BYTES_PER_S * 1e3
-    by_ops = 2 * m * n * k / BF16_FLOPS * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
-        "operations"
 
 
 # --------------------------------------------------------------------------
@@ -1315,6 +1302,7 @@ def main_data(args, rng, api):
 
 def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
                kmods, counters, engine, errs):
+    from repro_torch.roofline import analysis
     log("== 4 main path: compress_many -> decompress_many(device_out=True) "
         "on cuda")
     data = main_data(args, rng, api)
@@ -1382,8 +1370,9 @@ def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
             plan.execute_device(engine)
 
     dec_ms = ms_of(run_staged, args.reps)
-    bound = sum(bound_ms(g.key[0], int(g.merged.comp_lens.sum()),
-                         g.num_chunks, g.key[2], g.key[1])
+    bound = sum(analysis.decode_bound_ms(
+                    g.key[0], int(g.merged.comp_lens.sum()), g.num_chunks,
+                    g.key[2], g.key[1])
                 for g in plan.groups)
     log(f"   output {out_bytes / 2**30:.3f} GiB, compressed "
         f"{comp_bytes / 2**20:.1f} MiB (ratio {comp_bytes / out_bytes:.4f})")
@@ -1427,8 +1416,8 @@ def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
         torch.cuda.empty_cache()
         name = kernel_of(codec)
         errs[name] = max(errs[name], err)
-        b = bound_ms(codec, int(g.merged.comp_lens.sum()), g.num_chunks,
-                     chunk_elems, width)
+        b = analysis.decode_bound_ms(codec, int(g.merged.comp_lens.sum()),
+                                     g.num_chunks, chunk_elems, width)
         per[name]["ms"] += k_ms
         per[name]["device_ms"] += d_ms
         per[name]["plain_ms"] += plain_ms
@@ -1612,6 +1601,7 @@ def phase_quantized(args, rng, dq, harness, transfers, counters, engine, errs,
                     per) -> dict:
     """decompress_dequant_matmul over every projection of ``--q-layers``
     layers of qwen3-1.7B; returns the path's launch counts."""
+    from repro_torch.roofline import analysis
     log("== 6 quantized-weight path: decompress_dequant_matmul, qwen3-1.7B "
         f"widths, {args.q_layers} layers, W4A16")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1723,7 +1713,7 @@ def phase_quantized(args, rng, dq, harness, transfers, counters, engine, errs,
                 fn()                    # warm: cuBLAS picks its algorithm
                 t[key] = ms_of(fn, args.reps)
             t["device"] = device_ms(fns["kernel"], args.reps)
-            b, what = matmul_bound(m, n, k, x.element_size())
+            b, what = analysis.matmul_bound(m, n, k, x.element_size())
             t["bound"] = b
             by[what] += b
             for key, v in t.items():
@@ -1770,7 +1760,7 @@ def phase_quantized(args, rng, dq, harness, transfers, counters, engine, errs,
         host.append(float(np.median(h)))
         device.append(device_ms(decode, args.reps))
     packed = sum(ca.compressed_bytes for _, _, _, ca, _, _ in weights)
-    decode_bound = (packed + raw) / HBM_BYTES_PER_S * 1e3
+    decode_bound = (packed + raw) / analysis.HBM_BW * 1e3
     log(f"   weight decode split over all {len(weights)} projections (sums "
         f"of medians of {args.reps}): host clock of decode_weights "
         f"{sum(host):.3f} ms, device time of its launch {sum(device):.3f} "
@@ -2004,6 +1994,7 @@ def phase_ablation(args, data, engine, scalar, registry, harness,
                    transfers, errs, per) -> int:
     """The §V-E ablation on phase 4's staged plan: returns the single-thread
     kernel's launches in its counted run."""
+    from repro_torch.roofline import analysis
     from repro_torch.core.engine import CodagEngine
     log("== 8 §V-E ablation: phase 4's staged plan through "
         "CodagEngine(EngineConfig(all_thread=False)).execute_device")
@@ -2076,8 +2067,8 @@ def phase_ablation(args, data, engine, scalar, registry, harness,
         err = max_abs_err(out_k, res.pop("p"))
         del out_k
         errs["scalar_decode"] = max(errs["scalar_decode"], err)
-        b = bound_ms(codec, int(g.merged.comp_lens.sum()), g.num_chunks,
-                     chunk_elems, width)
+        b = analysis.decode_bound_ms(codec, int(g.merged.comp_lens.sum()),
+                                     g.num_chunks, chunk_elems, width)
         tot["ms"] += s_ms
         tot["device_ms"] += s_dev
         tot["all_thread_device_ms"] += a_dev
@@ -2190,8 +2181,10 @@ def same_tensor(got: torch.Tensor, want: torch.Tensor) -> bool:
 
 def restore_bound_ms(cas) -> float:
     """PERF.md §2's bytes bound of decoding every blob of ``cas``."""
-    return sum(bound_ms(b.codec, int(b.comp_lens.sum()), b.num_chunks,
-                        b.chunk_elems, b.width) for ca in cas for b in ca.blobs)
+    from repro_torch.roofline import analysis
+    return sum(analysis.decode_bound_ms(b.codec, int(b.comp_lens.sum()),
+                                        b.num_chunks, b.chunk_elems, b.width)
+               for ca in cas for b in ca.blobs)
 
 
 def store_budget(window_bytes: list, total: int) -> int:
@@ -2344,6 +2337,7 @@ def phase_consumers(args, engine, counters, server, store_mod,
     service modes, and the fault-tolerant runner on the card.  The two
     checkpoints and the spilled corpus are left under ``keep`` (``moments``,
     ``weights``, ``shards``) for phase 14."""
+    from repro_torch.roofline import analysis
     import gc
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.data import pipeline
@@ -2398,8 +2392,8 @@ def phase_consumers(args, engine, counters, server, store_mod,
         shard = 1 << 20
         chunks = sum(-(-min(shard, toks.size - i) // (16 << 10))
                      for i in range(0, toks.size, shard))
-        bound = bound_ms("rle_v2", int(store.ratio * toks.nbytes), chunks,
-                         16 << 10, 4)
+        bound = analysis.decode_bound_ms(
+            "rle_v2", int(store.ratio * toks.nbytes), chunks, 16 << 10, 4)
         log(f"   corpus: {toks.size} tokens (vocab {VOCAB}, "
             f"{toks.nbytes / 2**20:.1f} MiB of u32, made in {corpus_s:.1f} s),"
             f" {store.num_shards} rle_v2 shards spilled to disk, ratio "
@@ -2536,36 +2530,6 @@ MODEL_TOL = 1e-3                   # card against CPU, float32, no TF32
 WIRE_CHECK_ROWS = 1 << 20
 
 
-def tree_bytes(tree) -> int:
-    from repro_torch.core.tree import leaves
-    return sum(t.numel() * t.element_size() for t in leaves(tree))
-
-
-def shared_apps(cfg) -> int:
-    """Applications of the hybrid's shared block in one pass."""
-    return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
-
-
-def decode_step_bytes(cfg, params, cache, batch: int):
-    """The least bytes of one decode step: every block weight and the head
-    read once (an MoE's every expert: each computes its slots; the hybrid's
-    shared block once an application, since its ~210 MB outlive the 50 MB
-    L2), ``batch`` rows of the embedding, the attention caches read whole
-    (every position is scored), the recurrent states read and written.
-    Returns (total, weights, attention caches, recurrent states)."""
-    emb = params["embed"]
-    weights = (tree_bytes(params) - emb.numel() * emb.element_size()
-               + batch * emb.shape[1] * emb.element_size())
-    if shared_apps(cfg):
-        weights += (shared_apps(cfg) - 1) * tree_bytes(params["shared_block"])
-    kv = sum(cache[k].numel() * cache[k].element_size()
-             for k in ("k", "v") if k in cache)
-    state = sum(2 * cache[k].numel() * cache[k].element_size()
-                for k in ("wkv", "x_att", "x_ffn", "ssm", "conv")
-                if k in cache)
-    return weights + kv + state, weights, kv, state
-
-
 class RouteTape:
     """Stands in for ``models.moe.top_k`` (``_dispatch_group`` looks it up
     at each call) and records, a call, the router logits it was given and
@@ -2686,9 +2650,9 @@ def moe_routes(cfg, params, seq, fwd_calls, device, first_step: int):
 
 def serve_and_check(label: str, sargs, device, check_cfg=None) -> dict:
     """``launch.serve.run_serving(sargs)`` timed beside its decode-step
-    bound (``decode_step_bytes``); then ``decode_step`` replayed over every
-    position on a fresh cache against ``forward``'s logits within a fixed
-    limit, and the greedy tokens against ``forward``'s argmax wherever its
+    bound (``analysis.decode_step_bytes``); then ``decode_step`` replayed
+    over every position on a fresh cache against ``forward``'s logits within
+    a fixed limit, and the greedy tokens against ``forward``'s argmax wherever its
     top-2 margin exceeds twice the limit (so the two cannot disagree by
     rounding alone).  ``check_cfg``: the config of the replay and
     ``forward`` (an MoE's no-drop capacity), else the served one.
@@ -2704,6 +2668,7 @@ def serve_and_check(label: str, sargs, device, check_cfg=None) -> dict:
     (``moe_routes``), and each route decode's own top-k would change must
     be a near tie by the rounding on those same routes.  Returns the run's
     numbers."""
+    from repro_torch.roofline import analysis
     import gc
     from repro_torch.core.tree import leaves as tree_leaves
     from repro_torch.launch import serve
@@ -2716,9 +2681,9 @@ def serve_and_check(label: str, sargs, device, check_cfg=None) -> dict:
     B, P, G = sargs.batch, sargs.prompt_len, sargs.gen
     n_params = sum(t.numel() for t in tree_leaves(params))
     step_ms = out["decode_s"] / G * 1e3
-    step_bytes, w_bytes, kv_bytes, st_bytes = decode_step_bytes(
+    step_bytes, w_bytes, kv_bytes, st_bytes = analysis.decode_step_bytes(
         cfg, params, out["cache"], B)
-    bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    bound = step_bytes / analysis.HBM_BW * 1e3
     log(f"   {label} serve: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.mixer} mixer, vocab {cfg.vocab}: {n_params / 1e9:.3f} B "
         f"parameters in {cfg.dtype}; run_serving {serve_s:.2f} s (init "
@@ -2748,7 +2713,7 @@ def serve_and_check(label: str, sargs, device, check_cfg=None) -> dict:
             unread = np.mean([sum(ccfg.n_experts - d[i] for d in
                                   r["distinct"]) for i in range(G)])
             routed = (step_bytes - unread * per_expert) \
-                / HBM_BYTES_PER_S * 1e3
+                / analysis.HBM_BW * 1e3
             share = r["flips"] / r["routes"]
             notes = (f"; on forward's routes: decode's own top-k differs "
                      f"at {r['flips']} of {r['routes']} (layer, token)s "
@@ -2817,50 +2782,6 @@ def serve_and_check(label: str, sargs, device, check_cfg=None) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return res
-
-
-def train_step_bound(cfg, params, batch: int, seq: int):
-    """The least time of one training step on this card, in ms, what bounds
-    it, and its FLOP and bytes, from the parameter tree.  Operations: 6
-    FLOP a parameter a token for the matmuls a token passes through
-    (forward and backward; an untied embedding table is gathered, not
-    multiplied; an MoE token through its ``top_k`` experts, not all of
-    them and not the capacity padding; the hybrid's shared block once an
-    application) plus causal attention's scores and weighted sum (3 x 2 x
-    B x H x hd x S(S+1) FLOP an attention layer or application, forward
-    and backward), at the bf16 peak.  Bytes: every parameter read and
-    written once, with its two int8 moments and their float32 scales (one
-    a block of 128), and a recurrent mixer's state read and written once a
-    layer in each of the three passes (forward, the remat recompute,
-    backward)."""
-    from repro_torch.core.tree import leaves
-    n = sum(t.numel() for t in leaves(params))
-    per_token = n - (0 if cfg.tie_embeddings else params["embed"].numel())
-    if cfg.is_moe:
-        moe = params["blocks"]["moe"]
-        experts = sum(moe[k].numel() for k in ("w_up", "w_gate", "w_down"))
-        per_token -= experts - experts * cfg.top_k // cfg.n_experts
-    if shared_apps(cfg):
-        per_token += (shared_apps(cfg) - 1) * sum(
-            t.numel() for t in leaves(params["shared_block"]))
-    attn_layers = (cfg.n_layers if cfg.mixer == "attn"
-                   else shared_apps(cfg))
-    flops = (6 * per_token * batch * seq
-             + 6 * attn_layers * batch * cfg.n_heads * cfg.hd * seq
-             * (seq + 1))
-    param_bytes = params["embed"].element_size()
-    nbytes = 2 * n * (param_bytes + 2 * (1 + 4 / 128))
-    if cfg.mixer == "rwkv6":
-        hd = cfg.d_model // cfg.n_heads
-        nbytes += 3 * 2 * 4 * cfg.n_layers * batch * cfg.n_heads * hd * hd
-    elif cfg.mixer == "mamba2":
-        nbytes += (3 * 2 * 4 * cfg.n_layers * batch
-                   * (2 * cfg.d_model // cfg.hd) * cfg.hd * cfg.ssm_state)
-    flop_ms = flops / BF16_FLOPS * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    if flop_ms >= byte_ms:
-        return flop_ms, "operations", flops, nbytes
-    return byte_ms, "bytes", flops, nbytes
 
 
 def check_wire(dev: dict, kw: dict, res: torch.Tensor) -> bool:
@@ -3032,15 +2953,16 @@ def training_problems(m, rec, n_wire: int, unfused: int) -> list:
 
 def log_training(label: str, m, rec, targs, params) -> None:
     """Log a ``checked_training`` run: losses, peak memory, the median step
-    beside ``train_step_bound``, launches and what was held."""
+    beside ``analysis.train_step_bound``, launches and what was held."""
+    from repro_torch.roofline import analysis
     from repro_torch.core.tree import leaves
     tcfg = rec["cfg"]
     losses = m["losses"]
     k = max(1, len(losses) // 10)
     tokens = targs.batch * targs.seq
     step_s = float(np.median(m["step_seconds"]))
-    bound, by, flops, nbytes = train_step_bound(tcfg, params, targs.batch,
-                                                targs.seq)
+    bound, by, flops, nbytes = analysis.train_step_bound(
+        tcfg, params, targs.batch, targs.seq)
     n = sum(t.numel() for t in leaves(params))
     log(f"   {label} train: {tcfg.n_layers} layers at full width "
         f"({n / 1e6:.1f} M parameters), batch {targs.batch} x seq "
@@ -3053,8 +2975,9 @@ def log_training(label: str, m, rec, targs, params) -> None:
     log(f"   step {step_s * 1e3:.2f} ms (median of {len(m['step_seconds'])}"
         f", host clock, synchronised) = {tokens / step_s:.0f} tokens/s; "
         f"bound {bound:.2f} ms by {by}: {flops / 1e12:.2f} TFLOP at "
-        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s = {flops / BF16_FLOPS * 1e3:.2f} "
-        f"ms, {nbytes / 1e9:.2f} GB = {nbytes / HBM_BYTES_PER_S * 1e3:.2f} "
+        f"{analysis.PEAK_FLOPS / 1e12:.0f} TFLOP/s = "
+        f"{flops / analysis.PEAK_FLOPS * 1e3:.2f} "
+        f"ms, {nbytes / 1e9:.2f} GB = {nbytes / analysis.HBM_BW * 1e3:.2f} "
         f"ms (train_step_bound); the step {step_s * 1e3 / bound:.1f}x its "
         f"bound")
     wire, shards, fed = rec["wire"], rec["shards"], rec["fed"]
@@ -3128,6 +3051,7 @@ def card_vs_cpu(label: str, ccfg, seed: int, device,
 def wire_step_ms(args, engine, leaves) -> None:
     """One step's wire decode, device time, against its bytes: the given
     leaves stand in for gradients of the same shapes."""
+    from repro_torch.roofline import analysis
     from repro_torch.core import plan as plan_mod
     from repro_torch.distributed import collectives
     from repro_torch.kernels import bitpack, harness
@@ -3164,7 +3088,7 @@ def wire_step_ms(args, engine, leaves) -> None:
         f"{rows} rows of {gc_mod.QBLOCK}, device {wire_ms:.3f} ms (median "
         f"of {args.reps}); bound {wire_bytes / 1e9:.3f} GB (words read, "
         f"scales, float32 written) = "
-        f"{wire_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; the plain body + "
+        f"{wire_bytes / analysis.HBM_BW * 1e3:.3f} ms; the plain body + "
         f"apply on the largest leaf ({big['comp_words'].shape[0]} rows) "
         f"{plain_ms:.3f} ms")
 
@@ -3251,6 +3175,7 @@ def phase_families(args, engine, counters):
     trained through the loader and the int8 gradient wire, and each
     family on the card against the CPU in float32.  Returns the launches by
     kernel."""
+    from repro_torch.roofline import analysis
     import gc
     from repro_torch.configs import get_arch
     from repro_torch.core.tree import leaves as tree_leaves
@@ -3292,7 +3217,7 @@ def phase_families(args, engine, counters):
         serve_and_check(label, serve_args(arch), device)
         secs[label[:3]] = time.perf_counter() - t0
     log("   (c)'s bound reads the shared block once an application "
-        f"({shared_apps(get_arch('zamba2-2.7b'))} a step)")
+        f"({analysis.shared_apps(get_arch('zamba2-2.7b'))} a step)")
 
     # (d), (e) train: batch 8 x seq 512 from the driver's rle_v2 corpus,
     # int8 wire and moments, 6 steps, no failure injected
@@ -3409,7 +3334,8 @@ def reduce_bound_ms(n: int, nb: int) -> float:
     """The member reduce's least time: every member's wire rows (128 bytes
     of 8-bit fields) and float32 scales read once, the (nb, 128) float32
     output written once, at the card's memory rate."""
-    return (n * nb * (128 + 4) + nb * 128 * 4) / HBM_BYTES_PER_S * 1e3
+    from repro_torch.roofline import analysis
+    return (n * nb * (128 + 4) + nb * 128 * 4) / analysis.HBM_BW * 1e3
 
 
 def reduce_edge_cases(device) -> int:
@@ -3592,9 +3518,11 @@ def sync_bound_ms(pod_params, outer) -> float:
     """An outer sync's least time: the pod params, the anchor and the
     float32 momentum read once, the new pods, anchor and momentum written
     once, at the card's memory rate."""
-    nbytes = 2 * (tree_bytes(pod_params) + tree_bytes(outer["anchor"])
-                  + tree_bytes(outer["outer_mom"]))
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    from repro_torch.roofline import analysis
+    nbytes = 2 * (analysis.tree_bytes(pod_params)
+                  + analysis.tree_bytes(outer["anchor"])
+                  + analysis.tree_bytes(outer["outer_mom"]))
+    return nbytes / analysis.HBM_BW * 1e3
 
 
 def phase_collectives(args, engine, counters):
@@ -3603,6 +3531,7 @@ def phase_collectives(args, engine, counters):
     CPU, and DiLoCo training through ``launch/train.py --diloco``.  Returns
     (the reduce entry's row of the kernels line, the DiLoCo run's launches
     by kernel)."""
+    from repro_torch.roofline import analysis
     import gc
     from repro_torch.core import plan as plan_mod
     from repro_torch.core.engine import EngineConfig
@@ -3659,7 +3588,7 @@ def phase_collectives(args, engine, counters):
             f"version {err} (slices of {PSUM_CHECK_ROWS} rows); ms "
             f"{ms:.3f}, device {dms:.3f} (median of {args.reps}); bound "
             f"{bound:.3f} ms (bytes: {n} x {nb} x 132 B read, {nb} x 512 B "
-            f"written, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+            f"written, at {analysis.HBM_BW / 1e12:.2f} TB/s), "
             f"{bound / dms:.1%} of it; plain version {plain_ms:.3f} ms")
         if err != 0:
             raise AssertionError(f"13 (a) reduce at {n} members differs from "
@@ -4336,6 +4265,7 @@ def phase_mesh(args, engine, counters) -> dict:
     the card (``launch.steps.sharded_step``), each against the same work
     without a mesh, and the runner's elastic restart onto a smaller mesh.
     Returns the launches by kernel."""
+    from repro_torch.roofline import analysis
     import gc
     from repro_torch.configs import ShapeSpec, get_arch
     from repro_torch.core.engine import EngineConfig
@@ -4446,7 +4376,8 @@ def phase_mesh(args, engine, counters) -> dict:
         f"token and every cache leaf (assembled) == the unsharded serve's; "
         f"each step gathers the parameters anew: {gather_ms:.3f} ms device "
         f"({gather_host:.3f} ms with its host time, median of {args.reps}) "
-        f"for {pbytes / 1e9:.3f} GB, bound {2 * pbytes / HBM_BYTES_PER_S * 1e3:.3f}"
+        f"for {pbytes / 1e9:.3f} GB, bound "
+        f"{2 * pbytes / analysis.HBM_BW * 1e3:.3f}"
         f" ms (read and written once); peak memory {peak:.2f} GiB "
         f"[{CARD['label']}]")
     del out, placed, plain_cache
@@ -4555,6 +4486,186 @@ def phase_mesh(args, engine, counters) -> dict:
     return launched
 
 
+# phase 16: the counts the dry-run makes on ``meta`` against the same
+# programs on the card.  Peak temp bytes: the counter tracks storages on
+# either device alike, so card and ``meta`` peaks must agree within
+# COUNT_PEAK_TOL; the caching allocator's ``max_memory_allocated`` rounds
+# every block up to 512 bytes and holds cuBLAS's workspace, so the
+# dry-run's argument + temp bytes must lie within MEMORY_TOL of it
+COUNT_PEAK_TOL = 0.001
+MEMORY_TOL = 0.03
+ROOFLINE_REPS = 5
+
+
+def counted(step, args, device) -> "object":
+    """``device``'s counts of ``step(*args)`` under ``count_costs``, the
+    rope frequencies uploaded afresh (as the dry-run counts)."""
+    from repro_torch.models import layers
+    from repro_torch.roofline.count import count_costs
+    layers._rope_freqs_on.cache_clear()
+    with count_costs() as counter:
+        out = step(*args)
+        del out
+    return counter.at(device)
+
+
+def roofline_row(label: str, costs, model_flops: float, ms: float) -> dict:
+    """Log a step's counted roofline beside its measured ms; return both."""
+    from repro_torch.roofline import analysis
+    roof = analysis.analyze(costs, model_flops, 1)
+    log(f"   {label}: {ms:.3f} ms measured (median of {ROOFLINE_REPS}); "
+        f"counted {costs.flops / 1e12:.4f} TFLOP, {costs.bytes / 1e9:.3f} "
+        f"GB read and written by {costs.ops} ops: t_compute "
+        f"{roof.t_compute * 1e3:.3f} ms, t_memory {roof.t_memory * 1e3:.3f} "
+        f"ms, dominant {roof.dominant}, t_bound {roof.t_bound * 1e3:.3f} ms; "
+        f"measured / bound {ms / (roof.t_bound * 1e3):.2f} "
+        f"[{CARD['label']}]")
+    return {"ms": ms, **roof.to_dict()}
+
+
+def phase_roofline(args, engine) -> dict:
+    """Phase 16: the port's roofline on the card (``roofline/count.py``,
+    ``roofline/analysis.py``, ``launch/dryrun.py``): phase 11's serve
+    decode step and its 4-layer train step without the wire, each counted
+    on the card and on ``meta`` (equal counts), timed beside its counted
+    roofline, the train step's memory against ``max_memory_allocated``,
+    and one dry-run cell in a subprocess.  Returns the readings."""
+    import gc
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.roofline import analysis
+    log("== 16 the roofline on the card: phase 11's qwen3-1.7B decode step "
+        "and 4-layer train step counted on the card and on meta, each timed "
+        "beside its roofline; one dry-run cell")
+    device = engine.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+
+    def same_counts(label, card, meta):
+        keys = ("flops", "bytes", "coll", "ops")
+        got = {k: (getattr(card, k), getattr(meta, k)) for k in keys}
+        peak = card.peak / meta.peak - 1 if meta.peak else 0.0
+        log(f"   {label} counts, card == meta: FLOPs {card.flops:,}, bytes "
+            f"{card.bytes:,}, collectives {card.coll}, ops {card.ops}; temp "
+            f"peak {card.peak:,} on the card, {meta.peak:,} on meta "
+            f"({peak:+.2e}; limit {COUNT_PEAK_TOL:g})")
+        bad = [k for k, (a, b) in got.items() if a != b]
+        if bad or abs(peak) > COUNT_PEAK_TOL:
+            raise AssertionError(f"{label}: card and meta counts differ: "
+                                 f"{bad or 'peak'}")
+
+    # (a), (b) the serve decode step: 28 layers, batch 8, a 104-position
+    # cache (64 prompt + 32 generated + 8)
+    cfg = get_arch("qwen3-1.7b")
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = model.init_params(cfg, gen, device=device)
+    tokens = torch.randint(0, cfg.vocab, (8, 1), generator=gen,
+                           device=device, dtype=torch.int32)
+    serve = steps.build_serve_step(cfg)
+
+    def decode_args(dev):
+        cache = model.init_cache(cfg, 8, 104, device=dev)
+        if dev == "meta":
+            return (model.abstract_params(cfg), cache,
+                    {"tokens": torch.empty((8, 1), dtype=torch.int32,
+                                           device="meta")})
+        return params, cache, {"tokens": tokens}
+
+    card_args = decode_args(device)
+    serve(*card_args)                     # warm: cuBLAS, the rope table
+    card = counted(serve, card_args, device)
+    same_counts("(a) decode step", card,
+                counted(serve, decode_args("meta"), "meta"))
+    ms = ms_of(lambda: serve(*card_args), ROOFLINE_REPS)
+    step_bytes = analysis.decode_step_bytes(cfg, params, card_args[1], 8)[0]
+    out["decode"] = roofline_row(
+        "(b) decode step", card,
+        analysis.model_flops_for(cfg, ShapeSpec("d", 104, 8, "decode")), ms)
+    log(f"   the decode step's analytic bound (decode_step_bytes) "
+        f"{step_bytes / analysis.HBM_BW * 1e3:.3f} ms; the eager program "
+        f"moves {card.bytes / step_bytes:.1f}x its bytes")
+    del params, card_args, serve
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a)-(c) the train step: 4 layers at full width, batch 8 x 512, int8
+    # moments, no gradient wire (phase 11 (b)'s step without the wire)
+    tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    oc = adamw.AdamWConfig(lr=TRAIN_LR, compress_moments=True)
+    step = steps.build_train_step(tcfg, oc)
+    params = model.init_params(tcfg, gen, device=device)
+    state = (params, adamw.init(params, oc))
+    batch = {k: torch.randint(0, tcfg.vocab, (8, 512), generator=gen,
+                              device=device, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    meta_state = steps.abstract_train_state(tcfg, oc)
+    meta_batch = {k: torch.empty((8, 512), dtype=torch.int32, device="meta")
+                  for k in batch}
+    step(*state, batch)                   # warm
+    sync(device)
+    card = counted(step, (*state, batch), device)
+    meta = counted(step, (*meta_state, meta_batch), "meta")
+    same_counts("(a) train step", card, meta)
+    ms = ms_of(lambda: step(*state, batch), ROOFLINE_REPS)
+    out["train"] = roofline_row(
+        "(b) train step", card,
+        analysis.model_flops_for(tcfg, ShapeSpec("t", 512, 8, "train")), ms)
+    bound, by, _, _ = analysis.train_step_bound(tcfg, params, 8, 512)
+    log(f"   the train step's analytic bound (train_step_bound) {bound:.2f} "
+        f"ms by {by}")
+    # (c) the dry-run's argument + temp bytes against the card's peak over
+    # one step (allocations outside the step's arguments subtracted)
+    arg = sum(analysis.tree_bytes(t) for t in (*state, batch))
+    gc.collect()
+    sync(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    res = step(*state, batch)
+    sync(device)
+    peak = torch.cuda.max_memory_allocated(device) - before + arg
+    del res
+    want = arg + meta.peak
+    share = peak / want - 1
+    log(f"   (c) train step memory: arguments {arg / 2**30:.3f} GiB + the "
+        f"dry-run's temp {meta.peak / 2**30:.3f} GiB = {want / 2**30:.3f} "
+        f"GiB; max_memory_allocated over the step (less what was allocated "
+        f"outside its arguments) {peak / 2**30:.3f} GiB ({share:+.2%}; "
+        f"limit {MEMORY_TOL:.0%}) [{CARD['label']}]")
+    if abs(share) > MEMORY_TOL:
+        raise AssertionError(f"train step memory {peak} against the "
+                             f"dry-run's {want}")
+    out["memory"] = {"dryrun_bytes": want, "card_bytes": peak}
+    del state, batch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) one dry-run cell, as a user runs it
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        res_path = Path(tmp) / "dryrun.json"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "qwen3-1.7b", "--shape", "decode_32k", "--out", str(res_path)],
+            capture_output=True, text=True, env=env, timeout=300)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"dry-run exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        cell = json.loads(res_path.read_text())[
+            "qwen3-1.7b|decode_32k|single"]
+    log(f"   (d) python -m repro_torch.launch.dryrun --arch qwen3-1.7b "
+        f"--shape decode_32k ({secs:.1f} s, CPU counts on meta, divided "
+        f"by the H100 constants): {json.dumps(cell)}")
+    if cell.get("status") != "ok":
+        raise AssertionError(f"dry-run cell: {cell.get('status')}")
+    out["dryrun_cell"] = cell
+    return out
+
+
 def leaves_of(tree):
     from repro_torch.core.tree import leaves
     return list(leaves(tree))
@@ -4644,6 +4755,9 @@ def main() -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="run phases 1, 2 and 15 alone (the model's steps "
                     "under a mesh), with no result line")
+    ap.add_argument("--roofline-only", action="store_true",
+                    help="run phases 1, 2 and 16 alone (the roofline on "
+                    "the card), with no result line")
     ap.add_argument("--stage-only", action="store_true",
                     help="only time DecodePlan.build and stage by part on "
                     "phase 4's workload (cold, then warm), and stop")
@@ -4716,6 +4830,9 @@ def main() -> int:
         launched = phase_mesh(args, engine, counters)
         log(f"phase 15 alone, launches: {json.dumps(launched)}")
         return 0
+    if args.roofline_only:
+        phase_roofline(args, engine)
+        return 0
     phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
                           engine.device, counters)
     phase_dequant_vs_plain(rng, dq, errs, engine.device)
@@ -4745,7 +4862,8 @@ def main() -> int:
         placed = phase_sharded(args, engine, counters, data, Path(keep))
     del data
     meshed = phase_mesh(args, engine, counters)
-    log("== 16 kernels")
+    phase_roofline(args, engine)
+    log("== 17 kernels")
     kernels = []
     for name in KERNELS:
         source, replaces = SOURCES.get(

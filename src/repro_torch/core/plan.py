@@ -54,6 +54,7 @@ from repro_torch.core import transfers
 from repro_torch.distributed.sharding import (ShardedTensor, decode_axis,
                                               placeable)
 from repro_torch.kernels import ops
+from repro_torch.roofline import count
 
 # Bounded content-keyed LRU slots for staged epilogue operands.
 OPERAND_CACHE_SLOTS = 8
@@ -195,6 +196,10 @@ def gather_member_tables(devs: Sequence[Dict[str, Any]], *,
             out[k] = v
             continue
         out[k] = torch.cat([d[k] for d in devs])
+    count.collective("all-gather", sum(
+        out[k].numel() * out[k].element_size() for k in out
+        if k not in shared and isinstance(out[k], torch.Tensor)
+        and out[k] is not devs[0][k]), out["out_lens"].device)
     if row_counts is not None:
         lens = out["out_lens"]
         counts = torch.as_tensor(row_counts, dtype=torch.int64,

@@ -25,11 +25,13 @@ def leaves(tree) -> Iterator[Any]:
 def rebuild(like, new_leaves: List[Any]):
     """``like``'s structure with its leaves (in :func:`leaves`' order)
     replaced by ``new_leaves``."""
-    it = iter(new_leaves)
+    return _rebuild(like, iter(new_leaves))
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return walk(like)
+def _rebuild(node, it: Iterator[Any]):
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle, which would keep ``new_leaves`` (a step's gradients)
+    # alive until the cycle collector runs
+    if isinstance(node, dict):
+        return {k: _rebuild(node[k], it) for k in sorted(node)}
+    return next(it)

@@ -49,6 +49,7 @@ from repro_torch.core.engine import EngineConfig, resolve_device
 from repro_torch.core.tree import leaves, map_tree, rebuild
 from repro_torch.kernels.harness import Epilogue, MemberReduce
 from repro_torch.optim import grad_compress as gc
+from repro_torch.roofline import count
 
 WIRE_CODEC = "bitpack"
 WIRE_BITS = 8          # int8 deltas, biased to [0, 254]
@@ -185,6 +186,7 @@ def gathered_wire(x: torch.Tensor) -> Dict[str, Any]:
     dev = plan_mod.gather_member_tables([w for w, _ in wires],
                                         codec=WIRE_CODEC)
     dev["wire_scale"] = torch.cat([s for _, s in wires]).reshape(-1, 1)
+    count.collective("all-gather", dev["wire_scale"].numel() * 4, x.device)
     dev["wire_zero"] = torch.full((), WIRE_ZERO, dtype=torch.float32,
                                   device=x.device)
     return dev
@@ -255,6 +257,7 @@ def topk_psum(x: torch.Tensor, residual: torch.Tensor,
                                chunk_elems=MASK_CHUNK, bits=1))
     dev = plan_mod.gather_member_tables(tables, codec=WIRE_CODEC)
     dev["topk_vals"] = torch.stack(vals)
+    count.collective("all-gather", dev["topk_vals"].numel() * 2, device)
     epi = Epilogue(fn=_mask_scatter_reduce(n, mean))
     dense = plan_mod.dispatch(dev, config=config, codec=WIRE_CODEC, width=1,
                               chunk_elems=MASK_CHUNK, bits=1, epilogue=epi,

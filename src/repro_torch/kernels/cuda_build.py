@@ -26,6 +26,8 @@ import time
 from pathlib import Path
 from typing import List, Optional, Sequence
 
+from repro_torch.roofline import count
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -194,7 +196,9 @@ def launch_on(device, lib, *args) -> None:
 
 def launch(lib, *args) -> None:
     """Call a library's (or a :class:`KernelEntry`'s) entry point; raise on
-    the CUDA error it returns."""
+    the CUDA error it returns.  Under ``roofline.count.count_costs`` it
+    raises before the launch: the counter cannot see a ``ctypes`` call."""
+    count.refuse_kernel(lib.entry)
     err = lib.fn()(*args)
     if err:
         raise RuntimeError(f"{lib.entry} launch failed: CUDA error {err}")

@@ -61,6 +61,7 @@ from repro_torch.core.tree import leaves, map_tree, rebuild
 from repro_torch.distributed import sharding
 from repro_torch.models import layers, model
 from repro_torch.optim import adamw
+from repro_torch.roofline import count
 
 
 def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, Any]:
@@ -217,34 +218,71 @@ def _first_sharding(tree):
     return None
 
 
+def _blocks(sh, shape) -> int:
+    """The distinct blocks ``sh`` splits a tensor of ``shape`` into."""
+    n = 1
+    for k in sh._splits(len(shape)):
+        n *= k
+    return n
+
+
+def _nbytes(shape, dtype: torch.dtype) -> int:
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n * dtype.itemsize
+
+
 def _member_updates(p: torch.Tensor, g: torch.Tensor, m, v, corrections,
-                    opt_cfg: adamw.AdamWConfig):
+                    opt_cfg: adamw.AdamWConfig, p_sh, n_dp: int):
     """ZeRO-1: each member's AdamW update of its own optimizer block of one
-    parameter leaf (module docstring).  ``p`` and ``g`` are the gathered
-    parameter and the whole gradient; ``m`` and ``v`` the leaf's moments
-    (a ``ShardedTensor``, or ``{"q", "s"}`` of them); ``corrections`` each
-    member's bias corrections, from its own step counter.  Returns the updated
-    parameter, whole (each region written once, by its first member), and
-    the members' new moment shards."""
+    parameter leaf (module docstring), for the members ``corrections``
+    holds (each member's bias corrections, from its own step counter).
+    ``p`` and ``g`` are the gathered parameter and the whole gradient;
+    ``m`` and ``v`` the leaf's moments (a ``ShardedTensor``, or ``{"q",
+    "s"}`` of them); ``p_sh`` the parameter's sharding; ``n_dp`` the DP
+    members whose gradients are reduced.  Returns the updated parameter,
+    whole (each region written once, by its first member), and the members'
+    new moment shards.
+
+    Records the leaf's collectives with ``roofline.count``, the result
+    bytes one member receives: the gradient's reduction to the member's
+    region (a reduce-scatter, or an all-reduce where the regions do not
+    split the leaf) and the updated regions' all-gather back to the
+    parameter's block, where the regions split it finer."""
     new_p = torch.empty_like(p)
     int8 = isinstance(m, dict)
     ref = m["q"] if int8 else m
     regions = ref.sharding.member_indices(ref.shape)
     n = p.numel()
-    seen = set()
-    new_m, new_v = [], []
-    for k, idx in enumerate(regions):
+    spans = []
+    for idx in regions:
         if int8:
             rows = idx[0]
-            lo = rows.start * adamw.QBLOCK
-            hi = min(rows.stop * adamw.QBLOCK, n)
-            region = (slice(lo, hi),)
+            spans.append((slice(rows.start * adamw.QBLOCK,
+                                min(rows.stop * adamw.QBLOCK, n)),))
+        else:
+            spans.append(idx)
+    distinct = len({tuple((s.start, s.stop) for s in r) for r in spans})
+    if n_dp > 1:
+        extent = [sl.stop - sl.start for sl in spans[0]]
+        count.collective("reduce-scatter" if distinct > 1 else "all-reduce",
+                         _nbytes(extent, g.dtype), g.device)
+    if distinct > _blocks(p_sh, p.shape):
+        count.collective("all-gather",
+                         _nbytes(p_sh.shard_shape(p.shape), p.dtype),
+                         p.device)
+    seen = set()
+    new_m, new_v = [], []
+    for k in corrections:
+        region = spans[k]
+        if int8:
+            lo, hi = region[0].start, region[0].stop
             p_k, g_k = p.reshape(-1)[lo:hi], g.reshape(-1)[lo:hi]
             m_k = {key: m[key].shards[k] for key in ("q", "s")}
             v_k = {key: v[key].shards[k] for key in ("q", "s")}
         else:
-            region = idx
-            p_k, g_k = p[idx], g[idx]
+            p_k, g_k = p[region], g[region]
             m_k, v_k = m.shards[k], v.shards[k]
         out_p, out_m, out_v = adamw.update_leaf(p_k, g_k, m_k, v_k,
                                                 *corrections[k], opt_cfg)
@@ -271,28 +309,61 @@ def _moment(shards: list, like):
                                   shards[0].dtype)
 
 
-def _zero1_apply(params, grads, opt_state, opt_cfg: adamw.AdamWConfig):
+def _zero1_apply(params, grads, opt_state, opt_cfg: adamw.AdamWConfig,
+                 p_sh, n_dp: int, members=None):
     """AdamW member by member on the ZeRO-1 blocks of ``opt_state`` (placed
-    under ``opt_shardings``): ``(params whole, new opt_state placed)``."""
+    under ``opt_shardings``): ``(params whole, new opt_state placed)``.
+    ``p_sh``: the parameters' shardings; ``n_dp``: the DP members whose
+    gradients are reduced.  ``members``: only these members' updates, and
+    their new states (a step counter and moment tree a member) in place of
+    the placed state."""
     counter = opt_state["step"]
-    steps, corrections = [], []
-    for shard in counter.shards:            # each member its own copy
-        st, b1c, b2c = adamw.bias_corrections(shard, opt_cfg)
+    ks = range(len(counter.shards)) if members is None else members
+    steps, corrections = [], {}
+    for k in ks:                            # each member its own copy
+        st, b1c, b2c = adamw.bias_corrections(counter.shards[k], opt_cfg)
         steps.append(st)
-        corrections.append((b1c, b2c))
+        corrections[k] = (b1c, b2c)
 
-    def update(p, g, m, v):
-        whole, ms, vs = _member_updates(p, g, m, v, corrections, opt_cfg)
+    def update(p, g, m, v, sh):
+        whole, ms, vs = _member_updates(p, g, m, v, corrections, opt_cfg,
+                                        sh, n_dp)
+        if members is not None:
+            return whole, ms, vs
         return whole, _moment(ms, m), _moment(vs, v)
 
     # the parameters' structure leads: an int8 moment's {"q", "s"} reaches
     # ``update`` whole, as in ``adamw.apply``
-    out = map_tree(update, params, grads, opt_state["m"], opt_state["v"])
+    out = map_tree(update, params, grads, opt_state["m"], opt_state["v"],
+                   p_sh)
     new_p, new_m, new_v = (map_tree(lambda o, i=i: o[i], out)
                            for i in range(3))
+    if members is not None:
+        return new_p, [{"step": st,
+                        "m": map_tree(lambda x, j=j: x[j], new_m),
+                        "v": map_tree(lambda x, j=j: x[j], new_v)}
+                       for j, st in enumerate(steps)]
     step = sharding.ShardedTensor(steps, counter.sharding, counter.shape,
                                   counter.dtype)
     return new_p, {"step": step, "m": new_m, "v": new_v}
+
+
+def _dp_members(batch) -> int:
+    """The DP members a placed batch is split over."""
+    x = next(leaves(batch))
+    return _blocks(x.sharding, x.shape) \
+        if isinstance(x, sharding.ShardedTensor) else 1
+
+
+def _record_gather(tree) -> None:
+    """Record, with ``roofline.count``, an all-gather of each placed leaf of
+    ``tree`` split into more than one block: its global bytes, what each
+    member receives."""
+    for x in leaves(tree):
+        if isinstance(x, sharding.ShardedTensor) and \
+                _blocks(x.sharding, x.shape) > 1:
+            count.collective("all-gather", _nbytes(x.shape, x.dtype),
+                             x.device)
 
 
 def sharded_step(step: Callable, in_shardings,
@@ -324,13 +395,85 @@ def sharded_step(step: Callable, in_shardings,
                 out = step(*sharding.gather(placed))
             else:
                 params, opt_state, batch = placed
+                _record_gather(params)
                 full = sharding.gather(params)
                 loss, grads = train(full, sharding.gather(batch))
                 new_p, new_o = _zero1_apply(full, grads, opt_state,
-                                            step.opt_cfg)
+                                            step.opt_cfg, in_shardings[0],
+                                            _dp_members(batch))
                 del full, grads
                 out = (new_p, new_o, loss)
         return sharding.gather(out) if out_shardings is None \
             else sharding.place(out, out_shardings)
+
+    return run
+
+
+def _dp_block(x, member: int, dp_axes):
+    """``x``'s block of ``member`` with only the DP axes split: what the
+    member computes on, since compute is not split over ``model``.  A
+    placed leaf whose own block is smaller is gathered over its other axes
+    (an all-gather recorded with ``roofline.count``: the block's bytes);
+    other leaves as they are."""
+    if isinstance(x, dict):
+        return {k: _dp_block(v, member, dp_axes) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_dp_block(v, member, dp_axes) for v in x)
+    if not isinstance(x, sharding.ShardedTensor):
+        return x
+    kept = sharding.P(*(tuple(a for a in ((part,) if isinstance(part, str)
+                                          else part or ()) if a in dp_axes)
+                        or None for part in x.sharding.spec))
+    dp_sh = sharding.NamedSharding(x.sharding.mesh, kept)
+    if _blocks(dp_sh, x.shape) == _blocks(x.sharding, x.shape):
+        return x.shards[member]
+    want = dp_sh.member_indices(x.shape)[member]
+    shape = dp_sh.shard_shape(x.shape)
+    count.collective("all-gather", _nbytes(shape, x.dtype), x.device)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    seen = set()
+    for idx, shard in zip(x.sharding.member_indices(x.shape), x.shards):
+        key = tuple((s.start, s.stop) for s in idx)
+        if key in seen or any(s.start < w.start or s.stop > w.stop
+                              for s, w in zip(idx, want)):
+            continue
+        seen.add(key)
+        out[tuple(slice(s.start - w.start, s.stop - w.start)
+                  for s, w in zip(idx, want))] = shard
+    return out
+
+
+def member_step(step: Callable, in_shardings, member: int = 0) -> Callable:
+    """Member ``member``'s share of ``sharded_step(step, in_shardings)``:
+    the program one member runs where each member holds a device of its
+    own, with compute not split over ``model`` (ROADMAP.md Queue 1 item
+    11c).  It takes the placed arguments and reads only the member's
+    blocks: each argument is gathered to the member's DP block (the
+    parameters whole, a decode cache's heads over ``model``; the batch is
+    the member's own block), the step runs on that block without a mesh
+    (the MoE's one group is the member's tokens, as each of the
+    reference's DP groups is a device's), and a train step of
+    :func:`build_train_step` then reduces its gradient to the member's
+    ZeRO-1 region, updates it and gathers the regions back.  Every
+    collective is recorded with ``roofline.count``, the result bytes the
+    member receives.  Returns the step's outputs for the member: a train
+    step's ``(params whole, {"step", "m", "v"} of the member, loss)``.
+    The dry-run (``launch/dryrun.py``) counts this program on ``meta``
+    tensors."""
+    mesh = _first_sharding(in_shardings).mesh
+    with sharding.use_mesh(mesh, sharding.current_policy()):
+        dp_axes = sharding.dp_axes(mesh)
+    train = getattr(step, "loss_and_grads", None)
+
+    def run(*placed):
+        if train is None:
+            return step(*_dp_block(placed, member, dp_axes))
+        params, opt_state, batch = placed
+        full = _dp_block(params, member, dp_axes)
+        loss, grads = train(full, _dp_block(batch, member, dp_axes))
+        new_p, (state,) = _zero1_apply(full, grads, opt_state, step.opt_cfg,
+                                       in_shardings[0], _dp_members(batch),
+                                       members=(member,))
+        return new_p, state, loss
 
     return run

@@ -190,8 +190,12 @@ def layer_params(blocks, i: int):
 def _layer_stack(cfg: ArchConfig, params, x: torch.Tensor,
                  remat: bool) -> torch.Tensor:
     shared = params.get("shared_block")
+    # one unbind a stacked leaf: its backward stacks the layers' gradients
+    # once, where indexing each layer apart would add a zero-filled
+    # gradient of the whole stack a layer (traffic quadratic in depth)
+    per_layer = map_tree(torch.unbind, params["blocks"])
     for i in range(cfg.n_layers):
-        p_i = layer_params(params["blocks"], i)
+        p_i = map_tree(lambda layers, i=i: layers[i], per_layer)
         if remat:
             x = checkpoint(
                 lambda x, p_i=p_i, i=i: _block_fwd(cfg, p_i, x, shared, i),

@@ -84,7 +84,10 @@ def _dispatch_group(xt: torch.Tensor, router: torch.Tensor, E: int, K: int,
     flat_ids = ids.reshape(-1)                               # (T*K,)
     order = torch.argsort(flat_ids, stable=True)             # group by expert
     sorted_ids = flat_ids[order]
-    counts = torch.bincount(flat_ids, minlength=E)
+    # bincount's output length depends on the data, so it has no ``meta``
+    # kernel: the dry-run counts this program on ``meta`` tensors
+    counts = torch.zeros(E, dtype=torch.int64, device=xt.device).index_add_(
+        0, flat_ids, torch.ones_like(flat_ids))
     offsets = torch.cumsum(counts, 0) - counts               # exclusive
     rank = torch.arange(T * K, device=xt.device) - offsets[sorted_ids]
     slot = torch.where(rank < C, sorted_ids * C + rank,
@@ -119,6 +122,19 @@ def quantize_expert_weights(p_moe):
         s = amax / 127.0 + 1e-12
         q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
         out[key] = {"q": q, "s": s.float()}
+    return out
+
+
+def abstract_quantize_expert_weights(p_moe):
+    """:func:`quantize_expert_weights`' shapes and dtypes as ``meta``
+    tensors, with nothing allocated or computed (the dry-run's ``quantx``
+    variant)."""
+    out = dict(p_moe)
+    for key in ("w_up", "w_gate", "w_down"):
+        shape = tuple(p_moe[key].shape)
+        out[key] = {"q": torch.empty(shape, dtype=torch.int8, device="meta"),
+                    "s": torch.empty(shape[:-2] + (1,) + shape[-1:],
+                                     dtype=torch.float32, device="meta")}
     return out
 
 

@@ -209,7 +209,8 @@ def test_port_imports_neither_jax_nor_repro():
             "qwen3_1b7.py", "layers.py", "attention.py", "model.py",
             "moe.py", "ssm.py",
             "adamw.py", "grad_compress.py", "sharding.py", "collectives.py",
-            "steps.py", "serve.py", "train.py"} <= names
+            "steps.py", "serve.py", "train.py", "analysis.py", "count.py",
+            "dryrun.py"} <= names
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
@@ -235,7 +236,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.optim.adamw, repro_torch.optim.grad_compress, "
         "repro_torch.distributed.sharding, "
         "repro_torch.distributed.collectives, repro_torch.launch.steps, "
-        "repro_torch.launch.serve, repro_torch.launch.train\n"
+        "repro_torch.launch.serve, repro_torch.launch.train, "
+        "repro_torch.roofline.analysis, repro_torch.roofline.count, "
+        "repro_torch.launch.dryrun\n"
         "from repro_torch.core import registry\n"
         "for c in ('rle_v1', 'rle_v2', 'tdeflate', 'bitpack', 'dbp', "
         "'huffman', 'lzss'):\n"
