@@ -14,11 +14,15 @@
     python3 chip_smoke.py --sharded-only             # phases 1, 2 and 14
     python3 chip_smoke.py --mesh-only                # phases 1, 2 and 15
     python3 chip_smoke.py --roofline-only            # phases 1, 2 and 16
+    python3 chip_smoke.py --spmd-only                # phases 1, 2 and 17
 
 Phases, each of which must pass (any failure exits non-zero, with no result
 line):
 
   1. environment: torch / CUDA versions, the card's name and power limit;
+     ``gloo`` must take every collective kind as CUDA tensors, float32 and
+     bf16 (``distributed.spmd.probe_backend``: a world of this one
+     process);
   2. kernel build: one nvcc (sm_90a) per ``csrc`` source (the single-thread
      ``scalar_decode.cu`` too), all started together, with ptxas registers,
      spills and shared memory, into a fresh compile cache
@@ -276,12 +280,39 @@ line):
          ``MEMORY_TOL``;
        - (d) ``python -m repro_torch.launch.dryrun --arch qwen3-1.7b
          --shape decode_32k`` in a subprocess: its record, ``ok``;
- 17. a JSON line of the kernels (``consumer_launches``: phase 10's,
+ 17. the member program split over ``model`` (``launch.steps.member_step``,
+     ``distributed.spmd``, ``launch.mesh.spawn``), 4 ``gloo`` processes on
+     the card, each holding only its blocks, every number beside the
+     card's name and power limit; the unsharded runs on the card first,
+     written for the members to read:
+       - (a) phase 11 (b)'s 4 full-width qwen3-1.7B layers, 8 x 512, one
+         step with the int8 wire and int8 moments at lr 1e-5 on (data 2,
+         model 2): the loss within ``SPMD_LOSS_TOL``, every parameter
+         element within AdamW's two-step bound, the moments within
+         ``SPMD_MOMENT_TOL`` (relative L2), one ``bitpack_unpack`` launch
+         a wire leaf a member, each of the first step's wire decodes held
+         to the plain bitpack body + ``Epilogue.apply`` bit for bit
+         (``check_wire``); ms a step against the unsharded step;
+       - (b) the same weights decoding on (data 1, model 4): a 16-token
+         prompt, then 8 steps fed the unsharded run's tokens, every
+         step's logits and each member's cache block within
+         ``SERVE_TOL``; ms a step against the unsharded step;
+       - (c) qwen3-moe-235B-A22B at 1 layer, a prefill of 8 x 128 on
+         (data 2, model 2), 64 experts a member, on the unsharded run's
+         routes (``RouteTape``), the logits within ``SERVE_TOL`` of
+         each DP block alone, the members' own router logits within
+         ``SPMD_ROUTER_TOL`` of the unsharded run's and every route their
+         own top-k would change a near tie (``near_tie_flips``);
+       - each part's time in collectives by kind (``spmd.Member.
+         transfer_s``), no ``nvcc`` in a member (they bind phase 2's
+         builds), and ``nccl`` asked to put two ranks on the one card (it
+         refuses);
+ 18. a JSON line of the kernels (``consumer_launches``: phase 10's,
      ``model_launches``: phase 11's, ``family_launches``: phase 12's,
      ``diloco_launches``: phase 13's, ``sharded_launches``: phase 14's,
-     ``mesh_launches``: phase 15's; ``bitpack_reduce``, bitpack's second
-     entry, with phase 13's numbers), then ``{"ok": true, "device":
-     {...}}`` last.
+     ``mesh_launches``: phase 15's, ``spmd_launches``: phase 17's, over
+     its members; ``bitpack_reduce``, bitpack's second entry, with phase
+     13's numbers), then ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  It
 exits non-zero without a card, or without the port's sources beside it.
@@ -2534,13 +2565,13 @@ class RouteTape:
     """Stands in for ``models.moe.top_k`` (``_dispatch_group`` looks it up
     at each call) and records, a call, the router logits it was given and
     the experts the program's own ``top_k`` chose: a forward makes one call
-    a layer, a decode step one a layer a step.  With ``force`` (forward's
-    routes by layer, (B, S, K) each), decode step i at layer l then takes
-    forward's routes for those tokens, its gates from its own logits at
-    those experts."""
+    a layer (a dispatch group), a decode step one a layer a step.  With
+    ``force`` (routes in call order, each like that call's ``ids``), call
+    i takes ``force[i]``, its gates from its own logits at those
+    experts."""
 
-    def __init__(self, force=None, n_layers: int = 0):
-        self.force, self.n_layers = force, n_layers
+    def __init__(self, force=None):
+        self.force = force
         self.calls = []
 
     def __enter__(self):
@@ -2554,13 +2585,32 @@ class RouteTape:
 
     def __call__(self, logits, k):
         vals, ids = self.real(logits, k)
-        if self.force is not None:
-            step, layer = divmod(len(self.calls), self.n_layers)
-            self.calls.append((logits.detach().float(), ids))
-            ids = self.force[layer][:, step]
-            return torch.gather(logits, -1, ids), ids
+        i = len(self.calls)
         self.calls.append((logits.detach().float(), ids))
+        if self.force is not None:
+            ids = self.force[i].to(ids.device)
+            return torch.gather(logits, -1, ids), ids
         return vals, ids
+
+
+def near_tie_flips(ref_lg, ref_ids, own_lg, own_ids) -> dict:
+    """Routes chosen on router logits ``own_lg`` (..., E) against those
+    chosen on ``ref_lg`` (``own_ids`` / ``ref_ids``, (..., K)), both taken
+    on the same routes so the logits differ by rounding alone, ``eps`` a
+    token: two top-k selections of logits within ``eps`` of each other can
+    differ only where the reference's k-th and (k+1)-th logits lie within
+    2 * ``eps``, so a flip beyond that (or where the logits are equal) is a
+    fault.  Returns flips, routes (tokens), faults, the largest ``eps``
+    and ``eps`` itself."""
+    K = ref_ids.shape[-1]
+    eps = (own_lg - ref_lg).abs().amax(-1)
+    flipped = (torch.sort(own_ids, -1).values
+               != torch.sort(ref_ids, -1).values).any(-1)
+    top = ref_lg.topk(K + 1, dim=-1).values
+    gap = top[..., K - 1] - top[..., K]
+    return {"flips": int(flipped.sum()), "routes": flipped.numel(),
+            "faults": int((flipped & ((gap > 2 * eps) | (eps == 0))).sum()),
+            "eps": float(eps.max()), "eps_by_token": eps}
 
 
 def replay_decode(cfg, params, seq, device, force=None):
@@ -2571,7 +2621,10 @@ def replay_decode(cfg, params, seq, device, force=None):
     B, S = seq.shape
     cache = model.init_cache(cfg, B, S + 8, device=device)
     dec = []
-    with RouteTape(force, cfg.n_layers) as tape:
+    if force is not None:             # in call order: a step, its layers
+        force = [force[layer][:, i] for i in range(S)
+                 for layer in range(cfg.n_layers)]
+    with RouteTape(force) as tape:
         for i in range(S):
             lg, cache = model.decode_step(cfg, params, cache, seq[:, i:i + 1])
             dec.append(lg)
@@ -2614,14 +2667,9 @@ def f32_replay(cfg, params, seq, full_bf16, device) -> dict:
 
 def moe_routes(cfg, params, seq, fwd_calls, device, first_step: int):
     """An MoE's decode replayed on forward's routes (``RouteTape``), its
-    logits returned with what its routes say.  Flips: (layer, token)s
-    where the experts decode's own ``top_k`` chose on its own router
-    logits differ from forward's.  On the same routes the two paths'
-    router logits differ by rounding alone, ``eps`` a (layer, token); two
-    top-k selections of logits that lie within ``eps`` of each other can
-    differ only where forward's k-th and (k+1)-th logits lie within 2 *
-    ``eps``, so a flip beyond that (or where the logits are equal) is a
-    fault.  ``distinct``: the experts decode's own routes reach, a layer a
+    logits returned with what its routes say: the (layer, token)s where
+    decode's own ``top_k`` chose otherwise, and those of them that are no
+    near tie (``near_tie_flips``).  ``distinct``: the experts decode's own routes reach, a layer a
     step, over the steps from ``first_step`` (the served decode steps)."""
     B, S = seq.shape
     L, K = cfg.n_layers, cfg.top_k
@@ -2635,17 +2683,11 @@ def moe_routes(cfg, params, seq, fwd_calls, device, first_step: int):
             for layer in range(L)])
 
     own = by_layer(1)
-    eps = (by_layer(0) - fwd_lg).abs().amax(-1)                 # (L, B, S)
-    flipped = (torch.sort(own, -1).values
-               != torch.sort(fwd_ids, -1).values).any(-1)
-    top = fwd_lg.topk(K + 1, dim=-1).values
-    gap = top[..., K - 1] - top[..., K]
-    faults = int((flipped & ((gap > 2 * eps) | (eps == 0))).sum())
+    r = near_tie_flips(fwd_lg, fwd_ids, by_layer(0), own)
     distinct = [[own[layer, :, i].unique().numel() for i in
                  range(first_step, S)] for layer in range(L)]
-    return dec, {"flips": int(flipped.sum()), "routes": flipped.numel(),
-                 "faults": faults, "eps": float(eps.max()),
-                 "distinct": distinct}
+    return dec, {"flips": r["flips"], "routes": r["routes"],
+                 "faults": r["faults"], "eps": r["eps"], "distinct": distinct}
 
 
 def serve_and_check(label: str, sargs, device, check_cfg=None) -> dict:
@@ -4666,6 +4708,535 @@ def phase_roofline(args, engine) -> dict:
     return out
 
 
+# phase 17: the model's member program split over ``model``, one process a
+# mesh member, every process on the one card and joined by gloo
+SPMD_WORLD = 4
+SPMD_TRAIN_MESH = ((2, 2), ("data", "model"))
+SPMD_SERVE_MESH = ((1, 4), ("data", "model"))
+SPMD_MOE_MESH = ((2, 2), ("data", "model"))
+SPMD_TRAIN_BATCH, SPMD_TRAIN_SEQ = 8, 512
+SPMD_PROMPT, SPMD_GEN = 16, 8
+SPMD_MOE_BATCH, SPMD_MOE_SEQ = 8, 128
+SPMD_TIMEOUT = 600
+# The members' train step against the unsharded one, both in bf16 with the
+# int8 wire: the members add their partial sums in bf16 (an all-reduce of
+# two halves) where the unsharded matmul accumulates in float32, so the
+# loss and the gradients differ by bf16 roundings.  AdamW's first step
+# moves an element by at most lr * (1 + wd * |p|) (``g / |g|`` bounded by
+# 1), so two correct steps from one state lie within twice that plus one
+# bf16 rounding of the new value, whatever their gradients: a block laid in
+# the wrong place breaks it.  The first moments are 0.1 * the gradient: a
+# relative L2 error over a leaf beyond SPMD_MOMENT_TOL means a wrong
+# gradient, not a rounding.
+SPMD_LOSS_TOL = 2e-2
+SPMD_MOMENT_TOL = 5e-2
+# The MoE members run the unsharded run's routes; their own router logits
+# (float32 products of bf16 hidden states) are held to the unsharded run's
+# within the head logits' limit, and every route their own top-k would
+# change must be a near tie within that token's difference
+# (``near_tie_flips``).
+SPMD_ROUTER_TOL = SERVE_TOL
+GLOO = {"probe": {}}                # phase 1's reading of gloo on the card
+
+
+def probe_gloo(device) -> None:
+    """Phase 1's part for phase 17: gloo must take every collective kind
+    as CUDA tensors, float32 and bf16, in a world of this one process (the
+    member program hands it its tensors where they lie, and has no host
+    path)."""
+    from repro_torch.distributed import spmd
+    device = torch.device(device)
+    GLOO["probe"] = spmd.probe_backend(device, "gloo")
+    refused = {k: v for k, v in GLOO["probe"].items() if v != "device"}
+    log(f"   gloo on {device} (torch {torch.__version__}) takes "
+        f"{len(GLOO['probe']) - len(refused)} of {len(GLOO['probe'])} "
+        f"collective kinds / dtypes as {device.type} tensors")
+    if refused:
+        raise AssertionError(f"gloo refuses {refused} on {device}")
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 step at each element's magnitude."""
+    e = torch.floor(torch.log2(x.float().abs().clamp(min=2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+def _param_check(got, want, lr: float) -> tuple:
+    """(max |got - want|, the elements past AdamW's two-step bound,
+    elements) of one parameter block (SPMD_LOSS_TOL's comment)."""
+    g, w = got.float(), want.float()
+    bound = 2 * lr * (1 + 0.1 * w.abs()) + _bf16_ulp(w)
+    d = (g - w).abs()
+    return float(d.max()) if d.numel() else 0.0, int((d > bound).sum()), \
+        d.numel()
+
+
+def _moment_rel(got: dict, want: dict) -> float:
+    """Relative L2 distance of two int8 moment blocks, dequantized."""
+    a = (got["q"].float() * got["s"].float()).reshape(-1)
+    b = (want["q"].float() * want["s"].float()).reshape(-1)
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def spmd_rank(job: dict) -> dict:
+    """One member's process of phase 17 (``launch.mesh.spawn``): (a) the
+    train step at (data 2, model 2), (b) greedy decode at (data 1, model
+    4), (c) the MoE's prefill at (data 2, model 2), each on the member's
+    blocks, each held to the unsharded run's file from the parent."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.core import plan as plan_mod, tuning
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.distributed import collectives, sharding, spmd
+    from repro_torch.kernels import bitpack, cuda_build
+    from repro_torch.launch import mesh as mesh_lib, serve, steps
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    if job["cache"] is not None:
+        tuning.enable_compile_cache(job["cache"])
+    nvcc0 = cuda_build.NVCC_RUNS
+    out = {"rank": dist.get_rank()}
+
+    # (a) one train step with the int8 wire
+    mesh = mesh_lib.world_mesh(*SPMD_TRAIN_MESH, device=job["device"])
+    device = mesh.member_device()
+    member = spmd.Member.join(mesh, "tp")
+    r = member.index
+    tcfg, oc = job["tcfg"], adamw.AdamWConfig(lr=job["lr"],
+                                               compress_moments=True)
+    params = model.init_params(
+        tcfg, torch.Generator(device=device).manual_seed(job["seed"]),
+        device=device)
+    batch = _spmd_batch(tcfg, job["seed"], device)
+    with sharding.use_mesh(None, "tp"):
+        ins, outs = steps.train_shardings(
+            tcfg, ShapeSpec("t", SPMD_TRAIN_SEQ, SPMD_TRAIN_BATCH, "train"),
+            mesh, oc)
+    p = spmd.blocks(params, ins[0], r)
+    o = spmd.blocks(adamw.init(params, oc), ins[1], r)
+    b = spmd.blocks(batch, ins[2], r)
+    del params
+    gc.collect()
+    comp = collectives.make_wire_compressor(EngineConfig(device=str(device)))
+    fn = steps.member_step(steps.build_train_step(tcfg, oc,
+                                                  grad_compressor=comp),
+                           ins, outs, member=member)
+    # the first step's wire decodes, each held to the plain bitpack body +
+    # Epilogue.apply bit for bit (``check_wire``); the check's time is
+    # taken out of the step's
+    wire = {"checked": 0, "err": 0, "s": 0.0}
+    real_dispatch = plan_mod.dispatch
+
+    def checked_dispatch(dev, **kw):
+        res = real_dispatch(dev, **kw)
+        if kw.get("codec") == "bitpack" and "wire_scale" in dev:
+            sync(device)
+            t = time.perf_counter()
+            wire["err"] += not check_wire(dev, kw, res)
+            wire["checked"] += 1
+            sync(device)
+            wire["s"] += time.perf_counter() - t
+        return res
+
+    bitpack.LAUNCHES = 0
+    plan_mod.dispatch = checked_dispatch
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        p1, o1, loss = fn(p, o, b)
+        sync(device)
+    finally:
+        plan_mod.dispatch = real_dispatch
+    out["train_first_ms"] = (time.perf_counter() - t0 - wire["s"]) * 1e3
+    out["bitpack_launches"] = bitpack.LAUNCHES
+    out["wire_checked"], out["wire_err"] = wire["checked"], wire["err"]
+    ref = torch.load(job["train_ref"], map_location="cpu", mmap=True)
+    out["loss"], out["loss_ref"] = float(loss), float(ref["loss"])
+    worst, off, n = 0.0, 0, 0
+    for got, want in zip(leaves_of(p1), leaves_of(
+            spmd.blocks(ref["p"], ins[0], r))):
+        w, k, m = _param_check(got, want.to(device), job["lr"])
+        worst, off, n = max(worst, w), off + k, n + m
+    out["param_max_abs"], out["param_off"], out["param_n"] = worst, off, n
+    rel = []
+    for mom in ("m", "v"):
+        for got, want in zip(_int8_leaves(o1[mom]), _int8_leaves(
+                spmd.blocks(ref[mom], ins[1][mom], r))):
+            rel.append(_moment_rel(got, {k: t.to(device)
+                                         for k, t in want.items()}))
+        out[f"{mom}_rel_max"] = max(rel)
+        rel = []
+    del ref
+    member.reset_transfers()
+    sync(device)
+    t0 = time.perf_counter()
+    p2, o2, _ = fn(p1, o1, b)
+    sync(device)
+    out["train_ms"] = (time.perf_counter() - t0) * 1e3
+    out["train_xfer"] = _transfers(member)
+    out["train_blocks_gb"] = sum(t.numel() * t.element_size()
+                                 for t in leaves_of(p2)) / 1e9
+    del p, o, p1, o1, p2, o2, b, fn, comp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) greedy decode at (data 1, model 4)
+    mesh = mesh_lib.world_mesh(*SPMD_SERVE_MESH, device=job["device"])
+    member = spmd.Member.join(mesh, "tp")
+    r = member.index
+    max_seq = SPMD_PROMPT + SPMD_GEN + 8
+    params = model.init_params(
+        tcfg, torch.Generator(device=device).manual_seed(job["seed"]),
+        device=device)
+    decode, (p_sh, c_sh, _) = serve.member_decode(tcfg, member, mesh,
+                                                  SPMD_TRAIN_BATCH, max_seq)
+    pm = spmd.blocks(params, p_sh, r)
+    del params
+    cache = spmd.blocks(model.init_cache(tcfg, SPMD_TRAIN_BATCH, max_seq,
+                                         device=device), c_sh, r)
+    ref = torch.load(job["serve_ref"], map_location="cpu")
+    prompts = ref["prompts"].to(device)
+    with torch.no_grad():
+        logits, cache = serve.prefill_into_cache(tcfg, pm, cache, prompts,
+                                                 decode)
+        cur = ref["tokens"][:, :1].to(device)
+        member.reset_transfers()
+        errs, ms, same = [], [], []
+        for t in range(SPMD_GEN):
+            sync(device)
+            t0 = time.perf_counter()
+            logits, cache = decode(pm, cache, cur)
+            sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            errs.append(float((logits.float() - ref["logits"][t].to(
+                device).float()).abs().max()))
+            # the unsharded run's tokens are fed (its greedy choices), so
+            # every step's logits stay comparable
+            same.append(torch.equal(torch.argmax(logits[:, -1], -1).cpu(),
+                                    ref["tokens"][:, t + 1]))
+            cur = ref["tokens"][:, t + 1:t + 2].to(device)
+    out["decode_err"], out["decode_ms"] = max(errs), float(np.median(ms))
+    out["decode_xfer"] = _transfers(member, SPMD_GEN)
+    out["argmax_equal"] = sum(same)
+    want = spmd.blocks({k: v for k, v in ref["cache"].items() if k != "pos"},
+                       c_sh, r)
+    out["cache_err"] = max(float((cache[k].float() - want[k].to(
+        device).float()).abs().max()) for k in want)
+    del pm, cache, ref, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the MoE's prefill, experts over model = 2
+    mesh = mesh_lib.world_mesh(*SPMD_MOE_MESH, device=job["device"])
+    member = spmd.Member.join(mesh, "tp")
+    r = member.index
+    mcfg = job["mcfg"]
+    params = model.init_params(
+        mcfg, torch.Generator(device=device).manual_seed(job["seed"]),
+        device=device)
+    with sharding.use_mesh(None, "tp"):
+        p_sh = sharding.param_shardings(params, mesh)
+        b_sh = steps.batch_shardings(mcfg, ShapeSpec(
+            "p", SPMD_MOE_SEQ, SPMD_MOE_BATCH, "prefill"), mesh)
+    pm = spmd.blocks(params, p_sh, r)
+    out["moe_experts"] = int(pm["blocks"]["moe"]["w_up"].shape[1])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = torch.load(job["moe_ref"], map_location="cpu")
+    prefill = steps.member_step(
+        steps.build_prefill_step(mcfg), (p_sh, {"tokens": b_sh["tokens"]}),
+        sharding.NamedSharding(mesh, sharding.P()), member=member)
+    tok = spmd.blocks(ref["tokens"].to(device), b_sh["tokens"], r)
+    # this DP block's calls of the unsharded run (one prefill a block)
+    per = len(ref["routes"]) // mesh.shape["data"]
+    mine = slice(member.coord("data") * per, (member.coord("data") + 1) * per)
+    member.reset_transfers()
+    sync(device)
+    t0 = time.perf_counter()
+    with RouteTape(ref["routes"][mine]) as tape:
+        logits = prefill(pm, {"tokens": tok})
+    sync(device)
+    out["moe_ms"] = (time.perf_counter() - t0) * 1e3
+    out["moe_xfer"] = _transfers(member)
+    if len(tape.calls) != per:
+        raise AssertionError(f"rank {out['rank']}: {len(tape.calls)} router "
+                             f"calls, the unsharded run's block made {per}")
+    routes = [near_tie_flips(lg.to(device), ids.to(device), own_lg, own)
+              for lg, ids, (own_lg, own) in zip(
+                  ref["router"][mine], ref["routes"][mine], tape.calls)]
+    out["moe_flips"] = sum(x["flips"] for x in routes)
+    out["moe_routes"] = sum(x["routes"] for x in routes)
+    out["moe_faults"] = sum(x["faults"] for x in routes)
+    out["router_err"] = max(x["eps"] for x in routes)
+    out["router_max"] = max(float(lg.abs().max())
+                            for lg in ref["router"][mine])
+    out["moe_err"] = float((logits.float() - ref["logits"].to(
+        device).float()).abs().max())
+    out["moe_finite"] = bool(torch.isfinite(logits.float()).all())
+    out["nvcc"] = cuda_build.NVCC_RUNS - nvcc0
+    return out
+
+
+def _transfers(member, per: int = 1) -> dict:
+    """The member's collective transfers since its last reset, by kind:
+    (ms, GB), each divided by ``per``."""
+    return {k: (member.transfer_s[k] * 1e3 / per,
+                member.transfer_bytes[k] / 1e9 / per)
+            for k in member.transfer_s if member.transfer_bytes[k]}
+
+
+def _spmd_batch(cfg, seed: int, device) -> dict:
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    return {k: torch.randint(0, cfg.vocab, (SPMD_TRAIN_BATCH,
+                                           SPMD_TRAIN_SEQ), generator=gen,
+                             device=device, dtype=torch.int32)
+            for k in ("tokens", "labels")}
+
+
+def _int8_leaves(tree):
+    """An int8 moment tree's ``{"q", "s"}`` leaves, in leaf order."""
+    if isinstance(tree, dict) and set(tree) == {"q", "s"}:
+        return [tree]
+    return [x for k in sorted(tree) for x in _int8_leaves(tree[k])]
+
+
+def _nccl_pair() -> str:
+    """Two ranks' all-reduce of one CUDA tensor over nccl."""
+    import torch.distributed as dist
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    return f"rank {dist.get_rank()}: {x.tolist()}"
+
+
+def phase_spmd(args, engine) -> dict:
+    """Phase 17: the model's member program split over ``model``
+    (``launch.steps.member_step``, ``distributed.spmd``), one process a
+    member (``launch.mesh.spawn``, gloo), the 4 processes on the one card:
+    a train step, greedy decode and an MoE prefill, each member's blocks
+    against the unsharded run on the card.  Returns the launches."""
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.core import tuning
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import mesh as mesh_lib, serve, steps
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    log(f"== 17 the member program split over model, one process a member "
+        f"({SPMD_WORLD} gloo processes on the one card): qwen3-1.7B trained "
+        f"one step at (data 2, model 2) with the int8 wire and decoding at "
+        f"(data 1, model 4), qwen3-moe-235B-A22B's prefill at (data 2, "
+        f"model 2) [{CARD['label']}]")
+    device = engine.device
+    t_phase = time.perf_counter()
+    tcfg = dataclasses.replace(get_arch("qwen3-1.7b"),
+                               n_layers=TRAIN_LAYERS)
+    mcfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b"),
+                               n_layers=FAMILY_TRAIN_MOE_LAYERS)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        # the unsharded runs on the card, written for the members to read
+        oc = adamw.AdamWConfig(lr=TRAIN_LR, compress_moments=True)
+        params = model.init_params(
+            tcfg, torch.Generator(device=device).manual_seed(args.seed),
+            device=device)
+        step = steps.build_train_step(
+            tcfg, oc, grad_compressor=collectives.make_wire_compressor(
+                EngineConfig(device=str(device))))
+        batch = _spmd_batch(tcfg, args.seed, device)
+        p1, o1, loss = step(params, adamw.init(params, oc), batch)
+        sync(device)
+        t0 = time.perf_counter()
+        step(p1, o1, batch)
+        sync(device)
+        plain_train_ms = (time.perf_counter() - t0) * 1e3
+        torch.save({"p": p1, "m": o1["m"], "v": o1["v"], "loss": loss},
+                   tmp / "train.pt")
+        del p1, o1, step
+        gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+        prompts = torch.randint(0, tcfg.vocab, (SPMD_TRAIN_BATCH,
+                                                SPMD_PROMPT), generator=gen,
+                                device=device, dtype=torch.int32)
+        max_seq = SPMD_PROMPT + SPMD_GEN + 8
+        cache = model.init_cache(tcfg, SPMD_TRAIN_BATCH, max_seq,
+                                 device=device)
+        with torch.no_grad():
+            logits, cache = serve.prefill_into_cache(tcfg, params, cache,
+                                                     prompts)
+            toks, lgs, ms = [torch.argmax(logits[:, -1:], -1).to(
+                torch.int32)], [], []
+            for _ in range(SPMD_GEN):
+                sync(device)
+                t0 = time.perf_counter()
+                logits, cache = model.decode_step(tcfg, params, cache,
+                                                  toks[-1])
+                sync(device)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                lgs.append(logits.cpu())
+                toks.append(torch.argmax(logits[:, -1:], -1).to(
+                    torch.int32))
+        plain_decode_ms = float(np.median(ms))
+        torch.save({"prompts": prompts.cpu(), "logits": lgs,
+                    "tokens": torch.cat(toks, 1).cpu(),
+                    "cache": {k: v.cpu() if isinstance(v, torch.Tensor)
+                              else v for k, v in cache.items()}},
+                   tmp / "serve.pt")
+        del params, cache, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        mparams = model.init_params(
+            mcfg, torch.Generator(device=device).manual_seed(args.seed),
+            device=device)
+        tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
+            0, mcfg.vocab, (SPMD_MOE_BATCH, SPMD_MOE_SEQ)).astype(
+                np.int32)).to(device)
+        prefill = steps.build_prefill_step(mcfg)
+        dp = SPMD_MOE_MESH[0][0]
+        per = SPMD_MOE_BATCH // dp      # each DP member's tokens: a group
+        sync(device)
+        t0 = time.perf_counter()
+        with RouteTape() as tape:
+            alone = torch.cat([prefill(mparams, {
+                "tokens": tokens[g * per:(g + 1) * per]}) for g in range(dp)])
+        sync(device)
+        plain_moe_ms = (time.perf_counter() - t0) * 1e3
+        torch.save({"tokens": tokens.cpu(), "logits": alone.cpu(),
+                    "routes": [ids.cpu() for _, ids in tape.calls],
+                    "router": [lg.cpu() for lg, _ in tape.calls]},
+                   tmp / "moe.pt")
+        del mparams, alone
+        gc.collect()
+        torch.cuda.empty_cache()
+        refs_s = time.perf_counter() - t_phase
+
+        job = {"device": "cuda" if device.type == "cuda" else str(device),
+               "seed": args.seed, "lr": TRAIN_LR, "tcfg": tcfg,
+               "mcfg": mcfg,
+               "cache": None if tuning.compile_cache_dir() is None
+               else str(tuning.compile_cache_dir()),
+               "train_ref": str(tmp / "train.pt"),
+               "serve_ref": str(tmp / "serve.pt"),
+               "moe_ref": str(tmp / "moe.pt")}
+        t0 = time.perf_counter()
+        ranks = mesh_lib.spawn(spmd_rank, SPMD_WORLD, (job,),
+                               device=job["device"], timeout=SPMD_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+    problems = []
+    for res in ranks:
+        r = res["rank"]
+        if res["bitpack_launches"] < 1:
+            problems.append(f"rank {r}: the wire launched no bitpack_unpack")
+        if res["wire_err"] or res["wire_checked"] < 1:
+            problems.append(f"rank {r}: {res['wire_err']} of "
+                            f"{res['wire_checked']} wire decodes differ from "
+                            "the plain bitpack body + Epilogue.apply")
+        if res["moe_faults"] or not res["router_err"] <= SPMD_ROUTER_TOL:
+            problems.append(f"rank {r}: router logits {res['router_err']:.4g} "
+                            f"from the unsharded run's (limit "
+                            f"{SPMD_ROUTER_TOL}), {res['moe_faults']} of "
+                            f"{res['moe_flips']} changed routes no near tie")
+        if res["nvcc"]:
+            problems.append(f"rank {r} ran {res['nvcc']} nvcc")
+        if abs(res["loss"] - res["loss_ref"]) > SPMD_LOSS_TOL:
+            problems.append(f"rank {r}: loss {res['loss']} vs "
+                            f"{res['loss_ref']}")
+        if res["param_off"]:
+            problems.append(f"rank {r}: {res['param_off']} parameter "
+                            "elements past AdamW's two-step bound")
+        for mom in ("m", "v"):
+            if res[f"{mom}_rel_max"] > SPMD_MOMENT_TOL:
+                problems.append(f"rank {r}: {mom} relative L2 "
+                                f"{res[f'{mom}_rel_max']:.3g}")
+        for key, tol in (("decode_err", SERVE_TOL), ("cache_err", SERVE_TOL),
+                         ("moe_err", SERVE_TOL)):
+            if not res[key] <= tol:
+                problems.append(f"rank {r}: {key} {res[key]:.4g} (limit "
+                                f"{tol})")
+        if not res["moe_finite"] or \
+                res["moe_experts"] != mcfg.n_experts // SPMD_MOE_MESH[0][1]:
+            problems.append(f"rank {r}: MoE logits finite "
+                            f"{res['moe_finite']}, {res['moe_experts']} "
+                            "experts")
+    worst = {k: max(res[k] for res in ranks) for k in (
+        "train_first_ms", "train_ms", "param_max_abs", "m_rel_max",
+        "v_rel_max", "decode_err", "decode_ms", "cache_err", "moe_err",
+        "moe_ms", "train_blocks_gb", "router_err", "router_max")}
+    launches = sum(res["bitpack_launches"] for res in ranks)
+
+    def xfer(key):                    # the slowest member's, by kind
+        res = max(ranks, key=lambda x: sum(ms for ms, _ in x[key].values()))
+        return (f"{sum(ms for ms, _ in res[key].values()):.1f} ms in "
+                f"collectives (" + ", ".join(
+                    f"{k} {ms:.1f} ms for {gb:.4f} GB"
+                    for k, (ms, gb) in res[key].items()) + ")")
+    log(f"   (a) train step at (data 2, model 2), 4 full-width layers, "
+        f"{SPMD_TRAIN_BATCH} x {SPMD_TRAIN_SEQ}, int8 wire and moments, lr "
+        f"{TRAIN_LR}: {worst['train_ms']:.1f} ms a step (slowest member, "
+        f"second step; first {worst['train_first_ms']:.1f} ms) against "
+        f"{plain_train_ms:.1f} ms unsharded on the card in this run; "
+        f"parameter blocks {worst['train_blocks_gb']:.3f} GB a member; "
+        f"loss {ranks[0]['loss']:.5f} vs {ranks[0]['loss_ref']:.5f} (limit "
+        f"{SPMD_LOSS_TOL}); parameters max |diff| "
+        f"{worst['param_max_abs']:.3g}, "
+        f"{sum(r['param_off'] for r in ranks)} of "
+        f"{sum(r['param_n'] for r in ranks):,} elements past the two-step "
+        f"bound; moments relative L2 m {worst['m_rel_max']:.3g}, v "
+        f"{worst['v_rel_max']:.3g} (limit {SPMD_MOMENT_TOL}); "
+        f"{launches} bitpack_unpack launches ("
+        + ", ".join(str(r["bitpack_launches"]) for r in ranks)
+        + f" by rank), the first step's "
+        f"{sum(r['wire_checked'] for r in ranks)} wire decodes == the plain "
+        f"bitpack body + Epilogue.apply bit for bit "
+        f"({sum(r['wire_err'] for r in ranks)} differ); the second step's "
+        f"{xfer('train_xfer')} [{CARD['label']}]")
+    log(f"   (b) greedy decode at (data 1, model 4), batch "
+        f"{SPMD_TRAIN_BATCH}, {SPMD_PROMPT}-token prompt then {SPMD_GEN} "
+        f"steps: {worst['decode_ms']:.2f} ms a step (median, slowest "
+        f"member) against {plain_decode_ms:.2f} ms unsharded; logits max "
+        f"|diff| {worst['decode_err']:.4g}, cache blocks "
+        f"{worst['cache_err']:.4g} (limit {SERVE_TOL}); argmax equal on "
+        f"{min(r['argmax_equal'] for r in ranks)} of {SPMD_GEN} steps; "
+        f"a step's {xfer('decode_xfer')} [{CARD['label']}]")
+    log(f"   (c) qwen3-moe-235B-A22B, {mcfg.n_layers} layer, prefill "
+        f"{SPMD_MOE_BATCH} x {SPMD_MOE_SEQ} at (data 2, model 2), "
+        f"{ranks[0]['moe_experts']} experts a member: "
+        f"{worst['moe_ms']:.1f} ms (slowest member; {xfer('moe_xfer')}) "
+        f"against {plain_moe_ms:.1f} ms for the DP blocks alone unsharded; "
+        f"on the unsharded run's routes: the members' router logits "
+        f"{worst['router_err']:.4g} from its (limit {SPMD_ROUTER_TOL}; its "
+        f"largest |logit| {worst['router_max']:.4g}), a member's own top-k "
+        f"chose otherwise for {max(r['moe_flips'] for r in ranks)} of "
+        f"{ranks[0]['moe_routes']} tokens, "
+        f"{sum(r['moe_faults'] for r in ranks)} of them no near tie; logits "
+        f"max |diff| {worst['moe_err']:.4g} (limit {SERVE_TOL}) "
+        f"[{CARD['label']}]")
+    log(f"   gloo was handed every collective's tensors on "
+        f"{job['device']} (phase 1: it takes all "
+        f"{len(GLOO['probe'])} kinds / dtypes there; no host staging in the "
+        f"member program); references {refs_s:.1f} s, the {SPMD_WORLD} "
+        f"processes "
+        f"{spawn_s:.1f} s (start, CUDA, init, three parts)")
+    from torch.multiprocessing.spawn import (ProcessExitedException,
+                                             ProcessRaisedException)
+    try:
+        said = mesh_lib.spawn(_nccl_pair, 2, device="cuda", backend="nccl",
+                              timeout=90)
+        log(f"   nccl with two ranks on one card ran: {said}")
+    except (ProcessRaisedException, ProcessExitedException,
+            TimeoutError) as e:  # the expected refusal, printed as such
+        msg = str(e).strip().splitlines()
+        log(f"   nccl with two ranks on one card refused, as expected: "
+            f"{type(e).__name__}: {' | '.join(m for m in msg if m)[-400:]}")
+    log(f"   phase 17 seconds: {time.perf_counter() - t_phase:.1f}")
+    if problems:
+        raise AssertionError("phase 17: " + "; ".join(problems))
+    return {"bitpack_unpack": launches}
+
+
 def leaves_of(tree):
     from repro_torch.core.tree import leaves
     return list(leaves(tree))
@@ -4758,6 +5329,10 @@ def main() -> int:
     ap.add_argument("--roofline-only", action="store_true",
                     help="run phases 1, 2 and 16 alone (the roofline on "
                     "the card), with no result line")
+    ap.add_argument("--spmd-only", action="store_true",
+                    help="run phases 1, 2 and 17 alone (the member program "
+                    "split over model, one process a member), with no "
+                    "result line")
     ap.add_argument("--stage-only", action="store_true",
                     help="only time DecodePlan.build and stage by part on "
                     "phase 4's workload (cold, then warm), and stop")
@@ -4790,6 +5365,8 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     phase_env()
+    if not args.stage_only:
+        probe_gloo(torch.device("cuda", torch.cuda.current_device()))
     if args.stage_only:
         log(f"== 4 DecodePlan.build and stage by part only, package under "
             f"{src}")
@@ -4833,6 +5410,10 @@ def main() -> int:
     if args.roofline_only:
         phase_roofline(args, engine)
         return 0
+    if args.spmd_only:
+        launched = phase_spmd(args, engine)
+        log(f"phase 17 alone, launches: {json.dumps(launched)}")
+        return 0
     phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
                           engine.device, counters)
     phase_dequant_vs_plain(rng, dq, errs, engine.device)
@@ -4863,7 +5444,8 @@ def main() -> int:
     del data
     meshed = phase_mesh(args, engine, counters)
     phase_roofline(args, engine)
-    log("== 17 kernels")
+    split = phase_spmd(args, engine)
+    log("== 18 kernels")
     kernels = []
     for name in KERNELS:
         source, replaces = SOURCES.get(
@@ -4901,6 +5483,8 @@ def main() -> int:
             kernels[-1]["sharded_launches"] = placed[name]
         if name in meshed:          # phase 15's
             kernels[-1]["mesh_launches"] = meshed[name]
+        if name in split:           # phase 17's, summed over the members
+            kernels[-1]["spmd_launches"] = split[name]
         exact = name != "dequant_matmul"    # held to TOL in phases 3 and 6
         if kernels[-1]["launches"] < 1 or (exact and errs[name]):
             raise AssertionError(f"{name}: not launched on the main path, or "
@@ -4914,6 +5498,9 @@ def main() -> int:
         if meshed.get(name, 0) < 1:
             raise AssertionError(f"{name}: not launched by phase 15's "
                                  "steps under a mesh")
+    if split.get("bitpack_unpack", 0) < 1:
+        raise AssertionError("bitpack_unpack: not launched by phase 17's "
+                             "members")
     if reduce_row["max_abs_err"] != 0:
         raise AssertionError("bitpack_reduce differs from its plain version")
     print(json.dumps({"kernels": kernels}))

@@ -18,18 +18,24 @@ reference's is a compiler without a TPU.
 (``launch.mesh.make_test_mesh(shape, axes, device="meta")``;
 ``make_production_mesh`` needs 256 distinct devices).
 
-**The program** is the port's own design, ``steps.member_step``: member 0
-all-gathers the whole parameters (and a decode cache's heads over
-``model``), runs forward (and backward) on its DP block of the batch (the
-global batch over the DP members, as ``sharding.batch_spec`` splits it),
-and a train step reduces its gradient to the member's ZeRO-1 region,
-updates it and all-gathers the regions back.  It does not split compute
-over ``model``: that half of ROADMAP.md Queue 1 item 11c is absent, so a
-member computes its DP block with the whole weights, and a cell's per-
-member FLOPs and temp bytes are those of a DP-only program with gathered
-weights, not the reference's tensor-parallel ones.  Every member's blocks
-have one shape (placement splits only dimensions that divide), so member
-0's program is every member's.
+**The program** is ``steps.member_step``, the program each member runs
+where it holds a device of its own, as member 0 runs it on ``meta``
+(``distributed.spmd.Member.counting``): under policy ``tp`` it holds and
+computes only its ``model`` share of every leaf the specs split (heads,
+hidden units, experts, vocabulary, channels) and its DP block of the
+batch (the global batch over the DP members, as ``sharding.batch_spec``
+splits it), with the collectives over ``model`` that tensor and expert
+parallelism need (``spmd``: the column-parallel inputs' gradients and the
+row-parallel outputs all-reduced, the embedding's columns, a KV head cut
+across members and Mamba2's packed projection all-gathered, the
+vocab-parallel cross entropy's three all-reduces); a train step reduces
+its gradient over the DP axes to the member's ZeRO-1 region, updates it
+and all-gathers the regions back; a serve step's logits are gathered
+whole, as its out-sharding asks.  So a cell's FLOPs, temp bytes and
+collective bytes are one member's of the split program, as the
+reference's per-device costs are.  Every member's blocks have one shape
+(placement splits only dimensions that divide), so member 0's program is
+every member's, up to which blocks it reads.
 
 **Memory per member.**  Argument and output bytes are exact: member 0's
 blocks under ``steps.train_shardings``, ``serve_shardings`` or
@@ -41,11 +47,17 @@ donates nothing).  A cell whose argument plus temp bytes exceed a card's
 ``generated_code_size_in_bytes`` is 0 (there is no generated code).
 
 **Costs.**  An eager count has no scan undercount: with ``--no-probes``
-the program is counted at full depth.  By default it is counted at g and
-2g layers (g = ``attn_every`` for the hybrid, whose shared block recurs
-every g layers, else 1) and extrapolated linearly to the full depth, as
-the reference's ``probe_costs`` does: FLOPs, bytes, collective bytes and
-the temp peak.  That is what makes the recurrent families' train_4k and
+the program is counted at full depth.  By default it is counted at two
+depths, 2g and 3g layers (g = ``attn_every`` for the hybrid, whose shared
+block recurs every g layers, else 1; g and 2g for a model of fewer than
+3g layers), and extrapolated linearly to the full depth, as the
+reference's ``probe_costs`` does from g and 2g: FLOPs, bytes, collective
+bytes and the temp peak.  The split program's peak is its activations'
+(the parameters are arguments), and the first layer's is not the others':
+its input is the embedding's output, which the caller still holds while
+the later layers run, so the peak grows from one layer to two and not
+after (a prefill's or a decode's) or by a first step unlike the rest (a
+train step's).  That is what makes the recurrent families' train_4k and
 prefill_32k affordable (their recurrences are Python loops over time,
 ~0.3 ms an op on ``meta``).  The extrapolated FLOPs, bytes and collective
 bytes equal the full-depth count (the model's layer loop costs the same
@@ -78,7 +90,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.configs.base import SHAPES, get_arch, shape_applicable
-from repro_torch.distributed import sharding
+from repro_torch.distributed import sharding, spmd
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
 from repro_torch.models import layers, model
@@ -128,20 +140,18 @@ VARIANTS = {
 }
 
 
-def _placed(tree, shardings):
-    """``tree``'s tensor leaves placed under ``shardings`` as ``meta``
-    blocks: one block tensor, which every member holds (all blocks have
-    one shape)."""
+def _blocks(tree, shardings):
+    """``tree``'s tensor leaves as member 0's blocks under ``shardings``:
+    ``meta`` tensors of the block shapes (every member's have one
+    shape)."""
     if isinstance(tree, dict):
-        return {k: _placed(v, shardings[k]) for k, v in tree.items()}
+        return {k: _blocks(v, shardings[k]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_placed(v, s) for v, s in zip(tree, shardings))
+        return type(tree)(_blocks(v, s) for v, s in zip(tree, shardings))
     if not isinstance(tree, torch.Tensor):
         return tree
-    block = torch.empty(shardings.shard_shape(tree.shape), dtype=tree.dtype,
-                        device="meta")
-    return sharding.ShardedTensor([block] * shardings.mesh.size, shardings,
-                                  tree.shape, tree.dtype)
+    return torch.empty(shardings.shard_shape(tree.shape), dtype=tree.dtype,
+                       device="meta")
 
 
 def member_bytes(tree, shardings) -> int:
@@ -193,9 +203,10 @@ def member_program(cfg, shape, mesh, param_transform=None):
             out_tree = (logits, cache)
             outs = (sharding.NamedSharding(mesh, sharding.P()), c_sh)
             step = steps.build_serve_step(cfg)
-    placed = _placed(args, ins)
-    run = steps.member_step(step, ins)
-    return (lambda: run(*placed)), member_bytes(args, ins), \
+    blocks = _blocks(args, ins)
+    member = spmd.Member.counting(mesh, 0, sharding.current_policy())
+    run = steps.member_step(step, ins, outs, member=member)
+    return (lambda: run(*blocks)), member_bytes(args, ins), \
         member_bytes(out_tree, outs)
 
 
@@ -224,13 +235,14 @@ def _lincomb(a: Costs, b: Costs, fa: float, fb: float) -> Costs:
 
 
 def probe_costs(cfg, shape, mesh, param_transform=None) -> dict:
-    """The program counted at p1 = g and p2 = 2g layers and extrapolated
-    linearly to ``cfg.n_layers``: cost(L) = cost(p1) + (L - p1) / g *
-    (cost(p2) - cost(p1)), FLOPs, bytes, collective bytes and the temp
-    peak.  Returns ``count_cell``'s dict for the extrapolation, with the
-    p2 count as ``raw`` (its ``n_layers`` beside it)."""
+    """The program counted at p1 = 2g and p2 = 3g layers (g and 2g below 3g
+    layers; module docstring) and extrapolated linearly to
+    ``cfg.n_layers``: cost(L) = cost(p1) + (L - p1) / g * (cost(p2) -
+    cost(p1)), FLOPs, bytes, collective bytes and the temp peak.  Returns
+    ``count_cell``'s dict for the extrapolation, with the p2 count as
+    ``raw`` (its ``n_layers`` beside it)."""
     g = cfg.attn_every if cfg.attn_every else 1
-    p1, p2 = g, 2 * g
+    p1, p2 = (2 * g, 3 * g) if cfg.n_layers >= 3 * g else (g, 2 * g)
     c1 = count_cell(dataclasses.replace(cfg, n_layers=p1), shape, mesh,
                     param_transform)
     c2 = count_cell(dataclasses.replace(cfg, n_layers=p2), shape, mesh,
@@ -305,7 +317,7 @@ def main(argv=None) -> None:
                     help="the reference's perf variants")
     ap.add_argument("--no-probes", action="store_true",
                     help="count each program at full depth instead of "
-                         "extrapolating from g and 2g layers")
+                         "extrapolating from two shallower depths")
     args = ap.parse_args(argv)
 
     out_path = Path(args.out)

@@ -9,15 +9,26 @@ collective plane (``distributed/collectives.py``) and DiLoCo
 a leaf "sharded over ``pod``" being one tensor with a leading member axis
 on that device; the sharded decode executor and its consumers place their
 outputs as one tensor a member (``distributed.sharding.ShardedTensor``).
-A mesh over distinct devices can be built and named, but nothing moves
-tensors across one yet (ROADMAP.md Queue 1 item 11c).
+A mesh over distinct devices can be built and named, but those paths move
+no tensor across one yet (ROADMAP.md Queue 1 item 11c).
+
+A mesh over the ranks of a ``torch.distributed`` world
+(:func:`world_mesh`) knows its process's ``rank``: ``member_device`` gives
+that rank's device, and ``distributed.spmd.Member.join`` gives the
+rank's member program its process groups.  :func:`spawn` starts one
+process a member (``gloo`` by default, rendezvous through a ``FileStore``
+in a temporary directory; a world ``torchrun`` set up is joined as it is)
+and fails when any rank fails.
 
 Functions, not module constants: importing this module touches no device.
 """
 from __future__ import annotations
 
 import collections
-from typing import Optional, Sequence
+import os
+import tempfile
+import time
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,9 +38,11 @@ from repro_torch.core.engine import resolve_device
 
 class Mesh:
     """``devices``: an array of ``torch.device`` (one a member), one axis a
-    name of ``axis_names``."""
+    name of ``axis_names``; ``rank``: this process's member, where the
+    members are the ranks of a world (:func:`world_mesh`)."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str],
+                 rank: Optional[int] = None):
         given = np.asarray(devices, dtype=object)
         grid = np.empty(given.shape, dtype=object)
         for idx in np.ndindex(given.shape):
@@ -41,6 +54,9 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self.shape = collections.OrderedDict(zip(self.axis_names,
                                                  grid.shape))
+        if rank is not None and not 0 <= rank < grid.size:
+            raise ValueError(f"rank {rank} of a {grid.size}-member mesh")
+        self.rank = rank
 
     @property
     def size(self) -> int:
@@ -54,9 +70,15 @@ class Mesh:
         return found.pop() if len(found) == 1 else None
 
     def member_device(self) -> torch.device:
-        """The device the members share; a mesh over distinct devices
-        raises (the port moves nothing across devices yet, ROADMAP.md
+        """This rank's device on a mesh over a world's ranks; else the
+        device the members share, and a mesh over distinct devices raises
+        (the one-process paths move nothing across devices yet, ROADMAP.md
         Queue 1 item 11c)."""
+        if self.rank is not None:
+            return self.devices.flat[self.rank]
+        return self._one_device()
+
+    def _one_device(self) -> torch.device:
         dev = self.shared_device
         if dev is None:
             raise NotImplementedError(
@@ -66,9 +88,9 @@ class Mesh:
         return dev
 
     def members(self, axis: str, n: Optional[int] = None) -> int:
-        """``shape[axis]``, the members sharing one device
-        (:meth:`member_device`), and equal to ``n`` where given."""
-        self.member_device()
+        """``shape[axis]``, the members sharing one device, and equal to
+        ``n`` where given."""
+        self._one_device()
         size = int(self.shape[axis])
         if n is not None and n != size:
             raise ValueError(f"{n} members for mesh axis {axis!r} of {size}")
@@ -77,7 +99,8 @@ class Mesh:
     def __repr__(self) -> str:
         axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
         devices = sorted(map(str, set(self.devices.flat)))
-        return f"Mesh({axes}; devices {devices})"
+        rank = "" if self.rank is None else f"; rank {self.rank}"
+        return f"Mesh({axes}; devices {devices}{rank})"
 
 
 def _members_on(device, n: int) -> list:
@@ -138,3 +161,113 @@ def _distinct_devices(device) -> list:
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [torch.device(dev.type)]
+
+
+# --------------------------------------------------------------------------
+# one process a member
+# --------------------------------------------------------------------------
+
+
+def rank_device(device, rank: int) -> torch.device:
+    """Rank ``rank``'s device of ``device``'s type: the cards taken in
+    turn (every rank on the one card of a one-card machine); the CPU's
+    one device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return torch.device(dev.type)
+
+
+def world_mesh(shape, axes: Sequence[str], *, device: str = "cuda"
+               ) -> Mesh:
+    """A mesh over the ranks of the current ``torch.distributed`` world
+    (``prod(shape)`` of them, member r rank r), its ``rank`` this
+    process's, each member on its :func:`rank_device`."""
+    import torch.distributed as dist
+    shape = tuple(int(n) for n in shape)
+    n = int(np.prod(shape))
+    if dist.get_world_size() != n:
+        raise ValueError(f"mesh {shape} needs {n} ranks, the world has "
+                         f"{dist.get_world_size()}")
+    grid = np.empty(n, dtype=object)
+    for r in range(n):
+        grid[r] = rank_device(device, r)
+    return Mesh(grid.reshape(shape), axes, rank=dist.get_rank())
+
+
+def _rank_main(rank: int, world: int, store_path: str, backend: str,
+               device: str, threads: int, fn: Callable, args: tuple,
+               out_dir: str) -> None:
+    """One spawned rank: join the world, run ``fn(*args)``, save what it
+    returns for the launcher."""
+    import torch.distributed as dist
+    torch.set_num_threads(threads)
+    dev = rank_device(device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world)
+    try:
+        result = fn(*args)
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def spawn(fn: Callable, world: int, args: tuple = (), *,
+          device: str = "cuda", backend: str = "gloo",
+          threads: Optional[int] = None,
+          timeout: Optional[float] = None) -> list:
+    """Run ``fn(*args)`` in ``world`` processes, one a member, each in a
+    ``torch.distributed`` world of ``backend`` (rank r on
+    :func:`rank_device`; ``device`` must exist: nothing falls back to the
+    CPU), and return what each rank's ``fn`` returned, in rank order
+    (saved with ``torch.save``).  ``fn`` must be importable by name (a
+    module's function), since the processes start afresh (``spawn``).  A
+    rank that raises, or a run past ``timeout`` seconds, ends every rank
+    and raises here.  ``threads``: torch's threads a rank (default: the
+    CPUs over the ranks).
+
+    Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set, a world of
+    ``world`` ranks) nothing is started: this process joins the world
+    torchrun set up (``env://``), runs ``fn`` and returns its one result
+    in a list."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    resolve_device(device)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        if size != world:
+            raise ValueError(f"torchrun started {size} ranks; the mesh has "
+                             f"{world} members")
+        dev = rank_device(device, rank)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method="env://", rank=rank,
+                                world_size=size)
+        try:
+            return [fn(*args)]
+        finally:
+            dist.destroy_process_group()
+    threads = threads or max(1, (os.cpu_count() or 1) // world)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_spawn_") as tmp:
+        ctx = mp.start_processes(
+            _rank_main, args=(world, os.path.join(tmp, "store"), backend,
+                              device, threads, fn, args, tmp),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = None if timeout is None else time.monotonic() + timeout
+        try:
+            # ``join`` returns as each rank ends, True once all have
+            while not ctx.join(None if deadline is None else
+                               max(0.0, deadline - time.monotonic())):
+                if deadline is not None and time.monotonic() >= deadline:
+                    raise TimeoutError(f"{world} ranks of {fn.__name__} "
+                                       f"ran past {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join()
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]

@@ -13,8 +13,13 @@ must exist) and ``--n-layers`` (a preset's depth cut, widths unchanged, as
 ``launch.train`` takes it).  ``--mesh 2x2x2`` serves under a mesh whose
 members share the device: the parameters and the cache placed by
 ``steps.serve_shardings``, every step ``steps.sharded_step`` of the serve
-step.  Timings are host clock around
-work that ends in a device synchronise.
+step.  ``--spmd`` serves the same ``--mesh`` with one process a member on
+``--device`` (``launch.mesh.spawn``, ``gloo``): each holds only its blocks
+of the parameters and the cache and its DP block of the requests, and
+every step is ``steps.member_step`` of the serve step (under ``tp`` its
+``model`` share; the logits gathered whole, so every member takes the
+same greedy token).  Timings are host clock around work that ends in a
+device synchronise.
 """
 from __future__ import annotations
 
@@ -55,6 +60,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default=None, metavar="SHAPE",
                     help="serve under a mesh of this shape whose members "
                          "share the device, e.g. 2x2x2 (pod, data, model)")
+    ap.add_argument("--spmd", action="store_true",
+                    help="with --mesh: one process a member on --device "
+                         "(gloo), each holding and computing only its "
+                         "share (steps.member_step)")
     return ap
 
 
@@ -139,6 +148,92 @@ def generate(cfg, params, prompts: torch.Tensor, gen: int,
             "cache": cache, "prefill_s": t_prefill, "decode_s": t_decode}
 
 
+def member_decode(cfg, member, mesh, batch: int, max_seq: int):
+    """``(decode, (param shardings, cache shardings, batch shardings))``:
+    the serve step as ``member``'s program (``steps.member_step`` on
+    ``steps.serve_shardings``), as ``prefill_into_cache`` takes a step; it
+    takes the member's blocks, and its logits come back whole."""
+    from repro_torch.distributed import spmd
+    shape = ShapeSpec("decode", max_seq, batch, "decode")
+    with sharding.use_mesh(None, member.policy):
+        ins, outs = steps.serve_shardings(cfg, shape, mesh)
+    step = steps.member_step(steps.build_serve_step(cfg), ins, outs,
+                             member=member)
+    tok_sh = ins[2]["tokens"]
+
+    def decode(params, cache, tokens):
+        return step(params, cache,
+                    {"tokens": spmd.blocks(tokens, tok_sh, member.index)})
+
+    return decode, ins
+
+
+def _spmd_rank(args, cache_dir) -> dict:
+    """One member's process of ``--spmd``: :func:`generate`'s loop on the
+    member's blocks; the tokens (every member's are the same) and its
+    cache blocks on the CPU."""
+    from repro_torch.distributed import spmd
+    if cache_dir is not None:
+        from repro_torch.core import tuning
+        tuning.enable_compile_cache(cache_dir)
+    cfg = resolve_cfg(args)
+    shape = mesh_lib.parse_mesh(args.mesh, device="meta")
+    mesh = mesh_lib.world_mesh(tuple(shape.shape.values()),
+                               shape.axis_names, device=args.device)
+    member = spmd.Member.join(mesh)
+    device = mesh.member_device()
+    params = model.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)).to(
+        device)
+    max_seq = args.prompt_len + args.gen + 8
+    decode, (p_sh, c_sh, _) = member_decode(cfg, member, mesh, args.batch,
+                                            max_seq)
+    params = spmd.blocks(params, p_sh, member.index)
+    cache = spmd.blocks(model.init_cache(cfg, args.batch, max_seq,
+                                         device=device), c_sh, member.index)
+    with torch.no_grad():
+        _sync(device)
+        t0 = time.time()
+        logits, cache = prefill_into_cache(cfg, params, cache, prompts,
+                                           decode)
+        _sync(device)
+        t_prefill = time.time() - t0
+        out = []
+        cur = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        t0 = time.time()
+        for _ in range(args.gen):
+            out.append(cur)
+            logits, cache = decode(params, cache, cur)
+            cur = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        _sync(device)
+    return {"tokens": torch.cat(out, dim=1).cpu().numpy(),
+            "logits": logits.cpu(), "prefill_s": t_prefill,
+            "decode_s": time.time() - t0,
+            "cache": {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                      for k, v in cache.items()}}
+
+
+def _run_spmd(args) -> dict:
+    if not args.mesh:
+        raise ValueError("--spmd needs --mesh")
+    from repro_torch.core import tuning
+    cache = tuning.compile_cache_dir()
+    resolve_device(args.device)
+    n = mesh_lib.parse_mesh(args.mesh, device="meta").size
+    ranks = mesh_lib.spawn(_spmd_rank, n, (args, None if cache is None
+                                           else str(cache)),
+                           device=args.device)
+    if any(not np.array_equal(r["tokens"], ranks[0]["tokens"])
+           for r in ranks):
+        raise RuntimeError("the members took different tokens")
+    out = dict(ranks[0])
+    out["caches"] = [r["cache"] for r in ranks]
+    out["cfg"] = resolve_cfg(args)
+    return out
+
+
 def run_serving(args, params=None) -> dict:
     """Drive one serving run; ``params`` (the model's tree on the device)
     replaces the random init, e.g. weights carried across from the JAX
@@ -154,6 +249,10 @@ def run_serving(args, params=None) -> dict:
     cut = (f" depth cut {get_arch(args.arch).n_layers} -> {cfg.n_layers}"
            if args.n_layers else "")
     print(f"arch={cfg.name} preset={args.preset} device={device}{cut}")
+    if args.spmd:
+        if params is not None:
+            raise ValueError("--spmd draws its own parameters")
+        return _run_spmd(args)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(0)
         params = model.init_params(cfg, gen, device=device)

@@ -45,20 +45,27 @@ out_shardings=...)`` under ``sharding.use_mesh(mesh, policy)``, on a
 
 On a shared device the step's values are the unsharded step's, bit for
 bit, except where the mesh changes the computation itself (the MoE's G).
-Splitting the compute over ``model`` (column and row tensor parallelism,
-vocab-parallel cross entropy) and a device for each DP member change no
-result on one device and wait for meshes over distinct devices (ROADMAP.md
-Queue 1 item 11c).
+
+:func:`member_step` is the other form of the same program: what one
+member runs where it holds a device of its own, in a process of its own
+(``launch.mesh.spawn``, collectives over a ``torch.distributed`` process
+group), or on ``meta`` tensors in the dry-run.  It takes only the
+member's blocks and computes only the member's share: under ``tp`` its
+``model`` share of every split leaf (column and row tensor parallelism,
+the vocab-parallel cross entropy, experts over ``model``; ``models``),
+under both policies its DP block of the batch, and its ZeRO-1 region of
+the optimizer.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.tree import leaves, map_tree, rebuild
-from repro_torch.distributed import sharding
+from repro_torch.distributed import sharding, spmd
 from repro_torch.models import layers, model
 from repro_torch.optim import adamw
 from repro_torch.roofline import count
@@ -136,7 +143,7 @@ def build_train_step(cfg: ArchConfig,
     :func:`sharded_step` runs under a mesh."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
 
-    def loss_and_grads(params, batch):
+    def grads_of(params, batch):
         flat = list(leaves(params))
         live = [p.detach().requires_grad_() for p in flat]
         loss = model.loss_fn(cfg, rebuild(params, live), batch["tokens"],
@@ -145,11 +152,15 @@ def build_train_step(cfg: ArchConfig,
         # a leaf the loss does not read (a non-parametric norm's
         # placeholder) has a zero gradient, as jax.grad gives it
         got = torch.autograd.grad(loss, live, allow_unused=True)
-        grads = rebuild(params, [torch.zeros_like(p) if g is None else g
-                                 for p, g in zip(flat, got)])
+        return loss.detach(), rebuild(
+            params, [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(flat, got)])
+
+    def loss_and_grads(params, batch):
+        loss, grads = grads_of(params, batch)
         if grad_compressor is not None:
             grads = grad_compressor(grads)
-        return loss.detach(), grads
+        return loss, grads
 
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(params, batch)
@@ -157,7 +168,10 @@ def build_train_step(cfg: ArchConfig,
         return params, opt_state, loss
 
     train_step.loss_and_grads = loss_and_grads
+    train_step.grads_of = grads_of
+    train_step.grad_compressor = grad_compressor
     train_step.opt_cfg = opt_cfg
+    train_step.kind = "train"
     return train_step
 
 
@@ -186,8 +200,9 @@ def build_prefill_step(cfg: ArchConfig):
                                batch.get("prefix_emb"))
         x = model._layer_stack(cfg, params, x, remat=False)
         x = layers.apply_norm(cfg.norm, x, params["ln_f"])
-        return x[:, -1:] @ model.head(cfg, params)
+        return model.logits(cfg, params, x[:, -1:])
 
+    prefill_step.kind = "prefill"
     return prefill_step
 
 
@@ -199,6 +214,7 @@ def build_serve_step(cfg: ArchConfig):
     def serve_step(params, cache, batch):
         return model.decode_step(cfg, params, cache, batch["tokens"])
 
+    serve_step.kind = "serve"
     return serve_step
 
 
@@ -310,17 +326,14 @@ def _moment(shards: list, like):
 
 
 def _zero1_apply(params, grads, opt_state, opt_cfg: adamw.AdamWConfig,
-                 p_sh, n_dp: int, members=None):
+                 p_sh, n_dp: int):
     """AdamW member by member on the ZeRO-1 blocks of ``opt_state`` (placed
     under ``opt_shardings``): ``(params whole, new opt_state placed)``.
     ``p_sh``: the parameters' shardings; ``n_dp``: the DP members whose
-    gradients are reduced.  ``members``: only these members' updates, and
-    their new states (a step counter and moment tree a member) in place of
-    the placed state."""
+    gradients are reduced."""
     counter = opt_state["step"]
-    ks = range(len(counter.shards)) if members is None else members
     steps, corrections = [], {}
-    for k in ks:                            # each member its own copy
+    for k in range(len(counter.shards)):     # each member its own copy
         st, b1c, b2c = adamw.bias_corrections(counter.shards[k], opt_cfg)
         steps.append(st)
         corrections[k] = (b1c, b2c)
@@ -328,8 +341,6 @@ def _zero1_apply(params, grads, opt_state, opt_cfg: adamw.AdamWConfig,
     def update(p, g, m, v, sh):
         whole, ms, vs = _member_updates(p, g, m, v, corrections, opt_cfg,
                                         sh, n_dp)
-        if members is not None:
-            return whole, ms, vs
         return whole, _moment(ms, m), _moment(vs, v)
 
     # the parameters' structure leads: an int8 moment's {"q", "s"} reaches
@@ -338,11 +349,6 @@ def _zero1_apply(params, grads, opt_state, opt_cfg: adamw.AdamWConfig,
                    p_sh)
     new_p, new_m, new_v = (map_tree(lambda o, i=i: o[i], out)
                            for i in range(3))
-    if members is not None:
-        return new_p, [{"step": st,
-                        "m": map_tree(lambda x, j=j: x[j], new_m),
-                        "v": map_tree(lambda x, j=j: x[j], new_v)}
-                       for j, st in enumerate(steps)]
     step = sharding.ShardedTensor(steps, counter.sharding, counter.shape,
                                   counter.dtype)
     return new_p, {"step": step, "m": new_m, "v": new_v}
@@ -409,71 +415,248 @@ def sharded_step(step: Callable, in_shardings,
     return run
 
 
-def _dp_block(x, member: int, dp_axes):
-    """``x``'s block of ``member`` with only the DP axes split: what the
-    member computes on, since compute is not split over ``model``.  A
-    placed leaf whose own block is smaller is gathered over its other axes
-    (an all-gather recorded with ``roofline.count``: the block's bytes);
-    other leaves as they are."""
-    if isinstance(x, dict):
-        return {k: _dp_block(v, member, dp_axes) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return type(x)(_dp_block(v, member, dp_axes) for v in x)
-    if not isinstance(x, sharding.ShardedTensor):
-        return x
-    kept = sharding.P(*(tuple(a for a in ((part,) if isinstance(part, str)
-                                          else part or ()) if a in dp_axes)
-                        or None for part in x.sharding.spec))
-    dp_sh = sharding.NamedSharding(x.sharding.mesh, kept)
-    if _blocks(dp_sh, x.shape) == _blocks(x.sharding, x.shape):
-        return x.shards[member]
-    want = dp_sh.member_indices(x.shape)[member]
-    shape = dp_sh.shard_shape(x.shape)
-    count.collective("all-gather", _nbytes(shape, x.dtype), x.device)
-    out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    seen = set()
-    for idx, shard in zip(x.sharding.member_indices(x.shape), x.shards):
-        key = tuple((s.start, s.stop) for s in idx)
-        if key in seen or any(s.start < w.start or s.stop > w.stop
-                              for s, w in zip(idx, want)):
-            continue
-        seen.add(key)
-        out[tuple(slice(s.start - w.start, s.stop - w.start)
-                  for s, w in zip(idx, want))] = shard
-    return out
+def _zero1_dim(p_spec, m_spec, ndim: int):
+    """The dimension ZeRO-1 splits over ``data`` in the moment's spec and
+    not in the parameter's (None: the moment lies as its parameter)."""
+    for d in range(ndim):
+        pa = spmd.axes_of(p_spec[d] if d < len(p_spec) else None)
+        ma = spmd.axes_of(m_spec[d] if d < len(m_spec) else None)
+        if "data" in ma and "data" not in pa:
+            return d
+    return None
 
 
-def member_step(step: Callable, in_shardings, member: int = 0) -> Callable:
-    """Member ``member``'s share of ``sharded_step(step, in_shardings)``:
-    the program one member runs where each member holds a device of its
-    own, with compute not split over ``model`` (ROADMAP.md Queue 1 item
-    11c).  It takes the placed arguments and reads only the member's
-    blocks: each argument is gathered to the member's DP block (the
-    parameters whole, a decode cache's heads over ``model``; the batch is
-    the member's own block), the step runs on that block without a mesh
-    (the MoE's one group is the member's tokens, as each of the
-    reference's DP groups is a device's), and a train step of
-    :func:`build_train_step` then reduces its gradient to the member's
-    ZeRO-1 region, updates it and gathers the regions back.  Every
-    collective is recorded with ``roofline.count``, the result bytes the
-    member receives.  Returns the step's outputs for the member: a train
-    step's ``(params whole, {"step", "m", "v"} of the member, loss)``.
-    The dry-run (``launch/dryrun.py``) counts this program on ``meta``
-    tensors."""
+def _dp_reduce(g: torch.Tensor, member, dim) -> torch.Tensor:
+    """The DP members' mean of ``g``, this member's ZeRO-1 block of it
+    along ``dim`` over ``data`` (None: whole): reduce-scattered over
+    ``data`` where the batch is split over it, its block taken where not,
+    and all-reduced over the batch's other axes."""
+    n_dp = 1
+    for a in member.batch_axes:
+        n_dp *= member.size(a)
+        if a == "data" and dim is not None:
+            g = spmd.reduce_scatter(g, "data", dim)
+        else:
+            g = spmd.all_reduce(g, a)
+    if dim is not None and "data" not in member.batch_axes:
+        size = g.shape[dim] // member.size("data")
+        g = g.narrow(dim, member.coord("data") * size, size)
+    return g / n_dp if n_dp > 1 else g
+
+
+def _qblock_aligned(region, shape) -> bool:
+    """Whether a block of a leaf meets the wire's quantization blocks (of
+    the leaf's flat values) only whole: its runs in flat order start and
+    end on ``QBLOCK`` boundaries."""
+    from repro_torch.optim import grad_compress as gc
+    last = next((d for d in reversed(range(len(shape)))
+                 if (region[d].start, region[d].stop) != (0, shape[d])),
+                None)
+    if last is None:
+        return True
+    inner = 1
+    for n in shape[last + 1:]:
+        inner *= int(n)
+    run = (region[last].stop - region[last].start) * inner
+    return all(v % gc.QBLOCK == 0 for v in (run, region[last].start * inner,
+                                             int(shape[last]) * inner))
+
+
+def _wire(g: torch.Tensor, compressor, region, spec, shape):
+    """The gradient wire on a member's block ``g`` (its region of the
+    leaf, under ``spec``): as the whole leaf's wire gives it, where the
+    block meets the quantization blocks whole; else the leaf is gathered,
+    compressed and the block taken."""
+    if compressor is None:
+        return g
+    if _qblock_aligned(region, shape):
+        return compressor(g)
+    whole = compressor(spmd.relayout(g, spec, sharding.P()))
+    return spmd.relayout(whole, sharding.P(), spec)
+
+
+def _member_leaf(p, g, m, v, p_sh, m_sh, member, corrections, opt_cfg,
+                 compressor):
+    """One leaf's ZeRO-1 update in a member's program: ``(the member's new
+    parameter block, new m, new v)`` (module docstring)."""
+    pspec = p_sh.spec
+    if isinstance(m, dict):           # int8: flat blocks of the whole leaf
+        return _member_leaf_int8(p, g, m, v, p_sh, m_sh, member,
+                                 corrections, opt_cfg, compressor)
+    shape = _global_shape(p, pspec, member)
+    dim = _zero1_dim(pspec, m_sh.spec, len(shape))
+    g = _dp_reduce(g, member, dim)
+    region = m_sh.member_indices(shape)[member.index]
+    g = _wire(g, compressor, region, m_sh.spec, shape)
+    if dim is not None:
+        size = p.shape[dim] // member.size("data")
+        p_r = p.narrow(dim, member.coord("data") * size, size)
+    else:
+        p_r = p
+    new_p, new_m, new_v = adamw.update_leaf(p_r, g, m, v, *corrections,
+                                            opt_cfg)
+    if dim is not None:
+        new_p = spmd.all_gather(new_p, "data", dim)
+    return new_p, new_m, new_v
+
+
+def _member_leaf_int8(p, g, m, v, p_sh, m_sh, member, corrections, opt_cfg,
+                      compressor):
+    """:func:`_member_leaf` for int8 moments (``{"q": (nb, QBLOCK), "s"}``
+    over ``data`` on ``nb``, never over ``model``): the member's region is
+    a flat range of whole blocks of the whole leaf, so the gradient and the
+    parameter are gathered over ``model`` first and the updated range is
+    gathered back over ``data``."""
+    pspec = p_sh.spec
+    shape = _global_shape(p, pspec, member)
+    n = int(np.prod(shape))
+    Q = adamw.QBLOCK
+    nb = -(-n // Q)
+    qspec = m_sh["q"].spec
+    split = spmd.axes_of(qspec[0] if len(qspec) else None) == ("data",)
+    flat = spmd.relayout(g, pspec, sharding.P()).reshape(-1)
+    flat = torch.nn.functional.pad(flat, (0, nb * Q - n))
+    flat = _dp_reduce(flat, member, 0 if split else None)
+    rows = nb // member.size("data") if split else nb
+    lo = member.coord("data") * rows * Q if split else 0
+    hi = min(lo + rows * Q, n)
+    region = (slice(lo, hi),)
+    g_r = _wire(flat[:hi - lo], compressor, region, sharding.P(), (n,))
+    p_r = spmd.relayout(p, pspec, sharding.P()).reshape(-1)[lo:hi]
+    new_p, new_m, new_v = adamw.update_leaf(p_r, g_r, m, v, *corrections,
+                                            opt_cfg)
+    if split:
+        new_p = spmd.all_gather(torch.nn.functional.pad(
+            new_p, (0, rows * Q - (hi - lo))), "data", 0)[:n]
+    return (spmd.relayout(new_p.reshape(shape), sharding.P(), pspec),
+            new_m, new_v)
+
+
+def _global_shape(block: torch.Tensor, spec, member) -> tuple:
+    """The global shape of a tensor whose member block is ``block`` under
+    ``spec``."""
+    out = []
+    for d, n in enumerate(block.shape):
+        k = 1
+        for a in spmd.axes_of(spec[d] if d < len(spec) else None):
+            k *= member.size(a)
+        out.append(int(n) * k)
+    return tuple(out)
+
+
+def _member_train(step, params, opt_state, batch, p_sh, o_sh, member):
+    """A train step of :func:`build_train_step` in a member's program:
+    ``(new parameter blocks, {"step", "m", "v"} blocks, loss)``."""
+    loss, grads = step.grads_of(params, batch)
+    n_dp = 1
+    for a in member.batch_axes:
+        n_dp *= member.size(a)
+        loss = spmd.all_reduce(loss, a)
+    loss = loss / n_dp if n_dp > 1 else loss
+    st, b1c, b2c = adamw.bias_corrections(opt_state["step"], step.opt_cfg)
+
+    def update(p, g, m, v, psh, msh):
+        return _member_leaf(p, g, m, v, psh, msh, member, (b1c, b2c),
+                            step.opt_cfg, step.grad_compressor)
+
+    # the parameters' structure leads: an int8 moment's {"q", "s"} (and
+    # its shardings) reach ``update`` whole
+    out = map_tree(update, params, grads, opt_state["m"], opt_state["v"],
+                   p_sh, o_sh["m"])
+    del grads
+    new_p, new_m, new_v = (map_tree(lambda o, i=i: o[i], out)
+                           for i in range(3))
+    return new_p, {"step": st, "m": new_m, "v": new_v}, loss.detach()
+
+
+def _relayout_tree(tree, have, want):
+    """Each tensor leaf of ``tree`` moved from its block under ``have`` (a
+    tree of ``NamedSharding`` s) to its block under ``want``."""
+    if isinstance(tree, dict):
+        return {k: _relayout_tree(v, have[k], want[k])
+                for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor) or want is None:
+        return tree
+    return spmd.relayout(tree, have.spec, want.spec)
+
+
+def member_step(step: Callable, in_shardings, out_shardings=None, *,
+                member) -> Callable:
+    """The program one member of ``in_shardings``' mesh runs where each
+    member holds a device of its own: the reference's program under
+    ``sharding.use_mesh(mesh, policy)`` split as XLA splits it, for a step
+    of :func:`build_train_step`, :func:`build_prefill_step` or
+    :func:`build_serve_step`.  ``member``: a ``distributed.spmd.Member``
+    of that mesh (``Member.join`` in a process of a world; on ``meta``,
+    ``Member.counting``, which the dry-run counts), whose policy the
+    program follows.
+
+    The returned function takes the member's blocks of the arguments
+    under ``in_shardings`` (plain tensors: a parameter's block under
+    ``param_specs``, the batch's rows over the DP axes ``batch_spec``
+    splits it over, the cache's block under ``cache_spec``, a moment's
+    ZeRO-1 block under ``opt_specs``) and returns the member's blocks of
+    the outputs under ``out_shardings`` (None: as the member holds them,
+    the logits over the batch's DP axes).  Under ``tp`` the member holds
+    and computes only its ``model`` share of every split leaf (``models``:
+    heads, hidden units, experts, vocabulary, channels; the
+    collectives of ``distributed.spmd`` over ``model``); under ``dp`` the
+    ``model`` axis joins data parallelism and the weights are whole.  The
+    MoE's one group is the member's tokens, as each of the reference's DP
+    groups is a device's (a decode step's global dispatch gathers the
+    batch).
+
+    A train step then reduces its gradient over the batch's DP axes to the
+    member's ZeRO-1 region (a reduce-scatter over ``data`` on the
+    dimension ``opt_specs`` splits, an all-reduce over ``pod``; the mean
+    over the DP members) in the gradient's dtype, puts it through the
+    step's ``grad_compressor`` as ``build_train_step`` does (the region's values are the whole leaf's: it is compressed on
+    its own where it meets the wire's quantization blocks whole, else the
+    leaf is gathered first), runs AdamW on the region and all-gathers the
+    updated regions over ``data`` back to the member's parameter block; an
+    int8 moment's region, a flat range of whole blocks of the leaf, is
+    updated on the leaf gathered over ``model``.  The loss is the DP
+    members' mean, all-reduced.  A split leaf's gradient stays the
+    member's; a replicated leaf's (the norms, the router) is the whole
+    gradient on every member, the reference's.  Every collective is
+    recorded with ``roofline.count``."""
+    kind = getattr(step, "kind", None)
+    if kind not in ("train", "prefill", "serve"):
+        raise TypeError("member_step runs the steps of build_train_step, "
+                        "build_prefill_step and build_serve_step")
     mesh = _first_sharding(in_shardings).mesh
-    with sharding.use_mesh(mesh, sharding.current_policy()):
-        dp_axes = sharding.dp_axes(mesh)
-    train = getattr(step, "loss_and_grads", None)
+    if dict(mesh.shape) != member.shape:
+        raise ValueError(f"{member} is not a member of {mesh}")
+    tokens_sh = in_shardings[-1]["tokens"]
+    bentry = tokens_sh.spec[0] if len(tokens_sh.spec) else None
+    member = member.with_batch(spmd.axes_of(bentry))
 
-    def run(*placed):
-        if train is None:
-            return step(*_dp_block(placed, member, dp_axes))
-        params, opt_state, batch = placed
-        full = _dp_block(params, member, dp_axes)
-        loss, grads = train(full, _dp_block(batch, member, dp_axes))
-        new_p, (state,) = _zero1_apply(full, grads, opt_state, step.opt_cfg,
-                                       in_shardings[0], _dp_members(batch),
-                                       members=(member,))
-        return new_p, state, loss
+    def run(*blocks):
+        with spmd.use(member):
+            if kind == "train":
+                params, opt_state, batch = blocks
+                p, o, loss = _member_train(step, params, opt_state, batch,
+                                           in_shardings[0], in_shardings[1],
+                                           member)
+                if out_shardings is None:
+                    return p, o, loss
+                return (_relayout_tree(p, in_shardings[0],
+                                       out_shardings[0]),
+                        _relayout_tree(o, in_shardings[1],
+                                       out_shardings[1]), loss)
+            out = step(*blocks)
+            logits = out if kind == "prefill" else out[0]
+            have = sharding.NamedSharding(mesh, sharding.P(bentry))
+            want = out_shardings if kind == "prefill" else (
+                None if out_shardings is None else out_shardings[0])
+            if want is not None:
+                logits = spmd.relayout(logits, have.spec, want.spec)
+            if kind == "prefill":
+                return logits
+            cache = out[1]
+            if out_shardings is not None:
+                cache = _relayout_tree(cache, in_shardings[1],
+                                       out_shardings[1])
+            return logits, cache
 
     return run

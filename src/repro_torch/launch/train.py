@@ -38,6 +38,18 @@ onto that mesh (``fault.onto``) and the loop goes on there.
     PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
         --steps 12 --mesh 4x2 --restart-mesh 2x2 --fail-at 7 \\
         --ckpt-every 5 [--device cpu]
+
+``--spmd`` runs the same ``--mesh`` with one process a member on
+``--device`` (``launch.mesh.spawn``, ``gloo``): each process builds the
+loader, draws the same global batches and keeps its DP block of each,
+holds only its blocks of the parameters and the optimizer state, and runs
+``steps.member_step`` (under ``tp`` its ``model`` share of the compute).
+It takes neither checkpoints nor failures, and no restart mesh; rank 0's
+losses are the run's.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
+        --steps 8 --batch 4 --seq 32 --mesh 2x2 --spmd --grad-int8 \\
+        [--device cpu]
 """
 from __future__ import annotations
 
@@ -115,6 +127,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--restart-mesh", default=None, metavar="SHAPE",
                     help="with --mesh: restart after a failure onto a mesh "
                          "of this shape (the elastic restart)")
+    ap.add_argument("--spmd", action="store_true",
+                    help="with --mesh: one process a member on --device "
+                         "(gloo), each holding and computing only its "
+                         "share (steps.member_step)")
     return ap
 
 
@@ -315,6 +331,95 @@ def _run_single(args, cfg, loader, device: torch.device,
             "state": (params, opt_state)}
 
 
+def spmd_kernels(device: torch.device) -> None:
+    """Build the kernel libraries a member's process launches (the
+    loader's rle_v2 decode, the gradient wire's bitpack) before the
+    processes start, so that they bind the builds and none runs ``nvcc``
+    beside another; nothing on the CPU."""
+    if device.type != "cuda":
+        return
+    from repro_torch.kernels import bitpack, cuda_build, cuda_rle
+    cuda_build.build_all([cuda_rle.LIB, *cuda_rle.LIB_EPI.values(),
+                          bitpack.LIB])
+
+
+def _spmd_rank(args, params, cache_dir) -> dict:
+    """One member's process of :func:`_run_spmd`."""
+    from repro_torch.distributed import spmd
+    if cache_dir is not None:
+        from repro_torch.core import tuning
+        tuning.enable_compile_cache(cache_dir)
+    cfg = _resolve_cfg(args)
+    shape = mesh_lib.parse_mesh(args.mesh, device="meta")
+    mesh = mesh_lib.world_mesh(tuple(shape.shape.values()),
+                               shape.axis_names, device=args.device)
+    member = spmd.Member.join(mesh, args.policy)
+    device = mesh.member_device()
+    loader = _build_loader(args, cfg, device)
+    opt_cfg = adamw.AdamWConfig(lr=args.lr,
+                                compress_moments=args.compress_moments)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = model.init_params(cfg, gen, device=device)
+    else:
+        params = map_tree(lambda t: t.to(device), params)
+    compressor = None
+    if args.grad_int8:
+        from repro_torch.distributed import collectives
+        compressor = collectives.make_wire_compressor(
+            EngineConfig(device=str(device)))
+    step = steps_lib.build_train_step(cfg, opt_cfg,
+                                      grad_compressor=compressor)
+    with sharding.use_mesh(None, args.policy):
+        ins, outs = steps_lib.train_shardings(
+            cfg, ShapeSpec("train", args.seq, args.batch, "train"), mesh,
+            opt_cfg)
+    fn = steps_lib.member_step(step, ins, outs, member=member)
+    r = member.index
+    p = spmd.blocks(params, ins[0], r)
+    o = spmd.blocks(adamw.init(params, opt_cfg), ins[1], r)
+    del params
+    losses, step_seconds = [], []
+    it = iter(loader)
+    t0 = time.time()
+    for _ in range(args.steps):
+        s0 = time.perf_counter()
+        p, o, loss = fn(p, o, spmd.blocks(next(it), ins[2], r))
+        losses.append(float(loss))
+        step_seconds.append(time.perf_counter() - s0)
+    return {"losses": losses, "seconds": time.time() - t0,
+            "steps_done": args.steps, "restarts": 0, "stragglers": 0,
+            "tokens_per_step": args.batch * args.seq,
+            "step_seconds": step_seconds,
+            "state": (map_tree(lambda t: t.cpu(), p),
+                      map_tree(lambda t: t.cpu(), o))}
+
+
+def _run_spmd(args, params=None) -> dict:
+    """``--spmd``: one process a member of ``--mesh``; rank 0's record,
+    with every rank's ``state`` (its blocks, on the CPU) as ``states``."""
+    if args.diloco or args.restart_mesh or args.fail_at:
+        raise ValueError("--spmd runs neither --diloco, --restart-mesh nor "
+                         "--fail-at")
+    if not args.mesh:
+        raise ValueError("--spmd needs --mesh")
+    device = resolve_device(args.device)
+    spmd_kernels(device)
+    from repro_torch.core import tuning
+    cache = tuning.compile_cache_dir()
+    n = mesh_lib.parse_mesh(args.mesh, device="meta").size
+    if params is not None:
+        params = map_tree(lambda t: t.cpu(), params)
+    ranks = mesh_lib.spawn(_spmd_rank, n, (args, params,
+                                           None if cache is None
+                                           else str(cache)),
+                           device=args.device)
+    out = dict(ranks[0])
+    out["states"] = [r.pop("state") for r in ranks]
+    out.pop("state")
+    return out
+
+
 def run_training(args, params=None) -> dict:
     """Drive one training run; returns a metrics dict (losses, timings,
     the final state; the wire and overlap stats of a DiLoCo run).
@@ -329,6 +434,8 @@ def run_training(args, params=None) -> dict:
     cfg = _resolve_cfg(args)
     print(f"arch={cfg.name} preset={args.preset} device={device} "
           f"params~{cfg.param_count()/1e6:.1f}M")
+    if args.spmd:
+        return _run_spmd(args, params)
     loader = _build_loader(args, cfg, device)
     if args.diloco:
         return _run_diloco(args, cfg, loader, device, params)

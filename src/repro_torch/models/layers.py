@@ -7,6 +7,13 @@ functions draw from an explicit ``torch.Generator`` (the reference's shapes,
 dtypes and scales; not JAX's random bits): a normal sample is drawn in
 float32 on the generator's device, cast to the parameter dtype and scaled
 in it, as ``jax.random.normal(key, shape, dtype) * s`` scales in ``dtype``.
+
+In a mesh member's program (``distributed.spmd``) a function given the
+member's block of a leaf split over ``model`` computes the member's share:
+the MLP column-parallel into ``w_up`` / ``w_gate`` and row-parallel out of
+``w_down``, its partial sums all-reduced (:func:`mlp`, told the whole
+width); the embedding looked up in the member's columns and all-gathered
+(:func:`embed_lookup`).
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import spmd
 
 # Activations ----------------------------------------------------------------
 
@@ -138,14 +147,26 @@ def init_mlp(gen: torch.Generator, d: int, f: int, act: str,
     return p
 
 
-def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str
-        ) -> torch.Tensor:
+def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str,
+        d_ff: Optional[int] = None) -> torch.Tensor:
+    """``d_ff``: the hidden width of the whole MLP; where ``p`` holds a
+    member's block of it (``w_up`` narrower), the member computes its
+    columns and the rows of ``w_down`` they meet, and the partial sums are
+    all-reduced over ``model`` (in a member's program the width must be
+    given)."""
+    if d_ff is None and spmd.tp() > 1:
+        raise ValueError("an MLP in a tensor-parallel member's program "
+                         "needs its whole width, d_ff")
+    split = d_ff is not None and p["w_up"].shape[-1] != d_ff
+    if split:
+        x = spmd.copy_to(x)
     up = x @ p["w_up"]
     if act == "swiglu":
         up = F.silu(x @ p["w_gate"]) * up
     else:
         up = act_fn(act)(up)
-    return up @ p["w_down"]
+    y = up @ p["w_down"]
+    return spmd.reduce_from(y) if split else y
 
 
 # Embedding ------------------------------------------------------------------
@@ -154,4 +175,12 @@ def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str
 def init_embed(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
                device) -> torch.Tensor:
     return normal(gen, (vocab, d), dtype, 0.02, device)
+
+
+def embed_lookup(tokens: torch.Tensor, embed: torch.Tensor,
+                 d_model: int) -> torch.Tensor:
+    """``embed``'s rows of ``tokens``; a member's block of the columns
+    (``d_model`` over ``model``) is looked up and all-gathered."""
+    x = F.embedding(tokens, embed)
+    return x if embed.shape[-1] == d_model else spmd.gather_from(x, -1)
 

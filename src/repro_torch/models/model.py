@@ -27,6 +27,18 @@ carries the reference's own parameters across.
 
 Entry points take ``device=`` (default ``"cuda"``) and raise without a
 card; nothing falls back to the CPU.
+
+In a mesh member's program (``distributed.spmd``, ``launch.steps.
+member_step``) the same functions take the member's blocks of the leaves
+``sharding.param_specs`` splits over ``model`` and compute its share, as
+the reference's program computes each device's under its specs and
+activation constraints: the embedding's columns looked up and gathered,
+each block's heads, hidden units, experts or channels (``layers``,
+``attention``, ``moe``, ``ssm``), and the head: ``lm_head``'s vocabulary
+block, whose loss is the vocab-parallel cross entropy (an all-reduce of
+the maximum, the sum of exponentials and the target logit, in the same
+chunks), and whose prefill and decode logits are all-gathered whole; or,
+tied, the embedding's columns, whose partial logits are all-reduced.
 """
 from __future__ import annotations
 
@@ -34,13 +46,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.core.tree import map_tree
-from repro_torch.distributed import sharding
+from repro_torch.distributed import sharding, spmd
 from repro_torch.models import attention, layers, moe, ssm
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -152,7 +163,7 @@ def _shared_fwd(cfg: ArchConfig, sb, x: torch.Tensor) -> torch.Tensor:
         sb["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
         rope_theta=cfg.rope_theta, block_skip=cfg.block_skip)
     h = layers.apply_norm(cfg.norm, x, sb["ln2"])
-    return x + layers.mlp(sb["mlp"], h, "swiglu")
+    return x + layers.mlp(sb["mlp"], h, "swiglu", cfg.d_ff)
 
 
 def _block_fwd(cfg: ArchConfig, p, x: torch.Tensor, shared,
@@ -167,13 +178,14 @@ def _block_fwd(cfg: ArchConfig, p, x: torch.Tensor, shared,
         if cfg.is_moe:
             return x + moe.moe_ffn(
                 p["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
-                capacity_factor=cfg.capacity_factor, act=cfg.act)
-        return x + layers.mlp(p["mlp"], h, cfg.act)
+                capacity_factor=cfg.capacity_factor, act=cfg.act,
+                shared_ff=cfg.d_ff * cfg.n_shared_experts)
+        return x + layers.mlp(p["mlp"], h, cfg.act, cfg.d_ff)
     if cfg.mixer == "rwkv6":
         o, _ = ssm.rwkv6_mix(p["rwkv"], h, n_heads=cfg.n_heads)
         x = x + o
         h = layers.apply_norm(cfg.norm, x, p["ln2"])
-        return x + ssm.rwkv6_channel_mix(p["cmix"], h)
+        return x + ssm.rwkv6_channel_mix(p["cmix"], h, d_ff=cfg.d_ff)
     o, _ = ssm.mamba2_mix(p["mamba"], h, head_dim=cfg.hd,
                           ssm_state=cfg.ssm_state, ssd_chunk=cfg.ssd_chunk)
     x = x + o
@@ -208,7 +220,7 @@ def _layer_stack(cfg: ArchConfig, params, x: torch.Tensor,
 
 def embed_inputs(cfg: ArchConfig, params, tokens: torch.Tensor,
                  prefix_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-    x = F.embedding(tokens, params["embed"])
+    x = layers.embed_lookup(tokens, params["embed"], cfg.d_model)
     x = sharding.constrain(x, "dp", None, None)
     if cfg.n_prefix and prefix_emb is not None:
         x = torch.cat([prefix_emb.to(x.dtype), x], dim=1)
@@ -219,6 +231,23 @@ def head(cfg: ArchConfig, params) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _vocab_split(cfg: ArchConfig, w: torch.Tensor) -> bool:
+    """Whether the head ``w`` is a member's block of the vocabulary."""
+    return not cfg.tie_embeddings and w.shape[-1] != cfg.vocab
+
+
+def logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """``x @ head`` over the whole vocabulary; a member's vocabulary block
+    is all-gathered, a member's tied columns all-reduced."""
+    w = head(cfg, params)
+    if _vocab_split(cfg, w):
+        return spmd.gather_from(spmd.copy_to(x) @ w, -1)
+    if w.shape[0] != cfg.d_model:               # tied, D over model
+        cols = spmd.block(cfg.d_model)
+        return spmd.reduce_from(spmd.copy_to(x)[..., cols] @ w)
+    return x @ w
+
+
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor,
             prefix_emb: Optional[torch.Tensor] = None,
             remat: bool = False) -> torch.Tensor:
@@ -226,7 +255,23 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor,
     x = embed_inputs(cfg, params, tokens, prefix_emb)
     x = _layer_stack(cfg, params, x, remat)
     x = layers.apply_norm(cfg.norm, x, params["ln_f"])
-    return x @ head(cfg, params)
+    return logits(cfg, params, x)
+
+
+def _vocab_parallel_xent(x, w, labels, vocab: int) -> torch.Tensor:
+    """The summed cross entropy of one chunk against a member's vocabulary
+    block ``w``: the maximum, the sum of exponentials and the target logit
+    all-reduced over ``model``."""
+    lg = (spmd.copy_to(x) @ w).float()
+    m = spmd.all_max(torch.amax(lg, dim=-1))
+    se = spmd.reduce_from(torch.sum(torch.exp(lg - m[..., None]), dim=-1))
+    logz = m + torch.log(se)
+    blk = spmd.block(vocab)
+    local = labels - blk.start
+    mine = (local >= 0) & (local < w.shape[-1])
+    gold = torch.gather(lg, -1, torch.where(mine, local, 0)[..., None])
+    gold = spmd.reduce_from(torch.where(mine, gold[..., 0], 0.0))
+    return torch.sum(logz - gold)
 
 
 def loss_fn(cfg: ArchConfig, params, tokens, labels, prefix_emb=None,
@@ -239,6 +284,7 @@ def loss_fn(cfg: ArchConfig, params, tokens, labels, prefix_emb=None,
     if cfg.n_prefix:
         x = x[:, cfg.n_prefix:]
     w = head(cfg, params)
+    split = _vocab_split(cfg, w)
     B, S, D = x.shape
     n_chunks = max(1, S // seq_chunk)
     if S % n_chunks:
@@ -248,10 +294,13 @@ def loss_fn(cfg: ArchConfig, params, tokens, labels, prefix_emb=None,
     labels = labels.long()
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_chunks):
-        logits = (x[:, i * c:(i + 1) * c] @ w).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels[:, i * c:(i + 1) * c, None])[..., 0]
+        xi, li = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        if split:
+            total = total + _vocab_parallel_xent(xi, w, li, cfg.vocab)
+            continue
+        lg = logits(cfg, params, xi).float()
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, li[..., None])[..., 0]
         total = total + torch.sum(logz - gold)
     return total / (B * S)
 
@@ -306,7 +355,7 @@ def decode_step(cfg: ArchConfig, params, cache: Dict[str, Any],
     recurrent states whole); the returned cache holds the same tensors and
     ``pos + 1``."""
     pos = int(cache["pos"])
-    x = F.embedding(tokens, params["embed"])
+    x = layers.embed_lookup(tokens, params["embed"], cfg.d_model)
     x = sharding.constrain(x, "dp", None, None)
     shared = params.get("shared_block")
     for i in range(cfg.n_layers):
@@ -323,9 +372,10 @@ def decode_step(cfg: ArchConfig, params, cache: Dict[str, Any],
                 x = x + moe.moe_ffn(
                     p["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
                     capacity_factor=cfg.capacity_factor, act=cfg.act,
-                    decode_global=cfg.moe_decode_global)
+                    decode_global=cfg.moe_decode_global,
+                    shared_ff=cfg.d_ff * cfg.n_shared_experts)
             else:
-                x = x + layers.mlp(p["mlp"], h, cfg.act)
+                x = x + layers.mlp(p["mlp"], h, cfg.act, cfg.d_ff)
         elif cfg.mixer == "rwkv6":
             o, (wkv, xa) = ssm.rwkv6_mix(
                 p["rwkv"], h, n_heads=cfg.n_heads,
@@ -335,7 +385,8 @@ def decode_step(cfg: ArchConfig, params, cache: Dict[str, Any],
             x = x + o
             h = layers.apply_norm(cfg.norm, x, p["ln2"])
             o, xf = ssm.rwkv6_channel_mix(p["cmix"], h,
-                                          x_last=cache["x_ffn"][i])
+                                          x_last=cache["x_ffn"][i],
+                                          d_ff=cfg.d_ff)
             cache["x_ffn"][i].copy_(xf)
             x = x + o
         else:
@@ -354,7 +405,6 @@ def decode_step(cfg: ArchConfig, params, cache: Dict[str, Any],
                     rope_theta=cfg.rope_theta)
                 x = x + o
                 h = layers.apply_norm(cfg.norm, x, shared["ln2"])
-                x = x + layers.mlp(shared["mlp"], h, "swiglu")
+                x = x + layers.mlp(shared["mlp"], h, "swiglu", cfg.d_ff)
     x = layers.apply_norm(cfg.norm, x, params["ln_f"])
-    logits = x @ head(cfg, params)
-    return logits, dict(cache, pos=pos + 1)
+    return logits(cfg, params, x), dict(cache, pos=pos + 1)

@@ -15,6 +15,17 @@ Top-k is a stable descending sort: ``lax.top_k`` returns equal logits
 lowest index first, and ``torch.topk`` promises no order among them, so a
 tie at the k-th place could send a token to another expert (and route the
 remat recompute apart from the forward).
+
+In a mesh member's program (``distributed.spmd``) holding its block of
+the experts (``E / model`` of them, the reference's ``expert`` spec), the
+member routes its tokens as every member does (the router is replicated),
+computes only its experts' ``(G, E / model, C, D)`` slots, and the
+combine's partial sums are all-reduced over ``model``, as the
+reference's constraints place the slots and the output
+(``repro/models/moe.py:113-143``).  A decode step's global dispatch
+(``decode_global``) routes the whole batch as one group: the member
+all-gathers the tokens over the axes the batch is split over and keeps
+its rows of the output.
 """
 from __future__ import annotations
 
@@ -24,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed import sharding
+from repro_torch.distributed import sharding, spmd
 from repro_torch.models import layers
 
 
@@ -140,8 +151,13 @@ def abstract_quantize_expert_weights(p_moe):
 
 def moe_ffn(p, x: torch.Tensor, *, n_experts: int, top_k: int,
             capacity_factor: float = 1.25, act: str = "swiglu",
-            decode_global: bool = True) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D)."""
+            decode_global: bool = True,
+            shared_ff: Optional[int] = None) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D).  ``shared_ff``: the shared expert's
+    whole hidden width (``layers.mlp``'s ``d_ff``)."""
+    whole_batch = x.shape[1] == 1 and decode_global
+    if whole_batch:              # one global group: every member's tokens
+        x = spmd.gather_batch(x)
     B, S, D = x.shape
     E, K = n_experts, top_k
     # decode (S == 1) dispatches globally: per-group dispatch at a few
@@ -159,6 +175,14 @@ def moe_ffn(p, x: torch.Tensor, *, n_experts: int, top_k: int,
 
     pad = torch.zeros((G, 1, D), dtype=x.dtype, device=x.device)
     xt_pad = torch.cat([xg_in, pad], dim=1)                  # (G, T+1, D)
+    w_up = p["w_up"]["q"] if isinstance(p["w_up"], dict) else p["w_up"]
+    split = w_up.shape[-3] != E          # this member's block of experts
+    if split:
+        mine = spmd.block(E)
+        E = mine.stop - mine.start
+        xt_pad = spmd.copy_to(xt_pad)
+        token_of_slot = token_of_slot[:, mine]
+        gate_of_slot = spmd.copy_to(gate_of_slot)[:, mine]
     tos = token_of_slot.reshape(G, E * C).long()
     xg = xt_pad[torch.arange(G, device=x.device)[:, None], tos]
     xg = xg.reshape(G, E, C, D)
@@ -174,7 +198,10 @@ def moe_ffn(p, x: torch.Tensor, *, n_experts: int, top_k: int,
         torch.zeros((T + 1, D), dtype=y.dtype, device=x.device).index_add(
             0, tos[g], y[g].reshape(E * C, D))[:T]
         for g in range(G)])                                  # (G, T, D)
+    if split:
+        out = spmd.reduce_from(out)
     out = sharding.constrain(out, "dp", None, None)
     if "shared" in p:
-        out = out + layers.mlp(p["shared"], xg_in, act)
-    return out.reshape(B, S, D).to(x.dtype)
+        out = out + layers.mlp(p["shared"], xg_in, act, shared_ff)
+    out = out.reshape(B, S, D).to(x.dtype)
+    return spmd.batch_block(out) if whole_batch else out

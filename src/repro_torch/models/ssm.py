@@ -22,6 +22,18 @@ recurrences run in float32 as Python loops over time (the reference's
 ``lax.scan`` is a loop too); ``ssd_chunk > 0`` selects the chunkwise SSD
 form, whose chunk loop is a Python loop as well.  Casts sit where the
 reference places them.
+
+In a mesh member's program (``distributed.spmd``) holding its blocks of
+the leaves split over ``model`` (``sharding.param_specs``), each mixer
+computes the member's heads: RWKV6's ``w_r``, ``w_k``, ``w_v``, ``w_g``
+and ``w_decay`` column-parallel and ``w_o`` row-parallel, its channel mix
+``w_ck`` / ``w_cr`` column-parallel and ``w_cv`` row-parallel, the decode
+state's token-shift rows kept as the member's columns; Mamba2's packed
+``in_proj`` (z, x, B, C and dt in one projection, its columns over
+``model`` cutting across them) all-gathered so that each member takes its
+channels of z and x, its heads of dt, and B and C whole, its channels of
+``conv_w`` and rows of ``out_proj``, and the gated RMSNorm over all
+channels summed over the members.  The recurrences' loops are unchanged.
 """
 from __future__ import annotations
 
@@ -31,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import spmd
 from repro_torch.models import layers
 
 # --------------------------------------------------------------------------
@@ -68,15 +81,52 @@ def _token_shift(x: torch.Tensor,
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
+def _member_heads(n_heads: int, width: int) -> slice:
+    """This member's heads where ``width`` (of ``n_heads`` heads) is split
+    over ``model`` on whole heads."""
+    if n_heads % spmd.tp():
+        raise NotImplementedError(
+            f"{n_heads} heads over model={spmd.tp()}: a member's block of "
+            f"{width} channels would cut a head")
+    return spmd.block(n_heads)
+
+
+def _own_cols(x: Optional[torch.Tensor], D: int) -> Optional[torch.Tensor]:
+    """A token-shift row whole: a member's block of its columns (the
+    decode cache's) all-gathered."""
+    if x is None or x.shape[-1] == D:
+        return x
+    return spmd.all_gather(x, "model", -1)
+
+
+def _like(x_last: torch.Tensor, like: Optional[torch.Tensor]):
+    """The new token-shift row in ``like``'s layout: the member's columns
+    where the state it was given held them."""
+    if like is None or like.shape[-1] == x_last.shape[-1]:
+        return x_last
+    return x_last[..., spmd.block(x_last.shape[-1])]
+
+
 def rwkv6_mix(p, x: torch.Tensor, *, n_heads: int, state=None):
     """x: (B, S, D); state: None or (S_wkv (B, H, hd, hd) float32, x_last
-    (B, D)).  Returns (out (B, S, D), (S_wkv, x_last))."""
+    (B, D)).  Returns (out (B, S, D), (S_wkv, x_last)).  A member's state
+    holds its heads and its columns of x_last."""
     B, S, D = x.shape
     H = n_heads
     hd = D // H
     x_last = None if state is None else state[1]
-    xs = _token_shift(x, x_last)
+    xs = _token_shift(x, _own_cols(x_last, D))
     mix = p["mix"]
+    split = p["w_r"].shape[-1] != D
+    base, bonus = p["decay_base"], p["bonus_u"]
+    if split:                 # every projection reads this member's share
+        heads = _member_heads(H, D)
+        cols = spmd.block(D)
+        H = heads.stop - heads.start
+        x0, x, xs, mix = x, spmd.copy_to(x), spmd.copy_to(xs), \
+            spmd.copy_to(mix)
+        base = spmd.copy_to(base)[..., cols]
+        bonus = spmd.copy_to(bonus)[..., heads, :]
 
     def lerp(i):
         return x + (xs - x) * mix[i]
@@ -85,9 +135,9 @@ def rwkv6_mix(p, x: torch.Tensor, *, n_heads: int, state=None):
     k = (lerp(1) @ p["w_k"]).reshape(B, S, H, hd)
     v = (lerp(2) @ p["w_v"]).reshape(B, S, H, hd)
     g = F.silu(lerp(3) @ p["w_g"])
-    decay = (p["decay_base"] + lerp(4) @ p["w_decay"]).reshape(B, S, H, hd)
+    decay = (base + lerp(4) @ p["w_decay"]).reshape(B, S, H, hd)
     w = torch.exp(-torch.exp(decay.float()))                 # (B,S,H,hd)
-    u = p["bonus_u"].float()[None, :, :, None]
+    u = bonus.float()[None, :, :, None]
     Scur = (torch.zeros((B, H, hd, hd), dtype=torch.float32,
                         device=x.device) if state is None else state[0])
     r, k, v = r.float(), k.float(), v.float()
@@ -96,7 +146,10 @@ def rwkv6_mix(p, x: torch.Tensor, *, n_heads: int, state=None):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]       # (B,H,K,V)
         outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], Scur + u * kv))
         Scur = w[:, t, :, :, None] * Scur + kv
-    o = torch.stack(outs, dim=1).reshape(B, S, D).to(x.dtype)
+    o = torch.stack(outs, dim=1).reshape(B, S, H * hd).to(x.dtype)
+    if split:
+        return (spmd.reduce_from((o * g) @ p["w_o"]),
+                (Scur, _like(x0[:, -1], x_last)))
     return (o * g) @ p["w_o"], (Scur, x[:, -1])
 
 
@@ -116,17 +169,33 @@ def init_rwkv6_channel_mix(gen: torch.Generator, d: int, f: int,
 
 
 def rwkv6_channel_mix(p, x: torch.Tensor,
-                      x_last: Optional[torch.Tensor] = None):
+                      x_last: Optional[torch.Tensor] = None,
+                      d_ff: Optional[int] = None):
     """r ⊙ (W_v · relu(W_k · lerp_k)^2), with token shift.  Returns out,
-    and the new x_last as well when called with one (decode)."""
-    xs = _token_shift(x, x_last)
+    and the new x_last as well when called with one (decode).  ``d_ff``:
+    the whole hidden width, where ``p`` may hold a member's block of it
+    (``w_ck`` and ``w_cv``) and of ``w_cr``'s columns."""
+    D = x.shape[-1]
+    if d_ff is None and spmd.tp() > 1:
+        raise ValueError("a channel mix in a tensor-parallel member's "
+                         "program needs its whole width, d_ff")
+    xs = _token_shift(x, _own_cols(x_last, D))
     xk = x + (xs - x) * p["mix2"][0]
     xr = x + (xs - x) * p["mix2"][1]
-    k = torch.square(torch.relu(xk @ p["w_ck"]))
-    out = torch.sigmoid(xr @ p["w_cr"]) * (k @ p["w_cv"])
+    k_split = d_ff is not None and p["w_ck"].shape[-1] != d_ff
+    r_split = p["w_cr"].shape[-1] != D
+    k = torch.square(torch.relu(
+        (spmd.copy_to(xk) if k_split else xk) @ p["w_ck"]))
+    kv = k @ p["w_cv"]
+    r = torch.sigmoid((spmd.copy_to(xr) if r_split else xr) @ p["w_cr"])
+    if k_split:
+        kv = spmd.reduce_from(kv)
+    if r_split:
+        r = spmd.gather_from(r, -1)
+    out = r * kv
     if x_last is None:
         return out
-    return out, x[:, -1]
+    return out, _like(x[:, -1], x_last)
 
 
 # --------------------------------------------------------------------------
@@ -249,6 +318,10 @@ def mamba2_mix(p, x: torch.Tensor, *, head_dim: int = 64,
     di = D * expand
     H = di // head_dim
     P, N = head_dim, ssm_state
+    split = p["conv_w"].shape[-1] != di
+    if split:
+        return _member_mamba2(p, x, head_dim, ssm_state, expand, state,
+                              ssd_chunk)
     proj = x @ p["in_proj"]                                  # (B,S,2di+2N+H)
     z, xin, Bmat, Cmat, dt = torch.split(proj, [di, di, N, N, H], dim=-1)
     conv_state = None if state is None else state[1]
@@ -260,20 +333,65 @@ def mamba2_mix(p, x: torch.Tensor, *, head_dim: int = 64,
     Cv = Cmat.float()
     h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
          if state is None else state[0])
-
-    if ssd_chunk and S > 1:
-        y, h = _ssd_chunked(xin, a, Bv, Cv, dt, h, ssd_chunk)
-    else:
-        x32 = xin.float()
-        ys = []
-        for t in range(S):
-            upd = (dt[:, t, :, None, None] * x32[:, t, :, :, None]
-                   * Bv[:, t, None, None, :])                # (B,H,P,N)
-            h = a[:, t, :, None, None] * h + upd
-            ys.append(torch.einsum("bhpn,bn->bhp", h, Cv[:, t]))
-        y = torch.stack(ys, dim=1)                           # (B,S,H,P)
+    y, h = _ssm_scan(xin, a, Bv, Cv, dt, h, ssd_chunk)
     y = y + p["D"].float()[None, None, :, None] * xin.float()
     y = y.reshape(B, S, di).to(x.dtype)
     y = y * F.silu(z)
     y = layers.rmsnorm(y, p["norm_z"])
     return y @ p["out_proj"], (h, conv_new)
+
+
+def _ssm_scan(xin, a, Bv, Cv, dt, h, ssd_chunk: int):
+    """The SSD recurrence over time: (y (B, S, H, P) float32, h)."""
+    B, S = xin.shape[:2]
+    if ssd_chunk and S > 1:
+        return _ssd_chunked(xin, a, Bv, Cv, dt, h, ssd_chunk)
+    x32 = xin.float()
+    ys = []
+    for t in range(S):
+        upd = (dt[:, t, :, None, None] * x32[:, t, :, :, None]
+               * Bv[:, t, None, None, :])                    # (B,H,P,N)
+        h = a[:, t, :, None, None] * h + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cv[:, t]))
+    return torch.stack(ys, dim=1), h                         # (B,S,H,P)
+
+
+def _member_mamba2(p, x, head_dim, ssm_state, expand, state, ssd_chunk):
+    """:func:`mamba2_mix` for a member holding its block of the channels
+    (module docstring): the state its heads and its channels of the
+    convolution rows."""
+    B, S, D = x.shape
+    di = D * expand
+    H = di // head_dim
+    P, N = head_dim, ssm_state
+    heads = _member_heads(H, di)
+    cols = spmd.block(di)
+    Hm, dm = heads.stop - heads.start, cols.stop - cols.start
+    width = 2 * di + 2 * N + H
+    if p["in_proj"].shape[-1] != width:      # its columns: gather them
+        proj = spmd.gather_split(spmd.copy_to(x) @ p["in_proj"], -1)
+    else:
+        proj = spmd.copy_to(x @ p["in_proj"])
+    z = proj[..., cols]
+    xin = proj[..., di + cols.start:di + cols.stop]
+    Bmat = proj[..., 2 * di:2 * di + N]
+    Cmat = proj[..., 2 * di + N:2 * di + 2 * N]
+    dt = proj[..., 2 * di + 2 * N + heads.start:2 * di + 2 * N + heads.stop]
+    conv_state = None if state is None else state[1]
+    xin, conv_new = _causal_conv(xin, p["conv_w"], conv_state)
+    xin = F.silu(xin).reshape(B, S, Hm, P)
+    own = {k: spmd.copy_to(p[k])[heads] for k in ("dt_bias", "A_log", "D")}
+    dt = _softplus(dt.float() + own["dt_bias"].float())
+    a = torch.exp(-dt * torch.exp(own["A_log"].float()))     # (B,S,Hm)
+    h = (torch.zeros((B, Hm, P, N), dtype=torch.float32, device=x.device)
+         if state is None else state[0])
+    y, h = _ssm_scan(xin, a, Bmat.float(), Cmat.float(), dt, h, ssd_chunk)
+    y = y + own["D"].float()[None, None, :, None] * xin.float()
+    y = y.reshape(B, S, dm).to(x.dtype)
+    y = y * F.silu(z)
+    # the gated RMSNorm over every channel: the members' sums of squares
+    y32 = y.float()
+    ss = spmd.psum(torch.sum(torch.square(y32), dim=-1, keepdim=True))
+    y32 = y32 * torch.rsqrt(ss / di + 1e-6)
+    y = (y32 * spmd.copy_to(p["norm_z"])[cols].float()).to(y.dtype)
+    return spmd.reduce_from(y @ p["out_proj"]), (h, conv_new)

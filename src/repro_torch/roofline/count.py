@@ -26,10 +26,14 @@ Per device (the device of an op's first output, else of its first input):
   not counted.  The peak of the sum is the counterpart of
   ``memory_analysis().temp_size_in_bytes``.
 * **Collective bytes, by kind.**  The port's collectives are explicit
-  code (``launch/steps.py``'s gathers and gradient reduction,
-  ``plan.gather_member_tables``, ``compressed_psum``, ``topk_psum``), which
-  call :func:`collective` with the result bytes one member receives: the
-  unit the reference's HLO parser counts.
+  code (``distributed/spmd.py``'s, which a member's program runs on a
+  process group or on ``meta``; ``launch/steps.py``'s gathers on a shared
+  device, ``plan.gather_member_tables``, ``compressed_psum``,
+  ``topk_psum``), which call :func:`collective` with the result bytes one
+  member receives: the unit the reference's HLO parser counts.  ``spmd``
+  runs the transfer itself outside the counter (:func:`uncounted`); a
+  ``torch.distributed`` collective dispatched anywhere else under the
+  counter raises, naming the op, rather than being left out.
 
 The port's hand-written kernels are bound with ``ctypes``
 (``kernels/cuda_build.py``), below the dispatcher, so a dispatch mode
@@ -50,6 +54,7 @@ _ACTIVE: List["CostCounter"] = []
 
 _EMPTY = ("empty", "empty_strided", "empty_like", "new_empty",
           "new_empty_strided")
+_COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional")
 
 
 @dataclasses.dataclass
@@ -141,6 +146,10 @@ class _Mode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            raise RuntimeError(
+                f"collective {func} under count_costs outside "
+                "distributed.spmd: its bytes would not be counted")
         out = func(*args, **kwargs)
         ins = _tensors(args) + _tensors(kwargs.values())
         outs = _tensors(out if isinstance(out, (list, tuple)) else (out,))
@@ -186,6 +195,19 @@ def count_costs() -> Iterator[CostCounter]:
             yield counter
     finally:
         _ACTIVE.remove(counter)
+
+
+@contextlib.contextmanager
+def uncounted() -> Iterator[None]:
+    """Run the block outside every active counter's dispatch mode: a
+    collective's transfer, whose result bytes the caller has recorded with
+    :func:`collective`."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    if not _ACTIVE:
+        yield
+        return
+    with _disable_current_modes():
+        yield
 
 
 def collective(kind: str, nbytes: int, device) -> None:

@@ -10,14 +10,18 @@ this file asks for it, while the port's side is computed.  It gives:
   on an (8, 1) data x model mesh, where pure DP means no tensor-parallel
   split on either side: the port's FLOPs per member must lie within 5% of
   the reference's for qwen3 (its matmuls alone give 97.4%), and within
-  the tolerances stated beside the MoE's and rwkv6's readings;
+  the tolerances stated beside the MoE's and rwkv6's readings; and the
+  same on a (2, 4) mesh, where both sides split the compute over
+  ``model`` (the port's member program, ``steps.member_step``);
 * every arch x applicable shape's per-device argument bytes on the 16 x 16
   mesh, from ``NamedSharding.shard_shape`` with no compile: the port's
   member blocks must equal them exactly.
 
 The port's side needs no reference for the rest: the probes' linear
 extrapolation against the full-depth count, the (8, 1) collective bytes,
-and the CLI's record schema, ``--force`` and resume.
+the CLI's record schema, ``--force`` and resume, and member 0's program
+run on the CPU in a process of a ``gloo`` world of 8 (``launch.mesh.
+spawn``), whose counts must equal its count on ``meta``.
 """
 import dataclasses
 import json
@@ -27,12 +31,15 @@ import sys
 
 import pytest
 
+import torch
+
 from repro_torch.configs import ShapeSpec, get_arch, list_archs, reduced
 from repro_torch.configs.base import SHAPES, shape_applicable
 from repro_torch.core.tree import leaves
-from repro_torch.distributed import sharding
+from repro_torch.distributed import sharding, spmd
 from repro_torch.launch import dryrun, mesh as mesh_lib, steps
-from repro_torch.models import model
+from repro_torch.models import layers, model
+from repro_torch.optim import adamw
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARITY_SHAPE = (64, 8)               # seq x global batch
@@ -44,6 +51,7 @@ PARITY = {"qwen3": "qwen3-1.7b", "moe": "qwen3-moe-235b-a22b",
 # XLA fuses and counts its own; rwkv6's reference counts its time-step
 # recurrence body once (a lax.scan), the port every step
 FLOP_TOL = {"qwen3": 0.05, "moe": 0.05, "rwkv6": 0.10}
+SPLIT_MESH = (2, 4)                  # data x model: the split's parity
 # the probes' temp peak against the full-depth count (readings: 0 to
 # +0.84%, the largest qwen3's prefill)
 PEAK_TOL = 0.01
@@ -62,16 +70,18 @@ from repro.distributed import sharding
 from repro.launch import steps
 
 cfgs = json.loads(sys.argv[2])
-out = {"probes": {}, "bytes": {}}
+out = {"probes": {}, "probes_split": {}, "bytes": {}}
 seq, batch = cfgs["parity_shape"]
-mesh8 = Mesh(np.asarray(jax.devices()[:8]).reshape(8, 1), ("data", "model"))
-for key, arch in cfgs["parity"].items():
-    cfg = dataclasses.replace(reduced(get_arch(arch), n_layers=4),
-                              dtype="bfloat16")
-    with mesh8, sharding.use_mesh(mesh8):
-        got = dryrun.probe_costs(cfg, ShapeSpec("t", seq, batch, "train"),
-                                 mesh8)
-    out["probes"][key] = {"flops": got["flops"], "coll": got["coll"]}
+for label, shape in (("probes", (8, 1)), ("probes_split", cfgs["split"])):
+    mesh8 = Mesh(np.asarray(jax.devices()[:8]).reshape(shape),
+                 ("data", "model"))
+    for key, arch in cfgs["parity"].items():
+        cfg = dataclasses.replace(reduced(get_arch(arch), n_layers=4),
+                                  dtype="bfloat16")
+        with mesh8, sharding.use_mesh(mesh8):
+            got = dryrun.probe_costs(cfg, ShapeSpec("t", seq, batch,
+                                                    "train"), mesh8)
+        out[label][key] = {"flops": got["flops"], "coll": got["coll"]}
 
 
 def member_bytes(tree, shardings):
@@ -120,7 +130,8 @@ class RefRun:
         env = dict(os.environ)
         env["PYTHONPATH"] = os.path.join(ROOT, "src")
         env["JAX_PLATFORMS"] = "cpu"
-        cfgs = {"parity": PARITY, "parity_shape": PARITY_SHAPE}
+        cfgs = {"parity": PARITY, "parity_shape": PARITY_SHAPE,
+                "split": SPLIT_MESH}
         self.proc = subprocess.Popen(
             [sys.executable, "-c", REF, str(self.out), json.dumps(cfgs)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -160,12 +171,12 @@ def _parity_cfg(key: str):
                                dtype="bfloat16")
 
 
-def _parity_count(key: str) -> dict:
+def _parity_count(key: str, shape=(8, 1)) -> dict:
     seq, batch = PARITY_SHAPE
     with sharding.use_mesh(None, "tp"):
         return dryrun.count_cell(_parity_cfg(key),
                                  ShapeSpec("t", seq, batch, "train"),
-                                 _meta_mesh((8, 1), ("data", "model")))
+                                 _meta_mesh(shape, ("data", "model")))
 
 
 @pytest.mark.parametrize("arch, n_layers", [
@@ -174,7 +185,7 @@ def _parity_count(key: str) -> dict:
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_probe_extrapolation_equals_the_full_depth_count(arch, n_layers,
                                                          kind):
-    """Counted at g and 2g layers and extrapolated, a program's FLOPs,
+    """Counted at 2g and 3g layers and extrapolated, a program's FLOPs,
     bytes and collective bytes equal its full-depth count (zamba2's g is
     its reduced ``attn_every``, 2).  The mesh's 8 ``data`` members divide
     none of these depths, so ZeRO-1 splits the same dimension of every
@@ -198,7 +209,8 @@ def test_collective_bytes_at_8x1():
     """Pure DP on (8, 1): the parameters are replicated, so the step's
     start gathers nothing; the gradient is reduce-scattered to each
     member's ZeRO-1 region and the updated regions all-gathered back, the
-    whole parameter tree.  The reference's XLA program all-reduces the
+    whole parameter tree, and the loss (a float32 scalar) is all-reduced
+    to the DP members' mean.  The reference's XLA program all-reduces the
     whole gradient instead (1,837,826 bytes beside its 1,837,824-byte
     all-gather, its f32 probes halved)."""
     got = _parity_count("qwen3")["costs"]
@@ -213,7 +225,8 @@ def test_collective_bytes_at_8x1():
     print(f"port: all-gather {got.coll['all-gather']:,}, reduce-scatter "
           f"{got.coll['reduce-scatter']:,}; reference: all-gather "
           f"1,837,824, all-reduce 1,837,826")
-    assert got.coll == {"all-gather": tree, "reduce-scatter": regions}
+    assert got.coll == {"all-gather": tree, "reduce-scatter": regions,
+                        "all-reduce": 4}
     assert tree == 1_837_824 and regions * 8 == tree
 
 
@@ -236,6 +249,7 @@ def test_cli_writes_the_record_and_resumes(tmp_path, monkeypatch, capsys):
         "temp_size_in_bytes", "generated_code_size_in_bytes"}
     assert cell["memory"]["generated_code_size_in_bytes"] == 0
     assert cell["raw_scan_costs"]["n_layers"] == 2      # the 2g probe
+    #                                                     (under 3g layers)
     assert cell["roofline"]["n_chips"] == 256
     assert cell["roofline"]["dominant"] in ("compute", "memory",
                                             "collective")
@@ -258,6 +272,65 @@ def test_flops_per_member_match_the_reference_probes(ref, key):
     print(f"{key}: port {got:,} FLOP a member, reference {want:,.0f} "
           f"({got / want:.4f}; limit {FLOP_TOL[key]:.0%})")
     assert abs(got / want - 1) <= FLOP_TOL[key]
+
+
+@pytest.mark.parametrize("key", sorted(PARITY))
+def test_split_flops_per_member_match_the_reference_probes(ref, key):
+    """On (2, 4) each member computes its quarter of the heads, hidden
+    units, experts and vocabulary, as each of the reference's devices
+    does: the port's FLOPs per member (``steps.member_step`` on ``meta``)
+    within ``FLOP_TOL`` of the reference's per device."""
+    want = ref.get()["probes_split"][key]["flops"]
+    got = _parity_count(key, SPLIT_MESH)["costs"].flops
+    whole = _parity_count(key)["costs"].flops
+    print(f"{key} on {SPLIT_MESH}: port {got:,} FLOP a member, reference "
+          f"{want:,.0f} ({got / want:.4f}; limit {FLOP_TOL[key]:.0%}); on "
+          f"(8, 1) {whole:,}")
+    assert abs(got / want - 1) <= FLOP_TOL[key]
+
+
+def _counted_member(key: str):
+    """One process of a ``gloo`` world of 8 on the CPU: member r of
+    ``SPLIT_MESH`` runs its train step on real blocks; member 0 counts it
+    (``adamw._sqrt`` taken plain, as on ``meta``)."""
+    from repro_torch.roofline import count
+    adamw._sqrt = torch.sqrt
+    cfg = _parity_cfg(key)
+    seq, batch = PARITY_SHAPE
+    mesh = mesh_lib.world_mesh(SPLIT_MESH, ("data", "model"), device="cpu")
+    member = spmd.Member.join(mesh)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    opt = adamw.init(params, adamw.AdamWConfig())
+    gen = torch.Generator().manual_seed(1)
+    data = {k: torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                             dtype=torch.int32)
+            for k in ("tokens", "labels")}
+    with sharding.use_mesh(None, "tp"):
+        ins, outs = steps.train_shardings(
+            cfg, ShapeSpec("t", seq, batch, "train"), mesh)
+    fn = steps.member_step(steps.build_train_step(cfg), ins, outs,
+                           member=member)
+    args = [spmd.blocks(t, sh, member.index)
+            for t, sh in zip((params, opt, data), ins)]
+    layers._rope_freqs_on.cache_clear()
+    with count.count_costs() as c:
+        fn(*args)
+    return c.at("cpu").as_dict()
+
+
+def test_member_program_counts_equal_on_the_cpu_and_meta():
+    """Member 0's train step run on the CPU in a world of 8 processes,
+    its collectives real (``gloo``), counts the FLOPs, bytes, collective
+    bytes and ops its program counts on ``meta`` (the dry-run's)."""
+    ranks = mesh_lib.spawn(_counted_member, 8, ("qwen3",), device="cpu",
+                           threads=1, timeout=300)
+    layers._rope_freqs_on.cache_clear()
+    meta = _parity_count("qwen3", SPLIT_MESH)["costs"].as_dict()
+    got = ranks[0]
+    for k in ("flops", "bytes", "coll", "ops"):
+        assert got[k] == meta[k], k
+    assert meta["coll"]["all-reduce"] > 0 and meta["flops"] > 0
 
 
 def test_argument_bytes_equal_the_reference_shards(ref):

@@ -210,7 +210,7 @@ def test_port_imports_neither_jax_nor_repro():
             "moe.py", "ssm.py",
             "adamw.py", "grad_compress.py", "sharding.py", "collectives.py",
             "steps.py", "serve.py", "train.py", "analysis.py", "count.py",
-            "dryrun.py"} <= names
+            "dryrun.py", "spmd.py", "mesh.py"} <= names
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
@@ -238,6 +238,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.distributed.collectives, repro_torch.launch.steps, "
         "repro_torch.launch.serve, repro_torch.launch.train, "
         "repro_torch.roofline.analysis, repro_torch.roofline.count, "
+        "repro_torch.distributed.spmd, repro_torch.launch.mesh, "
         "repro_torch.launch.dryrun\n"
         "from repro_torch.core import registry\n"
         "for c in ('rle_v1', 'rle_v2', 'tdeflate', 'bitpack', 'dbp', "

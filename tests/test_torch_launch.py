@@ -290,3 +290,52 @@ def test_family_serving_matches_the_reference_loop(arch):
     np.testing.assert_array_equal(got["tokens"], np.concatenate(want, 1))
     np.testing.assert_allclose(got["logits"].numpy(), np.asarray(logits),
                                rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("mesh, policy", [("2x2", "tp"), ("2x2x2", "tp"),
+                                          ("4x2", "dp")])
+def test_train_spmd_runs_one_process_a_member(tmp_path, mesh, policy):
+    """``--spmd``: one ``gloo`` process a member on the CPU, each holding
+    its blocks (``steps.member_step``; under ``dp`` the weights whole and
+    the batch over ``data`` alone, 4 rows over 4 members).  Its losses lie
+    within ``rtol=1e-4`` of the same run under the mesh whose members
+    share the device, and each rank's final parameter blocks within 1e-4
+    of that run's member shards, but on at most 0.01% of the elements (at
+    least 2), which AdamW and the int8 wire may put up to a step apart
+    (lr)."""
+    lr = 1e-3
+    flags = ["--preset", "tiny", "--steps", "3", "--batch", "4", "--seq",
+             "32", "--device", "cpu", "--grad-int8", "--mesh", mesh,
+             "--policy", policy, "--lr", str(lr), "--ckpt-every", "100"]
+    base = train.run_training(train.build_parser().parse_args(
+        flags + ["--ckpt-dir", str(tmp_path / "mesh")]))
+    got = train.run_training(train.build_parser().parse_args(
+        flags + ["--spmd", "--ckpt-dir", str(tmp_path / "spmd")]))
+    np.testing.assert_allclose(got["losses"], base["losses"], rtol=1e-4)
+    assert len(got["states"]) == len(base["state"][0]["embed"].shards)
+    assert got["steps_done"] == 3
+    from repro_torch.core.tree import leaves
+    for r, (p, _) in enumerate(got["states"]):
+        for whole, block in zip(leaves(base["state"][0]), leaves(p)):
+            d = (block - whole.shards[r]).abs()
+            assert int((d > 1e-4).sum()) <= max(2, d.numel() // 10000)
+            assert d.numel() == 0 or float(d.max()) <= lr
+
+
+def test_serve_spmd_takes_the_mesh_runs_tokens():
+    """``--spmd`` serving on a 2x2 mesh: every process takes the same
+    greedy tokens as the run under the shared-device mesh, and each
+    rank's cache blocks lie within 1e-4 of that run's member shards."""
+    flags = ["--preset", "tiny", "--device", "cpu", "--batch", "4",
+             "--prompt-len", "8", "--gen", "4", "--mesh", "2x2"]
+    base = serve.run_serving(serve.build_parser().parse_args(flags))
+    got = serve.run_serving(serve.build_parser().parse_args(
+        flags + ["--spmd"]))
+    np.testing.assert_array_equal(got["tokens"], base["tokens"])
+    for r, cache in enumerate(got["caches"]):
+        assert cache["pos"] == base["cache"]["pos"]
+        for k in cache:
+            if k != "pos":
+                np.testing.assert_allclose(
+                    cache[k].numpy(), base["cache"][k].shards[r].numpy(),
+                    atol=1e-4, rtol=1e-4)
