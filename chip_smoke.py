@@ -15,13 +15,15 @@
     python3 chip_smoke.py --mesh-only                # phases 1, 2 and 15
     python3 chip_smoke.py --roofline-only            # phases 1, 2 and 16
     python3 chip_smoke.py --spmd-only                # phases 1, 2 and 17
+    python3 chip_smoke.py --spmd-decode-only         # phases 1, 2 and 18
 
 Phases, each of which must pass (any failure exits non-zero, with no result
 line):
 
   1. environment: torch / CUDA versions, the card's name and power limit;
      ``gloo`` must take every collective kind as CUDA tensors, float32 and
-     bf16 (``distributed.spmd.probe_backend``: a world of this one
+     bf16, and the decode path's all-gathers of uint8, int8, int32, int64
+     and float16 (``distributed.spmd.probe_backend``: a world of this one
      process);
   2. kernel build: one nvcc (sm_90a) per ``csrc`` source (the single-thread
      ``scalar_decode.cu`` too), all started together, with ptxas registers,
@@ -307,12 +309,42 @@ line):
          transfer_s``), no ``nvcc`` in a member (they bind phase 2's
          builds), and ``nccl`` asked to put two ranks on the one card (it
          refuses);
- 18. a JSON line of the kernels (``consumer_launches``: phase 10's,
+ 18. the decode path one process a member (``DecodePlan.execute_sharded``,
+     ``gather_member_tables``, the compressed collectives, ``restore(
+     shardings=)`` / ``save(shardings=)``, DiLoCo and the runner on meshes
+     over a world's ranks), 4 ``gloo`` processes on the card, each
+     holding only its blocks, every number beside the card's name and
+     power limit; what they are held to computed on the card first and
+     written for the members to read:
+       - (a) phase 4's scan through ``decompress_many(mesh=world mesh
+         (data 4), out_shardings=decode_out_sharding)``: one launch a
+         group a member, every member's block equal to phase 4's
+         ``execute_device`` output's (checksums), staging, decode, the
+         exchange (the decoded group tables all-gathered: ms and bytes)
+         and the rest apart;
+       - (b) phase 10's int8 moments and K/V weights restored with
+         ``shardings=`` onto (data 2, model 2): every block equal to the
+         unsharded restore's, launches by kernel;
+       - (c) ``compressed_psum`` of phase 13 (a)'s embedding-sized leaf a
+         pod at 2 pods (each held by 2 data members) and 4: one
+         ``codag_bitpack_reduce`` launch a member, equal to the
+         one-process reduce of the same leaves; the reduce's device ms,
+         the gathers' ms and bytes;
+       - (d) ``train --diloco 2 --spmd`` (phase 13 (c)'s run, one process
+         a pod, cut to ``SPMD_DILOCO_STEPS`` steps): the loss falls, the
+         pods' anchors equal after every sync, one reduce launch a leaf a
+         sync and no unfused epilogue, the overlap stats;
+       - (e) ``train --spmd`` at (data 2, model 2) (phase 17 (a)'s run,
+         ``SPMD_FAIL_FLAGS``): one restart, every member's final blocks
+         and the losses equal to the member program run without the
+         failure over the batches its steps drew;
+ 19. a JSON line of the kernels (``consumer_launches``: phase 10's,
      ``model_launches``: phase 11's, ``family_launches``: phase 12's,
      ``diloco_launches``: phase 13's, ``sharded_launches``: phase 14's,
-     ``mesh_launches``: phase 15's, ``spmd_launches``: phase 17's, over
-     its members; ``bitpack_reduce``, bitpack's second entry, with phase
-     13's numbers), then ``{"ok": true, "device": {...}}`` last.
+     ``mesh_launches``: phase 15's, ``spmd_launches``: phase 17's, and
+     ``spmd_decode_launches``: phase 18's, each over its members;
+     ``bitpack_reduce``, bitpack's second entry, with phase 13's numbers),
+     then ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  It
 exits non-zero without a card, or without the port's sources beside it.
@@ -4329,8 +4361,8 @@ def phase_mesh(args, engine, counters) -> dict:
         for k, v in rec["launches"].items():
             launched[k] = launched.get(k, 0) + v
 
-    # (a) train 6 steps on the mesh under both policies, against the same
-    # 6 steps without a mesh
+    # (a) train MESH_TRAIN_STEPS steps on the mesh under both policies,
+    # against the same steps without a mesh
     t0 = time.perf_counter()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -4740,10 +4772,10 @@ GLOO = {"probe": {}}                # phase 1's reading of gloo on the card
 
 
 def probe_gloo(device) -> None:
-    """Phase 1's part for phase 17: gloo must take every collective kind
-    as CUDA tensors, float32 and bf16, in a world of this one process (the
-    member program hands it its tensors where they lie, and has no host
-    path)."""
+    """Phase 1's part for phases 17 and 18: gloo must take every
+    collective kind and dtype of ``spmd.PROBES`` as CUDA tensors, in a
+    world of this one process (the member programs hand it their tensors
+    where they lie, and have no host path)."""
     from repro_torch.distributed import spmd
     device = torch.device(device)
     GLOO["probe"] = spmd.probe_backend(device, "gloo")
@@ -5237,6 +5269,524 @@ def phase_spmd(args, engine) -> dict:
     return {"bitpack_unpack": launches}
 
 
+# --------------------------------------------------------------------------
+# phase 18: the decode path one process a member
+# --------------------------------------------------------------------------
+
+# 4 gloo processes on the one card, each holding only its blocks.  (a)
+# phase 4's scan on (data 4); (b) phase 10's checkpoints onto (data 2,
+# model 2); (c) the member reduce at 2 pods (each held by 2 data members)
+# and at 4; (e)'s replay; then, each through the driver in a world of its
+# own, (d) DiLoCo one process a pod and (e) phase 17 (a)'s run with a
+# failure.  The steps of (d) and (e) are cut to hold the phase near 150 s.
+SPMD_DECODE_WORLD = 4
+SPMD_RESTORE_MESH = ((2, 2), ("data", "model"))
+SPMD_PSUM_MESHES = {2: ((2, 2), ("pod", "data")), 4: ((4,), ("pod",))}
+SPMD_DILOCO_STEPS = 5               # outer every 4: one sync
+SPMD_FAIL_FLAGS = ["--steps", "2", "--ckpt-every", "1", "--fail-at", "1"]
+SPMD_FAIL_DRAWN = (0, 2)            # the batches the steps draw (1 is lost)
+SPMD_DECODE_TIMEOUT = 600
+
+
+def launch_counts() -> dict:
+    """Every decode kernel's launch count in this process, by kernel."""
+    from repro_torch.kernels import (bitpack, cuda_rle, huffman, lzss,
+                                     tdeflate)
+    got = {kernel_of(c): cuda_rle.CODEC_LAUNCHES[c]
+           for c in cuda_rle.CODEC_IDS}
+    got.update({"bitpack_unpack": bitpack.LAUNCHES,
+                "bitpack_reduce": bitpack.REDUCE_LAUNCHES,
+                "tdeflate_decode": tdeflate.LAUNCHES,
+                "huffman_decode": huffman.LAUNCHES,
+                "lzss_decode": lzss.LAUNCHES})
+    return got
+
+
+def launched_since(before: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now if now[k] - before[k]}
+
+
+def block_sums(out, sh, index: int, checksums) -> list:
+    """The checksum of member ``index``'s block of a whole tensor under
+    ``sh`` (the whole tensor where its shape cannot be placed)."""
+    from repro_torch.distributed import sharding
+    if sh is None or not sharding.placeable(out.shape, sh):
+        return checksums(out)
+    return checksums(out[sh.member_indices(out.shape)[index]].contiguous())
+
+
+def fail_args(device, ckpt_dir: str) -> list:
+    """``train --spmd`` flags of (e): phase 17 (a)'s run (4 full-width
+    qwen3-1.7B layers, 8 x 512, int8 wire and moments) at (data 2, model
+    2), with a failure after a checkpoint."""
+    return ["--arch", "qwen3-1.7b", "--preset", "full", "--n-layers",
+            str(TRAIN_LAYERS), "--batch", str(SPMD_TRAIN_BATCH), "--seq",
+            str(SPMD_TRAIN_SEQ), "--lr", str(TRAIN_LR), "--grad-int8",
+            "--compress-moments", "--mesh", "2x2", "--spmd", "--device",
+            device, "--ckpt-dir", ckpt_dir, *SPMD_FAIL_FLAGS]
+
+
+def spmd_decode_rank(job: dict) -> dict:
+    """One member's process of phase 18 (``launch.mesh.spawn``): (a) the
+    scan, (b) the restores, (c) the member reduce, each on its own blocks
+    and held to the parent's checksums; and (e)'s run without the failure
+    (``steps.member_step`` over the batches the failed run's steps drew),
+    its final blocks' checksums."""
+    import gc
+    import pickle
+    import torch.distributed as dist
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.core import api, plan as plan_mod, tuning
+    from repro_torch.core.engine import CodagEngine, EngineConfig
+    from repro_torch.core.tree import checksums
+    from repro_torch.distributed import collectives, sharding, spmd
+    from repro_torch.kernels import bitpack, cuda_build
+    from repro_torch.launch import mesh as mesh_lib, steps, train
+    from repro_torch.optim import adamw
+    from repro_torch.models import model
+    if job["cache"] is not None:
+        tuning.enable_compile_cache(job["cache"])
+    nvcc0 = cuda_build.NVCC_RUNS
+    r = dist.get_rank()
+    out = {"rank": r}
+
+    # (a) phase 4's scan on (data 4): stage, decode, exchange and place
+    mesh = mesh_lib.world_mesh((SPMD_DECODE_WORLD,), ("data",),
+                               device=job["device"])
+    device = mesh.member_device()
+    engine = CodagEngine(EngineConfig(device=str(device)))
+    member = spmd.member_of(mesh)
+    with open(job["scan"], "rb") as f:
+        cas = pickle.load(f)
+    shs = [sharding.decode_out_sharding(mesh, len(ca.orig_shape))
+           for ca in cas]
+    parts = {"stage": 0.0, "decode": 0.0}
+    real_stage, real_dispatch = (plan_mod.DecodePlan.stage_sharded,
+                                 plan_mod.dispatch)
+
+    def timed_stage(self, *a, **kw):
+        sync(device)
+        t = time.perf_counter()
+        res = real_stage(self, *a, **kw)
+        sync(device)
+        parts["stage"] += time.perf_counter() - t
+        return res
+
+    def timed_dispatch(*a, **kw):
+        sync(device)
+        t = time.perf_counter()
+        res = real_dispatch(*a, **kw)
+        sync(device)
+        parts["decode"] += time.perf_counter() - t
+        return res
+
+    member.reset_transfers()
+    before = launch_counts()
+    plan_mod.DecodePlan.stage_sharded = timed_stage
+    plan_mod.dispatch = timed_dispatch
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        got = api.decompress_many(cas, engine, mesh=mesh, out_shardings=shs)
+        sync(device)
+        total = time.perf_counter() - t0
+    finally:
+        plan_mod.DecodePlan.stage_sharded = real_stage
+        plan_mod.dispatch = real_dispatch
+    out["scan_launches"] = launched_since(before)
+    out["scan_s"] = {"total": total, **parts,
+                     "exchange": member.transfer_s["all_gather"],
+                     "exchange_gb": member.transfer_bytes["all_gather"] / 1e9}
+    out["scan_s"]["place_and_build"] = total - sum(
+        out["scan_s"][k] for k in ("stage", "decode", "exchange"))
+    out["scan_bad"] = [i for i, (o, want) in enumerate(
+        zip(got, job["scan_sums"][r])) if checksums(o) != want]
+    out["scan_placed_gb"] = sum(o.numel() * o.element_size()
+                                for o in got) / 1e9
+    del got, cas
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) phase 10's checkpoints onto (data 2, model 2)
+    mesh22 = mesh_lib.world_mesh(*SPMD_RESTORE_MESH, device=job["device"])
+    out["restore"] = {}
+    for name, like, shs in restore_cases(job["ckpt_layers"], mesh22):
+        before = launch_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        st = ckpt.restore(str(Path(job["keep"]) / name), 1, like,
+                          shardings=shs, engine=engine, device_out=True)
+        sync(device)
+        flat = ckpt._flatten(st)
+        out["restore"][name] = {
+            "s": time.perf_counter() - t0,
+            "launches": launched_since(before),
+            "bad": [k for k in flat
+                    if checksums(flat[k]) != job["restore_sums"][name][k][r]]}
+        del st, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the member reduce: each member's own embedding-sized leaf
+    size = PSUM_LEAF[0] * PSUM_LEAF[1]
+    cfg_e = EngineConfig(device=str(device))
+    out["psum"] = {}
+    for n, (shape, axes) in SPMD_PSUM_MESHES.items():
+        pm = mesh_lib.world_mesh(shape, axes, device=job["device"])
+        pod = pm.coord("pod")
+        x = torch.randn(size, generator=torch.Generator(
+            device=device).manual_seed(job["seed"] + 1000 * n + pod),
+            device=device)
+        pmember = spmd.member_of(pm)
+        pmember.reset_transfers()
+        dev_ms = []
+
+        def timed_reduce(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = real_dispatch(*a, **kw)
+            end.record()
+            end.synchronize()
+            dev_ms.append(start.elapsed_time(end))
+            return res
+
+        before = (bitpack.REDUCE_LAUNCHES, bitpack.LAUNCHES)
+        plan_mod.dispatch = timed_reduce
+        try:
+            sync(device)
+            t0 = time.perf_counter()
+            red = collectives.compressed_psum(x, "pod", mesh=pm,
+                                              config=cfg_e, mean=True)
+            sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            plan_mod.dispatch = real_dispatch
+        out["psum"][n] = {
+            "ms": ms, "device_ms": dev_ms[0] if dev_ms else None,
+            "reduce_launches": bitpack.REDUCE_LAUNCHES - before[0],
+            "unpack_launches": bitpack.LAUNCHES - before[1],
+            "gather_ms": pmember.transfer_s["all_gather"] * 1e3,
+            "gather_gb": pmember.transfer_bytes["all_gather"] / 1e9,
+            "equal": checksums(red) == job["psum_sums"][n]}
+        del x, red
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (e) phase 17 (a)'s run without the failure, over the batches the
+    # failed run's steps drew
+    targs = train.build_parser().parse_args(fail_args(job["device"],
+                                                      job["keep"]))
+    cfg = train._resolve_cfg(targs)
+    mesh = mesh_lib.world_mesh(*SPMD_TRAIN_MESH, device=job["device"])
+    member = spmd.Member.join(mesh, targs.policy)
+    loader = iter(train._build_loader(targs, cfg, device))
+    drawn = [next(loader) for _ in range(max(SPMD_FAIL_DRAWN) + 1)]
+    loader.close()
+    oc = adamw.AdamWConfig(lr=targs.lr, compress_moments=True)
+    step = steps.build_train_step(
+        cfg, oc, grad_compressor=collectives.make_wire_compressor(cfg_e))
+    with sharding.use_mesh(None, targs.policy):
+        ins, outs = steps.train_shardings(
+            cfg, ShapeSpec("train", targs.seq, targs.batch, "train"), mesh,
+            oc)
+    fn = steps.member_step(step, ins, outs, member=member)
+    params = model.init_params(cfg, torch.Generator(
+        device=device).manual_seed(0), device=device)
+    p = spmd.blocks(params, ins[0], r)
+    o = spmd.blocks(adamw.init(params, oc), ins[1], r)
+    del params
+    gc.collect()
+    losses = []
+    t0 = time.perf_counter()
+    for i in SPMD_FAIL_DRAWN:
+        p, o, loss = fn(p, o, spmd.blocks(drawn[i], ins[2], r))
+        losses.append(float(loss))
+    out["replay_s"] = time.perf_counter() - t0
+    out["replay_losses"] = losses
+    out["replay_sums"] = checksums((p, o))
+    out["nvcc"] = cuda_build.NVCC_RUNS - nvcc0
+    return out
+
+
+def restore_cases(layers: int, mesh):
+    """(directory, ``like``, shardings) of phase 10's two checkpoints
+    placed on ``mesh``: the moments under ``opt_shardings``, the K/V
+    weights under their parameter shardings."""
+    from repro_torch.distributed import sharding
+    opt_meta, params_meta = moment_like(layers)
+    meta, kv_sh = kv_like(sharding, mesh)
+    return (("moments", opt_meta,
+             sharding.opt_shardings(opt_meta, params_meta, mesh)),
+            ("weights", meta, kv_sh))
+
+
+def spmd_decode_refs(args, engine, data, keep: Path, tmp: Path) -> dict:
+    """What the members are held to, computed on the card in this process:
+    the checksums of each member's block of phase 4's ``execute_device``
+    outputs, of phase 10's unsharded restores, and of the one-process
+    member reduce of the members' leaves; phase 4's blobs written for the
+    members to read.  Returns the job's part of them."""
+    import gc
+    import pickle
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import api, plan as plan_mod
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.tree import checksums
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.launch import mesh as mesh_lib
+    device = engine.device
+    world = SPMD_DECODE_WORLD
+    cas = data["cas"]
+    with open(tmp / "scan.pkl", "wb") as f:
+        pickle.dump(cas, f, protocol=pickle.HIGHEST_PROTOCOL)
+    one = mesh_lib.make_test_mesh((world,), ("data",), device=str(device))
+    refs = api.decompress_many(cas, engine, device_out=True)
+    shs = [sharding.decode_out_sharding(one, o.dim()) for o in refs]
+    job = {"scan": str(tmp / "scan.pkl"),
+           "scan_sums": [[block_sums(o, sh, r, checksums)
+                          for o, sh in zip(refs, shs)]
+                         for r in range(world)],
+           "scan_groups": plan_mod.DecodePlan.build(
+               [b for ca in cas for b in ca.blobs]).num_dispatches,
+           "scan_placeable": sum(sharding.placeable(o.shape, sh)
+                                 for o, sh in zip(refs, shs)),
+           "scan_gb": sum(o.numel() * o.element_size() for o in refs) / 1e9}
+    del refs
+    m22 = mesh_lib.make_test_mesh(*SPMD_RESTORE_MESH, device=str(device))
+    job["restore_sums"] = {}
+    for name, like, shs in restore_cases(args.ckpt_layers, m22):
+        plain = ckpt._flatten(ckpt.restore(str(keep / name), 1, like,
+                                           engine=engine, device_out=True))
+        flat_sh = ckpt._flatten(shs)
+        job["restore_sums"][name] = {
+            k: [block_sums(v, flat_sh.get(k), r, checksums)
+                for r in range(world)] for k, v in plain.items()}
+        del plain
+    size = PSUM_LEAF[0] * PSUM_LEAF[1]
+    job["psum_sums"] = {}
+    for n in SPMD_PSUM_MESHES:
+        xs = torch.stack([torch.randn(size, generator=torch.Generator(
+            device=device).manual_seed(args.seed + 1000 * n + p),
+            device=device) for p in range(n)])
+        red = collectives.compressed_psum(
+            xs, "pod", mesh=mesh_lib.make_test_mesh(
+                (n, 1), ("pod", "data"), device=str(device)),
+            config=EngineConfig(device=str(device)), mean=True)
+        job["psum_sums"][n] = checksums(red)
+        del xs, red
+        gc.collect()
+        torch.cuda.empty_cache()
+    job["keep"] = str(keep)
+    return job
+
+
+def phase_spmd_decode(args, engine, data=None, keep=None) -> dict:
+    """Phase 18: the decode path one process a member (``launch.mesh.
+    spawn``, gloo, 4 processes on the one card, each holding only its
+    blocks): (a) phase 4's scan through ``decompress_many(mesh=,
+    out_shardings=)``, (b) phase 10's checkpoints through
+    ``restore(shardings=)``, (c) ``compressed_psum`` at 2 and 4 pods, (d)
+    ``train --diloco 2 --spmd``, (e) ``train --spmd`` with a failure,
+    each held to the one-process path on the card.  ``data`` and ``keep``
+    are phase 4's workload and phase 10's files; without them
+    (``--spmd-decode-only``) both are made here.  Returns the launches by
+    kernel, over the members."""
+    import gc
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import api, tuning
+    from repro_torch.core.tree import checksums, leaves
+    from repro_torch.data import pipeline
+    from repro_torch.launch import mesh as mesh_lib, train
+    log(f"== 18 the decode path one process a member ({SPMD_DECODE_WORLD} "
+        f"gloo processes on the one card, each holding only its blocks): "
+        f"phase 4's scan, phase 10's restores, the member reduce, DiLoCo one "
+        f"process a pod, and a failure restored member by member "
+        f"[{CARD['label']}]")
+    device = engine.device
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    made = None
+    if data is None:
+        data = main_data(args, np.random.default_rng(args.seed), api)
+    if keep is None:
+        made = tempfile.TemporaryDirectory(dir=ROOT / "build")
+        keep = Path(made.name)
+        save_phase10_files(args, keep, device, ckpt, pipeline)
+    problems, launched, secs = [], {}, {}
+
+    def count(got: dict) -> None:
+        for k, v in got.items():
+            launched[k] = launched.get(k, 0) + v
+
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            tmp = Path(tmp)
+            job = spmd_decode_refs(args, engine, data, keep, tmp)
+            del data
+            gc.collect()
+            torch.cuda.empty_cache()
+            job.update({
+                "device": "cuda" if device.type == "cuda" else str(device),
+                "seed": args.seed, "ckpt_layers": args.ckpt_layers,
+                "cache": None if tuning.compile_cache_dir() is None
+                else str(tuning.compile_cache_dir())})
+            secs["references"] = time.perf_counter() - t_phase
+            t0 = time.perf_counter()
+            ranks = mesh_lib.spawn(spmd_decode_rank, SPMD_DECODE_WORLD,
+                                   (job,), device=job["device"],
+                                   timeout=SPMD_DECODE_TIMEOUT)
+            secs["members"] = time.perf_counter() - t0
+    finally:
+        if made is not None:
+            made.cleanup()
+    for res in ranks:
+        r = res["rank"]
+        for part in ("scan_launches",):
+            count(res[part])
+        for v in res["restore"].values():
+            count(v["launches"])
+        count({"bitpack_reduce": sum(v["reduce_launches"]
+                                     for v in res["psum"].values())})
+        got = res["scan_launches"]
+        if sum(got.values()) != job["scan_groups"] or res["scan_bad"]:
+            problems.append(f"rank {r} (a): {sum(got.values())} launches for "
+                            f"{job['scan_groups']} groups; outputs "
+                            f"{res['scan_bad'][:5]} differ")
+        for name, v in res["restore"].items():
+            if v["bad"] or not v["launches"]:
+                problems.append(f"rank {r} (b) {name}: leaves {v['bad'][:5]}"
+                                f" differ, launches {v['launches']}")
+        for n, v in res["psum"].items():
+            if not v["equal"] or v["reduce_launches"] != 1 or \
+                    v["unpack_launches"]:
+                problems.append(f"rank {r} (c) at {n} pods: equal "
+                                f"{v['equal']}, launches {v}")
+        if res["nvcc"]:
+            problems.append(f"rank {r} ran {res['nvcc']} nvcc")
+    worst = max(ranks, key=lambda x: x["scan_s"]["total"])["scan_s"]
+    log(f"   (a) phase 4's scan ({job['scan_gb']:.3f} GB decoded, "
+        f"{job['scan_groups']} groups) through decompress_many(mesh=world "
+        f"mesh (data {SPMD_DECODE_WORLD}), out_shardings=decode_out_sharding)"
+        f": launches a member "
+        + ", ".join(str(sum(x["scan_launches"].values())) for x in ranks)
+        + f" (one a group); every member's block of the "
+        f"{job['scan_placeable']} placeable outputs (the rest whole) equal "
+        f"to phase 4's execute_device output's by checksum; slowest member "
+        f"{worst['total'] * 1e3:.1f} ms: staging {worst['stage'] * 1e3:.1f},"
+        f" decode {worst['decode'] * 1e3:.1f}, exchange (all-gather of the "
+        f"decoded group tables) {worst['exchange'] * 1e3:.1f} ms for "
+        f"{worst['exchange_gb']:.4f} GB "
+        f"({worst['exchange_gb'] / max(worst['exchange'], 1e-9):.3f} GB/s), "
+        f"build and placement {worst['place_and_build'] * 1e3:.1f} ms; "
+        f"blocks {max(x['scan_placed_gb'] for x in ranks):.3f} GB a member "
+        f"[{CARD['label']}]")
+    for name in ("moments", "weights"):
+        v = [x["restore"][name] for x in ranks]
+        log(f"   (b) phase 10's {name} restored with shardings= onto (data "
+            f"2, model 2): {max(x['s'] for x in v):.3f} s (slowest member); "
+            f"every block equal to the unsharded restore's; launches by "
+            f"member {[x['launches'] for x in v]} [{CARD['label']}]")
+    for n in SPMD_PSUM_MESHES:
+        v = [x["psum"][n] for x in ranks]
+        log(f"   (c) compressed_psum of a {PSUM_LEAF[0]} x {PSUM_LEAF[1]} "
+            f"float32 leaf a pod at {n} pods ({SPMD_DECODE_WORLD} members): "
+            f"one codag_bitpack_reduce launch a member, equal to the "
+            f"one-process reduce of the same leaves by checksum; "
+            f"{max(x['ms'] for x in v):.1f} ms a call (slowest member), the "
+            f"reduce's device {max(x['device_ms'] for x in v):.3f} ms, the "
+            f"all-gathers {max(x['gather_ms'] for x in v):.1f} ms for "
+            f"{v[0]['gather_gb']:.4f} GB [{CARD['label']}]")
+
+    # (d) DiLoCo, one process a pod, through the driver
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        targs = train.build_parser().parse_args(
+            ["--arch", "qwen3-1.7b", "--preset", "full", "--n-layers",
+             str(TRAIN_LAYERS), "--batch", "8", "--seq", "512", "--steps",
+             str(SPMD_DILOCO_STEPS), "--lr", str(TRAIN_LR), "--grad-int8",
+             "--compress-moments", "--diloco", str(DILOCO_PODS),
+             "--outer-every", str(DILOCO_OUTER_EVERY), "--spmd",
+             "--ckpt-dir", str(Path(tmp) / "ckpt"), "--device",
+             job["device"]])
+        m = train.run_training(targs)
+    secs["(d)"] = time.perf_counter() - t0
+    losses, syncs = m["losses"], m["overlap"]["syncs"]
+    k = max(1, len(losses) // 3)
+    n_wire = sum(t[0].numel() >= 128 for t in leaves(m["states"][0][0]))
+    digests = [x["sync_digests"] for x in m["ranks"]]
+    if not float(np.mean(losses[-k:])) < float(np.mean(losses[:k])):
+        problems.append(f"(d) loss did not fall: {losses}")
+    if syncs != (SPMD_DILOCO_STEPS - 1) // DILOCO_OUTER_EVERY or \
+            any(len(d) != syncs or d != digests[0] for d in digests):
+        problems.append(f"(d) {syncs} syncs; the pods' anchors differ")
+    for x in m["ranks"]:
+        if x["launches"]["bitpack_reduce"] != n_wire * syncs or \
+                x["launches"]["epilogue_unfused"]:
+            problems.append(f"(d) launches {x['launches']} for {n_wire} "
+                            f"leaves x {syncs} syncs")
+        count({"bitpack_reduce": x["launches"]["bitpack_reduce"]})
+    log(f"   (d) train --diloco {DILOCO_PODS} --spmd, one process a pod: "
+        f"qwen3-1.7B at {TRAIN_LAYERS} layers, 8 x 512 a pod, int8 wires and "
+        f"moments, outer every {DILOCO_OUTER_EVERY}, {SPMD_DILOCO_STEPS} "
+        f"steps: losses {', '.join(f'{v:.4f}' for v in losses)}; {syncs} "
+        f"syncs, the pods' anchors equal after each (checksums); "
+        f"codag_bitpack_reduce launches a pod "
+        f"{[x['launches']['bitpack_reduce'] for x in m['ranks']]} for "
+        f"{n_wire} leaves a sync, 0 epilogues unfused; overlap "
+        f"{json.dumps(m['overlap'])}; step "
+        f"{float(np.median(m['step_seconds'])) * 1e3:.1f} ms (median, rank "
+        f"0's host clock); {secs['(d)']:.1f} s [{CARD['label']}]")
+    del m
+    gc.collect()
+
+    # (e) phase 17 (a)'s run with a failure, restored member by member
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        m = train.run_training(train.build_parser().parse_args(
+            fail_args(job["device"], str(Path(tmp) / "ckpt"))))
+    secs["(e)"] = time.perf_counter() - t0
+    sums = [checksums(tuple(tree_to(s, device) for s in state))
+            for state in m["states"]]
+    bad = [r for r, (s, x) in enumerate(zip(sums, sorted(
+        ranks, key=lambda x: x["rank"]))) if s != x["replay_sums"]]
+    rep = ranks[0]["replay_losses"]
+    if m["restarts"] != 1 or bad or m["losses"] != rep:
+        problems.append(f"(e) {m['restarts']} restarts; members {bad} differ "
+                        f"from the run without the failure; losses "
+                        f"{m['losses']} against {rep}")
+    log(f"   (e) train --spmd at (data 2, model 2), phase 17 (a)'s run "
+        f"{' '.join(SPMD_FAIL_FLAGS)}: {m['restarts']} restart (every member "
+        f"restored its step-1 blocks with restore(shardings=) onto the same "
+        f"world), losses {', '.join(f'{v:.5f}' for v in m['losses'])}; every "
+        f"member's final blocks equal (checksums) to the run without the "
+        f"failure over the batches its steps drew "
+        f"({', '.join(map(str, SPMD_FAIL_DRAWN))}; "
+        f"{max(x['replay_s'] for x in ranks):.1f} s); {secs['(e)']:.1f} s "
+        f"[{CARD['label']}]")
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("   phase 18 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; total {time.perf_counter() - t_phase:.1f}")
+    log(f"   phase 18 launches over the members: {launched}")
+    if problems:
+        raise AssertionError("phase 18: " + "; ".join(problems))
+    return launched
+
+
+def tree_to(tree, device):
+    """A tree of CPU tensors moved to ``device`` (dicts and tuples)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
 def leaves_of(tree):
     from repro_torch.core.tree import leaves
     return list(leaves(tree))
@@ -5282,6 +5832,7 @@ class Counter:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--gib", type=float, default=1.0,
@@ -5293,13 +5844,15 @@ def main() -> int:
                     help="least chunks in the main path's tdeflate group")
     ap.add_argument("--td-plain-rows", type=int, default=256,
                     help="rows of the tdeflate group the plain version "
-                    "decodes (its lockstep body syncs once per token step)")
+                    "decodes (its lockstep body steps every row a token at "
+                    "a time, streams.lockstep)")
     ap.add_argument("--ent-chunks", type=int, default=1024,
                     help="least chunks in each of the main path's huffman "
                     "and lzss groups")
     ap.add_argument("--lz-plain-rows", type=int, default=64,
                     help="rows of the lzss group the plain version decodes "
-                    "(its token parse syncs once per token step)")
+                    "(its token parse steps every row a token at a time, "
+                    "streams.lockstep)")
     ap.add_argument("--q-layers", type=int, default=4,
                     help="qwen3-1.7B layers of the quantized-weight path")
     ap.add_argument("--scalar-plain-elems", type=int, default=2048,
@@ -5333,6 +5886,9 @@ def main() -> int:
                     help="run phases 1, 2 and 17 alone (the member program "
                     "split over model, one process a member), with no "
                     "result line")
+    ap.add_argument("--spmd-decode-only", action="store_true",
+                    help="run phases 1, 2 and 18 alone (the decode path one "
+                    "process a member), with no result line")
     ap.add_argument("--stage-only", action="store_true",
                     help="only time DecodePlan.build and stage by part on "
                     "phase 4's workload (cold, then warm), and stop")
@@ -5414,6 +5970,10 @@ def main() -> int:
         launched = phase_spmd(args, engine)
         log(f"phase 17 alone, launches: {json.dumps(launched)}")
         return 0
+    if args.spmd_decode_only:
+        launched = phase_spmd_decode(args, engine)
+        log(f"phase 18 alone, launches: {json.dumps(launched)}")
+        return 0
     phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
                           engine.device, counters)
     phase_dequant_vs_plain(rng, dq, errs, engine.device)
@@ -5441,11 +6001,15 @@ def main() -> int:
         family = phase_families(args, engine, counters)
         reduce_row, dil = phase_collectives(args, engine, counters)
         placed = phase_sharded(args, engine, counters, data, Path(keep))
+        meshed = phase_mesh(args, engine, counters)
+        phase_roofline(args, engine)
+        split = phase_spmd(args, engine)
+        # phase 4's blobs (host memory only) and phase 10's files kept
+        decoded = phase_spmd_decode(args, engine, data, Path(keep))
     del data
-    meshed = phase_mesh(args, engine, counters)
-    phase_roofline(args, engine)
-    split = phase_spmd(args, engine)
-    log("== 18 kernels")
+    log(f"   phases 1-18: {time.perf_counter() - t_start:.1f} s of the "
+        f"script's wall clock [{CARD['label']}]")
+    log("== 19 kernels")
     kernels = []
     for name in KERNELS:
         source, replaces = SOURCES.get(
@@ -5485,11 +6049,20 @@ def main() -> int:
             kernels[-1]["mesh_launches"] = meshed[name]
         if name in split:           # phase 17's, summed over the members
             kernels[-1]["spmd_launches"] = split[name]
+        if name in decoded:         # phase 18's, summed over the members
+            kernels[-1]["spmd_decode_launches"] = decoded[name]
         exact = name != "dequant_matmul"    # held to TOL in phases 3 and 6
         if kernels[-1]["launches"] < 1 or (exact and errs[name]):
             raise AssertionError(f"{name}: not launched on the main path, or "
                                  "differs from its plain version")
+    reduce_row["spmd_decode_launches"] = decoded.get("bitpack_reduce", 0)
     kernels.append(reduce_row)      # bitpack's second entry, phase 13's
+    for name in [kernel_of(c) for c in ("rle_v1", "rle_v2", "dbp", "bitpack",
+                                        "tdeflate", "huffman", "lzss")] + [
+            "bitpack_reduce"]:
+        if decoded.get(name, 0) < 1:
+            raise AssertionError(f"{name}: not launched by phase 18's "
+                                 "members")
     for name in (kernel_of("rle_v2"), "bitpack_unpack", "bitpack_reduce"):
         if dil.get(name, 0) < 1:
             raise AssertionError(f"{name}: not launched by phase 13's "

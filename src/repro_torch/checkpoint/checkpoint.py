@@ -33,7 +33,11 @@ compressed-blob classes (the reference package's names map onto the
 port's) and numpy arrays only.  ``restore(shardings=)`` is the elastic,
 mesh-sharded restore: each leaf comes back as a
 ``distributed.sharding.ShardedTensor`` on the shardings' mesh, whatever
-mesh saved it.
+mesh saved it, or, on a mesh over a world's ranks (one process a member),
+as this rank's block, each process decoding its block of every window's
+rows.  ``save(shardings=)`` takes such a member's blocks: leaf by leaf
+they are gathered to rank 0 alone, which writes the directory a save of
+the whole state writes.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from repro_torch.core import format as fmt
 from repro_torch.core import registry, transfers
 from repro_torch.core import store as blobstore
 from repro_torch.core.engine import CodagEngine, EngineConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import NamedSharding, ShardedTensor
 
 MANIFEST = "manifest.json"
@@ -101,7 +106,10 @@ def _snapshot(leaf) -> Tuple[np.ndarray, str]:
     """A host copy of ``leaf`` and its manifest dtype; a bf16 leaf becomes
     its uint16 bit patterns, and a ``ShardedTensor`` its global tensor
     (what the reference's save reads of a sharded array), so a state saved
-    under a mesh is the same directory as the same state saved whole."""
+    under a mesh is the same directory as the same state saved whole.
+    None (a ranked save's leaf on a rank that does not write) stays None."""
+    if leaf is None:
+        return None
     if isinstance(leaf, ShardedTensor):
         leaf = leaf.full()
     if isinstance(leaf, torch.Tensor):
@@ -140,54 +148,107 @@ def _compress(arr: np.ndarray, dtype: str, codec: str):
     return ca
 
 
+def _ranked_mesh(shardings):
+    """The mesh over a world's ranks that ``shardings`` (a tree of
+    ``NamedSharding`` s, None holes) lies on, or None."""
+    if shardings is None:
+        return None
+    mesh = next((s.mesh for s in _flatten(shardings).values()
+                 if isinstance(s, NamedSharding)), None)
+    return mesh if mesh is not None and mesh.rank is not None else None
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    dist.barrier()
+
+
 def save(ckpt_dir: str, step: int, state, *, codec: str = "none",
-         async_: bool = False, keep: int = 3) -> Optional[threading.Thread]:
+         async_: bool = False, keep: int = 3,
+         shardings=None) -> Optional[threading.Thread]:
     """Snapshot ``state`` (nested dicts, lists and tuples of tensors).
-    Returns the writer thread if async."""
+    Returns the writer thread if async.
+
+    ``shardings``: a tree like ``state`` of ``NamedSharding`` s over a
+    mesh over a world's ranks, whose blocks ``state`` holds (one process a
+    member): every process of the world calls ``save``, and leaf by leaf
+    each rank sends its block to rank 0 (``sharding.gather_to``), which
+    alone holds that leaf whole, on the host, while it writes it; rank 0
+    writes the directory the whole state gives, byte for byte, and every
+    process returns once it is published (``async_`` is not taken
+    there)."""
     root = Path(ckpt_dir)
+    mesh = _ranked_mesh(shardings)
+    if mesh is not None:
+        flat_sh = _flatten(shardings)
+        whole = ((key, _snapshot(_whole_on_rank0(leaf, flat_sh.get(key),
+                                                 mesh.rank)))
+                 for key, leaf in _flatten(state).items())
+        if mesh.rank == 0:
+            root.mkdir(parents=True, exist_ok=True)
+            _write(root, step, codec, keep, whole)
+        else:
+            for _ in whole:             # send this rank's blocks
+                pass
+        _barrier()
+        return None
     root.mkdir(parents=True, exist_ok=True)
     # consistent snapshot: the device->host copy happens NOW, writing may
     # defer
     host = {key: _snapshot(leaf) for key, leaf in _flatten(state).items()}
-
-    def _write():
-        tmp = root / f"step_{step}.tmp"
-        final = root / f"step_{step}"
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir(parents=True)
-        manifest = {"step": step, "codec": codec, "leaves": {}}
-        for key, (arr, dtype) in host.items():
-            fn = key.replace("/", "__") + ".npy"
-            entry = {"file": fn, "dtype": dtype,
-                     "shape": list(arr.shape), "codec": "none"}
-            if codec != "none" and arr.nbytes >= 1024:
-                ca = _compress(arr, dtype, codec)
-                with open(tmp / (fn + ".blob"), "wb") as f:
-                    pickle.dump(ca, f)
-                entry["codec"] = codec
-                entry["ratio"] = ca.ratio
-            else:
-                _save_npy(tmp / fn, arr, dtype)
-            manifest["leaves"][key] = entry
-        (tmp / MANIFEST).write_text(json.dumps(manifest))
-        if final.exists():
-            shutil.rmtree(final)
-        tmp.rename(final)                      # atomic publish
-        # retention: only prune steps STRICTLY OLDER than the one just
-        # published, so two overlapping async saves cannot delete each
-        # other's newer checkpoint, whichever writer finishes last
-        steps = sorted(all_steps(ckpt_dir))
-        for s in steps[:-keep]:
-            if s < step:
-                shutil.rmtree(root / f"step_{s}", ignore_errors=True)
-
     if async_:
-        t = threading.Thread(target=_write, daemon=True)
+        t = threading.Thread(target=_write, daemon=True,
+                             args=(root, step, codec, keep, host.items()))
         t.start()
         return t
-    _write()
+    _write(root, step, codec, keep, host.items())
     return None
+
+
+def _whole_on_rank0(leaf, sharding, rank: int):
+    """A ranked save's leaf: whole on rank 0 (its blocks gathered there
+    where it lies under a sharding of the world's ranks), None on the
+    other ranks."""
+    if isinstance(sharding, NamedSharding) and sharding.mesh.rank is not None \
+            and isinstance(leaf, torch.Tensor):
+        return shd.gather_to(leaf, sharding, dst=0)
+    return leaf if rank == 0 else None
+
+
+def _write(root: Path, step: int, codec: str, keep: int, leaves) -> None:
+    """Write ``leaves`` (``(key, (host array, manifest dtype))`` pairs, in
+    order) as ``step``'s directory under ``root``, published atomically,
+    then prune the steps beyond ``keep``."""
+    tmp = root / f"step_{step}.tmp"
+    final = root / f"step_{step}"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    manifest = {"step": step, "codec": codec, "leaves": {}}
+    for key, (arr, dtype) in leaves:
+        fn = key.replace("/", "__") + ".npy"
+        entry = {"file": fn, "dtype": dtype,
+                 "shape": list(arr.shape), "codec": "none"}
+        if codec != "none" and arr.nbytes >= 1024:
+            ca = _compress(arr, dtype, codec)
+            with open(tmp / (fn + ".blob"), "wb") as f:
+                pickle.dump(ca, f)
+            entry["codec"] = codec
+            entry["ratio"] = ca.ratio
+        else:
+            _save_npy(tmp / fn, arr, dtype)
+        manifest["leaves"][key] = entry
+    (tmp / MANIFEST).write_text(json.dumps(manifest))
+    if final.exists():
+        shutil.rmtree(final)
+    tmp.rename(final)                      # atomic publish
+    # retention: only prune steps STRICTLY OLDER than the one just
+    # published, so two overlapping async saves cannot delete each
+    # other's newer checkpoint, whichever writer finishes last
+    steps = sorted(all_steps(str(root)))
+    for s in steps[:-keep]:
+        if s < step:
+            shutil.rmtree(root / f"step_{s}", ignore_errors=True)
 
 
 def all_steps(ckpt_dir: str) -> List[int]:
@@ -272,12 +333,15 @@ def restore(ckpt_dir: str, step: int, like, *, shardings=None,
     ``shardings``: a tree like ``like`` of ``sharding.NamedSharding`` s
     (None: a leaf not placed), the ELASTIC restore: state saved on one mesh
     comes back laid out on the mesh of the restarted job, each leaf a
-    ``sharding.ShardedTensor``.  With ``device_out`` and no service the
-    compressed leaves decode through ``DecodePlan.execute_sharded`` on the
-    shardings' mesh (each member decoding its block of every group's rows;
-    with no ``engine``, on the mesh's device), with no device->host
-    transfer; otherwise the restored leaves are placed.  A leaf whose
-    shape cannot be placed under its sharding raises.
+    ``sharding.ShardedTensor`` (on a mesh over a world's ranks, this
+    rank's block, a plain tensor: ``sharding.place``).  With ``device_out``
+    and no service the compressed leaves decode through
+    ``DecodePlan.execute_sharded`` on the shardings' mesh (each member
+    decoding its block of every group's rows, in its own process on a mesh
+    over a world's ranks; with no ``engine``, on the member's device),
+    with no device->host transfer; otherwise the restored leaves are
+    placed.  A leaf whose shape cannot be placed under its sharding
+    raises.
     """
     if engine is not None and service is not None:
         raise ValueError("pass engine= OR service=, not both: the service "
@@ -350,5 +414,5 @@ def restore(ckpt_dir: str, step: int, like, *, shardings=None,
                                    tuple(entry["shape"]))
         sh = places.get(key)
         if sh is not None:
-            out[key] = ShardedTensor.place(out[key], sh)
+            out[key] = shd.place(out[key], sh)
     return _rebuild(like, out)

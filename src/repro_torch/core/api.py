@@ -11,6 +11,10 @@
     mesh = launch.mesh.make_test_mesh((4,), ("data",))
     shds = api.decompress_many(cas, mesh=mesh,      # one ShardedTensor an
         out_shardings=sharding.decode_out_sharding(mesh))   # array
+    # one process a member (launch.mesh.spawn), in each process:
+    mesh = launch.mesh.world_mesh((4,), ("data",))
+    mine = api.decompress_many(cas, mesh=mesh,      # this rank's block of
+        out_shardings=sharding.decode_out_sharding(mesh))   # each array
 
 Decoding runs on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"`` or an engine configured for the CPU.  8-byte dtypes are
@@ -30,7 +34,7 @@ from repro_torch.core import format as fmt
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import registry
 from repro_torch.core.engine import CodagEngine, EngineConfig, resolve_device
-from repro_torch.distributed.sharding import ShardedTensor
+from repro_torch.distributed import sharding as shd
 
 
 @dataclasses.dataclass
@@ -145,14 +149,17 @@ def decompress_many(cas: Sequence[CompressedArray],
     there.
 
     ``mesh`` (implies device out; a ``launch.mesh.Mesh`` whose members
-    share one device) splits every group's chunk rows over the mesh's
-    ``mesh_axis`` (default ``sharding.decode_axis``) through
-    ``DecodePlan.execute_sharded``; with no ``engine`` the decode runs on
-    the mesh's device.  ``out_shardings`` (one ``NamedSharding``, or one an
-    array with None holes; device paths only) places each output as a
-    ``sharding.ShardedTensor``: a single-blob array inside the plan, a
-    plane-decomposed one after its planes are joined; a shape that cannot
-    be placed stays a tensor.  Outputs follow input order.
+    share one device, or one over a world's ranks) splits every group's
+    chunk rows over the mesh's ``mesh_axis`` (default
+    ``sharding.decode_axis``) through ``DecodePlan.execute_sharded``; with
+    no ``engine`` the decode runs on the member's device.
+    ``out_shardings`` (one ``NamedSharding``, or one an array with None
+    holes; device paths only) places each output (``sharding.place``): a
+    ``sharding.ShardedTensor`` where the members share a device, this
+    rank's block on a mesh over a world's ranks; a single-blob array
+    inside the plan, a plane-decomposed one after its planes are joined; a
+    shape that cannot be placed stays a whole tensor.  Outputs follow
+    input order.
     """
     if engine is not None and service is not None:
         raise ValueError("pass engine= OR service=, not both: the service "
@@ -212,7 +219,7 @@ def decompress_many(cas: Sequence[CompressedArray],
         for ca, (s, n), sh in zip(cas, spans, per_array):
             out = _combine_device(ca, outs[s:s + n], epilogue is not None)
             if sh is not None and n > 1 and plan_mod.placeable(out.shape, sh):
-                out = ShardedTensor.place(out, sh)
+                out = shd.place(out, sh)
             results.append(out)
         return results
     outs = plan.execute(engine)

@@ -248,6 +248,23 @@ def pad_table_rows(table: CompressedBlob, target_rows: int) -> CompressedBlob:
         extras=extras)
 
 
+def table_rows(table: CompressedBlob, lo: int, hi: int) -> CompressedBlob:
+    """Rows ``[lo, hi)`` of a chunk table, the rows past its end
+    zero-length (:func:`pad_table_rows`): one mesh member's block of a
+    padded group table.  Per-chunk tables are sliced with the rows, shared
+    ones kept; every row keeps the table's width, so each decodes as it
+    does in the whole table."""
+    n = table.num_chunks
+    take = slice(min(lo, n), min(hi, n))
+    shared = registry.get(table.codec).shared_extras
+    extras = {k: v if k in shared or v.shape[:1] != (n,) else v[take]
+              for k, v in table.extras.items()}
+    part = dataclasses.replace(
+        table, comp=table.comp[take], comp_lens=table.comp_lens[take],
+        out_lens=table.out_lens[take], extras=extras)
+    return pad_table_rows(part, hi - lo)
+
+
 def _next_pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length() if n > 1 else 1
 

@@ -15,8 +15,10 @@ The counterpart of ``repro/core/plan.py``:
                    (``format.reassemble_rows_device``).
     epilogue     — optional consumer transform (``harness.Epilogue``).
     place        — each output under its requested ``NamedSharding``
-                   (``distributed.sharding.ShardedTensor``: one tensor a
-                   member); a shape that cannot be placed stays as it is.
+                   (``distributed.sharding.place``: a ``ShardedTensor``, one
+                   tensor a member, or on a mesh over a world's ranks this
+                   rank's block); a shape that cannot be placed stays as it
+                   is.
 
     plan = DecodePlan.build(blobs)
     outs = plan.execute(engine)                     # host ndarrays
@@ -27,15 +29,23 @@ The counterpart of ``repro/core/plan.py``:
 column buckets (the service's window loop builds its plans so), and
 :meth:`DecodePlan.decode_group_device` stages and decodes one group on a
 chosen device.  :func:`gather_member_tables` fuses the wire tables of a
-mesh's members into one table for one dispatch (the collective plane).
+mesh's members into one table for one dispatch (the collective plane):
+the members' list in one process, or, in a member's process, its own
+table all-gathered over a mesh axis (the reference's form).
 
 :meth:`DecodePlan.execute_sharded` is the mesh executor: each group's table
 is padded with zero-length rows to a multiple of the mesh axis, so every
 member owns an equal block of rows, member after member, which is
-:func:`gather_member_tables`' layout.  The members share one device, so
+:func:`gather_member_tables`' layout.  Where the members share one device,
 one dispatch decodes every member's rows (one launch a group), and the
-outputs are scattered and placed into member shards.  A mesh over
-distinct devices raises (ROADMAP.md Queue 1 item 11c).
+outputs are scattered and placed into member shards.  On a mesh over a
+world's ranks (one process a member, ``launch.mesh.spawn``) each process
+stages and decodes only its own block of rows (one launch a group on its
+own device), the decoded group tables are all-gathered over the axis
+(``distributed.spmd.all_gather``: each member's decoded rows, the bytes
+counted in ``Member.transfer_bytes``), and each process keeps its own
+block of every output.  A mesh over distinct devices without a rank
+raises, pointing to ``launch.mesh.spawn``.
 """
 from __future__ import annotations
 
@@ -51,8 +61,8 @@ import torch
 
 from repro_torch.core import format as fmt
 from repro_torch.core import transfers
-from repro_torch.distributed.sharding import (ShardedTensor, decode_axis,
-                                              placeable)
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import decode_axis, placeable
 from repro_torch.kernels import ops
 from repro_torch.roofline import count
 
@@ -149,70 +159,129 @@ def dispatch(dev: Dict[str, Any], *, config, codec: str, width: int,
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
-def gather_member_tables(devs: Sequence[Dict[str, Any]], *,
+def gather_member_tables(dev, axis_name: Optional[str] = None, *,
                          codec: Optional[str] = None,
                          shared: Sequence[str] = (),
                          row_counts=None) -> Dict[str, Any]:
     """Collective-plane stage: the members' chunk tables as ONE fused
     table, which one :func:`dispatch` decodes.
 
-    ``devs``: member m's device-built wire table (the dict a
-    :func:`dispatch` call consumes), each of the same height.  Every
-    per-chunk entry is laid member after member, member m's rows at
+    Every per-chunk entry is laid member after member, member m's rows at
     ``[m * n_chunks, (m + 1) * n_chunks)``: what the reference's all-gather
-    over the member axis gives.  The members share one device here, so the
-    gather is a ``torch.cat`` and nothing crosses a link.  Shared tables
-    (the codec's ``shared_extras``, e.g. ``bitpack_bits``) and scalar
-    operands are kept once, member 0's: they are the same for every member
-    by the wire format's construction.
+    over the member axis gives.  Shared tables (the codec's
+    ``shared_extras``, e.g. ``bitpack_bits``) and scalar operands are kept
+    once, this (or member 0's): they are the same for every member by the
+    wire format's construction.  Two forms:
 
-    ``row_counts``: each member's count of valid chunk rows, for ragged
-    members that padded their tables to a common height: the padding rows'
-    ``out_lens`` and ``comp_lens`` are zeroed, so length-honouring bodies
-    treat them as absent.  Members on distinct devices raise (ROADMAP.md
-    Queue 1 item 11c).
+    * ``dev`` a sequence: member m's device-built wire table (the dict a
+      :func:`dispatch` call consumes), each of the same height, all on the
+      one device the members share; the gather is a ``torch.cat`` and
+      nothing crosses a link.  Tables on distinct devices raise.
+    * ``dev`` a dict: this member's own table, in a member's program (a
+      ``distributed.spmd.Member`` installed with ``spmd.use``, one process
+      a member): every per-chunk entry is all-gathered over ``axis_name``
+      (``spmd.all_gather``; ``comp_words``, a view of ``comp``, is viewed
+      again on the gathered bytes), the reference's signature.  Every
+      member's table must have the same shape.
+
+    ``row_counts``: for ragged members that padded their tables to a
+    common height, each member's count of valid rows (a sequence in the
+    list form, this member's count in the dict form, all-gathered): the
+    padding rows' ``out_lens`` and ``comp_lens`` are zeroed, so
+    length-honouring bodies treat them as absent.
     """
-    if not devs:
-        raise ValueError("no member tables to gather")
     shared = set(shared)
     if codec is not None:
         from repro_torch.core import registry
         shared |= set(registry.get(codec).shared_extras)
-    n_chunks = devs[0]["out_lens"].shape[0]
-    devices = {v.device for d in devs for v in d.values()
-               if isinstance(v, torch.Tensor)}
-    if len(devices) > 1:
-        raise NotImplementedError(
-            f"member tables on {sorted(map(str, devices))}: gathering across "
-            "distinct devices is not ported yet (ROADMAP.md Queue 1 item "
-            "11c); the members must share one device")
-    if any(d["out_lens"].shape[0] != n_chunks for d in devs):
-        raise ValueError("member tables of different heights: pad them to "
-                         "one height and pass row_counts")
-    out = {}
-    for k, v in devs[0].items():
-        if (k in shared or not isinstance(v, torch.Tensor) or v.dim() < 1
-                or v.shape[0] != n_chunks):
-            out[k] = v
-            continue
-        out[k] = torch.cat([d[k] for d in devs])
-    count.collective("all-gather", sum(
-        out[k].numel() * out[k].element_size() for k in out
-        if k not in shared and isinstance(out[k], torch.Tensor)
-        and out[k] is not devs[0][k]), out["out_lens"].device)
-    if row_counts is not None:
+    if isinstance(dev, dict):
+        out, counts, n_members = _gather_own_table(dev, axis_name, shared,
+                                                   row_counts)
+    else:
+        out, counts, n_members = _gather_table_list(list(dev), shared,
+                                                    row_counts)
+    if counts is not None:
+        n_chunks = out["out_lens"].shape[0] // n_members
         lens = out["out_lens"]
-        counts = torch.as_tensor(row_counts, dtype=torch.int64,
-                                 device=lens.device).reshape(-1)
-        if counts.shape[0] != len(devs):
-            raise ValueError(f"{counts.shape[0]} row counts for "
-                             f"{len(devs)} members")
-        flat = torch.arange(len(devs) * n_chunks, device=lens.device)
+        flat = torch.arange(n_members * n_chunks, device=lens.device)
         valid = (flat % n_chunks) < counts[flat // n_chunks]
         out["out_lens"] = torch.where(valid, lens, 0).to(lens.dtype)
         out["comp_lens"] = torch.where(valid, out["comp_lens"],
                                        0).to(out["comp_lens"].dtype)
     return out
+
+
+def _per_chunk(k: str, v, shared: set, n_chunks: int) -> bool:
+    return (k not in shared and isinstance(v, torch.Tensor) and v.dim() >= 1
+            and v.shape[0] == n_chunks)
+
+
+def _gather_table_list(devs: list, shared: set, row_counts):
+    """:func:`gather_member_tables`' one-process form: ``(table, counts,
+    members)``."""
+    if not devs:
+        raise ValueError("no member tables to gather")
+    n_chunks = devs[0]["out_lens"].shape[0]
+    devices = {v.device for d in devs for v in d.values()
+               if isinstance(v, torch.Tensor)}
+    if len(devices) > 1:
+        raise NotImplementedError(
+            f"member tables on {sorted(map(str, devices))}: one process "
+            "gathers the tables of members that share one device; run one "
+            "process a member (launch.mesh.spawn) and gather each member's "
+            "own table over a mesh axis")
+    if any(d["out_lens"].shape[0] != n_chunks for d in devs):
+        raise ValueError("member tables of different heights: pad them to "
+                         "one height and pass row_counts")
+    out = {}
+    for k, v in devs[0].items():
+        out[k] = torch.cat([d[k] for d in devs]) \
+            if _per_chunk(k, v, shared, n_chunks) else v
+    count.collective("all-gather", sum(
+        out[k].numel() * out[k].element_size() for k in out
+        if k not in shared and isinstance(out[k], torch.Tensor)
+        and out[k] is not devs[0][k]), out["out_lens"].device)
+    counts = None
+    if row_counts is not None:
+        counts = torch.as_tensor(row_counts, dtype=torch.int64,
+                                 device=out["out_lens"].device).reshape(-1)
+        if counts.shape[0] != len(devs):
+            raise ValueError(f"{counts.shape[0]} row counts for "
+                             f"{len(devs)} members")
+    return out, counts, len(devs)
+
+
+def _gather_own_table(dev: dict, axis_name: Optional[str], shared: set,
+                      row_counts):
+    """:func:`gather_member_tables`' member form: ``(table, counts,
+    members)``."""
+    from repro_torch.distributed import spmd
+    m = spmd.current()
+    if m is None or m.transport != "group" or axis_name is None:
+        raise ValueError("one member's table is gathered over a mesh axis "
+                         "in a member's program (axis_name, and "
+                         "distributed.spmd.use of a Member of a world); one "
+                         "process gathers the members' list")
+    n_chunks = dev["out_lens"].shape[0]
+    words = dev.get("comp_words")
+    comp = dev.get("comp")
+    view = (words is not None and comp is not None
+            and words.data_ptr() == comp.data_ptr())
+    out = {}
+    for k, v in dev.items():
+        if k == "comp_words" and view:
+            continue
+        out[k] = spmd.all_gather(v, axis_name) \
+            if _per_chunk(k, v, shared, n_chunks) else v
+    if view:
+        out["comp_words"] = out["comp"].view(words.dtype)
+        out = {k: out[k] for k in dev}           # the table's own order
+    counts = None
+    if row_counts is not None:
+        own = torch.as_tensor(row_counts, dtype=torch.int64,
+                              device=dev["out_lens"].device).reshape(1)
+        counts = spmd.all_gather(own, axis_name)
+    return out, counts, m.size(axis_name)
 
 
 def as_shard_list(out_shardings, n: int, what: str = "items"):
@@ -240,7 +309,7 @@ def _scatter_place(table: torch.Tensor, scatter, meta) -> List[Any]:
             orig_dtype=odt, orig_shape=oshape, indices=idx,
             transformed=transformed)
         if place is not None and placeable(out.shape, place):
-            out = ShardedTensor.place(out, place)
+            out = shd.place(out, place)
         outs.append(out)
     return outs
 
@@ -378,11 +447,13 @@ class DecodePlan:
         return self
 
     def stage_sharded(self, mesh, axis: str) -> "DecodePlan":
-        """Stage for the mesh executor on the device the members share:
-        each group's table padded with zero-length rows
-        (``format.pad_table_rows``' rows, written as it is copied) to a
-        multiple of ``mesh.shape[axis]``, so member m owns rows ``[m * r,
-        (m + 1) * r)``; shared tables and scatter indices once."""
+        """Stage for the mesh executor: each group's table padded with
+        zero-length rows (``format.pad_table_rows``' rows, written as it is
+        copied) to a multiple of ``mesh.shape[axis]``, so member m owns
+        rows ``[m * r, (m + 1) * r)``; shared tables and scatter indices
+        once.  Where the members share one device every member's rows are
+        staged there; on a mesh over a world's ranks only this member's
+        block (``format.table_rows``), on its own device."""
         device = mesh.member_device()
         key = (mesh, axis)
         staged = self._staged.setdefault(key, {})
@@ -392,9 +463,15 @@ class DecodePlan:
             if gi in staged:
                 continue
             rows = -(-g.num_chunks // ndev) * ndev
-            staged[gi] = ops.table_inputs(
-                g.merged, device, rows=rows,
-                pad_comp_to=g.bucket[1] if g.bucket else None)[0]
+            cols = g.bucket[1] if g.bucket else None
+            if mesh.rank is None:
+                staged[gi] = ops.table_inputs(g.merged, device, rows=rows,
+                                              pad_comp_to=cols)[0]
+            else:
+                lo = mesh.coord(axis) * (rows // ndev)
+                own = fmt.table_rows(g.merged, lo, lo + rows // ndev)
+                staged[gi] = ops.table_inputs(own, device,
+                                              pad_comp_to=cols)[0]
             scat[gi] = tuple(
                 None if s is None else transfers.to_device(s, device)
                 for s in g.scatter)
@@ -460,9 +537,12 @@ class DecodePlan:
              transformed, None if places is None else places[bid])
             for bid, row0 in zip(g.blob_ids, g.row_offsets))
 
-    def _run(self, key, engine, epilogue, ops_extra, places) -> List[Any]:
+    def _run(self, key, engine, epilogue, ops_extra, places,
+             member=None, axis: Optional[str] = None) -> List[Any]:
         """One dispatch a group of the tables staged under ``key``, then
-        every blob's scatter and placement."""
+        every blob's scatter and placement.  With ``member`` (a
+        ``distributed.spmd.Member``), each decoded table is this member's
+        block of rows, all-gathered over ``axis`` before the scatter."""
         outs: List[Any] = [None] * len(self.blobs)
         for gi, g in enumerate(self.groups):
             dev = self._staged[key][gi]
@@ -472,6 +552,10 @@ class DecodePlan:
             table = dispatch(dev, config=engine.config, codec=codec,
                              width=width, chunk_elems=chunk_elems, bits=bits,
                              epilogue=epilogue)
+            if member is not None:
+                from repro_torch.distributed import spmd
+                with spmd.use(member):
+                    table = spmd.all_gather(table, axis)
             group_outs = _scatter_place(
                 table, self._staged_scatter[key][gi],
                 self._blob_meta(g, epilogue is not None, places))
@@ -489,7 +573,7 @@ class DecodePlan:
         staged (and the operands seen before) there are no host transfers.
 
         ``out_shardings``: one ``NamedSharding`` (or one a blob, None
-        allowed) each output is placed under, as a ``ShardedTensor``.
+        allowed) each output is placed under (``sharding.place``).
         """
         engine = _default_engine(engine)
         device = engine.device
@@ -505,14 +589,21 @@ class DecodePlan:
                         out_shardings=None) -> List[Any]:
         """Mesh executor: every group's rows split evenly over ``mesh``'s
         ``axis`` (default ``sharding.decode_axis``), each member owning a
-        block (:meth:`stage_sharded`); the members share one device, so
-        one dispatch a group decodes every member's block, and each blob's
-        output is placed under its requested ``NamedSharding``.  Equal to
-        :meth:`execute_device` bit for bit; a staged plan re-executes with
-        no host transfer.  ``engine``: its device must be the mesh's
-        (default an engine there); epilogue operands are staged once, for
-        every member.  A mesh over distinct devices raises (ROADMAP.md
-        Queue 1 item 11c).
+        block (:meth:`stage_sharded`), and each blob's output placed under
+        its requested ``NamedSharding``.  Where the members share one
+        device, one dispatch a group decodes every member's block.  On a
+        mesh over a world's ranks this process decodes its own block of
+        every group (one dispatch a group on its device), the decoded
+        blocks are all-gathered over ``axis`` (``spmd.member_of(mesh)``'s
+        group), and it returns its own block of each output as a plain
+        tensor (``sharding.block``; a whole output where it is not placed):
+        the members along other axes decode and keep the same block, as
+        ``shard_map`` replicates it.  Equal to :meth:`execute_device` bit
+        for bit; a staged plan re-executes with no host transfer.
+        ``engine``: its device must be the member's (default an engine
+        there); epilogue operands are staged once, for every member.  A
+        mesh over distinct devices without a rank raises, pointing to
+        ``launch.mesh.spawn``.
         """
         device = mesh.member_device()
         if engine is None:
@@ -525,10 +616,14 @@ class DecodePlan:
         if axis not in mesh.axis_names:
             raise ValueError(f"{axis!r} is not an axis of {mesh}")
         self.stage_sharded(mesh, axis)
+        member = None
+        if mesh.rank is not None:
+            from repro_torch.distributed import spmd
+            member = spmd.member_of(mesh)
         return self._run((mesh, axis), engine, epilogue,
                          self._stage_operands(epilogue_operands, device),
                          as_shard_list(out_shardings, len(self.blobs),
-                                       what="blobs"))
+                                       what="blobs"), member, axis)
 
 
 def decompress_blobs(blobs: Sequence[fmt.CompressedBlob], engine=None,

@@ -7,7 +7,8 @@ The counterpart of ``repro/core/streams.py``, batched over chunk rows:
   * bit reads ``peek_bits`` / ``skip_bits`` over an LSB-first word table
     (:func:`words_int64` of the staged uint32 view);
   * output writes ``write_from`` (a literal run from a side buffer) and the
-    overlap-safe ``memcpy`` (Alg. 2) into an ``(n, capacity)`` buffer.
+    overlap-safe ``memcpy`` (Alg. 2) into an ``(n, capacity)`` buffer;
+  * ``lockstep``, the loop of the plain bodies that step every row at once.
 
 Positions hold offsets with the row on their leading axis.  Reads reproduce
 ``jnp.take(..., mode="clip")``: an offset past the row reads its last byte
@@ -137,3 +138,47 @@ def memcpy(buf: torch.Tensor, pos: torch.Tensor, offset: torch.Tensor,
     src = start[:, None] + idxm.clamp(max=max_len - 1)
     return write_values(buf, pos, torch.gather(buf, 1, src), length, active,
                   max_len)
+
+
+# --------------------------------------------------------------------------
+# the lockstep loop of the plain bodies
+# --------------------------------------------------------------------------
+
+# steps of a lockstep loop one CUDA graph holds (the host checks for an
+# active row once a replay)
+GRAPH_STEPS = 32
+
+
+def lockstep(step, state: tuple) -> tuple:
+    """Run ``state, active = step(state)`` until a step has no active row;
+    returns the last state.
+
+    ``step`` must leave every row it reports inactive as it was, so a step
+    with no active row changes nothing and the steps run past the last
+    active one do not change the result.  ``state`` holds the per-row
+    tensors ``step`` replaces; the tables it writes in place it closes
+    over.  On the CPU the host checks ``active`` after every step.  On a
+    card a step is many small launches, bound by the host's launch cost:
+    :data:`GRAPH_STEPS` steps are captured once as a CUDA graph and
+    replayed, the host checking the last step's ``active`` between
+    replays."""
+    state, active = step(state)
+    if not active.is_cuda:
+        while bool(active.any()):
+            state, active = step(state)
+        return state
+    if not bool(active.any()):
+        return state
+    static = tuple(t.clone() for t in state)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = static
+        for _ in range(GRAPH_STEPS):
+            got, active = step(got)
+        for dst, src in zip(static, got):
+            dst.copy_(src)
+        more = active.any()
+    while True:
+        graph.replay()
+        if not bool(more):
+            return static

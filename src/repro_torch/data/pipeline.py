@@ -15,7 +15,9 @@ decode of the next shards with the consumer through a prefetch thread
 mode).  With ``mesh=`` (engine mode) every shard's chunk rows split over
 the mesh's decode axis and token shards are born placed under
 ``sharding.decode_out_sharding(mesh)`` (``sharding.ShardedTensor``), and
-the loader's batches too, over their batch dimension.
+the loader's batches too, over their batch dimension.  On a mesh over a
+world's ranks (one process a member) each process decodes its block of
+every window's rows and keeps its own block of each shard and batch.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from repro_torch.core import store as blobstore
 from repro_torch.core.engine import CodagEngine, EngineConfig
 from repro_torch.core.server import DecompressionService
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import spmd
 
 
 def synthetic_corpus(n_tokens: int, vocab: int, seed: int = 0,
@@ -171,9 +174,16 @@ class CompressedTokenStore:
         ``mesh`` (implies device out; the engine's device must be the
         mesh's) splits each window's chunk rows over the mesh's decode axis
         and yields token shards born under ``decode_out_sharding(mesh)``
-        (``sharding.ShardedTensor``); a ragged tail shard that cannot be
-        placed is yielded as a tensor."""
-        out_sh = None if mesh is None else shd.decode_out_sharding(mesh)
+        (``sharding.ShardedTensor``; on a mesh over a world's ranks this
+        rank's block, each process decoding its block of every window's
+        rows); a ragged tail shard that cannot be placed is yielded as a
+        whole tensor."""
+        yield from self._decoded(engine, window, device_out, mesh,
+                                 None if mesh is None
+                                 else shd.decode_out_sharding(mesh))
+
+    def _decoded(self, engine, window: int, device_out: bool, mesh,
+                 out_sh) -> Iterator:
         for blobs in self._blob_windows(max(1, window)):
             for out in plan_mod.decompress_blobs(
                     blobs, engine, device_out=device_out or mesh is not None,
@@ -252,7 +262,12 @@ class CompressedLoader:
     device unless ``engine`` says otherwise, and each batch's ``tokens``
     and ``labels`` are placed under ``decode_out_sharding(mesh, 2)`` (the
     batch dimension over the decode axis) where it divides, else left
-    whole.
+    whole.  On a mesh over a world's ranks every process builds a loader
+    over the same store: each decodes its block of every window's rows,
+    the decoded rows are all-gathered, and it yields its own block of each
+    batch (plain tensors); the prefetch thread's collectives travel on
+    process groups of the loader's own (``spmd.Member.join``), so they
+    never interleave with the caller's.
     """
 
     def __init__(self, store: CompressedTokenStore, batch: int, seq: int,
@@ -267,6 +282,11 @@ class CompressedLoader:
                              "token shards")
         if mesh is not None:
             mesh.member_device()     # a mesh over distinct devices raises
+        # a ranked mesh's prefetch thread gathers on groups of its own
+        self._member = None
+        if mesh is not None and mesh.rank is not None:
+            self._member = spmd.Member.join(mesh) if prefetch and \
+                service is None else spmd.member_of(mesh)
         self.store = store
         self.batch = batch
         self.seq = seq
@@ -293,6 +313,10 @@ class CompressedLoader:
                     shards = self.store.decoded_shards_async(
                         self.service, lookahead=self.decode_window,
                         device_out=self.device_out)
+                elif self._member is not None:   # whole shards, decoded
+                    shards = self.store._decoded(   # a block a member
+                        self.engine, self.decode_window, True, self.mesh,
+                        None)
                 else:
                     shards = self.store.decoded_shards(
                         self.engine, window=self.decode_window,
@@ -306,7 +330,17 @@ class CompressedLoader:
                 finally:
                     shards.close()
 
-        src = shard_iter()
+        whole = shard_iter()
+
+        def shards():           # each on the loader's member, if ranked
+            while True:
+                with spmd.use(self._member):
+                    s = next(whole, None)
+                if s is None:
+                    return
+                yield s
+
+        src = shards() if self._member is not None else whole
         t = None
         stop = threading.Event()
         if self.prefetch and self.service is None:
@@ -353,7 +387,7 @@ class CompressedLoader:
         if self.mesh is not None:
             batch_sh = shd.decode_out_sharding(self.mesh, 2)
             if shd.placeable((self.batch, self.seq), batch_sh):
-                place = lambda t: shd.ShardedTensor.place(t, batch_sh)
+                place = lambda t: shd.place(t, batch_sh)
         try:
             buf = get()
             while True:
@@ -378,3 +412,4 @@ class CompressedLoader:
                 t.join(timeout=5.0)
             if t is None or not t.is_alive():
                 src.close()
+                whole.close()

@@ -27,10 +27,18 @@ The counterpart of ``repro/distributed/collectives.py``:
                     the bitmap's decode, as the reference's runs in XLA
                     after its Pallas call.
 
-One controller, as the reference: a leaf "sharded over ``pod``" is one
-tensor whose leading axis is the member, on the device every member of the
-mesh (``launch.mesh.Mesh``) shares, and the all-gather is a ``torch.cat``.
-A mesh over distinct devices raises (ROADMAP.md Queue 1 item 11c).
+Two forms.  In one process, a leaf "sharded over ``pod``" is one tensor
+whose leading axis is the member, on the device every member of the mesh
+(``launch.mesh.Mesh``) shares, and the all-gather is a ``torch.cat``.  One
+process a member (a mesh over a world's ranks, ``launch.mesh.spawn``, or
+under an installed ``distributed.spmd.Member``), a collective takes this
+member's own leaf with no member axis, as the reference's ``shard_map``
+body does: it encodes the leaf on its device, all-gathers the wire's
+tables (``plan.gather_member_tables``' member form) and scales or top-k
+values over the axis's process group, decodes the gathered table with one
+``plan.dispatch`` on its own device, and returns the same reduced leaf on
+every member.  A mesh over distinct devices without a rank raises,
+pointing to ``launch.mesh.spawn``.
 
 :func:`make_wire_compressor` is the ``grad_compressor`` hook of
 ``launch.steps.build_train_step`` (``--grad-int8``); :func:`make_tree_reduce`
@@ -47,6 +55,7 @@ import torch
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.engine import EngineConfig, resolve_device
 from repro_torch.core.tree import leaves, map_tree, rebuild
+from repro_torch.distributed import spmd
 from repro_torch.kernels.harness import Epilogue, MemberReduce
 from repro_torch.optim import grad_compress as gc
 from repro_torch.roofline import count
@@ -156,18 +165,34 @@ def _mask_scatter_reduce(n_members: int, mean: bool):
 # --------------------------------------------------------------------------
 
 
+def member_of(mesh, axis_name: str):
+    """The ``spmd.Member`` a collective over ``axis_name`` runs as: the
+    mesh's, on a mesh over a world's ranks; with no mesh, an installed
+    member of a world that has the axis; else None (the one-process form,
+    member-stacked leaves)."""
+    if mesh is not None:
+        return spmd.member_of(mesh) if mesh.rank is not None else None
+    m = spmd.current()
+    if m is not None and m.transport == "group" and axis_name in m.shape:
+        return m
+    return None
+
+
 def _resolve(config: Optional[EngineConfig], tune, x: torch.Tensor,
-             mesh, axis_name: str):
-    """(config, device, tune) of a collective over ``x``'s ``x.shape[0]``
-    members, ``x`` checked to lie on the engine's device (and on the mesh's,
-    given one)."""
+             mesh, axis_name: str, member=None):
+    """(config, device, tune) of a collective over ``axis_name``, ``x``
+    checked to lie on the engine's device (and on the mesh's: the device
+    the members share, or this member's).  One process: ``x`` holds the
+    axis's ``x.shape[0]`` members."""
     config = config or EngineConfig()
     device = resolve_device(config.device)
     if mesh is not None:
-        mesh.members(axis_name, x.shape[0])
-        if mesh.shared_device != device:
-            raise ValueError(f"the mesh's members hold {mesh.shared_device}; "
-                             f"this engine decodes on {device}")
+        if member is None:
+            mesh.members(axis_name, x.shape[0])
+        if mesh.member_device() != device:
+            raise ValueError(f"the mesh's member holds "
+                             f"{mesh.member_device()}; this engine decodes "
+                             f"on {device}")
     if x.device != device:
         raise ValueError(f"a leaf on {x.device}; this engine decodes on "
                          f"{device}")
@@ -177,16 +202,29 @@ def _resolve(config: Optional[EngineConfig], tune, x: torch.Tensor,
     return config, device, tune
 
 
-def gathered_wire(x: torch.Tensor) -> Dict[str, Any]:
-    """The gathered int8 wire of a member-stacked leaf ``x`` ``(n, ...)``:
-    each member's :func:`quantized_wire`, laid member after member by
-    ``plan.gather_member_tables``, with the gathered scales
-    (``wire_scale``, ``(n * nb, 1)``) and the zero point (``wire_zero``)."""
-    wires = [quantized_wire(x[m]) for m in range(x.shape[0])]
-    dev = plan_mod.gather_member_tables([w for w, _ in wires],
-                                        codec=WIRE_CODEC)
-    dev["wire_scale"] = torch.cat([s for _, s in wires]).reshape(-1, 1)
-    count.collective("all-gather", dev["wire_scale"].numel() * 4, x.device)
+def gathered_wire(x: torch.Tensor, axis_name: str = "pod", *,
+                  mesh=None) -> Dict[str, Any]:
+    """The gathered int8 wire: each member's :func:`quantized_wire`, laid
+    member after member by ``plan.gather_member_tables``, with the
+    gathered scales (``wire_scale``, ``(n * nb, 1)``) and the zero point
+    (``wire_zero``).  ``x``: a member-stacked leaf ``(n, ...)`` in one
+    process; this member's own leaf where a member runs the collective
+    (:func:`member_of`), whose tables and scales are all-gathered over
+    ``axis_name``."""
+    member = member_of(mesh, axis_name)
+    if member is None:
+        wires = [quantized_wire(x[m]) for m in range(x.shape[0])]
+        dev = plan_mod.gather_member_tables([w for w, _ in wires],
+                                            codec=WIRE_CODEC)
+        dev["wire_scale"] = torch.cat([s for _, s in wires]).reshape(-1, 1)
+        count.collective("all-gather", dev["wire_scale"].numel() * 4,
+                         x.device)
+    else:
+        own, s = quantized_wire(x)
+        with spmd.use(member):
+            dev = plan_mod.gather_member_tables(own, axis_name,
+                                                codec=WIRE_CODEC)
+            dev["wire_scale"] = spmd.all_gather(s, axis_name)
     dev["wire_zero"] = torch.full((), WIRE_ZERO, dtype=torch.float32,
                                   device=x.device)
     return dev
@@ -195,38 +233,62 @@ def gathered_wire(x: torch.Tensor) -> Dict[str, Any]:
 def compressed_psum(x: torch.Tensor, axis_name: str = "pod", *, mesh=None,
                     config: Optional[EngineConfig] = None, tune=None,
                     mean: bool = False) -> torch.Tensor:
-    """int8-wire all-reduce of a member-stacked leaf ``x`` ``(n, ...)``:
-    the sum (or ``mean``) over its members, of shape ``x.shape[1:]``, what
-    every member receives.
+    """int8-wire all-reduce over ``axis_name``: the sum (or ``mean``) over
+    its members, what every member receives.  ``x``: a member-stacked leaf
+    ``(n, ...)`` (one process; the result ``x.shape[1:]``), or this
+    member's own leaf on a mesh over a world's ranks or under an installed
+    member (:func:`member_of`; the result ``x.shape``).
 
     Each member's leaf is encoded into the bitpack wire
     (:func:`quantized_wire`), the members' tables and scales are gathered
-    (``plan.gather_member_tables``), and ONE ``plan.dispatch`` decodes the
+    (:func:`gathered_wire`), and ONE ``plan.dispatch`` decodes the
     gathered table with the dequant -> member-reduce epilogue
     (:func:`_member_reduce`), fused into the bitpack kernel's stores on a
     card: the reduced float32 leaf is the decode's output.  ``mesh``
-    (optional) is checked: ``axis_name`` has ``n`` members sharing the
-    engine's device.  ``tune``: ``tuning.kernel_tune(WIRE_CODEC, 1,
-    config.tune)``, resolved here when None."""
-    config, device, tune = _resolve(config, tune, x, mesh, axis_name)
-    n = x.shape[0]
-    dev = gathered_wire(x)
+    (optional) is checked: ``axis_name``'s members hold the engine's
+    device.  ``tune``: ``tuning.kernel_tune(WIRE_CODEC, 1, config.tune)``,
+    resolved here when None."""
+    member = member_of(mesh, axis_name)
+    config, device, tune = _resolve(config, tune, x, mesh, axis_name,
+                                    member)
+    n = x.shape[0] if member is None else member.size(axis_name)
+    dev = gathered_wire(x, axis_name, mesh=mesh)
     epi = Epilogue(out_dtype="float32", scale_key="wire_scale",
                    zero_key="wire_zero", fn=_member_reduce(n, mean))
     summed = plan_mod.dispatch(dev, config=config, codec=WIRE_CODEC,
                                width=1, chunk_elems=gc.QBLOCK,
                                bits=WIRE_BITS, epilogue=epi, tune=tune)
-    size = x[0].numel()
-    return summed.reshape(-1)[:size].reshape(x.shape[1:])
+    shape = x.shape[1:] if member is None else x.shape
+    size = int(np.prod(tuple(shape)))
+    return summed.reshape(-1)[:size].reshape(shape)
+
+
+def _topk_wire(flat: torch.Tensor, k: int):
+    """One member's top-k wire of its flat accumulator: ``(bitmap table,
+    f16 values in index order, new residual)``."""
+    size = flat.shape[0]
+    order = gc.topk_order(flat, k)
+    mask = torch.zeros(size, dtype=torch.bool, device=flat.device)
+    mask[order] = True
+    kept = torch.where(mask, flat, torch.zeros((), device=flat.device))
+    idx = torch.sort(order)[0]                      # ascending: index order
+    vals = flat[idx].to(torch.float16)              # the f16 wire grid
+    pad = (-size) % MASK_CHUNK
+    maskp = torch.nn.functional.pad(mask.to(torch.int32),
+                                    (0, pad)).reshape(-1, MASK_CHUNK)
+    return (wire_dev(pack_bits_rows(maskp, 1), chunk_elems=MASK_CHUNK,
+                     bits=1), vals, flat - kept)
 
 
 def topk_psum(x: torch.Tensor, residual: torch.Tensor,
               axis_name: str = "pod", *, mesh=None, frac: float = 0.01,
               config: Optional[EngineConfig] = None, tune=None,
               mean: bool = False):
-    """Top-k + error-feedback all-reduce of a member-stacked leaf ``x``
-    ``(n, ...)`` with each member's residual ``(n, ...)``: ``(reduced
-    (x.shape[1:]), new residuals (n, ...))``.
+    """Top-k + error-feedback all-reduce: ``(reduced, new residual)``.
+    ``x`` and ``residual``: member-stacked ``(n, ...)`` in one process
+    (the reduced leaf ``x.shape[1:]``, the residuals ``(n, ...)``), or this
+    member's own leaf and residual where a member runs the collective
+    (:func:`member_of`; both results ``x.shape``).
 
     Each member keeps exactly k = max(1, int(size * frac)) entries of
     ``x + residual`` by magnitude (its new residual keeps the rest); its
@@ -235,35 +297,38 @@ def topk_psum(x: torch.Tensor, residual: torch.Tensor,
     ONE ``plan.dispatch`` (a ``bitpack_unpack`` launch on a card); the
     epilogue (:func:`_mask_scatter_reduce`) scatters each member's values
     into place and reduces, as torch ops after the decode."""
-    config, device, tune = _resolve(config, tune, x, mesh, axis_name)
-    n = x.shape[0]
+    member = member_of(mesh, axis_name)
+    config, device, tune = _resolve(config, tune, x, mesh, axis_name,
+                                    member)
     acc = x.float() + residual
-    flat = acc.reshape(n, -1)
-    size = flat.shape[1]
-    k = max(1, int(size * frac))
-    pad = (-size) % MASK_CHUNK
-    tables, vals, new_res = [], [], []
-    for m in range(n):
-        order = gc.topk_order(flat[m], k)
-        mask = torch.zeros(size, dtype=torch.bool, device=device)
-        mask[order] = True
-        kept = torch.where(mask, flat[m], torch.zeros((), device=device))
-        new_res.append(flat[m] - kept)
-        idx = torch.sort(order)[0]                  # ascending: index order
-        vals.append(flat[m][idx].to(torch.float16))  # the f16 wire grid
-        maskp = torch.nn.functional.pad(mask.to(torch.int32),
-                                        (0, pad)).reshape(-1, MASK_CHUNK)
-        tables.append(wire_dev(pack_bits_rows(maskp, 1),
-                               chunk_elems=MASK_CHUNK, bits=1))
-    dev = plan_mod.gather_member_tables(tables, codec=WIRE_CODEC)
-    dev["topk_vals"] = torch.stack(vals)
-    count.collective("all-gather", dev["topk_vals"].numel() * 2, device)
+    if member is None:
+        n = x.shape[0]
+        flat = acc.reshape(n, -1)
+        k = max(1, int(flat.shape[1] * frac))
+        wires = [_topk_wire(flat[m], k) for m in range(n)]
+        dev = plan_mod.gather_member_tables([w[0] for w in wires],
+                                            codec=WIRE_CODEC)
+        dev["topk_vals"] = torch.stack([w[1] for w in wires])
+        count.collective("all-gather", dev["topk_vals"].numel() * 2, device)
+        new_res = torch.stack([w[2] for w in wires]).reshape(x.shape)
+        shape = x.shape[1:]
+    else:
+        n = member.size(axis_name)
+        flat = acc.reshape(-1)
+        table, vals, res = _topk_wire(flat, max(1, int(flat.shape[0]
+                                                       * frac)))
+        with spmd.use(member):
+            dev = plan_mod.gather_member_tables(table, axis_name,
+                                                codec=WIRE_CODEC)
+            dev["topk_vals"] = spmd.all_gather(vals[None], axis_name)
+        new_res = res.reshape(x.shape)
+        shape = x.shape
     epi = Epilogue(fn=_mask_scatter_reduce(n, mean))
     dense = plan_mod.dispatch(dev, config=config, codec=WIRE_CODEC, width=1,
                               chunk_elems=MASK_CHUNK, bits=1, epilogue=epi,
                               tune=tune)
-    return (dense[:size].reshape(x.shape[1:]),
-            torch.stack(new_res).reshape(x.shape))
+    size = int(np.prod(tuple(shape)))
+    return dense[:size].reshape(shape), new_res
 
 
 def make_tree_reduce(mesh, axis: str = "pod", *, wire: str = "int8",
@@ -272,9 +337,13 @@ def make_tree_reduce(mesh, axis: str = "pod", *, wire: str = "int8",
     """Tree-wise compressed mean-all-reduce over one mesh axis.
 
     Input leaves carry a leading member axis of ``mesh.shape[axis]`` (the
-    DiLoCo pods' deltas).  Returns ``reduce(tree, residuals=None) ->
+    DiLoCo pods' deltas); on a mesh over a world's ranks each process
+    passes its own block of that axis, a leading axis of 1 (what
+    ``spmd.blocks`` gives under ``sharding.member_sharding(mesh, axis)``),
+    and its residuals likewise.  Returns ``reduce(tree, residuals=None) ->
     (mean_tree, new_residuals)``: each leaf's member mean (without the
-    member axis), through the wire ``wire`` selects:
+    member axis, the same on every member), through the wire ``wire``
+    selects:
 
       "int8"  - :func:`compressed_psum` (a leaf smaller than one quant
                 block takes the plain float32 member sum over ``n``)
@@ -283,15 +352,24 @@ def make_tree_reduce(mesh, axis: str = "pod", *, wire: str = "int8",
                 member axis; returned updated)
       "none"  - the plain float32 member sum over ``n`` (the baseline)
 
-    The mesh's members must share the engine's device (ROADMAP.md Queue 1
-    item 11c for distinct ones).  Kernel knobs are resolved here, once.
+    The mesh's members share the engine's device, or each process holds
+    its member's (a mesh over distinct devices without a rank raises).
+    Kernel knobs are resolved here, once.
     """
     if wire not in ("int8", "topk", "none"):
         raise ValueError(f"unknown wire {wire!r}")
     config = config or EngineConfig()
     n = mesh.members(axis)
+    member = member_of(mesh, axis)
+    rows = n if member is None else 1      # the leading axis a leaf has
     from repro_torch.core import tuning
     tune = tuning.kernel_tune(WIRE_CODEC, 1, config.tune)
+
+    def plain_mean(x: torch.Tensor) -> torch.Tensor:
+        if member is not None:
+            with spmd.use(member):
+                x = spmd.all_gather(x.float(), axis)
+        return MemberReduce(n, True).fold(x.float())
 
     def reduce_fn(tree, residuals=None):
         if wire == "topk" and residuals is None:
@@ -301,11 +379,23 @@ def make_tree_reduce(mesh, axis: str = "pod", *, wire: str = "int8",
                     else [None] * len(flat))
         outs, res_out = [], []
         for x, r in zip(flat, res_flat):
-            if x.shape[0] != n:
+            if x.shape[0] != rows:
                 raise ValueError(f"a leaf of {x.shape[0]} members for mesh "
-                                 f"axis {axis!r} of {n}")
+                                 f"axis {axis!r} of {n}"
+                                 + ("" if member is None else
+                                    ", one a process"))
             if wire == "none" or x[0].numel() < gc.QBLOCK:
-                red = MemberReduce(n, True).fold(x.float())
+                red = plain_mean(x)
+            elif member is not None:
+                if wire == "topk":
+                    red, r = topk_psum(x[0], r[0], axis, mesh=mesh,
+                                       frac=frac, config=config, tune=tune,
+                                       mean=True)
+                    r = r[None]
+                else:
+                    red = compressed_psum(x[0], axis, mesh=mesh,
+                                          config=config, tune=tune,
+                                          mean=True)
             elif wire == "topk":
                 red, r = topk_psum(x, r, axis, mesh=mesh, frac=frac,
                                    config=config, tune=tune, mean=True)

@@ -20,17 +20,24 @@ collective:
             and merges the delayed update streaming-DiLoCo style
             (merged = synced + (now - snapshot)).
 
-One controller, as the reference: the pods are members of a mesh
+Two forms.  In one process the pods are members of a mesh
 (``launch.mesh.Mesh``) that share one device, so a pod tree is one tensor a
-leaf with the pod axis leading.  Wire cost per outer sync:
-``collectives.wire_report``.
+leaf with the pod axis leading.  One process a pod (a ``(pod, data)`` mesh
+over a world's ranks, ``launch.mesh.spawn``), each process holds its own
+pod's block of every pod tree, a leading pod axis of 1
+(``sharding.member_sharding``), the sync's reduce travels over the ``pod``
+process group (``collectives.make_tree_reduce``), and
+each sync runs in :class:`OuterSyncPipeline`'s worker thread (in both
+forms), as the reference's waiter thread waits on its collective: nothing
+else in the process uses the ``pod`` group while a sync is in flight.  Wire cost per
+outer sync: ``collectives.wire_report``.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 
@@ -51,12 +58,19 @@ class DiLoCoConfig:
 def replicate_for_pods(tree, n_pods: int, mesh=None):
     """Every leaf with a leading ``(n_pods,)`` member axis: ``n_pods``
     copies, on the device the mesh's members share when ``mesh`` is given
-    (``sharding.member_sharding``), else on the leaf's own."""
+    (``sharding.member_sharding``), else on the leaf's own.  On a mesh
+    over a world's ranks, this pod's block: one copy, on its device."""
+    rows = n_pods
+    if mesh is not None and mesh.rank is not None:
+        if int(mesh.shape["pod"]) != n_pods:
+            raise ValueError(f"{n_pods} pods for {mesh}")
+        rows = 1
+
     def rep(x):
         if mesh is not None:
             x = x.to(sharding.member_sharding(mesh, "pod", x.dim() + 1)
                      .device)
-        return x.unsqueeze(0).expand((n_pods,) + tuple(x.shape)).clone()
+        return x.unsqueeze(0).expand((rows,) + tuple(x.shape)).clone()
     return map_tree(rep, tree)
 
 
@@ -116,7 +130,10 @@ def make_outer_sync(mesh, cfg: DiLoCoConfig, *, config=None):
     the wire ``cfg.wire`` selects, and the averaged delta is the decode's
     output (the int8 wire's dequant and member mean fused into the bitpack
     kernel's stores); every pod is rebased onto the new anchor.
-    ``config``: the engine's (``EngineConfig``; default the card)."""
+    ``config``: the engine's (``EngineConfig``; default the card).  On a
+    mesh over a world's ranks each process syncs its own pod's block
+    (``pod_params`` and the residuals with a leading axis of 1) and every
+    process gets the same anchor."""
     from repro_torch.distributed import collectives
 
     n_pods = int(mesh.shape["pod"])
@@ -159,16 +176,18 @@ class OuterSyncPipeline:
 
         merged = synced_params + (pod_params_now - snapshot)
 
-    On a card the sync's launches go to a side CUDA stream that first waits
-    for the caller's stream (its inputs are that stream's work); its inputs
-    are marked used on the side stream (``record_stream``), so their memory
-    is not reused while the sync reads them, and at ``finish`` the caller's
-    stream waits on the sync's event and its outputs are marked used on the
-    caller's stream.  The train step returns new tensors and leaves its
-    inputs as they were, so the inner steps never write what the sync reads.
-    A waiter thread waits on the event (on the CPU the sync has run by the
-    time ``launch`` returns), then on the injected link round trip
-    ``link_rtt_s``, so overlap is measurable anywhere:
+    The sync runs in a worker thread, so the caller goes on at once (one
+    process a pod, its collectives block the thread that issues them; a
+    thread started in Python reads no other thread's ``spmd`` member).  On
+    a card its launches go to a side CUDA stream that first waits for the
+    caller's stream (its inputs are that stream's work); its inputs are
+    marked used on the side stream (``record_stream``), so their memory is
+    not reused while the sync reads them, and at ``finish`` the caller's
+    stream waits on the sync's event and its outputs are marked used on
+    the caller's stream.  The train step returns new tensors and leaves
+    its inputs as they were, so the inner steps never write what the sync
+    reads.  The thread waits for the event, then for the injected link
+    round trip ``link_rtt_s``, so overlap is measurable anywhere:
     ``stats()['overlap_frac'] = 1 - wait / collective``.
     """
 
@@ -192,47 +211,52 @@ class OuterSyncPipeline:
                                "(finish() or abandon() it first)")
         t0 = time.perf_counter()
         device = next(leaves(pod_params)).device
-        event: Optional[torch.cuda.Event] = None
+        side = None
         if device.type == "cuda":
             side = self._side_stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
             for t in _tensors(pod_params, outer["anchor"],
                               outer["outer_mom"], outer.get("residual")):
                 t.record_stream(side)
-            with torch.cuda.stream(side):
-                new_pod_params, new_outer = self.sync_fn(pod_params, outer)
-                event = torch.cuda.Event()
-                event.record(side)
-        else:
-            new_pod_params, new_outer = self.sync_fn(pod_params, outer)
         done = threading.Event()
-        box = {"done_at": None}
+        box = {"done_at": None, "out": None, "event": None, "error": None}
 
-        def waiter():
-            if event is not None:
-                event.synchronize()
-            if self.link_rtt_s:
-                time.sleep(self.link_rtt_s)
+        def run():
+            try:
+                if side is None:
+                    box["out"] = self.sync_fn(pod_params, outer)
+                else:
+                    with torch.cuda.stream(side):
+                        box["out"] = self.sync_fn(pod_params, outer)
+                        box["event"] = torch.cuda.Event()
+                        box["event"].record(side)
+                    box["event"].synchronize()
+                if self.link_rtt_s:
+                    time.sleep(self.link_rtt_s)
+            except BaseException as e:          # raised again in finish
+                box["error"] = e
             box["done_at"] = time.perf_counter()
             done.set()
 
-        threading.Thread(target=waiter, daemon=True).start()
-        self._pending = (pod_params, new_pod_params, new_outer,
-                         (device, event), done, box, t0)
+        threading.Thread(target=run, daemon=True,
+                         name="diloco-outer-sync").start()
+        self._pending = (pod_params, device, done, box, t0)
 
     @property
     def in_flight(self) -> bool:
         return self._pending is not None
 
     def _wait(self):
-        snapshot, new_pod_params, new_outer, on, done, box, t0 = \
-            self._pending
+        snapshot, device, done, box, t0 = self._pending
         self._pending = None
         w0 = time.perf_counter()
         done.wait()
         self.wait_s += time.perf_counter() - w0
         self.collective_s += box["done_at"] - t0
-        return snapshot, new_pod_params, new_outer, on
+        if box["error"] is not None:
+            raise box["error"]
+        new_pod_params, new_outer = box["out"]
+        return snapshot, new_pod_params, new_outer, (device, box["event"])
 
     def finish(self, pod_params_now=None):
         """Wait for the rest of the sync and return ``(merged_pod_params,
@@ -260,14 +284,13 @@ class OuterSyncPipeline:
 
     def drain(self) -> None:
         """Wait out an in-flight sync without taking its result: the fault
-        path calls it, so a checkpoint restore proceeds while the pending
-        collective completes in its waiter thread."""
+        path calls it before it restores a checkpoint."""
         if self._pending is None:
             return
         self._wait()
 
     def abandon(self) -> None:
-        """Drop the in-flight sync at once (its waiter thread ends in the
+        """Drop the in-flight sync at once (its thread ends in the
         background); used when a failure invalidates the window."""
         self._pending = None
 

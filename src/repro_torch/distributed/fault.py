@@ -17,6 +17,11 @@ host Python.
   state had; the ``reshard_fn`` then lays the restored state out as it
   likes, and the loop goes on with the step on that state (a step that
   runs under a mesh, ``launch.steps.sharded_step``, takes it from there).
+  One process a member (a state of this member's blocks of a mesh over a
+  world's ranks, given with ``shardings=``): every process checkpoints
+  through ``checkpoint.save(shardings=)`` (gathered, rank 0 writes) and,
+  after a failure at the same step in every process, restores its own
+  blocks through ``checkpoint.restore(shardings=)`` onto the same mesh.
 * ``FailureInjector`` deterministically raises at chosen steps (tests).
 
 One adaptation to torch.  The reference restores to host arrays and lets
@@ -126,9 +131,12 @@ def onto(shardings) -> Callable:
     state of ``sharding.NamedSharding`` s, e.g. another mesh's
     ``launch.steps.train_shardings``) with ``checkpoint.restore(
     shardings=)``; called on a state, it places it there
-    (``sharding.place``)."""
+    (``sharding.place``).  On a mesh over a world's ranks the restore
+    already gives this rank's blocks, and it leaves a state as it is."""
+    ranked = ckpt._ranked_mesh(shardings) is not None
+
     def reshard(state):
-        return sharding.place(state, shardings)
+        return state if ranked else sharding.place(state, shardings)
 
     reshard.shardings = shardings
     return reshard
@@ -148,6 +156,12 @@ class FaultTolerantRunner:
     holds the state, or the card's default engine for a host restore.  The
     restore lands on the state's device (module docstring).
 
+    ``shardings``: where ``state`` holds this member's blocks of a mesh
+    over a world's ranks (one process a member), the tree of their
+    ``NamedSharding`` s: saves gather the blocks (``checkpoint.save(
+    shardings=)``) and a restart restores this member's blocks onto them.
+    Every process must fail at the same steps.
+
     ``sync_pipeline`` (an outer-sync pipeline with ``in_flight`` and
     ``drain()``, duck-typed) lets an in-flight compressed outer sync DRAIN
     concurrently with the compressed restore: on failure the pending
@@ -162,7 +176,7 @@ class FaultTolerantRunner:
                  reshard_fn: Optional[Callable] = None,
                  max_restarts: int = 3, async_ckpt: bool = True,
                  ckpt_codec: str = "none", sync_pipeline=None,
-                 engine=None):
+                 engine=None, shardings=None):
         self.step_fn = step_fn
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
@@ -174,6 +188,7 @@ class FaultTolerantRunner:
         self.ckpt_codec = ckpt_codec
         self.sync_pipeline = sync_pipeline
         self.engine = engine
+        self.shardings = shardings
 
     def _restore(self, step: int, state, *, resharding: bool = False):
         """``checkpoint.restore`` of ``step`` onto the device of ``state``'s
@@ -184,7 +199,8 @@ class FaultTolerantRunner:
         shardings = getattr(self.reshard_fn, "shardings", None) \
             if resharding else None
         if shardings is None:
-            shardings = _shardings_of(state)
+            shardings = self.shardings if self.shardings is not None \
+                else _shardings_of(state)
         engine = self.engine
         if engine is None and dev is not None and dev.type == "cuda":
             engine = CodagEngine(EngineConfig(device=str(dev)))
@@ -219,7 +235,8 @@ class FaultTolerantRunner:
                         pending.join()
                     pending = ckpt.save(self.ckpt_dir, step, state,
                                         codec=self.ckpt_codec,
-                                        async_=self.async_ckpt)
+                                        async_=self.async_ckpt,
+                                        shardings=self.shardings)
             except WorkerFailure:
                 restarts += 1
                 if restarts > self.max_restarts:

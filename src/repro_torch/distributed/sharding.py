@@ -4,9 +4,10 @@ parameter, optimizer, batch and cache specs.
 The counterpart of ``repro/distributed/sharding.py``.  Model code
 annotates activations with logical axes through ``constrain``, so one
 device runs the exact code a mesh would.  ``use_mesh(mesh, policy)``
-installs a mesh whose members share one device (``launch.mesh.Mesh``; a
-mesh over distinct devices raises through ``Mesh.member_device``, ROADMAP.md
-Queue 1 item 11c) and the policy the specs read; ``use_mesh(None,
+installs a mesh whose members share one device, or a mesh over a world's
+ranks (``launch.mesh.Mesh``; a mesh over distinct devices without a rank
+raises through ``Mesh.member_device``) and the policy the specs read;
+``use_mesh(None,
 policy=...)`` sets the policy alone.  Under a mesh, ``constrain`` resolves
 its logical axes against it and leaves the values as they are (what
 ``with_sharding_constraint`` does to values), and ``dp_groups`` counts the
@@ -26,6 +27,10 @@ Placement has JAX's names, kept small:
   dimension not split gives each member its own copy, as on distinct
   devices: the members never share a storage, so the placement is what a
   run over distinct devices would do, on a mesh whose members share one.
+* On a mesh over a world's ranks (``launch.mesh.world_mesh``) a process
+  holds only its own blocks, as plain tensors: :func:`place` gives this
+  rank's block (:func:`block`) and :func:`gather` all-gathers the blocks
+  through ``distributed.spmd``; no ``ShardedTensor`` is made there.
 
 The specs (``_RULES``, :func:`param_specs`, :func:`opt_specs` with ZeRO-1,
 :func:`batch_spec`, :func:`cache_spec`) read the port's dict trees and give
@@ -155,6 +160,9 @@ class PartitionSpec(tuple):
 
     def __new__(cls, *parts):
         return super().__new__(cls, (_entry(p) for p in parts))
+
+    def __reduce__(self):
+        return (PartitionSpec, tuple(self))
 
     def _key(self) -> tuple:
         parts = [p[0] if isinstance(p, tuple) and len(p) == 1 else p
@@ -291,7 +299,14 @@ class ShardedTensor:
               ) -> "ShardedTensor":
         """``x`` laid out under ``sharding``: each member's block copied to
         the member's device, in a storage of its own.  A mesh over distinct
-        devices raises (``Mesh.member_device``)."""
+        devices raises (``Mesh.member_device``), and so does a mesh over a
+        world's ranks, whose process holds only its own block: there
+        :func:`place` (or :func:`block`) gives it."""
+        if sharding.mesh.rank is not None:
+            raise ValueError(
+                f"{sharding.mesh} is a mesh over a world's ranks: this "
+                "process holds only its own block, a plain tensor "
+                "(sharding.place or sharding.block), not a ShardedTensor")
         sharding.mesh.member_device()
         shards = []
         for dev, idx in zip(sharding.mesh.devices.flat,
@@ -329,13 +344,26 @@ class ShardedTensor:
                 f"{self.sharding})")
 
 
+def block(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``sharding``, on a
+    mesh over a world's ranks: copied to the rank's device, in a storage
+    of its own (a block never pins the tensor it was cut from)."""
+    mesh = sharding.mesh
+    if mesh.rank is None:
+        raise ValueError(f"{mesh} has no rank: ShardedTensor.place lays "
+                         "out every member's block in one process")
+    part = x[sharding.member_indices(x.shape)[mesh.rank]]
+    return torch.empty(part.shape, dtype=x.dtype,
+                       device=mesh.member_device()).copy_(part)
+
+
 def place(tree, shardings):
     """``tree`` laid out under ``shardings`` (a tree like it of
     ``NamedSharding`` s; a None sharding leaves its subtree as it is): a
-    tensor is placed (``ShardedTensor.place``; a shape it cannot split
-    raises), a ``ShardedTensor`` under an equal sharding stays, one under
-    another is gathered and placed anew; other leaves (the cache's ``pos``)
-    stay."""
+    tensor is placed (``ShardedTensor.place``, or this rank's :func:`block`
+    on a mesh over a world's ranks; a shape it cannot split raises), a
+    ``ShardedTensor`` under an equal sharding stays, one under another is
+    gathered and placed anew; other leaves (the cache's ``pos``) stay."""
     if shardings is None:
         return tree
     if isinstance(tree, dict):
@@ -347,20 +375,72 @@ def place(tree, shardings):
             return tree
         tree = tree.full()
     if isinstance(tree, torch.Tensor):
+        if shardings.mesh.rank is not None:
+            return block(tree, shardings)
         return ShardedTensor.place(tree, shardings)
     return tree
 
 
-def gather(tree):
+def gather(tree, shardings=None):
     """Each ``ShardedTensor`` leaf's global tensor (the members' blocks
-    all-gathered, ``ShardedTensor.full``); other leaves as they are."""
+    all-gathered, ``ShardedTensor.full``); other leaves as they are.  With
+    ``shardings`` (a tree like ``tree``) a tensor leaf under a sharding
+    over a world's ranks is this rank's block, and its whole tensor is
+    all-gathered through ``distributed.spmd`` (every process of the mesh
+    must gather the same tree)."""
     if isinstance(tree, dict):
-        return {k: gather(v) for k, v in tree.items()}
+        return {k: gather(v, None if shardings is None else shardings[k])
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(gather(v) for v in tree)
+        shs = [None] * len(tree) if shardings is None else shardings
+        return type(tree)(gather(v, s) for v, s in zip(tree, shs))
     if isinstance(tree, ShardedTensor):
         return tree.full()
+    if (isinstance(tree, torch.Tensor) and shardings is not None
+            and shardings.mesh.rank is not None):
+        from repro_torch.distributed import spmd
+        with spmd.use(spmd.member_of(shardings.mesh)):
+            return spmd.relayout(tree, shardings.spec, P())
     return tree
+
+
+def gather_to(x: torch.Tensor, sharding: NamedSharding,
+              dst: int = 0) -> Optional[torch.Tensor]:
+    """The whole tensor of which ``x`` is this rank's block under
+    ``sharding`` (a mesh over a world's ranks), as a host tensor on rank
+    ``dst`` alone (None on the others): the lowest rank holding each
+    distinct block sends its bytes to ``dst`` (replicas send nothing), and
+    only ``dst`` holds the whole tensor.  Every process of the world must
+    call it for the same leaves in the same order."""
+    import torch.distributed as dist
+    mesh = sharding.mesh
+    if mesh.rank is None:
+        raise ValueError(f"{mesh} has no rank: ShardedTensor.full gathers "
+                         "the members of one process")
+    if mesh.size != dist.get_world_size():
+        raise ValueError(f"{mesh} has {mesh.size} members; the world has "
+                         f"{dist.get_world_size()} ranks")
+    blk = x.detach().to("cpu").contiguous()
+    whole = tuple(n * k for n, k in zip(blk.shape,
+                                        sharding._splits(blk.dim())))
+    idx = sharding.member_indices(whole)
+    holder = {}
+    for r, ix in enumerate(idx):
+        holder.setdefault(tuple((i.start, i.stop) for i in ix), r)
+    senders = sorted(set(holder.values()))
+    sent = blk.reshape(-1).view(torch.uint8)
+    if mesh.rank != dst:
+        if mesh.rank in senders and sent.numel():
+            dist.send(sent, dst=dst)
+        return None
+    out = torch.empty(whole, dtype=blk.dtype)
+    for r in senders:
+        got = sent
+        if r != dst and sent.numel():
+            got = torch.empty_like(sent)
+            dist.recv(got, src=r)
+        out[idx[r]] = got.view(blk.dtype).reshape(blk.shape)
+    return out
 
 
 def member_sharding(mesh, axis: str = "pod",

@@ -24,7 +24,11 @@ outside ``count.count_costs``), so a program counted on ``meta`` counts
 what it counts on a device.
 
 The model code reads the member through :func:`current` (installed with
-:func:`use`), as it reads the mesh through ``sharding.constrain``:
+:func:`use` in the calling thread; the autograd engine's device threads,
+which Python did not start, read the main thread's; a thread started in
+Python reads only its own), as it reads the mesh through
+``sharding.constrain``; the decode path finds a ranked mesh's member with
+:func:`member_of`:
 
 * :func:`tp` / :func:`tp_rank`: the ``model`` axis's size and this
   member's place on it under the ``tp`` policy (1 and 0 under ``dp``, or
@@ -41,6 +45,9 @@ The model code reads the member through :func:`current` (installed with
   :func:`reduce_scatter`, and :func:`relayout`, which moves a block from
   one ``PartitionSpec`` to another (gathers, then slices).
 
+A dtype the ``gloo`` backend has no collectives for (the unsigned words
+and ``int16``) is gathered through its bytes (``uint8``).
+
 Only calls that torch 2.11 has are used: ``all_gather_into_tensor`` and
 ``reduce_scatter_tensor`` (2.13 marks them deprecated, but 2.11 has no
 replacement).
@@ -48,6 +55,7 @@ replacement).
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 import warnings
 from typing import Dict, Iterator, Optional, Tuple
@@ -58,7 +66,11 @@ import torch
 from repro_torch.roofline import count
 
 KINDS = ("all_reduce", "all_gather", "reduce_scatter")
-_CURRENT: list = []
+# what gloo reduces and gathers; any other dtype is gathered as its bytes
+GLOO_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16,
+               torch.int8, torch.uint8, torch.int32, torch.int64)
+_STACKS: Dict[int, list] = {}       # thread ident -> members it installed
+_JOINED: dict = {}                  # a ranked mesh's member, by mesh
 
 
 class Member:
@@ -159,16 +171,49 @@ class Member:
 
 @contextlib.contextmanager
 def use(member: Optional[Member]) -> Iterator[Optional[Member]]:
-    """Install ``member`` as the current member (None: none)."""
-    _CURRENT.append(member)
+    """Install ``member`` as the calling thread's current member (None:
+    none)."""
+    stack = _STACKS.setdefault(threading.get_ident(), [])
+    stack.append(member)
     try:
         yield member
     finally:
-        _CURRENT.pop()
+        stack.pop()
 
 
 def current() -> Optional[Member]:
-    return _CURRENT[-1] if _CURRENT else None
+    """The calling thread's member.  A thread that Python did not start
+    and that installed none (the autograd engine's device threads, which
+    run a backward and its activation recompute) reads the main thread's;
+    a thread started in Python (a loader's prefetch, a DiLoCo sync) reads
+    only what it installed itself, so it never runs collectives on another
+    thread's groups."""
+    stack = _STACKS.get(threading.get_ident())
+    if not stack and isinstance(threading.current_thread(),
+                                threading._DummyThread):
+        stack = _STACKS.get(threading.main_thread().ident)
+    return stack[-1] if stack else None
+
+
+def member_of(mesh) -> Member:
+    """This process's member of ``mesh``, a mesh over a world's ranks
+    (``mesh.rank`` set): the current member where it is one of ``mesh``
+    (same axes and sizes, same place), else the member :meth:`Member.join`
+    gave the first time a mesh of that shape was asked for in this world
+    (so every process must ask in the same order, as for ``join``)."""
+    import torch.distributed as dist
+    if mesh.rank is None:
+        raise ValueError(f"{mesh} has no rank: not a mesh over a world's "
+                         "ranks (launch.mesh.world_mesh)")
+    m = current()
+    if (m is not None and m.transport == "group" and m.index == mesh.rank
+            and m.shape == dict(mesh.shape)):
+        return m
+    key = (tuple(mesh.shape.items()), mesh.rank,
+           id(dist.distributed_c10d._get_default_group()))
+    if key not in _JOINED:
+        _JOINED[key] = Member.join(mesh)
+    return _JOINED[key]
 
 
 def _need() -> Member:
@@ -271,12 +316,18 @@ def all_gather(x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
     if m is None or m.size(axis) == 1:
         return x
     n = m.size(axis)
+    if x.dim() == 0:
+        return all_gather(x.reshape(1), axis)
     dim = dim % x.dim()
     xs = _moved(x, dim, 0)
     out = torch.empty((n * xs.shape[0],) + tuple(xs.shape[1:]),
                       dtype=x.dtype, device=x.device)
     count.collective("all-gather", _nbytes(out.shape, x.dtype), x.device)
-    _transfer(m, "all_gather", out, xs, axis, "sum")
+    if x.dtype in GLOO_DTYPES:
+        _transfer(m, "all_gather", out, xs, axis, "sum")
+    else:                       # the same bytes, as gloo's uint8
+        _transfer(m, "all_gather", out.view(torch.uint8),
+                  xs.view(torch.uint8), axis, "sum")
     return _moved(out, 0, dim)
 
 
@@ -455,12 +506,22 @@ def all_max(x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+# what the member programs send: each kind of the model's floats, and the
+# decode path's all-gathers (bytes and every other dtype's bytes, int8
+# blocks, int32 lengths, int64 row counts, float16 top-k values; float32
+# scales above)
+PROBES = tuple((k, dt) for k in KINDS
+               for dt in (torch.float32, torch.bfloat16)) + tuple(
+    ("all_gather", dt) for dt in (torch.uint8, torch.int8, torch.int32,
+                                  torch.int64, torch.float16))
+
+
 def probe_backend(device, backend: str = "gloo") -> Dict[str, str]:
-    """Which collective kinds ``backend`` takes as float32 and bf16 tensors
-    on ``device``: ``"kind/dtype"`` -> "device", "wrong values", or the
-    error it raised (the member program has no other path: such a kind
-    fails it).  Runs a world of this one process, rendezvous through a
-    ``FileStore`` in a temporary directory."""
+    """Which collective kinds ``backend`` takes for each dtype of
+    :data:`PROBES` on ``device``: ``"kind/dtype"`` -> "device", "wrong
+    values", or the error it raised (the member program has no other path:
+    such a kind fails it).  Runs a world of this one process, rendezvous
+    through a ``FileStore`` in a temporary directory."""
     import os
     import tempfile
     import torch.distributed as dist
@@ -470,28 +531,26 @@ def probe_backend(device, backend: str = "gloo") -> Dict[str, str]:
         store = dist.FileStore(os.path.join(tmp, "store"), 1)
         dist.init_process_group(backend, store=store, rank=0, world_size=1)
         try:
-            for kind in KINDS:
-                for dt in (torch.float32, torch.bfloat16):
-                    x = torch.arange(4, device=dev).to(dt)
-                    out = torch.empty(4, dtype=dt, device=dev)
-                    key = f"{kind}/{str(dt).split('.')[-1]}"
-                    try:
-                        with warnings.catch_warnings():
-                            warnings.filterwarnings("ignore",
-                                                    category=FutureWarning)
-                            if kind == "all_reduce":
-                                dist.all_reduce(out.copy_(x))
-                            elif kind == "all_gather":
-                                dist.all_gather_into_tensor(out, x)
-                            else:
-                                dist.reduce_scatter_tensor(out, x)
-                        if dev.type == "cuda":
-                            torch.cuda.synchronize(dev)
-                        ok = torch.equal(out.cpu(), x.cpu())
-                        got[key] = "device" if ok else "wrong values"
-                    except (RuntimeError, ValueError) as e:
-                        got[key] = f"{type(e).__name__}: {str(e)[:160]}"
+            for kind, dt in PROBES:
+                x = (torch.arange(4, device=dev) % 2).to(dt)
+                out = torch.empty(4, dtype=dt, device=dev)
+                key = f"{kind}/{str(dt).split('.')[-1]}"
+                try:
+                    with warnings.catch_warnings():
+                        warnings.filterwarnings("ignore",
+                                                category=FutureWarning)
+                        if kind == "all_reduce":
+                            dist.all_reduce(out.copy_(x))
+                        elif kind == "all_gather":
+                            dist.all_gather_into_tensor(out, x)
+                        else:
+                            dist.reduce_scatter_tensor(out, x)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    ok = torch.equal(out.cpu(), x.cpu())
+                    got[key] = "device" if ok else "wrong values"
+                except (RuntimeError, ValueError) as e:
+                    got[key] = f"{type(e).__name__}: {str(e)[:160]}"
         finally:
             dist.destroy_process_group()
     return got
-

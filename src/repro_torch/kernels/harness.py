@@ -34,6 +34,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import streams as st
 from repro_torch.core import transfers
 from repro_torch.core.format import torch_dtype
 
@@ -132,18 +133,15 @@ def scalar_chunk(spec: TwoPhaseSpec, comp: torch.Tensor,
     n, dev = comp.shape[0], comp.device
     out_len = out_lens.to(torch.int64)
     buf = torch.zeros((n, out_len_max), dtype=torch.int64, device=dev)
-    pos = torch.zeros(n, dtype=torch.int64, device=dev)
-    cnt, k, rem = (torch.zeros_like(pos) for _ in range(3))
-    cur = {f.name: torch.zeros(n, dtype=f.dtype, device=dev)
-           for f in spec.fields}
-    while True:
+    names = [f.name for f in spec.fields]
+
+    def emit(state):
+        pos, cnt, k, rem, *vals = state
         active = cnt < out_len
-        if not bool(active.any()):
-            break
         need = active & (rem == 0)
         p = spec.parse(comp, pos, width)
         cur = {name: torch.where(need, p[name].to(v.dtype), v)
-               for name, v in cur.items()}
+               for name, v in zip(names, vals)}
         rem = torch.where(need, p["length"], rem)
         k = torch.where(need, 0, k)
         pos = torch.where(need, pos + p["advance"], pos)
@@ -152,7 +150,12 @@ def scalar_chunk(spec: TwoPhaseSpec, comp: torch.Tensor,
         buf.scatter_(1, at, torch.where(active[:, None], v[:, None],
                                         torch.gather(buf, 1, at)))
         step = active.to(torch.int64)
-        cnt, k, rem = cnt + step, k + step, rem - step
+        return (pos, cnt + step, k + step, rem - step,
+                *(cur[name] for name in names)), active
+
+    zeros = torch.zeros(n, dtype=torch.int64, device=dev)
+    st.lockstep(emit, (zeros,) * 4 + tuple(
+        torch.zeros(n, dtype=f.dtype, device=dev) for f in spec.fields))
     return truncate(buf, width)
 
 

@@ -94,17 +94,15 @@ def decode_two_phase(comp: torch.Tensor, out_lens: torch.Tensor, *,
 
     # ---- Phase 1: sequential token parse -> group tables ------------------
     # Column mt is a dump slot: rows that have stopped write there.
-    pos, g, cnt = (torch.zeros(n, dtype=torch.int64, device=dev)
-                   for _ in range(3))
     starts = torch.full((n, mt + 1), chunk_elems, dtype=torch.int64,
                         device=dev)
     kinds = torch.zeros((n, mt + 1), dtype=torch.bool, device=dev)
     dists = torch.zeros((n, mt + 1), dtype=torch.int64, device=dev)
     litoffs = torch.zeros_like(dists)
-    while True:
+
+    def parse(state):
+        pos, g, cnt = state
         active = (cnt < out_len) & (g < mt)
-        if not bool(active.any()):
-            break
         is_m, length, dist = _token(comp, pos)
         slot = torch.where(active, g, mt)[:, None]
         starts.scatter_(1, slot, cnt[:, None])
@@ -113,7 +111,10 @@ def decode_two_phase(comp: torch.Tensor, out_lens: torch.Tensor, *,
         litoffs.scatter_(1, slot, pos[:, None] + 1)
         pos = torch.where(active, pos + _advance(is_m, length, width), pos)
         cnt = torch.where(active, cnt + length, cnt)
-        g = g + active.to(torch.int64)
+        return (pos, g + active.to(torch.int64), cnt), active
+
+    zeros = torch.zeros(n, dtype=torch.int64, device=dev)
+    st.lockstep(parse, (zeros, zeros, zeros))
 
     # ---- Phase 2: lane -> token, pointer doubling, one literal gather -----
     starts = starts[:, :mt]

@@ -115,19 +115,15 @@ def decode_chunk(words, luts, out_lens, chunk_elems: int,
 
     # ---- Phase 1: Huffman token parse -> command list ----------------------
     # Column mc of the command tables is a dump slot for rows not writing.
-    pos, ci, out_cnt, lit_cnt = (torch.zeros(n, dtype=torch.int64, device=dev)
-                                 for _ in range(4))
-    open_lit = torch.zeros(n, dtype=torch.bool, device=dev)
-    done = torch.zeros_like(open_lit)
     lits = torch.zeros((n, chunk_elems + CMD_WIN), dtype=torch.uint8,
                        device=dev)
     kinds = torch.zeros((n, mc + 1), dtype=torch.bool, device=dev)
     cmd_a = torch.zeros((n, mc + 1), dtype=torch.int64, device=dev)
     cmd_b = torch.zeros_like(cmd_a)
-    while True:
+
+    def parse(state):
+        pos, ci, out_cnt, lit_cnt, open_lit, done = state
         active = ~done & (out_cnt < out_len) & (ci < mc)
-        if not bool(active.any()):
-            break
         t = _token(w, pos, luts, tables)
         is_lit, is_match = t["is_lit"], t["is_match"]
         lit_at = lit_cnt.clamp(max=lits.shape[1] - 1)
@@ -151,21 +147,28 @@ def decode_chunk(words, luts, out_lens, chunk_elems: int,
         open_lit = torch.where(active, is_lit, open_lit)
         pos = torch.where(active, t["next"], pos)
         done = done | (active & t["is_eob"])
+        return (pos, ci, out_cnt, lit_cnt, open_lit, done), active
+
+    zeros = torch.zeros(n, dtype=torch.int64, device=dev)
+    flags = torch.zeros(n, dtype=torch.bool, device=dev)
+    _, ci, *_ = st.lockstep(parse, (zeros, zeros, zeros, zeros, flags,
+                                    flags))
 
     # ---- Phase 2: execute the commands (Table II writes) -------------------
     buf = torch.zeros((n, chunk_elems + CMD_WIN), dtype=torch.uint8,
                       device=dev)
-    opos, i = (torch.zeros(n, dtype=torch.int64, device=dev) for _ in range(2))
-    while True:
+
+    def execute(state):
+        opos, i = state
         active = (i < ci) & (opos < out_len)
-        if not bool(active.any()):
-            break
         at = i.clamp(max=mc - 1)
         kind, a, b = kinds[rows, at], cmd_a[rows, at], cmd_b[rows, at]
-        buf, opos = st.memcpy(buf, opos, a, b, active & kind, CMD_WIN)
-        buf, opos = st.write_from(buf, opos, lits, a, b, active & ~kind,
-                                  CMD_WIN)
-        i = i + active
+        _, opos = st.memcpy(buf, opos, a, b, active & kind, CMD_WIN)
+        _, opos = st.write_from(buf, opos, lits, a, b, active & ~kind,
+                                CMD_WIN)
+        return (opos, i + active), active
+
+    st.lockstep(execute, (zeros, zeros))
     idx = torch.arange(chunk_elems, device=dev)
     return torch.where(idx < out_len[:, None], buf[:, :chunk_elems], 0)
 
@@ -209,14 +212,10 @@ def decode_scalar(words, luts, out_lens, chunk_elems: int,
     rows = torch.arange(n, device=dev)
     cap = chunk_elems + SCALAR_PAD
     buf = torch.zeros((n, cap), dtype=torch.uint8, device=dev)
-    pos, opos, rem, src = (torch.zeros(n, dtype=torch.int64, device=dev)
-                           for _ in range(4))
-    is_m = torch.zeros(n, dtype=torch.bool, device=dev)
-    done = torch.zeros_like(is_m)
-    while True:
+
+    def emit_byte(state):
+        pos, opos, rem, src, is_m, done = state
         active = ~done & (opos < out_len)
-        if not bool(active.any()):
-            break
         need = rem == 0
         t = _token(w, pos, luts, tables)
         rem = torch.where(active & need,
@@ -233,8 +232,12 @@ def decode_scalar(words, luts, out_lens, chunk_elems: int,
         emit = active & ~stop
         at = torch.where(emit, opos, chunk_elems + 8)
         buf[rows, at] = torch.where(emit, val, buf[rows, at])
-        opos, rem = opos + emit, rem - emit.to(torch.int64)
-        src = src + active
+        return (pos, opos + emit, rem - emit.to(torch.int64), src + active,
+                is_m, done), active
+
+    zeros = torch.zeros(n, dtype=torch.int64, device=dev)
+    flags = torch.zeros(n, dtype=torch.bool, device=dev)
+    st.lockstep(emit_byte, (zeros,) * 4 + (flags, flags))
     return buf[:, :chunk_elems].clone()
 
 

@@ -3,22 +3,25 @@
 The counterpart of ``repro/launch/mesh.py``.  The reference's meshes are
 single-controller JAX meshes; here a :class:`Mesh` is a numpy grid of
 ``torch.device`` s with named axes, and ``shape`` maps each axis name to
-its size, as JAX's does.  Several members may hold the same device: the
-collective plane (``distributed/collectives.py``) and DiLoCo
-(``distributed/diloco.py``) run on a mesh whose members share one device,
-a leaf "sharded over ``pod``" being one tensor with a leading member axis
-on that device; the sharded decode executor and its consumers place their
-outputs as one tensor a member (``distributed.sharding.ShardedTensor``).
-A mesh over distinct devices can be built and named, but those paths move
-no tensor across one yet (ROADMAP.md Queue 1 item 11c).
+its size, as JAX's does.  A mesh of one process has members that share
+one device: the collective plane (``distributed/collectives.py``) and
+DiLoCo (``distributed/diloco.py``) run on it with a leaf "sharded over
+``pod``" one tensor with a leading member axis on that device, and the
+sharded decode executor and its consumers place their outputs as one
+tensor a member (``distributed.sharding.ShardedTensor``).  A mesh over
+distinct devices takes one process a member.
 
 A mesh over the ranks of a ``torch.distributed`` world
 (:func:`world_mesh`) knows its process's ``rank``: ``member_device`` gives
-that rank's device, and ``distributed.spmd.Member.join`` gives the
-rank's member program its process groups.  :func:`spawn` starts one
-process a member (``gloo`` by default, rendezvous through a ``FileStore``
-in a temporary directory; a world ``torchrun`` set up is joined as it is)
-and fails when any rank fails.
+that rank's device, and ``distributed.spmd.Member.join`` (or
+``spmd.member_of``) gives the rank's program its process groups.  On such
+a mesh every entry of the decode path (the sharded executor, the
+compressed collectives, the elastic restore, the loader, DiLoCo) takes and
+returns this member's own blocks.  :func:`spawn` starts one process a
+member (``gloo`` by default, rendezvous through a ``FileStore`` in a
+temporary directory; a world ``torchrun`` set up is joined as it is) and
+fails when any rank fails.  A mesh over distinct devices without a rank
+raises, pointing to :func:`spawn` and :func:`world_mesh`.
 
 Functions, not module constants: importing this module touches no device.
 """
@@ -72,8 +75,7 @@ class Mesh:
     def member_device(self) -> torch.device:
         """This rank's device on a mesh over a world's ranks; else the
         device the members share, and a mesh over distinct devices raises
-        (the one-process paths move nothing across devices yet, ROADMAP.md
-        Queue 1 item 11c)."""
+        (one process holds one device's members)."""
         if self.rank is not None:
             return self.devices.flat[self.rank]
         return self._one_device()
@@ -82,19 +84,28 @@ class Mesh:
         dev = self.shared_device
         if dev is None:
             raise NotImplementedError(
-                f"{self} spans distinct devices: collectives and placement "
-                "across devices are not ported yet (ROADMAP.md Queue 1 item "
-                "11c); the members must share one device")
+                f"{self} spans distinct devices in one process: run one "
+                "process a member (launch.mesh.spawn, and in each process "
+                "launch.mesh.world_mesh), or give the members one device")
         return dev
 
     def members(self, axis: str, n: Optional[int] = None) -> int:
-        """``shape[axis]``, the members sharing one device, and equal to
-        ``n`` where given."""
-        self._one_device()
+        """``shape[axis]``, equal to ``n`` where given; the members share
+        one device unless the mesh is over a world's ranks."""
+        if self.rank is None:
+            self._one_device()
         size = int(self.shape[axis])
         if n is not None and n != size:
             raise ValueError(f"{n} members for mesh axis {axis!r} of {size}")
         return size
+
+    def coord(self, axis: str) -> int:
+        """This rank's place on ``axis`` (members in ``devices.flat``
+        order, as ``spmd.Member.coords``)."""
+        if self.rank is None:
+            raise ValueError(f"{self} has no rank (launch.mesh.world_mesh)")
+        where = np.unravel_index(self.rank, self.devices.shape)
+        return int(where[self.axis_names.index(axis)])
 
     def __repr__(self) -> str:
         axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())

@@ -43,13 +43,24 @@ onto that mesh (``fault.onto``) and the loop goes on there.
 ``--device`` (``launch.mesh.spawn``, ``gloo``): each process builds the
 loader, draws the same global batches and keeps its DP block of each,
 holds only its blocks of the parameters and the optimizer state, and runs
-``steps.member_step`` (under ``tp`` its ``model`` share of the compute).
-It takes neither checkpoints nor failures, and no restart mesh; rank 0's
-losses are the run's.
+``steps.member_step`` (under ``tp`` its ``model`` share of the compute)
+inside the fault-tolerant runner: every ``--ckpt-every`` steps the blocks
+are gathered and rank 0 writes the checkpoint (``checkpoint.save(
+shardings=)``), and after a ``--fail-at`` failure (the same step in
+every process) each process restores its own blocks
+(``checkpoint.restore(shardings=)``) onto the same world mesh.  The
+world's size is fixed, so ``--restart-mesh`` is refused there.  Rank 0's
+losses are the run's.  ``--diloco N --spmd`` runs one process a pod on a
+``(pod, data)`` world of N x 1: each holds its pod's block, draws the
+same N batches a step and trains on its own, and the outer sync travels
+over the ``pod`` process group from a worker thread (``diloco.
+OuterSyncPipeline``); the losses are the pods' mean.
 
     PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
         --steps 8 --batch 4 --seq 32 --mesh 2x2 --spmd --grad-int8 \\
-        [--device cpu]
+        [--ckpt-every 5 --fail-at 7] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
+        --steps 8 --diloco 2 --outer-every 4 --spmd [--device cpu]
 """
 from __future__ import annotations
 
@@ -64,7 +75,7 @@ import torch
 
 from repro_torch.configs import ShapeSpec, get_arch, reduced
 from repro_torch.core.engine import CodagEngine, EngineConfig, resolve_device
-from repro_torch.core.tree import leaves, map_tree
+from repro_torch.core.tree import checksums, leaves, map_tree
 from repro_torch.data import pipeline
 from repro_torch.distributed import fault, sharding
 from repro_torch.launch import mesh as mesh_lib
@@ -126,11 +137,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with --mesh: the sharding policy")
     ap.add_argument("--restart-mesh", default=None, metavar="SHAPE",
                     help="with --mesh: restart after a failure onto a mesh "
-                         "of this shape (the elastic restart)")
+                         "of this shape (the elastic restart); not with "
+                         "--spmd, whose world has a fixed size")
     ap.add_argument("--spmd", action="store_true",
-                    help="with --mesh: one process a member on --device "
-                         "(gloo), each holding and computing only its "
-                         "share (steps.member_step)")
+                    help="with --mesh (or --diloco N): one process a member "
+                         "(a pod) on --device (gloo), each holding and "
+                         "computing only its share (steps.member_step); "
+                         "checkpoints and --fail-at restore each member's "
+                         "blocks onto the same world")
     return ap
 
 
@@ -350,6 +364,12 @@ def _spmd_rank(args, params, cache_dir) -> dict:
         from repro_torch.core import tuning
         tuning.enable_compile_cache(cache_dir)
     cfg = _resolve_cfg(args)
+    if args.diloco:
+        mesh = mesh_lib.world_mesh((args.diloco, 1), ("pod", "data"),
+                                   device=args.device)
+        device = mesh.member_device()
+        return _spmd_diloco(args, cfg, mesh, _build_loader(args, cfg, device),
+                            device, params)
     shape = mesh_lib.parse_mesh(args.mesh, device="meta")
     mesh = mesh_lib.world_mesh(tuple(shape.shape.values()),
                                shape.axis_names, device=args.device)
@@ -376,38 +396,132 @@ def _spmd_rank(args, params, cache_dir) -> dict:
             opt_cfg)
     fn = steps_lib.member_step(step, ins, outs, member=member)
     r = member.index
-    p = spmd.blocks(params, ins[0], r)
-    o = spmd.blocks(adamw.init(params, opt_cfg), ins[1], r)
+    state = (spmd.blocks(params, ins[0], r),
+             spmd.blocks(adamw.init(params, opt_cfg), ins[1], r))
     del params
-    losses, step_seconds = [], []
-    it = iter(loader)
+
+    def step_fn(state, batch):
+        p, o, loss = fn(*state, spmd.blocks(batch, ins[2], r))
+        return (p, o), loss
+
+    monitor = fault.StepMonitor()
+    runner = fault.FaultTolerantRunner(
+        step_fn, args.ckpt_dir, ckpt_every=args.ckpt_every, monitor=monitor,
+        injector=fault.FailureInjector(args.fail_at) if args.fail_at
+        else None, async_ckpt=False,
+        engine=CodagEngine(EngineConfig(device=str(device))),
+        shardings=(ins[0], ins[1]))
     t0 = time.time()
-    for _ in range(args.steps):
-        s0 = time.perf_counter()
-        p, o, loss = fn(p, o, spmd.blocks(next(it), ins[2], r))
-        losses.append(float(loss))
-        step_seconds.append(time.perf_counter() - s0)
-    return {"losses": losses, "seconds": time.time() - t0,
-            "steps_done": args.steps, "restarts": 0, "stragglers": 0,
+    (p, o), report = runner.run(state, iter(loader), args.steps)
+    return {"losses": report.losses, "seconds": time.time() - t0,
+            "steps_done": report.steps_done, "restarts": report.restarts,
+            "stragglers": report.stragglers,
             "tokens_per_step": args.batch * args.seq,
-            "step_seconds": step_seconds,
+            "step_seconds": [x.seconds for x in monitor.records],
             "state": (map_tree(lambda t: t.cpu(), p),
                       map_tree(lambda t: t.cpu(), o))}
 
 
+def _spmd_diloco(args, cfg, mesh, loader, device: torch.device,
+                 params=None) -> dict:
+    """One pod's process of ``--diloco N --spmd``: :func:`_run_diloco` on
+    its pod's block (a leading pod axis of 1), the outer syncs over the
+    ``pod`` process group; the losses all-gathered at the end (no
+    collective runs beside a sync in flight) and averaged over the pods.
+    Its record's ``state`` is the pod's parameter block alone (the
+    optimizer and outer states stay in the process: a full-width pod's
+    are several GB), and it adds ``sync_digests`` (``tree.checksums`` of
+    the anchor after each sync) and the launches of its wire kernels."""
+    from repro_torch.distributed import collectives, diloco, spmd
+    from repro_torch.kernels import bitpack, harness
+
+    n_pods = args.diloco
+    wire = "topk" if args.topk > 0 else args.outer_wire
+    dcfg = diloco.DiLoCoConfig(inner_steps=args.outer_every, wire=wire,
+                               compress=(wire != "none"),
+                               topk_frac=args.topk or 0.01)
+    opt_cfg = adamw.AdamWConfig(lr=args.lr,
+                                compress_moments=args.compress_moments)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = model.init_params(cfg, gen, device=device)
+    else:
+        params = map_tree(lambda t: t.to(device), params)
+    econfig = EngineConfig(device=str(device))
+    compressor = (collectives.make_wire_compressor(econfig)
+                  if args.grad_int8 else None)
+    inner = steps_lib.build_pod_inner_step(cfg, opt_cfg,
+                                           grad_compressor=compressor)
+    pod_params = diloco.replicate_for_pods(params, n_pods, mesh)
+    pod_opt = diloco.replicate_for_pods(adamw.init(params, opt_cfg), n_pods,
+                                        mesh)
+    outer = diloco.init_outer_state(params, mesh=mesh, cfg=dcfg)
+    sync = diloco.make_outer_sync(mesh, dcfg, config=econfig)
+    pipe = diloco.OuterSyncPipeline(sync, link_rtt_s=args.link_rtt)
+    pod = mesh.coord("pod")
+    launched0 = (bitpack.REDUCE_LAUNCHES, harness.EPILOGUE_UNFUSED)
+    digests = []
+
+    def finish(pod_params):
+        pod_params, new_outer = pipe.finish(pod_params)
+        digests.append(checksums(new_outer["anchor"]))
+        return pod_params, new_outer
+
+    it = iter(loader)
+    losses, step_seconds = [], []
+    t0 = time.time()
+    for step in range(args.steps):
+        s0 = time.perf_counter()
+        if step and step % dcfg.inner_steps == 0:
+            if pipe.in_flight:
+                pod_params, outer = finish(pod_params)
+            pipe.launch(pod_params, outer)
+        batch = map_tree(lambda t: t[pod:pod + 1],
+                         _stack_batches(it, n_pods))
+        pod_params, pod_opt, loss = inner(pod_params, pod_opt, batch)
+        losses.append(loss.float().reshape(1))
+        step_seconds.append(time.perf_counter() - s0)
+    if pipe.in_flight:
+        pod_params, outer = finish(pod_params)
+    dt = time.time() - t0
+    with spmd.use(spmd.member_of(mesh)):
+        every = spmd.all_gather(torch.cat(losses)[None], "pod")
+    wire_rep = collectives.wire_report(params, n_pods, wire=wire,
+                                       frac=dcfg.topk_frac)
+    return {"losses": [float(x) for x in every.mean(0).cpu()],
+            "seconds": dt, "steps_done": args.steps, "restarts": 0,
+            "stragglers": 0,
+            "tokens_per_step": n_pods * args.batch * args.seq,
+            "overlap": pipe.stats(), "wire": wire_rep, "n_pods": n_pods,
+            "step_seconds": step_seconds, "sync_digests": digests,
+            "launches": {"bitpack_reduce":
+                         bitpack.REDUCE_LAUNCHES - launched0[0],
+                         "epilogue_unfused":
+                         harness.EPILOGUE_UNFUSED - launched0[1]},
+            "state": (map_tree(lambda t: t.cpu(), pod_params),)}
+
+
 def _run_spmd(args, params=None) -> dict:
-    """``--spmd``: one process a member of ``--mesh``; rank 0's record,
-    with every rank's ``state`` (its blocks, on the CPU) as ``states``."""
-    if args.diloco or args.restart_mesh or args.fail_at:
-        raise ValueError("--spmd runs neither --diloco, --restart-mesh nor "
-                         "--fail-at")
-    if not args.mesh:
-        raise ValueError("--spmd needs --mesh")
+    """``--spmd``: one process a member of ``--mesh`` (a pod, with
+    ``--diloco``); rank 0's record, with every rank's ``state`` (its
+    blocks, on the CPU) as ``states``."""
+    if args.restart_mesh:
+        raise ValueError("--spmd runs one world of a fixed size: it "
+                         "restarts onto the mesh it runs, so "
+                         "--restart-mesh is refused")
+    if args.diloco:
+        if args.mesh or args.fail_at:
+            raise ValueError("--diloco N --spmd runs a (pod, data) world of "
+                             "N x 1 and takes neither --mesh nor --fail-at")
+        n = args.diloco
+    elif not args.mesh:
+        raise ValueError("--spmd needs --mesh (or --diloco N)")
+    else:
+        n = mesh_lib.parse_mesh(args.mesh, device="meta").size
     device = resolve_device(args.device)
     spmd_kernels(device)
     from repro_torch.core import tuning
     cache = tuning.compile_cache_dir()
-    n = mesh_lib.parse_mesh(args.mesh, device="meta").size
     if params is not None:
         params = map_tree(lambda t: t.cpu(), params)
     ranks = mesh_lib.spawn(_spmd_rank, n, (args, params,
@@ -417,6 +531,8 @@ def _run_spmd(args, params=None) -> dict:
     out = dict(ranks[0])
     out["states"] = [r.pop("state") for r in ranks]
     out.pop("state")
+    if args.diloco:
+        out["ranks"] = ranks
     return out
 
 

@@ -13,9 +13,13 @@ The counterpart of ``repro/optim/grad_compress.py``:
 ``compressed_psum`` and ``make_compressed_psum_fn`` are the seed-era int8
 all-gather (dequantize, then sum over members, outside the plan IR), the
 reference the compressed wire of ``distributed/collectives.py`` is held
-against.  They take member-stacked leaves: a leaf "sharded over ``pod``" is
-one tensor whose leading axis is the member, on the device every member
-shares.  Rounding is ``torch.round`` (half to even, as ``jnp.round``).
+against.  In one process they take member-stacked leaves: a leaf "sharded
+over ``pod``" is one tensor whose leading axis is the member, on the
+device every member shares.  One process a member (a mesh over a world's
+ranks, or an installed ``distributed.spmd.Member``) they take the
+member's own leaf (``make_compressed_psum_fn``: its block, a leading axis
+of 1) and all-gather the int8 blocks and scales over the axis's process
+group.  Rounding is ``torch.round`` (half to even, as ``jnp.round``).
 """
 from __future__ import annotations
 
@@ -64,34 +68,56 @@ def quantize_grads(grads):
     return map_tree(qdq, grads)
 
 
+def _member(mesh, axis_name: str):
+    from repro_torch.distributed import collectives
+    return collectives.member_of(mesh, axis_name)
+
+
 def compressed_psum(x: torch.Tensor, axis_name: str = "pod", *,
                     mesh=None) -> torch.Tensor:
-    """int8 all-gather, then the dequantized members summed: ``x`` is
-    member-stacked ``(n, ...)``; returns the sum, of shape ``x.shape[1:]``
-    (what every member receives), the members added in order.  ``mesh``
-    (optional) is checked: its ``axis_name`` has ``n`` members on one
-    device."""
-    if mesh is not None:
-        mesh.members(axis_name, x.shape[0])
-    qs = [quantize_leaf(x[m]) for m in range(x.shape[0])]
-    qg = torch.stack([q for q, _ in qs])       # (n, nb, B) int8 on the wire
-    sg = torch.stack([s for _, s in qs])
-    summed = MemberReduce(x.shape[0]).fold(qg.float() * sg)
-    n = x[0].numel()
-    return summed.reshape(-1)[:n].reshape(x.shape[1:])
+    """int8 all-gather, then the dequantized members summed, the members
+    added in order: what every member receives.  ``x``: member-stacked
+    ``(n, ...)`` in one process (the sum ``x.shape[1:]``; ``mesh``, where
+    given, is checked: its ``axis_name`` has ``n`` members on one device),
+    or this member's own leaf on a mesh over a world's ranks or under an
+    installed member (the sum ``x.shape``)."""
+    member = _member(mesh, axis_name)
+    if member is None:
+        if mesh is not None:
+            mesh.members(axis_name, x.shape[0])
+        qs = [quantize_leaf(x[m]) for m in range(x.shape[0])]
+        qg = torch.stack([q for q, _ in qs])   # (n, nb, B) int8 on the wire
+        sg = torch.stack([s for _, s in qs])
+        shape = x.shape[1:]
+    else:
+        from repro_torch.distributed import spmd
+        q, s = quantize_leaf(x)
+        with spmd.use(member):
+            qg = spmd.all_gather(q[None], axis_name)
+            sg = spmd.all_gather(s[None], axis_name)
+        shape = x.shape
+    summed = MemberReduce(qg.shape[0]).fold(qg.float() * sg)
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return summed.reshape(-1)[:n].reshape(shape)
 
 
 def make_compressed_psum_fn(mesh, axis: str = "pod"):
     """Tree-wise :func:`compressed_psum` over one mesh axis: leaves carry a
-    leading member axis of ``mesh.shape[axis]``; each member's slice of
-    the result is the int8-wire sum (one tensor, every member's row the
-    same values)."""
+    leading member axis of ``mesh.shape[axis]`` (on a mesh over a world's
+    ranks, this member's block of it: a leading axis of 1); each member's
+    block of the result is the int8-wire sum (in one process one tensor,
+    every member's row the same values)."""
     n = mesh.members(axis)
+    stacked = _member(mesh, axis) is None
+    rows = n if stacked else 1
 
     def tree_psum(tree):
         def one(leaf):
-            s = compressed_psum(leaf, axis, mesh=mesh)
-            return s.unsqueeze(0).expand((n,) + tuple(s.shape))
+            s = compressed_psum(leaf if stacked else leaf[0], axis,
+                                mesh=mesh)
+            return s.unsqueeze(0).expand((rows,) + tuple(s.shape))
         return map_tree(one, tree)
 
     return tree_psum

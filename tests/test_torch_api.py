@@ -208,8 +208,9 @@ def test_engine_and_device_must_agree():
 @pytest.mark.parametrize("kw", [{"mesh": None}, {"out_shardings": None}])
 def test_unported_paths_raise(kw):
     """``mesh=`` and ``out_shardings=`` run on a mesh whose members share
-    one device (``tests/test_torch_sharded.py``); over distinct devices
-    they raise, naming the ROADMAP item they wait for (11c)."""
+    one device (``tests/test_torch_sharded.py``) and on a mesh over a
+    world's ranks (``tests/test_torch_spmd_decode.py``); over distinct
+    devices in one process they raise, pointing to ``launch.mesh.spawn``."""
     from repro_torch.distributed import sharding
     from repro_torch.launch import mesh as mesh_lib
     spread = mesh_lib.Mesh([torch.device("cpu"), torch.device("meta")],
@@ -217,7 +218,7 @@ def test_unported_paths_raise(kw):
     kw = {"mesh": spread} if "mesh" in kw else \
         {"out_shardings": sharding.NamedSharding(spread, sharding.P())}
     ca = api.compress(np.arange(1000, dtype=np.uint32), "rle_v2", CHUNK)
-    with pytest.raises(NotImplementedError, match="ROADMAP.* item 11c"):
+    with pytest.raises(NotImplementedError, match="launch.mesh.spawn"):
         api.decompress_many([ca], CPU, device_out=True, **kw)
 
 

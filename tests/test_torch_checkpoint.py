@@ -176,9 +176,11 @@ def test_retention(tmp_path):
 
 def test_elastic_restore_names_its_roadmap_item(tmp_path):
     """The elastic restore (``shardings=``) runs on a mesh whose members
-    share one device (``tests/test_torch_sharded.py``); onto a mesh over
-    distinct devices it raises and names the item it waits for, on the
-    decode path and on the placement path."""
+    share one device (``tests/test_torch_sharded.py``) and on a mesh over a
+    world's ranks (``tests/test_torch_spmd_decode.py``); onto a mesh over
+    distinct devices in one process it raises, pointing to
+    ``launch.mesh.spawn``, on the decode path and on the placement
+    path."""
     from repro_torch.distributed import sharding
     from repro_torch.launch import mesh as mesh_lib
     s = _state()
@@ -187,7 +189,7 @@ def test_elastic_restore_names_its_roadmap_item(tmp_path):
                            ("data",))
     shs = {k: sharding.NamedSharding(spread, sharding.P()) for k in s}
     for device_out in (False, True):
-        with pytest.raises(NotImplementedError, match="item 11c"):
+        with pytest.raises(NotImplementedError, match="launch.mesh.spawn"):
             ckpt.restore(str(tmp_path), 3, s, shardings=shs, engine=CPU,
                          device_out=device_out)
 

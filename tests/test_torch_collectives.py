@@ -307,7 +307,11 @@ def test_a_member_reduce_on_the_block_unit_refuses_to_split_the_table():
         collectives.compressed_psum(x, config=block)
 
 
-def test_a_mesh_over_distinct_devices_raises_naming_item_11b():
+def test_a_mesh_over_distinct_devices_raises_pointing_to_spawn():
+    """One process holds a mesh whose members share one device: the
+    collectives, the seed path, a member sharding's device and the list
+    form of ``gather_member_tables`` over distinct devices raise, pointing
+    to ``launch.mesh.spawn`` (one process a member)."""
     spread = mesh_lib.Mesh([torch.device("cpu"), torch.device("meta")],
                            ("pod",))
     assert spread.shared_device is None
@@ -320,12 +324,12 @@ def test_a_mesh_over_distinct_devices_raises_naming_item_11b():
                  lambda: gc.make_compressed_psum_fn(spread),
                  lambda: gc.compressed_psum(x, mesh=spread),
                  lambda: sharding.member_sharding(spread).device):
-        with pytest.raises(NotImplementedError, match="item 11c"):
+        with pytest.raises(NotImplementedError, match="launch.mesh.spawn"):
             call()
     w = collectives.pack_bits_rows(torch.zeros(1, 128, dtype=torch.int32), 8)
     tables = [collectives.wire_dev(w, chunk_elems=128, bits=8),
               collectives.wire_dev(w.to("meta"), chunk_elems=128, bits=8)]
-    with pytest.raises(NotImplementedError, match="item 11c"):
+    with pytest.raises(NotImplementedError, match="launch.mesh.spawn"):
         plan_mod.gather_member_tables(tables, codec="bitpack")
 
 

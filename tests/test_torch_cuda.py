@@ -87,6 +87,35 @@ def test_kernels_equal_plain_versions_on_the_card(card, codec, width):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("codec,width,body", [
+    ("tdeflate", 1, "body"), ("lzss", 1, "body"), ("lzss", 4, "body"),
+    ("tdeflate", 1, "body_scalar"), ("rle_v1", 1, "body_scalar"),
+    ("rle_v2", 4, "body_scalar"), ("dbp", 2, "body_scalar")])
+def test_plain_lockstep_graphs_equal_the_cpu_loop_on_the_card(card, codec,
+                                                              width, body):
+    """On a card the plain bodies' lockstep loops (the two-phase bodies of
+    tdeflate and lzss, the single-thread bodies of tdeflate and the RLE
+    family) run as replayed CUDA graphs (``streams.lockstep``): equal to
+    the CPU's step-by-step loop on the same table, rows past their last
+    token included, and the kernel equal to both."""
+    table = _table(codec, width)
+    dev, bits = ops.table_inputs(table, "cpu")
+    spec = registry.get(codec).decode
+    kw = dict(chunk_elems=table.chunk_elems, width=table.width, bits=bits)
+
+    def plain(device):
+        inputs = tuple(t.to(device) for t in spec.chunk_inputs(dev))
+        lens = dev["out_lens"].to(device)
+        return getattr(spec, body)(
+            inputs, harness.consts_on(spec, lens.device), lens, **kw)
+
+    want = plain("cpu")
+    got = plain(card)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    assert torch.equal(_decode(table, card).cpu(), want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol,atol", [
     (torch.float32, 5e-3, 1e-4),      # the reference test's tolerance
     (torch.bfloat16, 1.6e-2, 1e-2)])  # two bf16 ulps

@@ -309,17 +309,18 @@ def test_pipeline_device_shards():
 
 def test_mesh_names_its_roadmap_item():
     """``mesh=`` runs on a mesh whose members share one device
-    (``tests/test_torch_sharded.py``); a mesh over distinct devices raises,
-    naming the item it waits for."""
+    (``tests/test_torch_sharded.py``) and on a mesh over a world's ranks
+    (``tests/test_torch_spmd_decode.py``); a mesh over distinct devices in
+    one process raises, pointing to ``launch.mesh.spawn``."""
     from repro_torch.launch import mesh as mesh_lib
     spread = mesh_lib.Mesh([torch.device("cpu"), torch.device("meta")],
                            ("data",))
     toks = pipeline.synthetic_corpus(4096, 500)
     store = pipeline.CompressedTokenStore.build(toks, 500, chunk_bytes=2048)
-    with pytest.raises(NotImplementedError, match="item 11c"):
+    with pytest.raises(NotImplementedError, match="launch.mesh.spawn"):
         pipeline.CompressedLoader(store, batch=2, seq=8, engine=CPU,
                                   mesh=spread)
-    with pytest.raises(NotImplementedError, match="item 11c"):
+    with pytest.raises(NotImplementedError, match="launch.mesh.spawn"):
         next(store.decoded_shards(CPU, mesh=spread))
 
 

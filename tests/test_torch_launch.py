@@ -113,8 +113,10 @@ def test_diloco_and_mesh_steps_raise_naming_the_roadmap_item(tmp_path):
     loader's ``mesh=`` on a mesh whose members share one device
     (``tests/test_torch_sharded.py``), and so do a mesh for the model's
     steps and the runner's restart onto such a mesh
-    (``tests/test_torch_mesh_steps.py``); what still raises, naming ROADMAP
-    item 11c: the same paths over a mesh of distinct devices."""
+    (``tests/test_torch_mesh_steps.py``), and one process a member on a
+    mesh over a world's ranks (``tests/test_torch_spmd_decode.py``); what
+    raises, pointing to ``launch.mesh.spawn``: the same paths over a mesh
+    of distinct devices in one process."""
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.core import api
     from repro_torch.core.engine import CodagEngine, EngineConfig
@@ -171,7 +173,7 @@ def test_diloco_and_mesh_steps_raise_naming_the_roadmap_item(tmp_path):
                                                    mesh=spread),
                  lambda: runner(spread).run({"w": torch.zeros(4)},
                                             iter(range(9)), 3)):
-        with pytest.raises(NotImplementedError, match="item 11c"):
+        with pytest.raises(NotImplementedError, match="launch.mesh.spawn"):
             call()
 
 

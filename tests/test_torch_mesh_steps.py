@@ -499,7 +499,7 @@ def test_sharded_steps_refuse_what_they_cannot_place():
     """An uneven placement raises as the placement path does (here the
     decode cache's sequence split over ``model``, since the reduced MoE's
     one K/V head does not divide over it), and a mesh over distinct devices
-    raises naming ROADMAP item 11c."""
+    raises, pointing to ``launch.mesh.spawn``."""
     cfg = _moe_cfg()
     assert cfg.n_kv % 2
     with pytest.raises(ValueError, match="cannot be placed"):
@@ -512,7 +512,7 @@ def test_sharded_steps_refuse_what_they_cannot_place():
     sh = (NamedSharding(spread, P()),)
     for call in (lambda: sharding.use_mesh(spread).__enter__(),
                  lambda: steps.sharded_step(lambda x: x, sh)):
-        with pytest.raises(NotImplementedError, match="item 11c"):
+        with pytest.raises(NotImplementedError, match="launch.mesh.spawn"):
             call()
 
 

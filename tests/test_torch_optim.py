@@ -315,10 +315,11 @@ def test_wire_bytes_accounting_matches_reference():
 
 
 def test_mesh_functions_raise_naming_the_roadmap_item():
-    """What still raises on the collective plane, naming ROADMAP item 11c:
-    the collectives and ``use_mesh`` over a mesh whose members hold
-    distinct devices; ``use_mesh`` installs a mesh whose members share one,
-    and the mesh-free sharding context stays a no-op."""
+    """What raises on the collective plane, pointing to
+    ``launch.mesh.spawn``: the collectives and ``use_mesh`` over a mesh
+    whose members hold distinct devices, in one process; ``use_mesh``
+    installs a mesh whose members share one, and the mesh-free sharding
+    context stays a no-op."""
     from repro_torch.launch import mesh as mesh_lib
     x = torch.zeros(2, 256)
     spread = mesh_lib.Mesh([torch.device("cpu"), torch.device("meta")],
@@ -330,9 +331,9 @@ def test_mesh_functions_raise_naming_the_roadmap_item():
                  lambda: collectives.make_tree_reduce(spread),
                  lambda: gc.compressed_psum(x, "pod", mesh=spread),
                  lambda: gc.make_compressed_psum_fn(spread)):
-        with pytest.raises(NotImplementedError, match="item 11c"):
+        with pytest.raises(NotImplementedError, match="launch.mesh.spawn"):
             call()
-    with pytest.raises(NotImplementedError, match="item 11c"):
+    with pytest.raises(NotImplementedError, match="launch.mesh.spawn"):
         with sharding.use_mesh(spread):
             pass
     shared = mesh_lib.make_test_mesh((2,), ("data",), device="cpu")

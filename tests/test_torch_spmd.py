@@ -440,6 +440,36 @@ def test_member_reads_its_coordinates_and_policy():
         spmd.Member({"model": 2}, 0, policy="fsdp")
 
 
+def test_a_python_thread_reads_only_the_member_it_installed():
+    """A thread started in Python (a loader's prefetch, a DiLoCo sync)
+    never runs on the main thread's member; a thread Python did not start
+    (as the autograd engine's device threads) reads it."""
+    import _thread
+    import threading
+    mesh = mesh_lib.make_test_mesh((2, 2), ("data", "model"), device="meta")
+    main, own = spmd.Member.counting(mesh, 1), spmd.Member.counting(mesh, 2)
+    seen = {}
+
+    def python_thread():
+        seen["bare"] = spmd.current()
+        with spmd.use(own):
+            seen["own"] = spmd.current()
+
+    def foreign_thread(done):
+        seen["foreign"] = spmd.current()
+        done.set()
+
+    with spmd.use(main):
+        t = threading.Thread(target=python_thread)
+        t.start()
+        t.join()
+        done = threading.Event()
+        _thread.start_new_thread(foreign_thread, (done,))
+        assert done.wait(10)
+        assert spmd.current() is main
+    assert seen == {"bare": None, "own": own, "foreign": main}
+
+
 def test_meta_collectives_count_their_result_bytes():
     """On ``meta`` a collective makes its result's shape and records its
     bytes a member, by kind; an axis of one member is no collective."""
