@@ -16,9 +16,11 @@
     python3 chip_smoke.py --roofline-only            # phases 1, 2 and 16
     python3 chip_smoke.py --spmd-only                # phases 1, 2 and 17
     python3 chip_smoke.py --spmd-decode-only         # phases 1, 2 and 18
+    python3 chip_smoke.py --examples-only            # phases 1, 2 and 19
 
 Phases, each of which must pass (any failure exits non-zero, with no result
-line):
+line); each phase's wall seconds are printed on a line of their own, and
+before the result lines all of them and the whole script's:
 
   1. environment: torch / CUDA versions, the card's name and power limit;
      ``gloo`` must take every collective kind as CUDA tensors, float32 and
@@ -338,11 +340,24 @@ line):
          ``SPMD_FAIL_FLAGS``): one restart, every member's final blocks
          and the losses equal to the member program run without the
          failure over the batches its steps drew;
- 19. a JSON line of the kernels (``consumer_launches``: phase 10's,
+ 19. the examples (``examples/torch_*.py``) and the registry gate
+     (``scripts/torch_check_registry.py``) on the card: the serve and train
+     veneers (zamba2-2.7B tiny; olmo-1B small, ``--steps 8``) as
+     subprocesses on phase 2's compile cache, started first, each exiting
+     0 after its driver's "OK"; then, in this process with its standard
+     output captured, the quickstart, the compressed checkpoint, the
+     streaming restore and ``torch_check_registry.main(["--device",
+     "cuda"])``, each ending "OK" (or "registry complete") after its
+     reference's check lines, with every launch count set to 0 before each
+     and read after: the quickstart must launch rle_v1, rle_v2, tdeflate
+     and the single-thread kernel, the checkpoint examples rle_v2, the gate
+     all seven decode kernels; each run's seconds and launches;
+ 20. a JSON line of the kernels (``consumer_launches``: phase 10's,
      ``model_launches``: phase 11's, ``family_launches``: phase 12's,
      ``diloco_launches``: phase 13's, ``sharded_launches``: phase 14's,
-     ``mesh_launches``: phase 15's, ``spmd_launches``: phase 17's, and
-     ``spmd_decode_launches``: phase 18's, each over its members;
+     ``mesh_launches``: phase 15's, ``spmd_launches``: phase 17's,
+     ``spmd_decode_launches``: phase 18's, each over its members, and
+     ``examples_launches``: phase 19's in-process runs, summed;
      ``bitpack_reduce``, bitpack's second entry, with phase 13's numbers),
      then ``{"ok": true, "device": {...}}`` last.
 
@@ -352,14 +367,20 @@ exits non-zero without a card, or without the port's sources beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import runpy
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
+
+T_START = time.perf_counter()      # the script's wall clock starts here
 
 # the allocator ``python -m repro_torch.launch.train`` runs with (its
 # ``ALLOC_CONF``: phase 12's MoE training fragments fixed-size segments),
@@ -1888,8 +1909,6 @@ def phase_service(args, api, fmt, ops, transfers, server, store, engine,
     from 8 producer threads, twice; ``decompress_many`` through the default
     service beside the direct plan path; then a checkpoint-scale restore of
     every blob through the tiered store."""
-    import tempfile
-    import threading
     log("== 7 service: DecompressionService, default_service, TieredBlobStore")
     arrays, cas = data["arrays"], data["cas"]
     out_bytes = sum(a.nbytes for a in arrays)
@@ -2350,7 +2369,6 @@ def loader_epoch(label, loader, ref: torch.Tensor, n_batches: int, device,
     """One epoch of ``loader``: every batch against the corpus, mismatches
     summed on the device and read once at the end; returns the launches by
     kernel."""
-    import threading
     for c in counters.values():
         c.reset()
     per = LOADER_BATCH * LOADER_SEQ
@@ -5778,6 +5796,147 @@ def phase_spmd_decode(args, engine, data=None, keep=None) -> dict:
     return launched
 
 
+# --------------------------------------------------------------------------
+# phase 19: the examples
+# --------------------------------------------------------------------------
+
+# In this process, on the card: (path, argv, the check lines its reference
+# prints, the kernels it must launch).  The registry gate runs through its
+# ``main``; the others as ``python <path>`` would.
+EXAMPLE_RUNS = (
+    ("examples/torch_quickstart.py", [],
+     ("engine [CODAG  warp-unit, all-thread  ] decode OK",
+      "engine [RAPIDS block-unit, single-thr.] decode OK",
+      "hand-written CUDA kernel (backend='cuda') decode OK"),
+     (kernel_of("rle_v1"), kernel_of("rle_v2"), "tdeflate_decode",
+      "scalar_decode")),
+    ("examples/torch_compressed_checkpoint.py", [],
+     ("restore bit-exact OK", "leaves codec-compressed, mean stored ratio"),
+     (kernel_of("rle_v2"),)),
+    ("examples/torch_streaming_restore.py", [],
+     ("(over budget: True)", "12 backend fetches",
+      "12 released + 0 evicted, 0 B resident at the end",
+      "ms of I/O hidden behind decode"),
+     (kernel_of("rle_v2"),)),
+    ("scripts/torch_check_registry.py", ["--device", "cuda"],
+     ("registry complete: ['bitpack', 'dbp', 'huffman', 'lzss', 'rle_v1', "
+      "'rle_v2', 'tdeflate']",),
+     tuple(kernel_of(c) for c in ("rle_v1", "rle_v2", "dbp", "bitpack",
+                                  "tdeflate", "huffman", "lzss"))),
+)
+# In subprocesses (the veneers over the drivers), on phase 2's compile
+# cache: (path, flags).  The driver's full runs are phase 11's; 8 train
+# steps keep this one cheap.
+EXAMPLE_SUBPROCESSES = (
+    ("examples/torch_serve_lm.py", []),
+    ("examples/torch_train_lm.py", ["--steps", "8"]),
+)
+EXAMPLES_TIMEOUT = 300
+
+
+def run_in_process(path: Path, argv: list, counters: dict) -> tuple:
+    """Run an example (or the registry gate's ``main``) in this process,
+    its standard output captured, with every launch count set to 0 just
+    before and read just after; returns its lines, its launches by kernel
+    and its seconds."""
+    for c in counters.values():
+        c.reset()
+    out = io.StringIO()
+    saved = sys.argv
+    t0 = time.perf_counter()
+    try:
+        sys.argv = [str(path), *argv]
+        with contextlib.redirect_stdout(out):
+            if path.parent.name == "scripts":
+                rc = runpy.run_path(str(path))["main"](argv)
+                if rc != 0:
+                    raise AssertionError(f"{path.name} returned {rc}")
+            else:
+                runpy.run_path(str(path), run_name="__main__")
+        torch.cuda.synchronize()
+    except BaseException:
+        log(out.getvalue())
+        raise
+    finally:
+        sys.argv = saved
+    seconds = time.perf_counter() - t0
+    launched = {k: c.read() for k, c in counters.items() if c.read()}
+    return out.getvalue().splitlines(), launched, seconds
+
+
+def phase_examples(counters: dict, src: Path) -> dict:
+    """The port's examples and its registry gate on the card; returns the
+    in-process runs' launches by kernel, summed."""
+    from repro_torch.core import tuning
+    log("== 19 the examples: examples/torch_{quickstart,compressed_"
+        "checkpoint,streaming_restore}.py and scripts/torch_check_registry."
+        "py --device cuda in this process; examples/torch_serve_lm.py and "
+        "torch_train_lm.py --steps 8 as subprocesses, started first "
+        f"[{CARD['label']}]")
+    cache = tuning.compile_cache_dir()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(src)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs, ends = [], {}
+    for rel, flags in EXAMPLE_SUBPROCESSES:
+        cmd = [sys.executable, str(ROOT / rel), *flags]
+        if cache is not None:
+            cmd += ["--compile-cache", str(cache)]
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True,
+                                env=env, cwd=ROOT)
+        # a thread a subprocess takes the time its process ends
+        ended = threading.Thread(target=lambda p=proc, r=rel: (
+            p.wait(), ends.__setitem__(r, time.perf_counter())), daemon=True)
+        ended.start()
+        procs.append((rel, time.perf_counter(), proc, out, err))
+    total: dict = {}
+    try:
+        for rel, argv, checks, must in EXAMPLE_RUNS:
+            lines, launched, seconds = run_in_process(ROOT / rel, argv,
+                                                      counters)
+            for line in lines:
+                log(f"   | {line}")
+            last = "registry complete" if "scripts" in rel else "OK"
+            problems = []
+            if not lines or not lines[-1].startswith(last):
+                problems.append(f"last line {lines[-1:]!r}, not {last!r}")
+            problems += [f"no line {want!r}" for want in checks
+                         if not any(want in line for line in lines)]
+            problems += [f"{k} not launched" for k in must
+                         if launched.get(k, 0) < 1]
+            if problems:
+                raise AssertionError(f"phase 19, {rel}: "
+                                     + "; ".join(problems))
+            log(f"   {' '.join([rel, *argv])}: {seconds:.1f} s, launches "
+                f"{json.dumps(launched)}")
+            for k, n in launched.items():
+                total[k] = total.get(k, 0) + n
+        for rel, t0, proc, out, err in procs:
+            proc.wait(timeout=EXAMPLES_TIMEOUT)
+            seconds = ends.get(rel, time.perf_counter()) - t0
+            out.seek(0)
+            err.seek(0)
+            lines = out.read().splitlines()
+            for line in lines:
+                log(f"   | {line}")
+            if proc.returncode != 0 or not lines or lines[-1] != "OK":
+                raise AssertionError(
+                    f"phase 19, {rel}: exit {proc.returncode}, last line "
+                    f"{lines[-1:]!r}\n{err.read()[-3000:]}")
+            log(f"   {rel}: exit 0 in {seconds:.1f} s (its own process, "
+                "its launches not counted here)")
+    finally:
+        for _, _, proc, out, err in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+    log(f"   phase 19 in-process launches, summed: {json.dumps(total)} "
+        f"[{CARD['label']}]")
+    return total
+
+
 def tree_to(tree, device):
     """A tree of CPU tensors moved to ``device`` (dicts and tuples)."""
     if isinstance(tree, dict):
@@ -5812,6 +5971,20 @@ def save_phase10_files(args, keep: Path, device, ckpt, pipeline) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+PHASE_S: dict = {}                 # phase -> its wall seconds
+
+
+def timed(phase: int, fn, *args, **kw):
+    """``fn(*args, **kw)`` as phase ``phase``: its wall seconds logged on a
+    line of their own and kept for the script's summary."""
+    t0 = time.perf_counter()
+    got = fn(*args, **kw)
+    PHASE_S[phase] = time.perf_counter() - t0
+    log(f"   phase {phase}: {PHASE_S[phase]:.1f} s of wall clock "
+        f"[{CARD['label']}]")
+    return got
+
+
 class Counter:
     """A kernel's launch count on the main path: reset, then read (a
     module's ``attr``, or its ``CODEC_LAUNCHES[codec]``)."""
@@ -5832,7 +6005,6 @@ class Counter:
 
 
 def main() -> int:
-    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--gib", type=float, default=1.0,
@@ -5889,6 +6061,9 @@ def main() -> int:
     ap.add_argument("--spmd-decode-only", action="store_true",
                     help="run phases 1, 2 and 18 alone (the decode path one "
                     "process a member), with no result line")
+    ap.add_argument("--examples-only", action="store_true",
+                    help="run phases 1, 2 and 19 alone (the examples and "
+                    "the registry gate), with no result line")
     ap.add_argument("--stage-only", action="store_true",
                     help="only time DecodePlan.build and stage by part on "
                     "phase 4's workload (cold, then warm), and stop")
@@ -5920,9 +6095,13 @@ def main() -> int:
     from repro_torch.kernels import dequant_matmul as dq
 
     rng = np.random.default_rng(args.seed)
-    phase_env()
-    if not args.stage_only:
-        probe_gloo(torch.device("cuda", torch.cuda.current_device()))
+
+    def phase_one():
+        phase_env()
+        if not args.stage_only:
+            probe_gloo(torch.device("cuda", torch.cuda.current_device()))
+
+    timed(1, phase_one)
     if args.stage_only:
         log(f"== 4 DecodePlan.build and stage by part only, package under "
             f"{src}")
@@ -5934,11 +6113,11 @@ def main() -> int:
                           [b for ca in data["cas"] for b in ca.blobs], device)
         return 0
     from repro_torch.core import server, store
-    phase_build(cuda_build, tuning,
-                [cuda_rle.LIB, *cuda_rle.LIB_EPI.values(), bitpack.LIB,
-                 tdeflate.LIB, huffman.LIB, lzss.LIB, dq.LIB, scalar.LIB],
-                [dq.WGMMA, scalar.TDEFLATE, scalar.LZSS, scalar.HUFFMAN,
-                 scalar.BITPACK, bitpack.REDUCE], src)
+    timed(2, phase_build, cuda_build, tuning,
+          [cuda_rle.LIB, *cuda_rle.LIB_EPI.values(), bitpack.LIB,
+           tdeflate.LIB, huffman.LIB, lzss.LIB, dq.LIB, scalar.LIB],
+          [dq.WGMMA, scalar.TDEFLATE, scalar.LZSS, scalar.HUFFMAN,
+           scalar.BITPACK, bitpack.REDUCE], src)
     engine = CodagEngine()
     errs = {k: 0 for k in KERNELS}
     counters = {kernel_of(c): Counter(cuda_rle, c) for c in cuda_rle.CODEC_IDS}
@@ -5947,6 +6126,14 @@ def main() -> int:
     counters["huffman_decode"] = Counter(huffman)
     counters["lzss_decode"] = Counter(lzss)
     counters["dequant_matmul"] = Counter(dq)
+    # phase 19's runs count these two as well
+    example_counters = dict(counters, scalar_decode=Counter(scalar),
+                            bitpack_reduce=Counter(
+                                bitpack, attr="REDUCE_LAUNCHES"))
+    if args.examples_only:
+        launched = timed(19, phase_examples, example_counters, src)
+        log(f"phase 19 alone, launches: {json.dumps(launched)}")
+        return 0
     if args.families_only:
         launched = phase_families(args, engine, counters)
         log(f"phase 12 alone, launches: {json.dumps(launched)}")
@@ -5974,42 +6161,52 @@ def main() -> int:
         launched = phase_spmd_decode(args, engine)
         log(f"phase 18 alone, launches: {json.dumps(launched)}")
         return 0
-    phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
-                          engine.device, counters)
-    phase_dequant_vs_plain(rng, dq, errs, engine.device)
-    launches, per, data = phase_main(
-        args, rng, api, plan_mod, transfers, registry, harness,
-        {"tdeflate": tdeflate, "lzss": lzss, "cuda_rle": cuda_rle,
-         "fmt": fmt, "ops": ops}, counters,
-        engine, errs)
-    phase_epilogue(args, api, fmt, registry, harness, engine, data)
-    launches["dequant_matmul"] = phase_quantized(
-        args, rng, dq, harness, transfers, counters, engine, errs,
-        per)["dequant_matmul"]
-    phase_service(args, api, fmt, ops, transfers, server, store, engine, data,
-                  counters)
-    launches["scalar_decode"] = phase_ablation(
-        args, data, engine, scalar, registry, harness, transfers, errs, per)
+    def phase_three():
+        phase_kernel_vs_plain(rng, fmt, enc, registry, harness, errs,
+                              engine.device, counters)
+        phase_dequant_vs_plain(rng, dq, errs, engine.device)
+
+    timed(3, phase_three)
+    launches, per, data = timed(
+        4, phase_main, args, rng, api, plan_mod, transfers, registry,
+        harness, {"tdeflate": tdeflate, "lzss": lzss, "cuda_rle": cuda_rle,
+                  "fmt": fmt, "ops": ops}, counters, engine, errs)
+    timed(5, phase_epilogue, args, api, fmt, registry, harness, engine, data)
+    launches["dequant_matmul"] = timed(
+        6, phase_quantized, args, rng, dq, harness, transfers, counters,
+        engine, errs, per)["dequant_matmul"]
+    timed(7, phase_service, args, api, fmt, ops, transfers, server, store,
+          engine, data, counters)
+    launches["scalar_decode"] = timed(
+        8, phase_ablation, args, data, engine, scalar, registry, harness,
+        transfers, errs, per)
     del data["plan"]              # its staged tables; phase 14 stages anew
     torch.cuda.empty_cache()
-    phase_tuning(args, tuning, api, fmt, registry, engine)
+    timed(9, phase_tuning, args, tuning, api, fmt, registry, engine)
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as keep:
-        consumer = phase_consumers(args, engine, counters, server, store,
-                                   Path(keep))
-        model_launches = phase_model(args, engine, counters)
-        family = phase_families(args, engine, counters)
-        reduce_row, dil = phase_collectives(args, engine, counters)
-        placed = phase_sharded(args, engine, counters, data, Path(keep))
-        meshed = phase_mesh(args, engine, counters)
-        phase_roofline(args, engine)
-        split = phase_spmd(args, engine)
+        consumer = timed(10, phase_consumers, args, engine, counters, server,
+                         store, Path(keep))
+        model_launches = timed(11, phase_model, args, engine, counters)
+        family = timed(12, phase_families, args, engine, counters)
+        reduce_row, dil = timed(13, phase_collectives, args, engine,
+                                counters)
+        placed = timed(14, phase_sharded, args, engine, counters, data,
+                       Path(keep))
+        meshed = timed(15, phase_mesh, args, engine, counters)
+        timed(16, phase_roofline, args, engine)
+        split = timed(17, phase_spmd, args, engine)
         # phase 4's blobs (host memory only) and phase 10's files kept
-        decoded = phase_spmd_decode(args, engine, data, Path(keep))
+        decoded = timed(18, phase_spmd_decode, args, engine, data,
+                        Path(keep))
     del data
-    log(f"   phases 1-18: {time.perf_counter() - t_start:.1f} s of the "
-        f"script's wall clock [{CARD['label']}]")
-    log("== 19 kernels")
+    examples = timed(19, phase_examples, example_counters, src)
+    log("   phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(PHASE_S.items()))
+        + f" [{CARD['label']}]")
+    log(f"   the script: {time.perf_counter() - T_START:.1f} s of wall "
+        f"clock, imports included [{CARD['label']}]")
+    log("== 20 kernels")
     kernels = []
     for name in KERNELS:
         source, replaces = SOURCES.get(
@@ -6051,11 +6248,13 @@ def main() -> int:
             kernels[-1]["spmd_launches"] = split[name]
         if name in decoded:         # phase 18's, summed over the members
             kernels[-1]["spmd_decode_launches"] = decoded[name]
+        kernels[-1]["examples_launches"] = examples.get(name, 0)  # 19's
         exact = name != "dequant_matmul"    # held to TOL in phases 3 and 6
         if kernels[-1]["launches"] < 1 or (exact and errs[name]):
             raise AssertionError(f"{name}: not launched on the main path, or "
                                  "differs from its plain version")
     reduce_row["spmd_decode_launches"] = decoded.get("bitpack_reduce", 0)
+    reduce_row["examples_launches"] = examples.get("bitpack_reduce", 0)
     kernels.append(reduce_row)      # bitpack's second entry, phase 13's
     for name in [kernel_of(c) for c in ("rle_v1", "rle_v2", "dbp", "bitpack",
                                         "tdeflate", "huffman", "lzss")] + [

@@ -139,12 +139,19 @@ def scalar_chunk(spec: TwoPhaseSpec, comp: torch.Tensor,
         pos, cnt, k, rem, *vals = state
         active = cnt < out_len
         need = active & (rem == 0)
-        p = spec.parse(comp, pos, width)
-        cur = {name: torch.where(need, p[name].to(v.dtype), v)
-               for name, v in zip(names, vals)}
-        rem = torch.where(need, p["length"], rem)
-        k = torch.where(need, 0, k)
-        pos = torch.where(need, pos + p["advance"], pos)
+        # on the CPU a step where no row starts a group skips the parse,
+        # whose results ``need`` would mask out; a card's steps are
+        # captured in a CUDA graph (``streams.lockstep``), which takes
+        # no host branch
+        if need.is_cuda or bool(need.any()):
+            p = spec.parse(comp, pos, width)
+            cur = {name: torch.where(need, p[name].to(v.dtype), v)
+                   for name, v in zip(names, vals)}
+            rem = torch.where(need, p["length"], rem)
+            k = torch.where(need, 0, k)
+            pos = torch.where(need, pos + p["advance"], pos)
+        else:
+            cur = dict(zip(names, vals))
         v = spec.express(comp, cur, k, width)
         at = cnt.clamp(max=out_len_max - 1)[:, None]
         buf.scatter_(1, at, torch.where(active[:, None], v[:, None],

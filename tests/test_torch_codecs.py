@@ -41,6 +41,10 @@ CPU = CodagEngine(EngineConfig(device="cpu"))
 REF = RefEngine(RefConfig())
 BITS_WIDTHS = [(b, w) for b in (1, 7, 9, 17, 32) for w in (1, 2, 4)
                if b <= 8 * w]
+# the fast-tier matrix: every codec the port registers (a literal, so
+# ``scripts/torch_check_registry.py`` holds the registry to it)
+ALL_CODECS = ("rle_v1", "rle_v2", "tdeflate", "bitpack", "dbp", "huffman",
+              "lzss")
 
 
 def _port(ref_blob) -> fmt.CompressedBlob:
@@ -596,8 +600,7 @@ def test_decompress_many_five_codecs_equals_reference(device_out):
     assert len(calls) == len(plan_keys)
 
 
-@pytest.mark.parametrize("codec", ["dbp", "bitpack", "tdeflate", "huffman",
-                                   "lzss"])
+@pytest.mark.parametrize("codec", ALL_CODECS)
 def test_reference_blob_carried_across_decodes(codec):
     rng = np.random.default_rng(9)
     arr = (_text(rng, 900) if codec in ("tdeflate", "huffman")

@@ -197,7 +197,8 @@ def _imports(path: Path):
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py"] + sorted(
-        (ROOT / "examples").glob("torch_*.py"))
+        (ROOT / "examples").glob("torch_*.py")) + sorted(
+        (ROOT / "scripts").glob("torch_*.py"))
 
 
 def test_port_imports_neither_jax_nor_repro():
