@@ -17,6 +17,7 @@
     python3 chip_smoke.py --spmd-only                # phases 1, 2 and 17
     python3 chip_smoke.py --spmd-decode-only         # phases 1, 2 and 18
     python3 chip_smoke.py --examples-only            # phases 1, 2 and 19
+    python3 chip_smoke.py --ops-only                 # phases 1, 2 and 20
 
 Phases, each of which must pass (any failure exits non-zero, with no result
 line); each phase's wall seconds are printed on a line of their own, and
@@ -352,12 +353,31 @@ before the result lines all of them and the whole script's:
      and read after: the quickstart must launch rle_v1, rle_v2, tdeflate
      and the single-thread kernel, the checkpoint examples rle_v2, the gate
      all seven decode kernels; each run's seconds and launches;
- 20. a JSON line of the kernels (``consumer_launches``: phase 10's,
+ 20. the per-blob decode entry points (``kernels/ops.py``
+     ``decode_blob``, ``decode_table``, ``decode_table_device``;
+     ``format.reassemble_device``), every number beside the card's name
+     and power limit:
+       - (a) every golden vector of every codec (``tests/vectors/*.json``)
+         through ``ops.decode_blob`` on the ``cuda``, ``torch``, ``oracle``
+         and ``scalar`` backends on the card, each equal to its input in
+         dtype, shape and bits: the reference's conformance suite;
+       - (b) one blob of each of phase 4's groups through
+         ``decode_table_device(blob, "cuda")``, equal to its rows of phase
+         4's ``execute_device`` table bit for bit, and
+         ``reassemble_device`` of it equal to ``decode_blob``'s host
+         array; each group's ``concat_blobs`` table through
+         ``decode_table_device`` as one launch, equal to phase 4's table;
+       - (c) each of those blobs' host ms of ``decode_blob`` and device ms
+         of ``decode_table_device``, beside phase 4's ``decompress_many``
+         parts (build, staging, decode); the launches of (a) and (b) by
+         kernel;
+ 21. a JSON line of the kernels (``consumer_launches``: phase 10's,
      ``model_launches``: phase 11's, ``family_launches``: phase 12's,
      ``diloco_launches``: phase 13's, ``sharded_launches``: phase 14's,
      ``mesh_launches``: phase 15's, ``spmd_launches``: phase 17's,
      ``spmd_decode_launches``: phase 18's, each over its members, and
      ``examples_launches``: phase 19's in-process runs, summed;
+     ``ops_launches``: phase 20's, on every decode kernel, each at least 1;
      ``bitpack_reduce``, bitpack's second entry, with phase 13's numbers),
      then ``{"ok": true, "device": {...}}`` last.
 
@@ -1339,6 +1359,38 @@ def build_stage_parts(plan_mod, fmt, ops, transfers, flat, device) -> None:
             f"{c_tab['h2d_bytes'] / tab_ms / 1e6:.2f} GB/s host to card)")
 
 
+def staged_decode(plan_mod, transfers, plan, engine, reps: int) -> tuple:
+    """Stage ``plan`` (host clock, uploads counted), run ``execute_device``
+    once keeping each group's decoded table on the host (the raw matrix of
+    the group's one dispatch), then time the staged decode under the
+    no-host-transfer guard.  Returns (stage ms, the upload counts, the
+    tables in group order, decode ms)."""
+    t0 = time.perf_counter()
+    with transfers.count_host_transfers() as h2d:
+        plan.stage(engine.device)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    tables, dispatch = [], plan_mod.dispatch
+
+    def keep(*a, **kw):
+        out = dispatch(*a, **kw)
+        tables.append(out.cpu())
+        return out
+
+    plan_mod.dispatch = keep
+    try:
+        plan.execute_device(engine)
+    finally:
+        plan_mod.dispatch = dispatch
+    torch.cuda.synchronize()
+
+    def run_staged():
+        with transfers.no_host_transfers():
+            plan.execute_device(engine)
+
+    return stage_ms, h2d, tables, ms_of(run_staged, reps)
+
+
 def main_data(args, rng, api):
     """Phase 4's workload (§ the module docstring): the arrays, their
     ``CompressedArray``s, the distinct columns, and the texts' arrays."""
@@ -1440,20 +1492,13 @@ def phase_main(args, rng, api, plan_mod, transfers, registry, harness,
         torch.cuda.synchronize()
         e2e.append(time.perf_counter() - t0)
         del o
-    # decode time of a staged plan, under the no-host-transfer guard
-    t0 = time.perf_counter()
-    with transfers.count_host_transfers() as h2d:
-        plan.stage(engine.device)
-    torch.cuda.synchronize()
-    stage_ms = (time.perf_counter() - t0) * 1e3
-    plan.execute_device(engine)
-    torch.cuda.synchronize()
-
-    def run_staged():
-        with transfers.no_host_transfers():
-            plan.execute_device(engine)
-
-    dec_ms = ms_of(run_staged, args.reps)
+    # decode time of a staged plan, under the no-host-transfer guard; each
+    # group's decoded table kept on the host for phase 20
+    stage_ms, h2d, tables, dec_ms = staged_decode(plan_mod, transfers, plan,
+                                                  engine, args.reps)
+    data["ops_ref"] = dict(tables=tables, build_ms=build_ms,
+                           stage_ms=stage_ms, decode_ms=dec_ms,
+                           e2e_ms=float(np.median(e2e)) * 1e3)
     bound = sum(analysis.decode_bound_ms(
                     g.key[0], int(g.merged.comp_lens.sum()), g.num_chunks,
                     g.key[2], g.key[1])
@@ -5937,6 +5982,174 @@ def phase_examples(counters: dict, src: Path) -> dict:
     return total
 
 
+# phase 20: the per-blob decode entry points on the card
+OPS_KERNEL_BACKEND = "cuda"        # the hand-written kernels
+OPS_BACKENDS = ("cuda", "torch", "oracle", "scalar")
+VEC_DIR = ROOT / "tests" / "vectors"
+
+
+def golden_vectors(codec: str) -> list:
+    """(record, input array) of every committed golden vector of
+    ``codec``."""
+    import base64
+    payload = json.loads((VEC_DIR / f"{codec}.json").read_text())
+    return [(v, np.frombuffer(base64.b64decode(v["data_b64"]),
+                              np.dtype(v["dtype"])).reshape(v["shape"]))
+            for v in payload["vectors"]]
+
+
+def ops_reference(args, data, engine) -> dict:
+    """Phase 4's plan parts and decoded group tables for ``--ops-only``
+    (the full run keeps phase 4's own)."""
+    from repro_torch.core import api, plan as plan_mod, transfers
+    t0 = time.perf_counter()
+    plan = plan_mod.DecodePlan.build([b for ca in data["cas"]
+                                      for b in ca.blobs])
+    build_ms = (time.perf_counter() - t0) * 1e3
+    stage_ms, _, tables, dec_ms = staged_decode(plan_mod, transfers, plan,
+                                                engine, args.reps)
+    del plan
+    e2e = []
+    for _ in range(args.reps):
+        t0 = time.perf_counter()
+        out = api.decompress_many(data["cas"], engine, device_out=True)
+        torch.cuda.synchronize()
+        e2e.append((time.perf_counter() - t0) * 1e3)
+        del out
+    return dict(tables=tables, build_ms=build_ms, stage_ms=stage_ms,
+                decode_ms=dec_ms, e2e_ms=float(np.median(e2e)))
+
+
+def phase_ops(args, engine, counters: dict, data=None) -> dict:
+    """Phase 20: the reference's conformance API on the card.  (a) every
+    golden vector of every codec through ``ops.decode_blob`` on each of
+    ``OPS_BACKENDS``, equal to its input; (b) one blob of each of phase 4's
+    groups through ``decode_table_device``, equal to its rows of phase 4's
+    ``execute_device`` table, ``format.reassemble_device`` of it equal to
+    ``decode_blob``'s host array, and the group's ``concat_blobs`` table
+    through ``decode_table_device`` as one launch, equal to phase 4's
+    table; (c) each blob's host ms of ``decode_blob`` and device ms of
+    ``decode_table_device`` beside phase 4's ``decompress_many`` parts.
+    ``data`` is phase 4's workload with its tables (``ops_ref``); without
+    it (``--ops-only``) both are made here.  Returns the launches of (a)
+    and (b) by kernel."""
+    from repro_torch.core import api, encoders as enc, format as fmt
+    from repro_torch.core import plan as plan_mod, registry
+    from repro_torch.kernels import ops
+    label = CARD["label"]
+    log("== 20 the per-blob decode entry points: ops.decode_blob, "
+        "decode_table, decode_table_device and format.reassemble_device "
+        f"on the card [{label}]")
+    device = engine.device
+    if data is None:
+        data = main_data(args, np.random.default_rng(args.seed), api)
+        data["ops_ref"] = ops_reference(args, data, engine)
+    ref = data["ops_ref"]
+    for c in counters.values():
+        c.reset()
+
+    def launched() -> int:
+        return sum(c.read() for c in counters.values())
+
+    # (a) the golden vectors on every backend
+    t0 = time.perf_counter()
+    bad, n_vec, by_backend = [], 0, {b: 0.0 for b in OPS_BACKENDS}
+    for codec in registry.names():
+        for v, arr in golden_vectors(codec):
+            blob = enc.compress(arr, codec, v["chunk_bytes"], bits=v["bits"])
+            n_vec += 1
+            for backend in OPS_BACKENDS:
+                t1 = time.perf_counter()
+                got = ops.decode_blob(blob, backend, device=device)
+                by_backend[backend] += time.perf_counter() - t1
+                if not (got.dtype == arr.dtype and got.shape == arr.shape
+                        and np.array_equal(got, arr)):
+                    bad.append(f"{codec}/{v['name']}/{backend}")
+    if bad:
+        raise AssertionError(f"phase 20 (a): differ from their inputs: "
+                             f"{bad}")
+    golden = {k: c.read() for k, c in counters.items() if c.read()}
+    log(f"   (a) {n_vec} golden vectors of {len(registry.names())} codecs "
+        f"through ops.decode_blob on {', '.join(OPS_BACKENDS)}: every one "
+        f"equal to its input in {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{b} {t:.2f} s" for b, t in by_backend.items())
+        + f"); launches {json.dumps(golden)} [{label}]")
+
+    # (b) phase 4's blobs, one a group, and each group's fused table
+    flat = [b for ca in data["cas"] for b in ca.blobs]
+    plan = plan_mod.DecodePlan.build(flat)
+    if len(plan.groups) != len(ref["tables"]):
+        raise AssertionError("phase 20 (b): phase 4's tables are not its "
+                             "plan's groups")
+    picked, concat_ms = [], 0.0
+    for g, table in zip(plan.groups, ref["tables"]):
+        blob = flat[g.blob_ids[0]]
+        raw = ops.decode_table_device(blob, OPS_KERNEL_BACKEND,
+                                      device=device)
+        rows = table[:blob.num_chunks]
+        host = ops.decode_blob(blob, OPS_KERNEL_BACKEND, device=device)
+        placed = fmt.reassemble_device(blob, raw).cpu().numpy()
+        t1 = time.perf_counter()
+        merged = fmt.concat_blobs([flat[i] for i in g.blob_ids])
+        concat_ms += (time.perf_counter() - t1) * 1e3
+        before = launched()
+        fused = ops.decode_table_device(merged, OPS_KERNEL_BACKEND,
+                                        device=device)
+        n_fused = launched() - before
+        problems = []
+        if not bits_equal(raw.cpu(), rows):
+            problems.append("decode_table_device differs from phase 4's "
+                            "rows")
+        if not (placed.dtype == host.dtype and placed.shape == host.shape
+                and np.array_equal(placed, host)):
+            problems.append("reassemble_device differs from decode_blob")
+        if not bits_equal(fused.cpu(), table):
+            problems.append("the fused table differs from phase 4's")
+        if OPS_KERNEL_BACKEND == "cuda" and n_fused != 1:
+            problems.append(f"the fused table took {n_fused} launches")
+        if problems:
+            raise AssertionError(f"phase 20 (b), group {g.key}: "
+                                 + "; ".join(problems))
+        picked.append((g, blob))
+        del raw, fused, merged
+    ops_launches = {k: c.read() for k, c in counters.items()}
+    log(f"   (b) {len(picked)} groups: one blob each through "
+        "decode_table_device equal to its rows of phase 4's execute_device "
+        "table and reassemble_device equal to decode_blob's host array; "
+        f"{len(picked)} concat_blobs tables ({plan.num_chunks} chunks, "
+        f"merged in {concat_ms:.2f} ms on the host) each one launch equal "
+        f"to phase 4's table [{label}]")
+    log(f"   phase 20 launches (a) and (b): "
+        f"{json.dumps({k: v for k, v in ops_launches.items() if v})} "
+        f"[{label}]")
+
+    # (c) times of the per-blob path, beside phase 4's decompress_many
+    host_sum = dev_sum = 0.0
+    for g, blob in picked:
+        host = []
+        for _ in range(args.reps):
+            t1 = time.perf_counter()
+            ops.decode_blob(blob, OPS_KERNEL_BACKEND, device=device)
+            host.append((time.perf_counter() - t1) * 1e3)
+        d_ms = device_ms(lambda: ops.decode_table_device(
+            blob, OPS_KERNEL_BACKEND, device=device), args.reps)
+        h_ms = float(np.median(host))
+        host_sum += h_ms
+        dev_sum += d_ms
+        log(f"   (c) group {g.key}: a blob of {blob.num_chunks} chunks, "
+            f"{blob.total_elems * blob.width / 2**20:.2f} MiB decoded: "
+            f"decode_blob {h_ms:.3f} ms (host clock), decode_table_device "
+            f"{d_ms:.3f} ms (device: staging copy and kernel), median of "
+            f"{args.reps} [{label}]")
+    log(f"   (c) the {len(picked)} blobs: decode_blob {host_sum:.3f} ms, "
+        f"decode_table_device {dev_sum:.3f} ms in all; phase 4's "
+        f"decompress_many of all {len(flat)} blobs: end to end "
+        f"{ref['e2e_ms']:.2f} ms, of one call DecodePlan.build "
+        f"{ref['build_ms']:.2f} ms, stage {ref['stage_ms']:.2f} ms, staged "
+        f"decode {ref['decode_ms']:.3f} ms [{label}]")
+    return ops_launches
+
+
 def tree_to(tree, device):
     """A tree of CPU tensors moved to ``device`` (dicts and tuples)."""
     if isinstance(tree, dict):
@@ -6064,6 +6277,10 @@ def main() -> int:
     ap.add_argument("--examples-only", action="store_true",
                     help="run phases 1, 2 and 19 alone (the examples and "
                     "the registry gate), with no result line")
+    ap.add_argument("--ops-only", action="store_true",
+                    help="run phases 1, 2 and 20 alone (the per-blob decode "
+                    "entry points; phase 4's data made for it), with no "
+                    "result line")
     ap.add_argument("--stage-only", action="store_true",
                     help="only time DecodePlan.build and stage by part on "
                     "phase 4's workload (cold, then warm), and stop")
@@ -6134,6 +6351,10 @@ def main() -> int:
         launched = timed(19, phase_examples, example_counters, src)
         log(f"phase 19 alone, launches: {json.dumps(launched)}")
         return 0
+    if args.ops_only:
+        launched = timed(20, phase_ops, args, engine, example_counters)
+        log(f"phase 20 alone, launches: {json.dumps(launched)}")
+        return 0
     if args.families_only:
         launched = phase_families(args, engine, counters)
         log(f"phase 12 alone, launches: {json.dumps(launched)}")
@@ -6199,14 +6420,16 @@ def main() -> int:
         # phase 4's blobs (host memory only) and phase 10's files kept
         decoded = timed(18, phase_spmd_decode, args, engine, data,
                         Path(keep))
-    del data
     examples = timed(19, phase_examples, example_counters, src)
+    # phase 4's blobs and its decoded group tables (host memory) kept
+    by_ops = timed(20, phase_ops, args, engine, example_counters, data)
+    del data
     log("   phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(PHASE_S.items()))
         + f" [{CARD['label']}]")
     log(f"   the script: {time.perf_counter() - T_START:.1f} s of wall "
         f"clock, imports included [{CARD['label']}]")
-    log("== 20 kernels")
+    log("== 21 kernels")
     kernels = []
     for name in KERNELS:
         source, replaces = SOURCES.get(
@@ -6250,6 +6473,11 @@ def main() -> int:
             kernels[-1]["spmd_decode_launches"] = decoded[name]
         kernels[-1]["examples_launches"] = examples.get(name, 0)  # 19's
         exact = name != "dequant_matmul"    # held to TOL in phases 3 and 6
+        if exact:                   # phase 20's, every decode kernel
+            kernels[-1]["ops_launches"] = by_ops.get(name, 0)
+            if kernels[-1]["ops_launches"] < 1:
+                raise AssertionError(f"{name}: not launched by phase 20's "
+                                     "per-blob entry points")
         if kernels[-1]["launches"] < 1 or (exact and errs[name]):
             raise AssertionError(f"{name}: not launched on the main path, or "
                                  "differs from its plain version")

@@ -459,6 +459,29 @@ def reassemble_rows_device(table: torch.Tensor, *, row0: int, num_chunks: int,
     return device_view(flat, orig_dtype, orig_shape)
 
 
+def reassemble_device(blob: CompressedBlob, chunks_out: torch.Tensor, *,
+                      indices=None, transformed: bool = False
+                      ) -> torch.Tensor:
+    """Device analog of :func:`reassemble`: stitch the decoded
+    ``(num_chunks, chunk_elems)`` tensor back to the original array without
+    leaving its device (bit-exact against the host path).
+
+    ``indices``: the gather of :func:`reassemble_indices`, staged
+    beforehand (a tensor on ``chunks_out``'s device) or as a host array; by
+    default it is derived here from the blob's host metadata.  A host
+    array is uploaded through ``transfers.to_device``.
+    """
+    if indices is None:
+        indices = reassemble_indices(blob)
+    if indices is not None and not isinstance(indices, torch.Tensor):
+        indices = transfers.to_device(indices, chunks_out.device)
+    return reassemble_rows_device(
+        chunks_out, row0=0, num_chunks=blob.num_chunks,
+        total_elems=blob.total_elems, orig_dtype=blob.orig_dtype,
+        orig_shape=tuple(blob.orig_shape), indices=indices,
+        transformed=transformed)
+
+
 def combine_planes_device(outs: list, orig_dtype: str,
                           orig_shape: tuple) -> torch.Tensor:
     """Device analog of :func:`combine_planes`: the lo/hi uint32 planes of

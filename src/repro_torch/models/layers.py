@@ -64,6 +64,10 @@ def ln_nonparam(x: torch.Tensor, _unused=None,
     return ((x - mu) * torch.rsqrt(var + eps)).to(dt)
 
 
+def norm_fn(kind: str):
+    return {"rmsnorm": rmsnorm, "ln_nonparam": ln_nonparam}[kind]
+
+
 def norm_params(kind: str, d: int, dtype: torch.dtype,
                 device) -> torch.Tensor:
     if kind == "rmsnorm":

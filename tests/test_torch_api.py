@@ -20,7 +20,8 @@ from repro.core import api as ref_api
 from repro.core.engine import CodagEngine as RefEngine
 from repro.core.engine import EngineConfig as RefConfig
 from repro.kernels.harness import Epilogue as RefEpilogue
-from repro_torch.core import api, engine as engine_mod, format as fmt
+from repro_torch.core import api, batch, engine as engine_mod, format as fmt
+from repro_torch.core import server
 from repro_torch.core import plan as plan_mod, registry, transfers
 from repro_torch.core.engine import CodagEngine, EngineConfig
 from repro_torch.kernels import harness, ops
@@ -240,21 +241,33 @@ def test_unported_codec_names_its_roadmap_item():
 
 
 def _ops_decode_calls(module):
-    """AST walk: calls to ops.decode in a module."""
+    """AST walk: calls to ops.decode / ops.decode_table* / ops.decode_blob
+    in a module (the reference's gate, ``tests/test_plan.py``)."""
     hits = []
     for node in ast.walk(ast.parse(inspect.getsource(module))):
         f = getattr(node, "func", None)
         if (isinstance(node, ast.Call) and isinstance(f, ast.Attribute)
-                and f.attr == "decode" and isinstance(f.value, ast.Name)
+                and f.attr in ("decode", "decode_table",
+                               "decode_table_device", "decode_blob")
+                and isinstance(f.value, ast.Name)
                 and f.value.id == "ops"):
             hits.append(f"{module.__name__}:{node.lineno}")
     return hits
 
 
 def test_no_ops_decode_call_sites_outside_plan():
-    for mod in (engine_mod, api):
+    """The engine, batch, api and server layers call no ``ops.decode*``;
+    the plan's ``dispatch`` is the one call site of ``ops.decode`` outside
+    ``ops``, whose per-blob entry points make one call each."""
+    for mod in (engine_mod, batch, api, server):
         assert _ops_decode_calls(mod) == [], mod.__name__
     assert len(_ops_decode_calls(plan_mod)) == 1
+    src = ast.parse(inspect.getsource(ops))
+    calls = [n.func.id for n in ast.walk(src) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name) and n.func.id.startswith(
+                 "decode")]
+    assert sorted(calls) == ["decode", "decode_table",
+                             "decode_table_device"]
 
 
 def test_staged_plan_runs_without_host_transfers():

@@ -3,8 +3,9 @@ package's on the CPU.
 
 The reference's dry-run compiles for a multi-device mesh, so its half runs
 as ``tests/test_torch_mesh_steps.py`` runs it: one subprocess on virtual
-CPU devices (256 here: the 16 x 16 mesh), started when the first test of
-this file asks for it, while the port's side is computed.  It gives:
+CPU devices (512, as the reference's dry-run sets: the first 256 back the
+16 x 16 mesh, all of them the 2 x 16 x 16 one), started when the first test
+of this file asks for it, while the port's side is computed.  It gives:
 
 * ``probe_costs`` per device of three reduced configs at seq 64 x batch 8
   on an (8, 1) data x model mesh, where pure DP means no tensor-parallel
@@ -14,8 +15,10 @@ this file asks for it, while the port's side is computed.  It gives:
   same on a (2, 4) mesh, where both sides split the compute over
   ``model`` (the port's member program, ``steps.member_step``);
 * every arch x applicable shape's per-device argument bytes on the 16 x 16
-  mesh, from ``NamedSharding.shard_shape`` with no compile: the port's
-  member blocks must equal them exactly.
+  mesh and on the multi-pod 2 x 16 x 16 production mesh
+  (``make_production_mesh(multi_pod=True)``), from
+  ``NamedSharding.shard_shape`` with no compile: the port's member blocks
+  must equal them exactly.
 
 The port's side needs no reference for the rest: the probes' linear
 extrapolation against the full-depth count, the (8, 1) collective bytes,
@@ -58,19 +61,19 @@ PEAK_TOL = 0.01
 
 REF = r'''
 import json, os, sys
+# dryrun sets 512 devices at import: the first 256 back the 16 x 16 mesh,
+# all 512 the 2 x 16 x 16 one
 from repro.launch import dryrun
-# dryrun sets 512 devices at import; 256 back the 16 x 16 mesh
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=256"
 import dataclasses
 import jax, numpy as np
 from jax.sharding import Mesh, NamedSharding
 from repro.configs import get_arch, list_archs, reduced
 from repro.configs.base import SHAPES, ShapeSpec, shape_applicable
 from repro.distributed import sharding
-from repro.launch import steps
+from repro.launch import mesh as mesh_lib, steps
 
 cfgs = json.loads(sys.argv[2])
-out = {"probes": {}, "probes_split": {}, "bytes": {}}
+out = {"probes": {}, "probes_split": {}, "bytes": {}, "bytes_multi": {}}
 seq, batch = cfgs["parity_shape"]
 for label, shape in (("probes", (8, 1)), ("probes_split", cfgs["split"])):
     mesh8 = Mesh(np.asarray(jax.devices()[:8]).reshape(shape),
@@ -90,8 +93,11 @@ def member_bytes(tree, shardings):
                                    jax.tree.leaves(shardings))))
 
 
-mesh = Mesh(np.asarray(jax.devices()).reshape(16, 16), ("data", "model"))
-with mesh, sharding.use_mesh(mesh):
+for label, mesh in (
+        ("bytes", Mesh(np.asarray(jax.devices()[:256]).reshape(16, 16),
+                       ("data", "model"))),
+        ("bytes_multi", mesh_lib.make_production_mesh(multi_pod=True))):
+  with mesh, sharding.use_mesh(mesh):
     for arch in list_archs():
         cfg = get_arch(arch)
         for name, shape in SHAPES.items():
@@ -114,7 +120,7 @@ with mesh, sharding.use_mesh(mesh):
                 rec["cache"] = sum(
                     member_bytes(cache[k], NamedSharding(mesh, spec[k]))
                     for k in cache if k != "pos")
-            out["bytes"][f"{arch}|{name}"] = rec
+            out[label][f"{arch}|{name}"] = rec
 with open(sys.argv[1], "w") as f:
     json.dump(out, f)
 print("PASS")
@@ -333,13 +339,10 @@ def test_member_program_counts_equal_on_the_cpu_and_meta():
     assert meta["coll"]["all-reduce"] > 0 and meta["flops"] > 0
 
 
-def test_argument_bytes_equal_the_reference_shards(ref):
-    """Every arch x applicable shape on 16 x 16: each member's parameter,
-    optimizer, batch and cache blocks equal the reference's per-device
-    shard bytes.  The reference's cache also holds ``pos``, a 4-byte int32
-    scalar, which is a Python int in the port."""
-    want = ref.get()["bytes"]
-    mesh = dryrun.make_mesh(False)
+def _member_arg_bytes(multi_pod: bool) -> dict:
+    """Each member's parameter, optimizer, batch and cache block bytes for
+    every arch x applicable shape on the dry-run's mesh."""
+    mesh = dryrun.make_mesh(multi_pod)
     got = {}
     for arch in list_archs():
         cfg = get_arch(arch)
@@ -365,5 +368,55 @@ def test_argument_bytes_equal_the_reference_shards(ref):
                         {k: sharding.NamedSharding(mesh, spec[k])
                          for k in cache if k != "pos"})
                 got[f"{arch}|{name}"] = rec
-    assert got == want
+    return got
+
+
+def test_argument_bytes_equal_the_reference_shards(ref):
+    """Every arch x applicable shape on 16 x 16: each member's parameter,
+    optimizer, batch and cache blocks equal the reference's per-device
+    shard bytes.  The reference's cache also holds ``pos``, a 4-byte int32
+    scalar, which is a Python int in the port."""
+    got = _member_arg_bytes(False)
+    assert got == ref.get()["bytes"]
     assert len(got) == 32      # long_500k for the two sub-quadratic archs
+
+
+def test_multi_pod_argument_bytes_equal_the_reference_shards(ref):
+    """The same on the multi-pod 2 x 16 x 16 (pod, data, model) mesh,
+    against the reference's ``make_production_mesh(multi_pod=True)`` over
+    its 512 devices: the batch and the ZeRO-1 regions split over both DP
+    axes, the parameters over ``model``."""
+    got = _member_arg_bytes(True)
+    assert got == ref.get()["bytes_multi"]
+    assert len(got) == 32
+    single = ref.get()["bytes"]
+    assert any(got[k] != single[k] for k in got)   # the pod axis splits
+
+
+def test_cli_multi_pod_record(tmp_path, monkeypatch, capsys):
+    """``--mesh multi`` and ``--mesh both`` write the reference's keys
+    (``arch|shape|multi[|variant]``) and record schema, with the mesh
+    ``2x16x16`` over 512 members."""
+    monkeypatch.setattr(dryrun, "get_arch",
+                        lambda name: reduced(get_arch(name)))
+    out = tmp_path / "r.json"
+    argv = ["--arch", "qwen3-1.7b", "--shape", "decode_32k", "--out",
+            str(out)]
+    dryrun.main(argv + ["--mesh", "multi"])
+    dryrun.main(argv + ["--mesh", "multi", "--variant", "noskip"])
+    dryrun.main(argv + ["--mesh", "both"])
+    assert "[cached] qwen3-1.7b|decode_32k|multi" in capsys.readouterr().out
+    rec = json.loads(out.read_text())
+    assert set(rec) == {"qwen3-1.7b|decode_32k|multi",
+                        "qwen3-1.7b|decode_32k|multi|noskip",
+                        "qwen3-1.7b|decode_32k|single"}
+    single = rec["qwen3-1.7b|decode_32k|single"]
+    for key, tag in (("qwen3-1.7b|decode_32k|multi", ""),
+                     ("qwen3-1.7b|decode_32k|multi|noskip", "noskip")):
+        cell = rec[key]
+        assert cell["status"] == "ok" and cell["tag"] == tag
+        assert cell["mesh"] == "2x16x16" and cell["n_chips"] == 512
+        assert cell["roofline"]["n_chips"] == 512
+        assert set(cell) == set(single) and \
+            set(cell["memory"]) == set(single["memory"])
+    assert single["mesh"] == "16x16" and single["n_chips"] == 256

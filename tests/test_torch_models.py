@@ -126,6 +126,23 @@ def test_qwen3_full_width_counts():
 # --------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("kind", ["rmsnorm", "ln_nonparam"])
+def test_norm_fn_matches_reference(kind):
+    """``norm_fn`` names the same norm in both packages: each applied to
+    the same input and scale agrees within 1e-5."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 5, 64)).astype(np.float32)
+    scale = rng.standard_normal(64).astype(np.float32)
+    assert layers.norm_fn(kind) is getattr(layers, kind)
+    np.testing.assert_allclose(
+        layers.norm_fn(kind)(_t(x), _t(scale)).numpy(),
+        np.asarray(rlayers.norm_fn(kind)(jnp.asarray(x),
+                                         jnp.asarray(scale))),
+        rtol=1e-5, atol=1e-6)
+    with pytest.raises(KeyError):
+        layers.norm_fn("layernorm")
+
+
 @pytest.mark.parametrize("act", ["swiglu", "gelu", "relu2"])
 def test_layers_match_reference(act):
     rng = np.random.default_rng(5)
